@@ -1,0 +1,13 @@
+"""laser_tpu_torch: the PyTorch + CUDA port of laser_tpu for NVIDIA Hopper.
+
+It mirrors laser_tpu's layout (``ops/``, ``models/``, ``serving/``) and keeps
+its weight layouts, so each port module sits where its JAX counterpart does
+and both compute the same function on the same numbers. Every TPU kernel on
+a ported path is a hand-written CUDA C++ kernel under ``csrc/``, built by
+``registry.load_library`` at its first use on a CUDA tensor; on CPU tensors
+each wrapper runs the kernel's plain PyTorch version.
+
+Import the submodule you need: this package imports nothing eagerly.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,71 @@
+"""Global configuration for laser_tpu_torch (port of laser_tpu/config.py).
+
+There is no ``interpret`` knob: a wrapper runs its CUDA kernel for a CUDA
+tensor and its plain PyTorch version for a CPU tensor, so the device of the
+data makes the choice.
+
+``matmul_precision`` keeps laser_tpu's names, mapped to Hopper:
+
+  "highest"  full fp32 FFMA in the f32 kernel paths, and TF32 off in the
+             plain versions (laser_tpu: 6-pass bf16 on the MXU). The default.
+  "high"     3xTF32 (laser_tpu: 3-pass bf16). Not ported: raises.
+  "default"  TF32 (laser_tpu: 1-pass bf16). Not ported: raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+
+PRECISIONS = ("default", "high", "highest")
+
+
+@dataclasses.dataclass
+class LaserConfig:
+    matmul_precision: str = "highest"
+
+
+_config = LaserConfig()
+
+
+def get_config() -> LaserConfig:
+    return _config
+
+
+def set_config(**kwargs) -> LaserConfig:
+    for k, v in kwargs.items():
+        if not hasattr(_config, k):
+            raise AttributeError(f"unknown laser config field: {k}")
+        if k == "matmul_precision" and v not in PRECISIONS:
+            raise ValueError(f"matmul_precision must be one of {PRECISIONS}, got {v!r}")
+        setattr(_config, k, v)
+    return _config
+
+
+@contextlib.contextmanager
+def config_override(**kwargs):
+    old = {k: getattr(_config, k) for k in kwargs}
+    try:
+        set_config(**kwargs)
+        yield _config
+    finally:
+        set_config(**old)
+
+
+def check_f32_precision() -> None:
+    """Raise unless the f32 matmul precision is one the port implements."""
+    p = _config.matmul_precision
+    if p != "highest":
+        raise NotImplementedError(
+            f"matmul_precision={p!r} (TF32 / 3xTF32 on Hopper) is not ported; "
+            "only 'highest' (full fp32) is")
+
+
+def pin_fp32_matmul() -> None:
+    """Keep PyTorch's own f32 products in full fp32 (TF32 off), the plain
+    versions' counterpart of precision 'highest'."""
+    check_f32_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

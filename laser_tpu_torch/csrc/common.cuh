@@ -1,0 +1,77 @@
+// Shared device helpers for the laser_tpu_torch kernels.
+//
+// Every kernel library entry point is a plain C function (extern "C") that
+// launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define LTT_API extern "C" __attribute__((visibility("default")))
+
+namespace ltt {
+
+// dtype codes shared with laser_tpu_torch/registry.py (DTYPE_CODES)
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// finite "minus infinity": keeps exp() and the running-max rescale NaN-free
+// (laser_tpu/ops/attention.py:37)
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half(x);
+}
+
+// x rounded through T and back: the point where the TPU kernels cast the
+// softmax probabilities to the input dtype before the P.V product
+template <typename T> __device__ __forceinline__ float round_through(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum over the whole block; every thread gets the total. `red` holds 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // `red` may still be read from the previous reduction
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = lane < nwarps ? red[lane] : 0.f;
+  return warp_sum(t);
+}
+
+inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+// Opt a kernel into more than 48 KB of dynamic shared memory.
+template <typename K> inline int allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+}  // namespace ltt

@@ -1,0 +1,98 @@
+"""Row normalisation: layer_norm and rms_norm (port of laser_tpu/ops/norm.py).
+
+One CUDA kernel (csrc/norm.cu) serves both through a ``kind`` switch:
+statistics in fp32 over the logical columns, an optional affine, the output
+in the input dtype. The default ``eps`` is 1e-6, as in laser_tpu, not
+PyTorch's 1e-5. Forward only: the backward comes with training.
+
+Replaces laser_tpu/ops/norm.py:28 _build_norm. Bound on the H100: HBM bytes
+(one read, one write per row). Design: one block per row (a single warp for
+narrow rows); re-reads of the row hit L1/L2.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import registry
+
+NORM = registry.kernel("norm", "laser_tpu_torch/csrc/norm.cu",
+                       "laser_tpu/ops/norm.py:28 _build_norm")
+
+_KINDS = {"layer": 0, "rms": 1}
+
+
+def _norm_plain(x2, gamma, beta, kind: str, eps: float):
+    """The kernel's function in plain PyTorch on (rows, cols)."""
+    NORM.plain_calls += 1
+    xf = x2.float()
+    if kind == "layer":
+        centered = xf - xf.mean(dim=-1, keepdim=True)
+    else:
+        centered = xf
+    y = centered * torch.rsqrt((centered * centered).mean(dim=-1, keepdim=True) + eps)
+    if gamma is not None:
+        y = y * gamma.float()
+    if beta is not None:
+        y = y + beta.float()
+    return y.to(x2.dtype)
+
+
+def _norm_cuda(x2, gamma, beta, kind: str, eps: float):
+    if x2.dtype not in registry.DTYPE_CODES:
+        raise TypeError(f"norm kernel: unsupported dtype {x2.dtype}")
+    rows, cols = x2.shape
+    y = torch.empty_like(x2)
+    if rows == 0 or cols == 0:
+        return y
+    g = gamma.float().contiguous() if gamma is not None else None
+    b = beta.float().contiguous() if beta is not None else None
+    for name, t in (("gamma", g), ("beta", b)):
+        if t is not None and (t.device != x2.device or t.numel() != cols):
+            raise ValueError(f"norm: {name} must hold {cols} values on {x2.device}")
+    status = registry.load_library().ltt_norm(
+        x2.data_ptr(), None if g is None else g.data_ptr(),
+        None if b is None else b.data_ptr(), y.data_ptr(), rows, cols,
+        _KINDS[kind], float(eps), registry.DTYPE_CODES[x2.dtype],
+        registry.stream_handle(x2))
+    registry.check_launch(status, "norm")
+    NORM.launches += 1
+    return y
+
+
+def _norm(x, gamma, beta, kind: str, axis: int, eps: float, plain: bool):
+    if axis not in (-1, x.ndim - 1):
+        x = x.movedim(axis, -1)
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1]).contiguous()
+    if plain or not registry.on_cuda(x2):
+        y = _norm_plain(x2, gamma, beta, kind, eps)
+    else:
+        y = _norm_cuda(x2, gamma, beta, kind, eps)
+    y = y.reshape(shape)
+    if axis not in (-1, len(shape) - 1):
+        y = y.movedim(-1, axis)
+    return y
+
+
+def layer_norm(x, gamma=None, beta=None, *, axis: int = -1,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Fused LayerNorm over ``axis``: mean/variance and scale/shift in one
+    kernel pass."""
+    return _norm(x, gamma, beta, "layer", axis, eps, plain=False)
+
+
+def rms_norm(x, gamma=None, *, axis: int = -1, eps: float = 1e-6) -> torch.Tensor:
+    """Fused RMSNorm over ``axis``."""
+    return _norm(x, gamma, None, "rms", axis, eps, plain=False)
+
+
+def layer_norm_reference(x, gamma=None, beta=None, *, axis: int = -1,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """``layer_norm`` through the kernel's plain version, on any device."""
+    return _norm(x, gamma, beta, "layer", axis, eps, plain=True)
+
+
+def rms_norm_reference(x, gamma=None, *, axis: int = -1,
+                       eps: float = 1e-6) -> torch.Tensor:
+    return _norm(x, gamma, None, "rms", axis, eps, plain=True)

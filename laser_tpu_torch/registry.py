@@ -1,0 +1,230 @@
+"""Kernel build cache, CUDA library builder and loader, launch counters.
+
+Port of laser_tpu/registry.py. ``build_cache`` memoises a builder on its
+static arguments, as there. The kernels themselves are CUDA C++ under
+``laser_tpu_torch/csrc/``: on the first call that needs one (a wrapper given
+a CUDA tensor), ``load_library`` runs ``nvcc`` on every ``csrc/*.cu`` into
+one shared library with a plain C interface and loads it through ctypes.
+The library lands in ``build/laser_tpu_torch/<source hash>/`` beside the
+package, so an edited source rebuilds and an unchanged one loads at once.
+There is no fallback: without ``nvcc`` the first CUDA call raises
+``KernelBuildError``. CPU tensors never build anything.
+
+Each kernel is described by a ``Kernel`` record holding two plain int
+counters: ``launches`` (its wrapper adds one right after a successful
+launch, and nowhere else) and ``plain_calls`` (its plain PyTorch version
+adds one per call). ``reset_counts``/``counts`` let a run show which path
+its work went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import logging
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Callable, Dict, Optional
+
+import torch
+
+logger = logging.getLogger("laser_tpu_torch")
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_ROOT = PACKAGE_DIR.parent / "build" / "laser_tpu_torch"
+LIB_NAME = "liblaser_tpu_torch.so"
+# the conventional toolkit location, searched after CUDA_HOME and PATH
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# dtype codes shared with csrc/common.cuh (enum DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# every pointer and the stream are c_void_p: undeclared, ctypes would pass
+# them as 32-bit ints and cut the address
+SIGNATURES = {
+    # a, b, c, bias, out, M, N, K, trans_a, trans_b, alpha, beta, epilogue,
+    # in_dtype, out_dtype, stream
+    "ltt_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
+    # x, gamma, beta, y, rows, cols, kind, eps, dtype, stream
+    "ltt_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # q, k, v, o, BH, S, D, causal, scale, dtype, stream
+    "ltt_flash_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k_pool, v_pool, tables, lengths, out, S, Hq, Hkv, ps, hd,
+    # max_pages, scale, dtype, stream
+    "ltt_paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _I, _P),
+}
+
+
+class KernelBuildError(RuntimeError):
+    """The CUDA kernels could not be built or loaded."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch was refused (non-zero cudaGetLastError)."""
+
+
+def build_cache(fn: Callable) -> Callable:
+    """Memoize a builder on its (hashable) static arguments; log misses at
+    DEBUG on the ``laser_tpu_torch`` logger."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        misses = cached.cache_info().misses
+        t0 = time.perf_counter()
+        out = cached(*args, **kwargs)
+        if cached.cache_info().misses > misses:
+            logger.debug("built %s%r in %.3fs", fn.__name__, args,
+                         time.perf_counter() - t0)
+        return out
+
+    wrapper.cache_info = cached.cache_info  # type: ignore[attr-defined]
+    wrapper.cache_clear = cached.cache_clear  # type: ignore[attr-defined]
+    return wrapper
+
+
+# ---------------------------------------------------------------------------
+# Kernel records and counters
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Kernel:
+    name: str
+    source: str      # CUDA source, relative to the repository root
+    replaces: str    # the TPU kernel it replaces, file:line function
+    launches: int = 0
+    plain_calls: int = 0
+
+
+KERNELS: Dict[str, Kernel] = {}
+
+
+def kernel(name: str, source: str, replaces: str) -> Kernel:
+    return KERNELS.setdefault(name, Kernel(name, source, replaces))
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+        k.plain_calls = 0
+
+
+def counts() -> Dict[str, Dict[str, int]]:
+    return {n: {"launches": k.launches, "plain_calls": k.plain_calls}
+            for n, k in KERNELS.items()}
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises. Kernels launch on the
+    current device, so a tensor on another card raises too."""
+    if t.device.type == "cuda":
+        if t.device.index != torch.cuda.current_device():
+            raise ValueError(f"tensor on {t.device}, current device is "
+                             f"cuda:{torch.cuda.current_device()}")
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise NotImplementedError(f"no kernel or plain path for device {t.device}")
+
+
+def check_launch(status: int, name: str) -> None:
+    if status != 0:
+        raise KernelLaunchError(
+            f"{name}: CUDA error {status} at launch "
+            f"({torch.cuda.get_device_name() if torch.cuda.is_available() else '?'})")
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+def find_nvcc() -> Optional[str]:
+    """nvcc from $CUDA_HOME, then PATH, then the default toolkit location."""
+    candidates = []
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidates.append(Path(os.environ[var]) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path(DEFAULT_CUDA_HOME) / "bin" / "nvcc")
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    return None
+
+
+def cuda_sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / source_hash() / LIB_NAME
+
+
+def build_library() -> Path:
+    """Compile csrc/*.cu for sm_90a into one shared library (once per
+    source hash). nvcc's output, register and spill counts included, is kept
+    in ``nvcc.log`` beside the library."""
+    out = library_path()
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (searched $CUDA_HOME/bin, PATH and "
+            f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels are compiled from "
+            f"{CSRC_DIR} at their first use on a CUDA tensor and need the "
+            "CUDA toolkit")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cuda_sources())]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    (out.parent / "nvcc.log").write_text(
+        " ".join(cmd) + "\n" + r.stdout + r.stderr)
+    if r.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed with exit code {r.returncode}:\n{r.stderr[-8000:]}")
+    os.replace(tmp, out)
+    logger.info("built %s in %.1fs", out, time.perf_counter() - t0)
+    return out
+
+
+@build_cache
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first use (a failure is not cached)."""
+    path = build_library()
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelBuildError(f"cannot load {path}: {e}") from e
+    for fname, argtypes in SIGNATURES.items():
+        fn = getattr(lib, fname)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer value."""
+    return torch.cuda.current_stream(t.device).cuda_stream

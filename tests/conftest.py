@@ -27,6 +27,10 @@ def pytest_configure(config):
         "devices(n): skip unless at least n jax devices are visible "
         "(multi-device tests run on the 8-device virtual CPU mesh in CI; "
         "on single-chip hardware they skip)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device and nvcc (laser_tpu_torch kernels); "
+        "skips without one")
 
 
 def pytest_runtest_setup(item):

@@ -1,0 +1,178 @@
+"""laser_tpu_torch CUDA kernels against their plain PyTorch versions on the
+card, at odd shapes the serving slice does not reach: transposes, f16,
+ragged tails, unaligned operands, narrow rows, other head dims, GQA.
+
+Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
+so it runs on a machine that has none. Run it there with
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(``--noconftest``: tests/conftest.py imports JAX for the laser_tpu tests).
+
+Tolerance: max |kernel - plain| / max |plain| <= 1e-5 in f32 (summation
+order only), 1e-2 in bf16/f16 (one output rounding apart).
+"""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rnd(g, shape, dtype, dev, std=1.0):
+    return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+
+def _gen(dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def _check(got, want, dtype):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    assert err <= REL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("shape,epilogue", [((37, 45, 29), "gelu"), ((130, 200, 72), "relu"),
+                                            ((70, 64, 40), "sigmoid"), ((1, 9, 3), "tanh")])
+def test_gemm(dev, dtype, ta, tb, shape, epilogue):
+    from laser_tpu_torch.ops.gemm.kernel import GEMM, gemm_fused, gemm_plain
+
+    M, K, N = shape
+    g = _gen(dev, 1)
+    a = _rnd(g, (K, M) if ta else (M, K), dtype, dev)
+    b = _rnd(g, (N, K) if tb else (K, N), dtype, dev, std=K ** -0.5)
+    bias = _rnd(g, (N,), dtype, dev)
+    kw = dict(bias=bias, epilogue=epilogue, transpose_a=ta, transpose_b=tb)
+    before = GEMM.launches
+    _check(gemm_fused(a, b, **kw), gemm_plain(a, b, **kw), dtype)
+    assert GEMM.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_alpha_beta_c_out_dtype(dev, dtype):
+    from laser_tpu_torch.ops.gemm import gemm, gemm_reference
+
+    g = _gen(dev, 2)
+    a, b = _rnd(g, (66, 130), dtype, dev), _rnd(g, (130, 50), dtype, dev)
+    c = _rnd(g, (66, 50), torch.float32, dev)
+    kw = dict(alpha=0.5, beta=-2.0, c=c, out_dtype=torch.float32)
+    got, want = gemm(a, b, **kw), gemm_reference(a, b, **kw)
+    _check(got.to(dtype), want.to(dtype), dtype)
+
+
+def test_gemm_unaligned_operands(dev):
+    """Operands whose data starts 2 bytes off a 16-byte boundary take the
+    scalar tile loader."""
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused, gemm_plain
+
+    g = _gen(dev, 3)
+    M, K, N = 40, 64, 48
+    a = _rnd(g, (M * K + 1,), torch.bfloat16, dev)[1:].view(M, K)
+    b = _rnd(g, (K * N + 1,), torch.bfloat16, dev)[1:].view(K, N)
+    bias = torch.zeros(N, device=dev, dtype=torch.bfloat16)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    _check(gemm_fused(a, b, bias=bias), gemm_plain(a, b, bias=bias), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("cols", [1, 33, 200, 1000, 3000])
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+def test_norm(dev, dtype, cols, kind):
+    from laser_tpu_torch.ops import norm
+
+    g = _gen(dev, 4)
+    x = _rnd(g, (5, 7, cols), dtype, dev, std=3.0) + 1
+    gam, bet = _rnd(g, (cols,), dtype, dev), _rnd(g, (cols,), dtype, dev)
+    if kind == "layer":
+        got, want = norm.layer_norm(x, gam, bet), norm.layer_norm_reference(x, gam, bet)
+    else:
+        got, want = norm.rms_norm(x, gam), norm.rms_norm_reference(x, gam)
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 200, 256])
+@pytest.mark.parametrize("S", [1, 17, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention(dev, dtype, D, S, causal):
+    from laser_tpu_torch.ops.attention import attention, attention_reference
+
+    g = _gen(dev, 5)
+    q, k, v = (_rnd(g, (2, 3, S, D), dtype, dev) for _ in range(3))
+    _check(attention(q, k, v, causal=causal), attention_reference(q, k, v, causal=causal),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 4), (8, 2), (8, 1)])
+@pytest.mark.parametrize("hd,ps", [(64, 16), (128, 64), (256, 16)])
+def test_paged_attention(dev, dtype, Hq, Hkv, hd, ps):
+    from laser_tpu_torch.ops.paged_attention import (paged_attention,
+                                                     paged_attention_reference)
+
+    g = _gen(dev, 6)
+    S, mp = 5, 6
+    P = S * mp + 1
+    q = _rnd(g, (S, Hq, hd), dtype, dev)
+    kp, vp = _rnd(g, (P, Hkv, ps, hd), dtype, dev), _rnd(g, (P, Hkv, ps, hd), dtype, dev)
+    tables = torch.randperm(P, generator=g, device=dev)[:S * mp].reshape(S, mp).int()
+    lengths = torch.tensor([0, 1, ps - 1, 3 * ps + 5, mp * ps], device=dev, dtype=torch.int32)
+    got = paged_attention(q, kp, vp, tables, lengths)
+    _check(got, paged_attention_reference(q, kp, vp, tables, lengths), dtype)
+    assert (got[0] == 0).all()
+
+
+def test_paged_attention_rejects_non_contiguous_pool(dev):
+    from laser_tpu_torch.ops.paged_attention import paged_attention
+
+    kp = torch.zeros(4, 2, 16, 64, device=dev).transpose(2, 3).contiguous().transpose(2, 3)
+    q = torch.zeros(2, 2, 64, device=dev)
+    tables = torch.zeros(2, 2, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        paged_attention(q, kp, kp, tables, torch.ones(2, device=dev, dtype=torch.int32))
+
+
+def test_engine_matches_plain_greedy_with_preemption(dev):
+    """The engine on the card (every op a kernel) emits the plain path's
+    greedy tokens, through slot reuse and preemption."""
+    import numpy as np
+
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models.transformer import greedy_decode, init_transformer
+    from laser_tpu_torch.serving import ServingConfig, ServingEngine
+
+    params = init_transformer(3, n_layers=2, d_model=128, n_heads=2, d_ff=256, vocab=97,
+                              device=dev)
+    cfg = ServingConfig(page_size=16, n_pages=4, max_seqs=2, max_pages_per_seq=3,
+                        prefill_buckets=(16, 32))
+    eng = ServingEngine(params, n_heads=2, cfg=cfg)
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, 97, n).astype(np.int32) for n in (14, 15, 9)]
+    registry.reset_counts()
+    ids = [eng.add_request(p, 12) for p in prompts]
+    out = eng.run()
+    assert all(c["plain_calls"] == 0 and c["launches"] > 0
+               for c in registry.counts().values())
+    assert eng.stats.get("preemptions", 0) >= 1
+    for p, rid in zip(prompts, ids):
+        want = greedy_decode(params, torch.as_tensor(p[None], device=dev).long(), n_heads=2,
+                             max_new_tokens=12, plain=True)[0, len(p):].tolist()
+        assert out[rid] == want

@@ -1,0 +1,101 @@
+"""laser_tpu_torch package-level properties: no JAX, the kernel loader, the
+device table, config, conversion and sampling."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from laser_tpu_torch import config, device_info, registry
+from laser_tpu_torch.convert import params_from_numpy
+from laser_tpu_torch.ops.sampling import row_seed, sample_logits_batch
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys\n"
+            "import laser_tpu_torch.serving, laser_tpu_torch.models.transformer\n"
+            "import laser_tpu_torch.convert, laser_tpu_torch.device_info\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'laser_tpu' not in sys.modules, 'laser_tpu imported'\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_loader_raises_clearly_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(registry, "DEFAULT_CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(registry, "BUILD_ROOT", tmp_path / "build")
+    registry.load_library.cache_clear()
+    assert registry.find_nvcc() is None
+    with pytest.raises(registry.KernelBuildError, match="nvcc not found"):
+        registry.load_library()
+    registry.load_library.cache_clear()
+    assert not (tmp_path / "build").exists() or not any((tmp_path / "build").rglob("*.so"))
+
+
+def test_cpu_tensors_never_build(monkeypatch):
+    from laser_tpu_torch.ops.norm import NORM, layer_norm
+
+    def no_build():
+        raise AssertionError("a CPU tensor reached the kernel loader")
+
+    monkeypatch.setattr(registry, "load_library", no_build)
+    before = (NORM.launches, NORM.plain_calls)
+    layer_norm(torch.ones(2, 8))
+    assert (NORM.launches, NORM.plain_calls) == (before[0], before[1] + 1)
+
+
+def test_every_slice_kernel_registered():
+    import laser_tpu_torch.serving  # noqa: F401
+
+    assert set(registry.KERNELS) == {"gemm", "norm", "flash_attention", "paged_attention"}
+    for k in registry.KERNELS.values():
+        assert (registry.PACKAGE_DIR.parent / k.source).is_file()
+        assert k.replaces.startswith("laser_tpu/")
+
+
+@pytest.mark.parametrize("name,key", [
+    ("NVIDIA H100 80GB HBM3", "h100-sxm"), ("NVIDIA H100 PCIe", "h100-pcie"),
+    ("NVIDIA H100 NVL", "h100-nvl"), ("NVIDIA A100-SXM4-80GB", None)])
+def test_device_table(name, key):
+    assert device_info.classify_device_name(name) == key
+    if key is None:
+        with pytest.raises(KeyError):
+            device_info.detect(name)
+    else:
+        assert device_info.detect(name).sms in (114, 132)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_unported_matmul_precision_raises(precision):
+    from laser_tpu_torch.ops.gemm import gemm
+
+    with config.config_override(matmul_precision=precision):
+        with pytest.raises(NotImplementedError):
+            gemm(torch.ones(2, 3), torch.ones(3, 4), bias=torch.zeros(4))
+
+
+def test_params_from_numpy_bfloat16_exact():
+    import ml_dtypes
+
+    a = np.asarray([1.5, -2.25, 3e-3], np.float32).astype(ml_dtypes.bfloat16)
+    t = params_from_numpy({"w": [a]})["w"][0]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
+
+
+def test_sampler_greedy_and_seeded():
+    logits = torch.tensor([[0.0, 2.0, 2.0, -1.0], [5.0, 0.0, 1.0, 0.0]])
+    greedy = sample_logits_batch([0, 0], [3, 3], logits, [0.0, 0.0], [0, 0], [1.0, 1.0])
+    assert greedy.tolist() == [1, 0]  # first index on ties, as jnp.argmax
+    a = sample_logits_batch([7, 7], [3, 4], logits, [1.0, 1.0], [2, 0], [1.0, 0.5])
+    b = sample_logits_batch([7, 7], [3, 4], logits, [1.0, 1.0], [2, 0], [1.0, 0.5])
+    assert a.tolist() == b.tolist()
+    assert a[0].item() in (1, 2)   # top-k 2 keeps only the two 2.0 logits
+    assert a[1].item() == 0        # top-p 0.5: the 5.0 logit alone holds > 0.5
+    assert row_seed(7, 3) != row_seed(7, 4)
