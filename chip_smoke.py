@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive laser_tpu_torch's serving path on one CUDA card.
+"""Drive laser_tpu_torch's serving and training paths on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -9,45 +9,82 @@ Phases, in order; any failure exits non-zero and the result line is not
 printed:
 
 1. Print the card's name and power limit (nvidia-smi) and build the CUDA
-   kernels from laser_tpu_torch/csrc (timed).
-2. Each of the four kernels at the serving slice's full-width shapes in bf16,
-   and once in f32: compare it with its plain PyTorch version on the card
-   against a stated bound, and time both with CUDA events.
-3. The slice: ServingEngine over the 8-layer d2048 bf16 transformer with
-   random weights from a seed, 12 greedy requests through 8 slots. Checks
-   token counts and range, that every kernel launched and no plain version
-   ran, the first-token logits of two requests against the plain dense
-   forward, and prints the token agreement with the plain greedy_decode.
+   kernels from laser_tpu_torch/csrc (one nvcc per source, in parallel;
+   timed).
+2. Each of the eight kernels at the full-width shapes its path gives it, in
+   bf16, and once at a small f32 shape: compare it with its plain PyTorch
+   version on the card against a stated bound, and time the kernel, the
+   plain version and, where one PyTorch call computes the same function,
+   that call (``library_ms``; the port never calls it), with CUDA events.
+   Each bf16 case also gets ``bound_ms``, the least time the card could
+   take for the same work, from its bytes and operations.
+3. The serving slice: ServingEngine over the 8-layer d2048 bf16 transformer
+   with random weights from a seed, 12 greedy requests through 8 slots.
+   Checks token counts and range, that every serving kernel launched and no
+   plain version ran, the first-token logits of two requests against the
+   plain dense forward, and prints the token agreement with the plain
+   greedy_decode.
 4. The same engine at 2 layers d512 in f32: its tokens must equal the plain
    f32 greedy_decode for every request.
+5. The training slice: ``transformer_train_step`` on the same 8-layer d2048
+   bf16 model, batch 8 x 1024 from RandomState(0). First the step-1 loss
+   and every gradient leaf against the ``plain=True`` route (autograd of
+   the plain versions). Then the path itself, counted: a value-only eval
+   loss, step 1 (warm-up), steps 2-6 (timed), the eval loss again; every
+   training kernel launched, no plain version ran, the eval loss fell.
+   Then one more step under torch.profiler: device time by kernel and the
+   device's idle share.
+6. f32 exactness: 2 layers d512, 4 heads, vocab 8192, batch 4 x 256, TF32
+   off: loss and gradients through the kernels against ``plain=True``, and
+   one train step each, with an Adam-aware bound on the updated params.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON record.
+per-kernel JSON record, and the line before that the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-# stated bounds: max |kernel - plain| / max |plain|, per dtype. bf16 outputs
-# round to 8 mantissa bits, so two correct fp32-accumulating paths that sum
-# in different orders may differ by one bf16 ulp of the largest value
-# (2^-7 relative); f32 differs only by summation order.
+# stated bounds: max |kernel - plain| / max |plain|, per output dtype. bf16
+# outputs round to 8 mantissa bits, so two correct fp32-accumulating paths
+# that sum in different orders may differ by one bf16 ulp of the largest
+# value (2^-7 relative); f32 differs only by summation order.
 REL_BOUND = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # first-token logits of the full bf16 model, engine vs plain dense forward:
 # the two paths round different intermediates to bf16 through 8 layers
 LOGITS_REL_BOUND = 5e-2
+# full-width bf16 training, kernel route vs plain route, step-1 loss and each
+# gradient leaf as ||a - b|| / ||b||: the routes round to bf16 at different
+# points (z before the activation; P before P.V in the forward, which the
+# plain route also differentiates through) and the gradients pass through 8
+# layers of bf16 products in both directions. The loss sees those roundings
+# once, averaged over 8184 rows; the worst leaf (a layer-norm gain, a sum
+# over all rows) carries them most
+TRAIN_LOSS_REL = 1e-3
+TRAIN_GRAD_REL = 5e-2
+# f32 training, kernel route vs plain route: summation order only
+F32_LOSS_REL, F32_GRAD_REL = 1e-5, 1e-4
 
 MODEL = dict(n_layers=8, d_model=2048, n_heads=16, d_ff=8192, vocab=8192)
 MODEL_F32 = dict(n_layers=2, d_model=512, n_heads=4, d_ff=2048, vocab=8192)
 N_REQUESTS, NEW_TOKENS = 12, 64
+TRAIN_BATCH, TRAIN_F32_BATCH = (8, 1024), (4, 256)
+TRAIN_STEPS, LR, WD = 6, 3e-4, 0.01
+SERVING_KERNELS = ("gemm", "norm", "flash_attention", "paged_attention")
+TRAINING_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv", "ce_fused_grad", "ce_fwd")
 DEVICE = "cuda"
 
 
@@ -72,25 +109,56 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def compare(name, got, want, dtype):
+def compare(name, got, want):
+    """Max abs error of each output against the plain version, held to the
+    bound of its dtype; returns the largest."""
     torch.cuda.synchronize()
-    got, want = got.float(), want.float()
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite output")
-    err = (got - want).abs().max().item()
-    scale = max(want.abs().max().item(), 1e-30)
-    rel = err / scale
-    bound = REL_BOUND[dtype]
-    print(f"  {name} [{str(dtype).replace('torch.', '')}]: max_abs_err {err:.3e} "
-          f"rel {rel:.3e} (bound {bound:.0e})", flush=True)
-    if not rel <= bound:
-        fail(f"{name}: relative error {rel:.3e} > {bound:.0e}")
-    return err
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        bound = REL_BOUND[g.dtype if g.dtype != torch.float16 else torch.bfloat16]
+        g, w = g.float(), w.float()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"{name}[{i}]: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite")
+        err = (g - w).abs().max().item()
+        rel = err / max(w.abs().max().item(), 1e-30)
+        print(f"  {name}[{i}]: max_abs_err {err:.3e} rel {rel:.3e} (bound {bound:.0e})",
+              flush=True)
+        if not rel <= bound:
+            fail(f"{name}[{i}]: relative error {rel:.3e} > {bound:.0e}")
+        worst = max(worst, err)
+    return worst
+
+
+@dataclasses.dataclass
+class Case:
+    name: str                 # the kernel record
+    shape: str
+    kern: Callable
+    plain: Callable
+    flops: float = 0.0        # operations this call's inputs need
+    nbytes: float = 0.0       # each input read once, each output written once
+    library: Optional[Callable] = None
+    library_call: Optional[str] = None
+    slot: str = ""            # "" for the kernel's main shape, else a sub-record
+
+
+def bound(case: Case, spec, dtype):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the peak rate of the input type."""
+    peak = spec.bf16_tflops if dtype in (torch.bfloat16, torch.float16) else spec.f32_tflops
+    t_ops = case.flops / (peak * 1e12) * 1e3
+    t_bytes = case.nbytes / (spec.hbm_gbps * 1e9) * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def kernel_cases(dtype, full: bool):
-    """(name, kernel call, plain call, shape note) at the slice's shapes."""
-    from laser_tpu_torch.ops.attention import attention, attention_reference
+    """Cases at the slices' full-width shapes (``full``) or small ones."""
+    from laser_tpu_torch.ops import loss
+    from laser_tpu_torch.ops.attention import attention, attention_reference, flash_forward
+    from laser_tpu_torch.ops.attention_bwd import (bwd_dkv_cuda, bwd_dq_cuda,
+                                                   flash_attention_bwd_reference)
     from laser_tpu_torch.ops.gemm import linear, linear_reference
     from laser_tpu_torch.ops.norm import layer_norm, layer_norm_reference
     from laser_tpu_torch.ops.paged_attention import (paged_attention,
@@ -98,39 +166,135 @@ def kernel_cases(dtype, full: bool):
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(0)
+    isz = torch.tensor([], dtype=dtype).element_size()
 
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=g, device=DEVICE) * std).to(dtype)
 
-    if full:  # prefill widths of the 8L d2048 model; decode 8 slots x 16 pages
+    if full:  # serving prefill / decode widths and the training shapes
         M, K, N = 4096, 2048, 8192
         rows, cols = 4096, 2048
         BH, S, D = 8 * 16, 512, 128
+        BHt, St = 8 * 16, 1024
         slots, H, hd, ps, pages = 8, 16, 128, 64, 16
+        T, V, eps = 8 * 1023, 8192, 0.0
     else:
         M, K, N = 256, 512, 2048
         rows, cols = 256, 512
         BH, S, D = 8, 200, 128
+        BHt, St = 8, 200
         slots, H, hd, ps, pages = 4, 4, 128, 64, 4
+        T, V, eps = 300, 8192, 0.1
+    cases = []
+
     x, w, bias = rnd(M, K), rnd(K, N, std=K ** -0.5), rnd(N, std=0.1)
+    cases.append(Case(
+        "gemm", f"M{M} K{K} N{N} bias+gelu", lambda: linear(x, w, bias, "gelu"),
+        lambda: linear_reference(x, w, bias, "gelu"), flops=2 * M * K * N,
+        nbytes=(M * K + K * N + M * N + N) * isz,
+        library=lambda: F.gelu(torch.addmm(bias, x, w), approximate="tanh"),
+        library_call="torch.addmm + F.gelu (two calls)"))
+
     xn, gam, bet = rnd(rows, cols), rnd(cols), rnd(cols, std=0.1)
+    cases.append(Case(
+        "norm", f"{rows}x{cols} layer", lambda: layer_norm(xn, gam, bet),
+        lambda: layer_norm_reference(xn, gam, bet), flops=8 * rows * cols,
+        nbytes=(2 * rows * cols + 2 * cols) * isz,
+        library=lambda: F.layer_norm(xn, (cols,), gam, bet, eps=1e-6),
+        library_call="F.layer_norm"))
+
+    def causal_pairs(bh, s):
+        return bh * s * (s + 1) // 2
+
     q, k, v = rnd(BH, S, D), rnd(BH, S, D), rnd(BH, S, D)
+    cases.append(Case(
+        "flash_attention", f"BH{BH} S{S} D{D} causal",
+        lambda: attention(q, k, v, causal=True),
+        lambda: attention_reference(q, k, v, causal=True),
+        flops=4 * D * causal_pairs(BH, S), nbytes=4 * BH * S * D * isz,
+        library=lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                       is_causal=True),
+        library_call="F.scaled_dot_product_attention(is_causal=True)"))
+
+    # the training shapes: the stats forward and both backward kernels
+    qt, kt, vt, dot = (rnd(BHt, St, D) for _ in range(4))
+    sc = D ** -0.5
+    cases.append(Case(
+        "flash_attention", f"BH{BHt} S{St} D{D} causal, with (m, l)",
+        lambda: flash_forward(qt, kt, vt, True, sc, stats=True),
+        lambda: flash_forward(qt, kt, vt, True, sc, stats=True, plain=True),
+        flops=4 * D * causal_pairs(BHt, St),
+        nbytes=4 * BHt * St * D * isz + 2 * BHt * St * 4,
+        library=_sdpa_train_forward(qt, kt, vt),
+        library_call="F.scaled_dot_product_attention(is_causal=True) on inputs that "
+                     "require grad (saves its logsumexp)", slot="training"))
+    ot, mt, lt = flash_forward(qt, kt, vt, True, sc, stats=True)
+    dvec = (dot.float() * ot.float()).sum(-1)
+    plain_bwd = lambda: flash_attention_bwd_reference(qt, kt, vt, ot, mt, lt, dot,  # noqa: E731
+                                                      causal=True, scale=sc)
+    lib_bwd = _sdpa_backward(qt, kt, vt, dot)
+    stats_bytes = 3 * BHt * St * 4
+    cases.append(Case(
+        "flash_attention_bwd_dq", f"BH{BHt} S{St} D{D} causal",
+        lambda: bwd_dq_cuda(qt, kt, vt, dot, mt, lt, dvec, True, sc),
+        lambda: plain_bwd()[0], flops=3 * 2 * D * causal_pairs(BHt, St),
+        nbytes=5 * BHt * St * D * isz + stats_bytes, library=lib_bwd,
+        library_call="autograd of F.scaled_dot_product_attention(is_causal=True): "
+                     "dq, dk, dv in one backward"))
+    cases.append(Case(
+        "flash_attention_bwd_dkv", f"BH{BHt} S{St} D{D} causal",
+        lambda: bwd_dkv_cuda(qt, kt, vt, dot, mt, lt, dvec, True, sc),
+        lambda: plain_bwd()[1:], flops=4 * 2 * D * causal_pairs(BHt, St),
+        nbytes=6 * BHt * St * D * isz + stats_bytes, library=lib_bwd,
+        library_call="autograd of F.scaled_dot_product_attention(is_causal=True): "
+                     "dq, dk, dv in one backward"))
+
     P = slots * pages + 1
     qd, kp, vp = rnd(slots, H, hd), rnd(P, H, ps, hd), rnd(P, H, ps, hd)
     perm = torch.randperm(P - 1, generator=g, device=DEVICE)
     tables = perm[:slots * pages].reshape(slots, pages).int().contiguous()
     lengths = torch.linspace(0, pages * ps, slots, device=DEVICE).int()
-    return [
-        ("gemm", lambda: linear(x, w, bias, "gelu"),
-         lambda: linear_reference(x, w, bias, "gelu"), f"M{M} K{K} N{N} bias+gelu"),
-        ("norm", lambda: layer_norm(xn, gam, bet),
-         lambda: layer_norm_reference(xn, gam, bet), f"{rows}x{cols} layer"),
-        ("flash_attention", lambda: attention(q, k, v, causal=True),
-         lambda: attention_reference(q, k, v, causal=True), f"BH{BH} S{S} D{D} causal"),
-        ("paged_attention", lambda: paged_attention(qd, kp, vp, tables, lengths),
-         lambda: paged_attention_reference(qd, kp, vp, tables, lengths),
-         f"slots{slots} H{H} hd{hd} ps{ps} pages{pages} lengths 0..{pages * ps}"),
-    ]
+    keys = int(lengths.sum().item())
+    cases.append(Case(
+        "paged_attention", f"slots{slots} H{H} hd{hd} ps{ps} pages{pages} "
+        f"lengths 0..{pages * ps}", lambda: paged_attention(qd, kp, vp, tables, lengths),
+        lambda: paged_attention_reference(qd, kp, vp, tables, lengths),
+        flops=4 * keys * H * hd, nbytes=(2 * keys * H * hd + 2 * slots * H * hd) * isz
+        + tables.numel() * 4 + slots * 4))
+
+    xl = rnd(T, V, std=2.0)
+    tl = torch.randint(0, V, (T,), generator=g, device=DEVICE)
+    cases.append(Case(
+        "ce_fwd", f"T{T} V{V} eps{eps}", lambda: loss.ce_fwd(xl, tl, eps),
+        lambda: loss.ce_fwd_plain(xl, tl, eps), flops=4 * T * V,
+        nbytes=T * V * isz + T * 4 + 2 * T * 4,
+        library=lambda: F.cross_entropy(xl, tl, reduction="none", label_smoothing=eps),
+        library_call="F.cross_entropy(reduction='none')"))
+    xg = xl.detach().requires_grad_(True)
+    cases.append(Case(
+        "ce_fused_grad", f"T{T} V{V} eps{eps}", lambda: loss.ce_fused_grad(xl, tl, eps),
+        lambda: loss.ce_fused_grad_plain(xl, tl, eps), flops=6 * T * V,
+        nbytes=2 * T * V * isz + T * 4 + T * 4,
+        library=lambda: torch.autograd.grad(
+            F.cross_entropy(xg, tl, reduction="sum", label_smoothing=eps), xg),
+        library_call="F.cross_entropy forward + backward"))
+    return cases
+
+
+def _sdpa_train_forward(q, k, v):
+    qg, kg, vg = (t[None].detach().requires_grad_(True) for t in (q, k, v))
+
+    def run():
+        with torch.enable_grad():
+            return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    return run
+
+
+def _sdpa_backward(q, k, v, do):
+    qg, kg, vg = (t[None].detach().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do[None], retain_graph=True)
 
 
 def decode_gemm_case():
@@ -142,26 +306,35 @@ def decode_gemm_case():
     x = torch.randn((8, 2048), generator=g, device=DEVICE).bfloat16()
     w = (torch.randn((2048, 6144), generator=g, device=DEVICE) * 2048 ** -0.5).bfloat16()
     b = torch.zeros((6144,), device=DEVICE, dtype=torch.bfloat16)
-    return lambda: linear(x, w, b), lambda: linear_reference(x, w, b)
+    return Case("gemm", "M8 K2048 N6144 bias", lambda: linear(x, w, b),
+                lambda: linear_reference(x, w, b), flops=2 * 8 * 2048 * 6144,
+                nbytes=(8 * 2048 + 2048 * 6144 + 8 * 6144 + 6144) * 2,
+                library=lambda: torch.addmm(b, x, w), library_call="torch.addmm",
+                slot="decode")
 
 
-def phase_kernels():
+def phase_kernels(spec):
     print("phase 2: kernels vs plain versions", flush=True)
     record = {}
-    for dtype, full in ((torch.bfloat16, True), (torch.float32, False)):
-        for name, kern, plain, shape in kernel_cases(dtype, full):
-            err = compare(f"{name} {shape}", kern(), plain(), dtype)
-            if full:
-                ms, pms = cuda_ms(kern), cuda_ms(plain)
-                print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
-                record[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
-                                "shape": shape}
-    kern, plain = decode_gemm_case()
-    err = compare("gemm M8 K2048 N6144 bias (decode)", kern(), plain(), torch.bfloat16)
-    ms, pms = cuda_ms(kern), cuda_ms(plain)
-    print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
-    record["gemm"]["decode"] = {"shape": "M8 K2048 N6144 bias", "max_abs_err": err,
-                                "ms": ms, "plain_ms": pms}
+    f32 = kernel_cases(torch.float32, full=False)
+    bf16 = kernel_cases(torch.bfloat16, full=True) + [decode_gemm_case()]
+    for case in f32:
+        compare(f"{case.name} {case.shape} [f32]", case.kern(), case.plain())
+    for case in bf16:
+        err = compare(f"{case.name} {case.shape} [bf16]", case.kern(), case.plain())
+        ms, pms = cuda_ms(case.kern), cuda_ms(case.plain, reps=5)
+        lms = cuda_ms(case.library) if case.library else None
+        bms, by = bound(case, spec, torch.bfloat16)
+        print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+              f"{'none' if lms is None else f'{lms:.4f} ms'}, bound {bms:.4f} ms ({by})",
+              flush=True)
+        entry = {"shape": case.shape, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                 "bound_ms": bms, "bound_by": by, "library_ms": lms,
+                 "library_call": case.library_call}
+        if case.slot:
+            record[case.name][case.slot] = entry
+        else:
+            record[case.name] = entry
     return record
 
 
@@ -194,6 +367,13 @@ def check_tokens(outs, vocab):
                  f"[{min(toks, default=-1)}, {max(toks, default=-1)}]")
 
 
+def check_counts(counts, names, path):
+    for name in names:
+        c = counts[name]
+        if c["launches"] <= 0 or c["plain_calls"] != 0:
+            fail(f"{path}: {name}: launches {c['launches']}, plain calls {c['plain_calls']}")
+
+
 def phase_slice():
     from laser_tpu_torch import registry
     from laser_tpu_torch.models.transformer import (greedy_decode, init_transformer,
@@ -211,9 +391,7 @@ def phase_slice():
     counts = registry.counts()
     print(f"  counts {json.dumps(counts)}", flush=True)
     check_tokens(outs, MODEL["vocab"])
-    for name, c in counts.items():
-        if c["launches"] <= 0 or c["plain_calls"] != 0:
-            fail(f"{name}: launches {c['launches']}, plain calls {c['plain_calls']}")
+    check_counts(counts, SERVING_KERNELS, "serving")
     ntok = sum(len(o) for o in outs)
     print(f"  served {len(outs)} requests, {ntok} tokens in {wall:.3f} s: "
           f"{ntok / wall:.1f} tokens/s; stats {eng.stats}", flush=True)
@@ -260,14 +438,170 @@ def phase_f32():
     print(f"  all {len(outs)} requests token-identical; engine wall {wall:.3f} s", flush=True)
 
 
+def train_batch(vocab, shape, seed):
+    toks = np.random.RandomState(seed).randint(0, vocab, size=shape)
+    return torch.as_tensor(toks, device=DEVICE).long()
+
+
+def loss_and_grads(params, tokens, n_heads, plain):
+    from laser_tpu_torch.models.transformer import transformer_lm_loss
+    from laser_tpu_torch.ops.optim import value_and_grad
+
+    return value_and_grad(lambda p, t: transformer_lm_loss(p, t, n_heads=n_heads,
+                                                           plain=plain))(params, tokens)
+
+
+def leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree) for n in leaf_names(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def check_routes(params, tokens, n_heads, loss_rel, grad_rel, norm: str):
+    """Loss and every gradient leaf, kernel route vs plain route. ``norm``:
+    "fro" compares ||a - b|| / ||b||, "max" max |a - b| / max |b|."""
+    from laser_tpu_torch.ops.optim import tree_leaves
+
+    lk, gk = loss_and_grads(params, tokens, n_heads, plain=False)
+    lp, gp = loss_and_grads(params, tokens, n_heads, plain=True)
+    rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    print(f"  loss kernel {lk.item():.6f} plain {lp.item():.6f} rel {rel:.3e} "
+          f"(bound {loss_rel:.0e})", flush=True)
+    if not (math.isfinite(lk.item()) and rel <= loss_rel):
+        fail(f"loss rel err {rel:.3e}")
+    worst = ("", 0.0)
+    for name, a, b in zip(leaf_names(params), tree_leaves(gk), tree_leaves(gp), strict=True):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            fail(f"gradient {name} is not finite")
+        if norm == "fro":
+            r = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+        else:
+            r = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        worst = max(worst, (name, r), key=lambda t: t[1])
+        if not r <= grad_rel:
+            fail(f"gradient {name}: rel err {r:.3e} > {grad_rel:.0e}")
+    print(f"  {len(tree_leaves(gk))} gradient leaves within {grad_rel:.0e} ({norm}); "
+          f"worst {worst[0]} {worst[1]:.3e}", flush=True)
+
+
+def profile_step(step_fn):
+    """One step under torch.profiler: device time by kernel, busy and idle
+    share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels and copies are the entries on the CUDA side; one stream, so
+    # their times add up to the busy time
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    if not rows:
+        fail("torch.profiler recorded no device time")
+    busy = sum(r[0] for r in rows)
+    rows.sort(reverse=True)
+    print(f"  profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle share {1 - busy / wall_ms:.4f}", flush=True)
+    for ms, n, key in rows[:16]:
+        print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% {n:5d}x {key[:110]}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "top": [{"ms": ms, "calls": n, "kernel": key[:160]} for ms, n, key in rows[:16]]}
+
+
+def phase_train():
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models import transformer as tf
+
+    print("phase 5: training slice, 8L d2048 bf16, batch 8x1024", flush=True)
+    n_heads = MODEL["n_heads"]
+    params = tf.init_transformer(0, dtype=torch.bfloat16, device=DEVICE, **MODEL)
+    tokens = train_batch(MODEL["vocab"], TRAIN_BATCH, 0)
+    check_routes(params, tokens, n_heads, TRAIN_LOSS_REL, TRAIN_GRAD_REL, "fro")
+    torch.cuda.empty_cache()
+
+    opt = tf.transformer_train_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_counts()
+    with torch.no_grad():
+        eval0 = tf.transformer_lm_loss(params, tokens, n_heads=n_heads).item()
+    losses, times = [], []
+    for step in range(1, TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = tf.transformer_train_step(params, opt, tokens, step,
+                                                      n_heads=n_heads, lr=LR, weight_decay=WD)
+        losses.append(loss.item())  # synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        eval6 = tf.transformer_lm_loss(params, tokens, n_heads=n_heads).item()
+    counts = registry.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  counts {json.dumps(counts)}", flush=True)
+    check_counts(counts, TRAINING_KERNELS, "training")
+    print(f"  step losses {[round(x, 5) for x in losses]}", flush=True)
+    print(f"  eval loss before step 1 {eval0:.6f}, after step {TRAIN_STEPS} {eval6:.6f}",
+          flush=True)
+    if not (math.isfinite(eval0) and math.isfinite(eval6) and eval6 < eval0):
+        fail(f"eval loss did not fall: {eval0} -> {eval6}")
+    step_ms = statistics.median(times[1:])
+    rows = TRAIN_BATCH[0] * (TRAIN_BATCH[1] - 1)
+    print(f"  step ms (median of steps 2-{TRAIN_STEPS}) {step_ms:.2f} "
+          f"(all {[round(t, 2) for t in times]}); {rows / step_ms * 1e3:.1f} training "
+          f"tokens/s ({rows} target tokens per step); peak memory {peak_gb:.3f} GB",
+          flush=True)
+    prof = profile_step(lambda: tf.transformer_train_step(
+        params, opt, tokens, TRAIN_STEPS + 1, n_heads=n_heads, lr=LR, weight_decay=WD))
+    return counts, {"step_ms": step_ms, "step_ms_all": times, "tokens_per_step": rows,
+                    "tokens_per_s": rows / step_ms * 1e3, "peak_gb": peak_gb,
+                    "eval_loss": [eval0, eval6], "losses": losses, "profile": prof}
+
+
+def phase_train_f32():
+    from laser_tpu_torch.models import transformer as tf
+    from laser_tpu_torch.ops.optim import tree_leaves
+
+    print("phase 6: f32 train step, kernels vs plain, 2L d512", flush=True)
+    n_heads = MODEL_F32["n_heads"]
+    params = tf.init_transformer(1, dtype=torch.float32, device=DEVICE, **MODEL_F32)
+    tokens = train_batch(MODEL_F32["vocab"], TRAIN_F32_BATCH, 1)
+    check_routes(params, tokens, n_heads, F32_LOSS_REL, F32_GRAD_REL, "max")
+    # Adam's first step moves each element by about lr whatever the size of
+    # its gradient, so an element whose gradient lies within the summation
+    # error of zero may step the other way: max |delta| <= 2 lr, mean
+    # |delta| <= 1e-3 lr
+    pk, pp = (tf.init_transformer(1, dtype=torch.float32, device=DEVICE, **MODEL_F32)
+              for _ in range(2))  # the same seed: two copies of ``params``
+    _, _, lk = tf.transformer_train_step(pk, tf.transformer_train_init(pk), tokens, 1,
+                                         n_heads=n_heads, lr=LR, weight_decay=WD)
+    _, _, lp = tf.transformer_train_step(pp, tf.transformer_train_init(pp), tokens, 1,
+                                         n_heads=n_heads, lr=LR, weight_decay=WD, plain=True)
+    if not abs(lk.item() - lp.item()) <= F32_LOSS_REL * abs(lp.item()):
+        fail(f"f32 train step loss {lk.item()} vs plain {lp.item()}")
+    d = torch.cat([(a - b).abs().flatten() for a, b in zip(tree_leaves(pk), tree_leaves(pp))])
+    dmax, dmean = d.max().item(), d.mean().item()
+    flipped = int((d > LR / 2).sum().item())
+    print(f"  updated params: max |delta| {dmax:.3e} (bound {2 * LR:.1e}), mean "
+          f"{dmean:.3e} (bound {1e-3 * LR:.1e}), {flipped} of {d.numel()} elements "
+          f"differ by more than lr/2", flush=True)
+    if not (dmax <= 2 * LR and dmean <= 1e-3 * LR):
+        fail("f32 updated params outside the Adam-aware bound")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from laser_tpu_torch import registry
-    from laser_tpu_torch.ops import attention, norm, paged_attention  # noqa: F401
-    from laser_tpu_torch.ops.gemm import kernel  # noqa: F401
+    from laser_tpu_torch import device_info, registry
+    from laser_tpu_torch.models import transformer  # noqa: F401  (registers every kernel)
+    from laser_tpu_torch.ops import paged_attention  # noqa: F401
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -278,25 +612,28 @@ def main():
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    spec = device_info.detect()
 
     t0 = time.perf_counter()
     registry.load_library()
     print(f"phase 1: kernels built/loaded in {time.perf_counter() - t0:.1f} s "
           f"({registry.library_path().parent.name})", flush=True)
 
-    record = phase_kernels()
-    counts, engine = phase_slice()
+    record = phase_kernels(spec)
+    serve_counts, engine = phase_slice()
     phase_f32()
+    train_counts, train = phase_train()
+    phase_train_f32()
 
     kernels = []
     for name, k in registry.KERNELS.items():
         r = record[name]
+        by_path = {"serving": serve_counts[name]["launches"],
+                   "training": train_counts[name]["launches"]}
         kernels.append({"name": name, "route": "cuda", "source": k.source,
-                        "replaces": k.replaces, "launches": counts[name]["launches"],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "shape": r["shape"],
-                        **({"decode": r["decode"]} if "decode" in r else {})})
-    print(json.dumps({"card": card, "engine": engine}), flush=True)
+                        "replaces": k.replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **r})
+    print(json.dumps({"card": card, "engine": engine, "train": train}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
-"""Move laser_tpu parameter trees into the port.
+"""Move laser_tpu trees into the port and back.
 
-``params_from_numpy`` takes a laser_tpu params pytree whose leaves are NumPy
-arrays (``jax.tree.map(np.asarray, params)`` on the JAX side) and returns
-the same tree of torch tensors, so laser_tpu and laser_tpu_torch compute the
-same function on the same numbers.
+``params_from_numpy`` takes a laser_tpu tree whose leaves are NumPy arrays
+(``jax.tree.map(np.asarray, tree)`` on the JAX side): a params pytree, or an
+AdamW ``(m, v)`` state, since tuples map like lists. It returns the same
+tree of torch tensors, so laser_tpu and laser_tpu_torch compute the same
+function on the same numbers. ``params_to_numpy`` goes the other way.
 """
 
 from __future__ import annotations
@@ -12,10 +13,11 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree, device="cpu", dtype=None):
-    """dicts and lists map leaf by leaf; floating leaves are cast to ``dtype``
-    when it is given. NumPy bfloat16 leaves (as JAX exports them) arrive
-    exactly, through float32."""
+def params_from_numpy(tree, device="cuda", dtype=None):
+    """dicts, lists and tuples map leaf by leaf; floating leaves are cast to
+    ``dtype`` when it is given. NumPy bfloat16 leaves (as JAX exports them)
+    arrive exactly, through float32. The tensors land on ``device``, the
+    card unless the caller names another."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -31,3 +33,16 @@ def params_from_numpy(tree, device="cpu", dtype=None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t
+
+
+def params_to_numpy(tree):
+    """The same tree with NumPy leaves on the host; bfloat16 tensors come
+    back as exact float32 arrays (NumPy has no bfloat16 of its own)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

@@ -1,7 +1,13 @@
 // Flash attention forward over (BH, S, D): softmax(Q K^T * scale [causal]) V.
 //
 // Replaces laser_tpu/ops/attention.py:60 _build_flash (value output, MHA,
-// causal or full mask).
+// causal or full mask), and its return_stats=True variant: when the m/l
+// pointers are not null, each row's running max of the SCALED scores and its
+// softmax denominator (fp32, (BH, S)) are written beside the output, as
+// the backward kernels (flash_attention_bwd.cu) expect them. The stats write
+// is a compile-time variant (STATS): with a run-time test of the pointers,
+// the value-only forward at the serving prefill's shape took 0.730 ms in
+// place of 0.640 on an H100 (scripts/time_flash_forward.py).
 //
 // What bounds it on the H100: at the serving slice's prefill (BH = 8 x 16,
 // S = bucket <= 512, D = 128) it is 2 x BH x S^2 x D FLOPs over only
@@ -39,11 +45,12 @@ __host__ __device__ constexpr size_t flash_smem_floats(int dp) {
          (size_t)FL_BQ * FL_BK;
 }
 
-// DC: head-dim columns per lane (D <= 32 * DC)
-template <typename T, int DC>
+// DC: head-dim columns per lane (D <= 32 * DC); STATS: write m_out, l_out
+template <typename T, int DC, bool STATS>
 __global__ void __launch_bounds__(FL_THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, int S, int D, int causal, float scale) {
+                     T* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+                     int S, int D, int causal, float scale) {
   constexpr int DP = DC * 32;
   extern __shared__ float smem[];
   float* Qs = smem;                       // [FL_BQ][DP]
@@ -139,39 +146,57 @@ __global__ void __launch_bounds__(FL_THREADS)
       if (d < D)
         o[base + (size_t)qpos * D + d] = from_f32<T>(l[r] > 0.f ? acc[r][c] / l[r] : 0.f);
     }
+    if constexpr (STATS) {
+      if (lane == 0) {
+        const size_t row = (size_t)blockIdx.y * S + qpos;
+        m_out[row] = m[r];
+        l_out[row] = l[r];
+      }
+    }
   }
 }
 
-template <typename T, int DC>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
-           int causal, float scale, cudaStream_t stream) {
+template <typename T, int DC, bool STATS>
+int launch(const void* q, const void* k, const void* v, void* o, float* m, float* l, int BH,
+           int S, int D, int causal, float scale, cudaStream_t stream) {
   const size_t smem = flash_smem_floats(DC * 32) * sizeof(float);
-  const int err = ltt::allow_smem(flash_fwd_kernel<T, DC>, smem);
+  const int err = ltt::allow_smem(flash_fwd_kernel<T, DC, STATS>, smem);
   if (err) return err;
   dim3 grid((S + FL_BQ - 1) / FL_BQ, BH);
-  flash_fwd_kernel<T, DC><<<grid, FL_THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, DC, STATS><<<grid, FL_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, D, causal, scale);
+      static_cast<T*>(o), m, l, S, D, causal, scale);
   return ltt::launch_status();
 }
 
+template <typename T, bool STATS>
+int launch_d(const void* q, const void* k, const void* v, void* o, float* m, float* l, int BH,
+             int S, int D, int causal, float scale, cudaStream_t s) {
+  if (D <= 32) return launch<T, 1, STATS>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
+  if (D <= 64) return launch<T, 2, STATS>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
+  if (D <= 128) return launch<T, 4, STATS>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
+  return launch<T, 8, STATS>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
+}
+
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
-             int causal, float scale, cudaStream_t s) {
-  if (D <= 32) return launch<T, 1>(q, k, v, o, BH, S, D, causal, scale, s);
-  if (D <= 64) return launch<T, 2>(q, k, v, o, BH, S, D, causal, scale, s);
-  if (D <= 128) return launch<T, 4>(q, k, v, o, BH, S, D, causal, scale, s);
-  return launch<T, 8>(q, k, v, o, BH, S, D, causal, scale, s);
+int launch_t(const void* q, const void* k, const void* v, void* o, float* m, float* l, int BH,
+             int S, int D, int causal, float scale, cudaStream_t s) {
+  if (m) return launch_d<T, true>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
+  return launch_d<T, false>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
 }
 
 }  // namespace
 
-// q, k, v, o: (BH, S, D) contiguous in dtype, D <= 256.
-LTT_API int ltt_flash_fwd(const void* q, const void* k, const void* v, void* o, int BH, int S,
-                          int D, int causal, float scale, int dtype, void* stream) {
+// q, k, v, o: (BH, S, D) contiguous in dtype, D <= 256. m, l: (BH, S) fp32,
+// or both null for the value-only forward (m alone decides the variant).
+LTT_API int ltt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* m, void* l,
+                          int BH, int S, int D, int causal, float scale, int dtype,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ltt::kF32) return launch_d<float>(q, k, v, o, BH, S, D, causal, scale, s);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
+  if (dtype == ltt::kF32) return launch_t<float>(q, k, v, o, mf, lf, BH, S, D, causal, scale, s);
   if (dtype == ltt::kBF16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, BH, S, D, causal, scale, s);
-  return launch_d<__half>(q, k, v, o, BH, S, D, causal, scale, s);
+    return launch_t<__nv_bfloat16>(q, k, v, o, mf, lf, BH, S, D, causal, scale, s);
+  return launch_t<__half>(q, k, v, o, mf, lf, BH, S, D, causal, scale, s);
 }

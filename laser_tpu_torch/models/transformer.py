@@ -1,6 +1,7 @@
 """Pre-norm transformer (port of laser_tpu/models/transformer.py): params
-schema, init, forward, KV-cached prefill/decode and the dense greedy
-reference.
+schema, init, forward, KV-cached prefill/decode, the dense greedy reference,
+and training (``transformer_lm_loss``, ``transformer_train_init``,
+``transformer_train_step``).
 
 Params keep laser_tpu's layout so both packages compute the same function on
 the same numbers: ``embed`` (vocab, D) tied with the unembedding; per block
@@ -11,7 +12,11 @@ rounds: every norm and linear returns the input dtype and residual adds run
 in the params dtype.
 
 ``plain=True`` routes every kernel op through its plain PyTorch version on
-any device; that is the dense reference the kernels are held against.
+any device; that is the dense reference the kernels are held against, and
+under autograd its gradients are PyTorch's own, independent of the port's
+backward kernels. Entry points that allocate (``init_transformer``,
+``init_decode_cache``) put their tensors on the card unless the caller
+passes ``device``.
 """
 
 from __future__ import annotations
@@ -21,9 +26,11 @@ from typing import Dict, Union
 
 import torch
 
-from ..ops.attention import attention, attention_reference
+from ..ops.attention import attention, attention_reference, attention_trainable
 from ..ops.gemm import gemm_ad, linear, linear_reference
+from ..ops.loss import lm_cross_entropy
 from ..ops.norm import layer_norm, layer_norm_reference
+from ..ops.optim import accumulated_value_and_grad, adamw_init, adamw_step, clip_by_global_norm
 
 Params = Dict
 
@@ -31,7 +38,8 @@ Params = Dict
 def _ops(plain: bool):
     if plain:
         return linear_reference, layer_norm_reference, attention_reference
-    return linear, layer_norm, attention
+    # laser_tpu's transformer imports attention_trainable as attention
+    return linear, layer_norm, attention_trainable
 
 
 def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
@@ -48,7 +56,7 @@ def _normal(g, shape, std, dtype, device):
 
 
 def init_transformer_block(g: torch.Generator, d_model: int, n_heads: int,
-                           d_ff: int, dtype=torch.float32, device="cpu") -> Params:
+                           d_ff: int, dtype=torch.float32, device="cuda") -> Params:
     if d_model % n_heads:
         raise ValueError(f"d_model {d_model} not divisible by n_heads {n_heads}")
     s = math.sqrt(1.0 / d_model)
@@ -75,7 +83,7 @@ def init_transformer_block(g: torch.Generator, d_model: int, n_heads: int,
 
 def init_transformer(seed: Union[int, torch.Generator] = 0, *, n_layers: int,
                      d_model: int, n_heads: int, d_ff: int, vocab: int,
-                     dtype=torch.float32, device="cpu") -> Params:
+                     dtype=torch.float32, device="cuda") -> Params:
     """Random params from one ``torch.Generator`` on ``device`` (the same
     distributions as laser_tpu's init; not its PRNG bits)."""
     g = _generator(seed, device)
@@ -127,6 +135,65 @@ def transformer_forward(params: Params, tokens: torch.Tensor, *, n_heads: int,
     return gemm_ad(x.reshape(B * S, D), params["embed"], None, False, True).reshape(B, S, -1)
 
 
+# ---------------------------------------------------------------------------
+# Training: the tied-embedding LM loss and one AdamW step
+# ---------------------------------------------------------------------------
+
+def _check_window(window):
+    if window is not None:
+        raise NotImplementedError("window (sliding-window attention) is not "
+                                  "ported to the training path")
+
+
+def transformer_lm_loss(params: Params, tokens: torch.Tensor, *, n_heads: int,
+                        window=None, label_smoothing: float = 0.0,
+                        ignore_index=None, plain: bool = False) -> torch.Tensor:
+    """Next-token cross entropy through the tied (vocab, D) embedding
+    (``lm_cross_entropy``, its materialized branch). tokens (B, S) int; the
+    fp32 mean loss over B x (S - 1) targets. ``ignore_index`` targets
+    contribute zero loss and gradient, and such tokens are clamped to 0
+    before the embedding lookup."""
+    _check_window(window)
+    tokens = tokens.long()
+    targets = tokens[:, 1:]
+    if ignore_index is not None:
+        tokens = torch.where(tokens == ignore_index, 0, tokens)
+    x = transformer_hidden(params, tokens, n_heads=n_heads, causal=True, plain=plain)
+    return lm_cross_entropy(x[:, :-1], params["embed"], targets,
+                            label_smoothing=label_smoothing,
+                            ignore_index=ignore_index, plain=plain)
+
+
+def transformer_train_init(params: Params):
+    """AdamW state (m, v) matching ``params`` (everything trains)."""
+    return adamw_init(params)
+
+
+def transformer_train_step(params: Params, opt_state, tokens: torch.Tensor, step, *,
+                           n_heads: int, lr=1e-3, weight_decay: float = 0.0,
+                           window=None, label_smoothing: float = 0.0,
+                           clip_norm=None, accum: int = 1, ignore_index=None,
+                           plain: bool = False):
+    """One AdamW step; returns (params, (m, v), loss). ``step`` is the
+    1-based count; ``lr`` a float or a schedule's 0-d tensor. clip_norm:
+    global-L2 gradient clipping; accum: gradient accumulation over
+    microbatches run one after another. The update is IN PLACE: the
+    returned trees are the caller's ``params`` and ``opt_state``, changed."""
+    _check_window(window)
+
+    def loss_fn(p, toks):
+        return transformer_lm_loss(p, toks, n_heads=n_heads,
+                                   label_smoothing=label_smoothing,
+                                   ignore_index=ignore_index, plain=plain)
+
+    loss, grads = accumulated_value_and_grad(loss_fn, accum)(params, tokens)
+    if clip_norm is not None:
+        grads, _ = clip_by_global_norm(grads, clip_norm)
+    m, v = opt_state
+    adamw_step(params, grads, m, v, step, lr=lr, weight_decay=weight_decay)
+    return params, (m, v), loss
+
+
 @torch.no_grad()
 def greedy_decode(params: Params, prompt: torch.Tensor, *, n_heads: int,
                   max_new_tokens: int, plain: bool = False) -> torch.Tensor:
@@ -145,7 +212,7 @@ def greedy_decode(params: Params, prompt: torch.Tensor, *, n_heads: int,
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(n_layers: int, B: int, n_heads: int, head_dim: int,
-                      max_len: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+                      max_len: int, dtype=torch.float32, device="cuda") -> torch.Tensor:
     """Per-layer K/V caches shaped (L, 2, B*H, max_len, hd)."""
     return torch.zeros((n_layers, 2, B * n_heads, max_len, head_dim),
                        dtype=dtype, device=device)

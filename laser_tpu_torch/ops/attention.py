@@ -1,16 +1,25 @@
-"""Flash attention forward (port of laser_tpu/ops/attention.py: ``attention``).
+"""Flash attention (port of laser_tpu/ops/attention.py: ``attention``,
+``attention_with_stats``, ``attention_trainable``).
 
 ``attention(q, k, v, causal=...)`` over (..., S, D) tensors runs the CUDA
 kernel (csrc/flash_attention.cu) for CUDA tensors: an online softmax with
 fp32 statistics and accumulator, the causal block skip, the S-tail mask,
-MHA, any head dim up to 256. ``attention_reference`` is its plain PyTorch
-version. GQA, sliding windows, the (m, l) stats output and ring offsets
-are not ported yet and raise.
+MHA, any head dim up to 256. ``attention_with_stats`` runs the same kernel
+and also returns each row's running max ``m`` of the scaled scores and its
+denominator ``l`` (fp32, (..., S)). ``attention_trainable`` is the
+differentiable form: under autograd its forward keeps ``(o, m, l)`` and its
+backward runs the flash backward kernels (ops/attention_bwd.py), as
+laser_tpu's custom VJP does; without grad it is ``attention``.
+``attention_reference`` is the kernel's plain PyTorch version, differentiable
+by autograd. GQA, sliding windows, ``k_valid`` and ring offsets are not
+ported yet and raise.
 
-Replaces laser_tpu/ops/attention.py:60 _build_flash. Bound on the H100:
-arithmetic at the prefill shapes (S up to 512, D 128). Design: 16 query rows
-per block, 32-key tiles staged in shared memory, fp32 FFMA products (exact
-for bf16 inputs); tensor cores are later work (csrc/flash_attention.cu).
+Replaces laser_tpu/ops/attention.py:60 _build_flash (value output, and the
+``return_stats=True`` variant). Bound on the H100: arithmetic at the serving
+prefill (S up to 512, D 128) and the training shape (S 1024). Design: 16
+query rows per block, 32-key tiles staged in shared memory, fp32 FFMA
+products (exact for bf16 inputs); tensor cores are later work
+(csrc/flash_attention.cu).
 """
 
 from __future__ import annotations
@@ -31,33 +40,44 @@ MAX_HEAD_DIM = 256
 
 
 def masked_softmax_pv(s: torch.Tensor, valid: torch.Tensor, v: torch.Tensor,
-                      dtype: torch.dtype) -> torch.Tensor:
+                      dtype: torch.dtype, return_stats: bool = False):
     """softmax(s over valid keys) @ v in fp32, as the kernels compute it: P
     is rounded to ``dtype`` before the P.V product while the denominator
     sums the unrounded P, and a row with no valid key gives 0. s (..., q, k)
-    fp32, valid broadcastable to s, v (..., k, d)."""
+    fp32, valid broadcastable to s, v (..., k, d). With ``return_stats``
+    also the row max ``m`` of the masked scores and the denominator ``l``,
+    both (..., q)."""
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(dtype).float(), v.float())
-    return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    if return_stats:
+        return o, m.squeeze(-1), l.squeeze(-1)
+    return o
 
 
-def _flash_plain(q3, k3, v3, causal: bool, scale: float):
+def causal_mask(S: int, causal: bool, device) -> torch.Tensor:
+    """(S, S) bool: key j visible to query i."""
+    if not causal:
+        return torch.ones((S, S), dtype=torch.bool, device=device)
+    idx = torch.arange(S, device=device)
+    return idx[None, :] <= idx[:, None]
+
+
+def _flash_plain(q3, k3, v3, causal: bool, scale: float, stats: bool):
     FLASH.plain_calls += 1
     pin_fp32_matmul()
-    S = q3.shape[1]
     s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * scale
-    if causal:
-        idx = torch.arange(S, device=q3.device)
-        valid = idx[None, :] <= idx[:, None]
-    else:
-        valid = torch.ones((S, S), dtype=torch.bool, device=q3.device)
-    return masked_softmax_pv(s, valid, v3, q3.dtype).to(q3.dtype)
+    valid = causal_mask(q3.shape[1], causal, q3.device)
+    if not stats:
+        return masked_softmax_pv(s, valid, v3, q3.dtype).to(q3.dtype)
+    o, m, l = masked_softmax_pv(s, valid, v3, q3.dtype, return_stats=True)
+    return o.to(q3.dtype), m, l
 
 
-def _flash_cuda(q3, k3, v3, causal: bool, scale: float):
+def _flash_cuda(q3, k3, v3, causal: bool, scale: float, stats: bool):
     if q3.dtype not in registry.DTYPE_CODES:
         raise TypeError(f"flash kernel: unsupported dtype {q3.dtype}")
     for t in (q3, k3, v3):
@@ -66,18 +86,31 @@ def _flash_cuda(q3, k3, v3, causal: bool, scale: float):
                              "dtype, one device")
     BH, S, D = q3.shape
     o = torch.empty_like(q3)
-    if BH == 0 or S == 0:
-        return o
-    status = registry.load_library().ltt_flash_fwd(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), BH, S, D,
-        int(causal), float(scale), registry.DTYPE_CODES[q3.dtype],
-        registry.stream_handle(q3))
-    registry.check_launch(status, "flash_attention")
-    FLASH.launches += 1
-    return o
+    m = l = None
+    if stats:
+        m = torch.empty((BH, S), dtype=torch.float32, device=q3.device)
+        l = torch.empty((BH, S), dtype=torch.float32, device=q3.device)
+    if BH and S:
+        status = registry.load_library().ltt_flash_fwd(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
+            None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+            BH, S, D, int(causal), float(scale), registry.DTYPE_CODES[q3.dtype],
+            registry.stream_handle(q3))
+        registry.check_launch(status, "flash_attention")
+        FLASH.launches += 1
+    return (o, m, l) if stats else o
 
 
-def _attention(q, k, v, causal, scale, window, plain):
+def flash_forward(q3, k3, v3, causal: bool, scale: float, *, stats: bool = False,
+                  plain: bool = False):
+    """The kernel for CUDA tensors, its plain version for CPU tensors (or
+    ``plain``): o, or (o, m, l) with ``stats``. q3, k3, v3: (BH, S, D)."""
+    if plain or not registry.on_cuda(q3):
+        return _flash_plain(q3, k3, v3, causal, scale, stats)
+    return _flash_cuda(q3, k3, v3, causal, scale, stats)
+
+
+def _prepare(q, k, v, scale, window):
     if q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"attention shapes must match: {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
@@ -88,11 +121,12 @@ def _attention(q, k, v, causal, scale, window, plain):
         raise NotImplementedError(f"attention: head dim {D} > {MAX_HEAD_DIM}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     q3, k3, v3 = (t.reshape(-1, S, D).contiguous() for t in (q, k, v))
-    if plain or not registry.on_cuda(q3):
-        o = _flash_plain(q3, k3, v3, causal, scale)
-    else:
-        o = _flash_cuda(q3, k3, v3, causal, scale)
-    return o.reshape(*lead, S, D)
+    return q3, k3, v3, scale, lead
+
+
+def _attention(q, k, v, causal, scale, window, plain):
+    q3, k3, v3, scale, lead = _prepare(q, k, v, scale, window)
+    return flash_forward(q3, k3, v3, causal, scale, plain=plain).reshape(q.shape)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -108,3 +142,58 @@ def attention_reference(q, k, v, *, causal: bool = False,
                         window: Optional[int] = None) -> torch.Tensor:
     """``attention`` through the kernel's plain version, on any device."""
     return _attention(q, k, v, causal, scale, window, plain=True)
+
+
+def attention_with_stats(q, k, v, *, causal: bool = False,
+                         scale: Optional[float] = None,
+                         window: Optional[int] = None, k_valid=None,
+                         q_offset=None, k_offset=None):
+    """(out, m, l): out (..., S, D); m, l (..., S) fp32, the row max of the
+    scaled scores and the softmax denominator, enough to merge partial
+    attentions or to run the backward. ``k_valid`` and the ring offsets are
+    not ported and raise."""
+    if k_valid is not None or q_offset is not None or k_offset is not None:
+        raise NotImplementedError(
+            "attention_with_stats: k_valid and q_offset/k_offset (ring "
+            "attention) are not ported")
+    q3, k3, v3, scale, lead = _prepare(q, k, v, scale, window)
+    o, m, l = flash_forward(q3, k3, v3, causal, scale, stats=True)
+    S = q.shape[-2]
+    return o.reshape(q.shape), m.reshape(*lead, S), l.reshape(*lead, S)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash forward with stats; backward = the two flash backward kernels
+    (laser_tpu/ops/attention.py:547-595, _att_fwd/_att_bwd)."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, causal, scale):
+        o, m, l = flash_forward(q3, k3, v3, causal, scale, stats=True)
+        ctx.save_for_backward(q3, k3, v3, o, m, l)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q3, k3, v3, o, m, l = ctx.saved_tensors
+        dq, dk, dv = attention_bwd.flash_attention_bwd(
+            q3, k3, v3, o, m, l, do.contiguous(), causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def attention_trainable(q, k, v, *, causal: bool = False,
+                        scale: Optional[float] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Differentiable attention: the flash forward (with stats) and the
+    fused flash backward kernels when autograd needs a gradient; the
+    value-only ``attention`` otherwise."""
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if not needs_grad:
+        return attention(q, k, v, causal=causal, scale=scale, window=window)
+    q3, k3, v3, scale, lead = _prepare(q, k, v, scale, window)
+    return _FlashAttention.apply(q3, k3, v3, causal, scale).reshape(q.shape)
+
+
+# last, as a module: attention_bwd imports this module's helpers. Importing
+# it here registers the backward kernels wherever the forward's are.
+from . import attention_bwd  # noqa: E402

@@ -3,7 +3,10 @@
 One CUDA kernel (csrc/norm.cu) serves both through a ``kind`` switch:
 statistics in fp32 over the logical columns, an optional affine, the output
 in the input dtype. The default ``eps`` is 1e-6, as in laser_tpu, not
-PyTorch's 1e-5. Forward only: the backward comes with training.
+PyTorch's 1e-5. ``layer_norm`` and ``rms_norm`` are differentiable: the
+forward is the kernel, the backward differentiates the plain fp32 expression
+(laser_tpu/ops/norm.py:145-169 takes ``jax.vjp`` of its reference the same
+way; there is no backward kernel to port).
 
 Replaces laser_tpu/ops/norm.py:28 _build_norm. Bound on the H100: HBM bytes
 (one read, one write per row). Design: one block per row (a single warp for
@@ -22,9 +25,9 @@ NORM = registry.kernel("norm", "laser_tpu_torch/csrc/norm.cu",
 _KINDS = {"layer": 0, "rms": 1}
 
 
-def _norm_plain(x2, gamma, beta, kind: str, eps: float):
-    """The kernel's function in plain PyTorch on (rows, cols)."""
-    NORM.plain_calls += 1
+def _norm_math(x2, gamma, beta, kind: str, eps: float):
+    """The kernel's function in plain PyTorch on (rows, cols), in fp32
+    with one cast at the end; differentiable by autograd."""
     xf = x2.float()
     if kind == "layer":
         centered = xf - xf.mean(dim=-1, keepdim=True)
@@ -36,6 +39,11 @@ def _norm_plain(x2, gamma, beta, kind: str, eps: float):
     if beta is not None:
         y = y + beta.float()
     return y.to(x2.dtype)
+
+
+def _norm_plain(x2, gamma, beta, kind: str, eps: float):
+    NORM.plain_calls += 1
+    return _norm_math(x2, gamma, beta, kind, eps)
 
 
 def _norm_cuda(x2, gamma, beta, kind: str, eps: float):
@@ -60,15 +68,46 @@ def _norm_cuda(x2, gamma, beta, kind: str, eps: float):
     return y
 
 
+def _norm_forward(x2, gamma, beta, kind: str, eps: float):
+    if registry.on_cuda(x2):
+        return _norm_cuda(x2, gamma, beta, kind, eps)
+    return _norm_plain(x2, gamma, beta, kind, eps)
+
+
+class _Norm(torch.autograd.Function):
+    """Kernel forward; backward = autograd of ``_norm_math`` on the saved
+    inputs (laser_tpu/ops/norm.py:145-169)."""
+
+    @staticmethod
+    def forward(ctx, x2, gamma, beta, kind, eps):
+        ctx.save_for_backward(x2, gamma, beta)
+        ctx.kind, ctx.eps = kind, eps
+        return _norm_forward(x2, gamma, beta, kind, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(True)
+                      for t in saved]
+            y = _norm_math(*leaves, ctx.kind, ctx.eps)
+            want = [t for t in leaves if t is not None]
+            grads = iter(torch.autograd.grad(y, want, g))
+        return (*(None if t is None else next(grads) for t in leaves), None, None)
+
+
 def _norm(x, gamma, beta, kind: str, axis: int, eps: float, plain: bool):
     if axis not in (-1, x.ndim - 1):
         x = x.movedim(axis, -1)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1]).contiguous()
-    if plain or not registry.on_cuda(x2):
+    if plain:
         y = _norm_plain(x2, gamma, beta, kind, eps)
+    elif torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x2, gamma, beta)):
+        y = _Norm.apply(x2, gamma, beta, kind, eps)
     else:
-        y = _norm_cuda(x2, gamma, beta, kind, eps)
+        y = _norm_forward(x2, gamma, beta, kind, eps)
     y = y.reshape(shape)
     if axis not in (-1, len(shape) - 1):
         y = y.movedim(-1, axis)

@@ -3,8 +3,9 @@
 Port of laser_tpu/registry.py. ``build_cache`` memoises a builder on its
 static arguments, as there. The kernels themselves are CUDA C++ under
 ``laser_tpu_torch/csrc/``: on the first call that needs one (a wrapper given
-a CUDA tensor), ``load_library`` runs ``nvcc`` on every ``csrc/*.cu`` into
-one shared library with a plain C interface and loads it through ctypes.
+a CUDA tensor), ``load_library`` compiles every ``csrc/*.cu`` with its own
+``nvcc``, all at once, links the objects into one shared library with a
+plain C interface and loads it through ctypes.
 The library lands in ``build/laser_tpu_torch/<source hash>/`` beside the
 package, so an edited source rebuilds and an unchanged one loads at once.
 There is no fallback: without ``nvcc`` the first CUDA call raises
@@ -41,8 +42,8 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "laser_tpu_torch"
 LIB_NAME = "liblaser_tpu_torch.so"
 # the conventional toolkit location, searched after CUDA_HOME and PATH
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes shared with csrc/common.cuh (enum DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -56,8 +57,19 @@ SIGNATURES = {
     "ltt_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
     # x, gamma, beta, y, rows, cols, kind, eps, dtype, stream
     "ltt_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # q, k, v, o, BH, S, D, causal, scale, dtype, stream
-    "ltt_flash_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, o, m (or null), l (or null), BH, S, D, causal, scale, dtype,
+    # stream
+    "ltt_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, dout, m, l, dvec, dq, BH, S, D, causal, scale, dtype, stream
+    "ltt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                         _I, _P),
+    # q, k, v, dout, m, l, dvec, dk, dv, BH, S, D, causal, scale, dtype, stream
+    "ltt_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _F, _I, _P),
+    # x, targets, loss, lse, T, V, eps, dtype, stream
+    "ltt_ce_fwd": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # x, targets, loss, dxu, T, V, eps, dtype, stream
+    "ltt_ce_fused_grad": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     # q, k_pool, v_pool, tables, lengths, out, S, Hq, Hkv, ps, hd,
     # max_pages, scale, dtype, stream
     "ltt_paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -183,8 +195,9 @@ def library_path() -> Path:
 
 def build_library() -> Path:
     """Compile csrc/*.cu for sm_90a into one shared library (once per
-    source hash). nvcc's output, register and spill counts included, is kept
-    in ``nvcc.log`` beside the library."""
+    source hash): one nvcc process per source, all started together, then
+    one link. nvcc's output, register and spill counts included, is kept in
+    ``nvcc.log`` beside the library."""
     out = library_path()
     if out.is_file():
         return out
@@ -197,14 +210,31 @@ def build_library() -> Path:
             "CUDA toolkit")
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cuda_sources())]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed with exit code {r.returncode}:\n{r.stderr[-8000:]}")
+    objs, procs = [], []
+    for src in cuda_sources():
+        obj = out.parent / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in procs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]}: exit code {proc.returncode}\n{text[-4000:]}")
+    if not failed:
+        cmd = [nvcc, *NVCC_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append(f"link: exit code {r.returncode}\n{r.stderr[-4000:]}")
+    (out.parent / "nvcc.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     logger.info("built %s in %.1fs", out, time.perf_counter() - t0)
     return out

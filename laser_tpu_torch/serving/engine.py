@@ -84,7 +84,7 @@ class PagedKVCache:
     tables/lengths: host int32 mirrors, copied to the device each step."""
 
     def __init__(self, n_layers: int, n_kv_heads: int, head_dim: int,
-                 cfg: ServingConfig, dtype=torch.float32, device="cpu"):
+                 cfg: ServingConfig, dtype=torch.float32, device="cuda"):
         if cfg.kv_quant:
             raise NotImplementedError("kv_quant (int8 KV pages) is not ported")
         self.cfg = cfg

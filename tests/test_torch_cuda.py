@@ -1,6 +1,8 @@
 """laser_tpu_torch CUDA kernels against their plain PyTorch versions on the
-card, at odd shapes the serving slice does not reach: transposes, f16,
-ragged tails, unaligned operands, narrow rows, other head dims, GQA.
+card, at odd shapes the serving and training slices do not reach:
+transposes, f16, ragged tails, unaligned operands, narrow rows, other head
+dims, GQA; the flash stats and backward kernels at S 1-300 and D 32-256; the
+cross-entropy kernels at V 1, 127 and 8193 with label smoothing.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine that has none. Run it there with
@@ -10,7 +12,10 @@ so it runs on a machine that has none. Run it there with
 (``--noconftest``: tests/conftest.py imports JAX for the laser_tpu tests).
 
 Tolerance: max |kernel - plain| / max |plain| <= 1e-5 in f32 (summation
-order only), 1e-2 in bf16/f16 (one output rounding apart).
+order only), 1e-2 in bf16/f16 (one output rounding apart). Outputs that are
+zero up to rounding are held against max(max |plain|, 1) instead: at V = 1
+the cross-entropy loss and unit gradient, and at S = 1 the attention
+gradients dq and dk (the one probability is 1, so ds is zero).
 """
 
 import pytest
@@ -39,12 +44,12 @@ def _gen(dev, seed):
     return g
 
 
-def _check(got, want, dtype):
+def _check(got, want, dtype, floor=1e-30):
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == want.dtype
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
-    err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    err = (got - want).abs().max().item() / max(want.abs().max().item(), floor)
     assert err <= REL[dtype], err
 
 
@@ -121,6 +126,98 @@ def test_flash_attention(dev, dtype, D, S, causal):
            dtype)
 
 
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [32, 80, 128, 256])
+@pytest.mark.parametrize("S", [1, 45, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_stats_and_backward(dev, dtype, D, S, causal):
+    from laser_tpu_torch.ops.attention import FLASH, flash_forward
+    from laser_tpu_torch.ops.attention_bwd import (FLASH_BWD_DKV, FLASH_BWD_DQ,
+                                                   flash_attention_bwd,
+                                                   flash_attention_bwd_reference)
+
+    g = _gen(dev, 8)
+    q, k, v, do = (_rnd(g, (3, S, D), dtype, dev) for _ in range(4))
+    scale = D ** -0.5
+    before = (FLASH.launches, FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches)
+    o, m, l = flash_forward(q, k, v, causal, scale, stats=True)
+    po, pm, pl = flash_forward(q, k, v, causal, scale, stats=True, plain=True)
+    _check(o, po, dtype)
+    _check(m, pm, torch.float32)
+    _check(l, pl, torch.float32)
+    got = flash_attention_bwd(q, k, v, o, m, l, do, causal=causal, scale=scale)
+    want = flash_attention_bwd_reference(q, k, v, o, m, l, do, causal=causal, scale=scale)
+    for name, a, b in zip("qkv", got, want):
+        _check(a, b, dtype, floor=1.0 if S == 1 and name in "qk" else 1e-30)
+    assert (FLASH.launches, FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == \
+        tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,V", [(1, 1), (37, 127), (129, 8193), (300, 2048)])
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_cross_entropy_kernels(dev, dtype, T, V, eps):
+    from laser_tpu_torch.ops import loss
+
+    g = _gen(dev, 9)
+    x = _rnd(g, (T, V), dtype, dev, std=4.0)
+    t = torch.randint(0, V, (T,), generator=g, device=dev)
+    before = (loss.CE_FWD.launches, loss.CE_FUSED_GRAD.launches)
+    floor = 1.0 if V == 1 else 1e-30  # at V = 1 the loss and dxu are zero
+    lo, lse = loss.ce_fwd(x, t, eps)
+    want = loss.ce_rows_plain(x, t, eps)
+    _check(lo, want, torch.float32, floor)
+    _check(lse, torch.logsumexp(x.float(), dim=-1), torch.float32)
+    lo2, dxu = loss.ce_fused_grad(x, t, eps)
+    wlo, wdxu = loss.ce_fused_grad_plain(x, t, eps)
+    _check(lo2, wlo, torch.float32, floor)
+    _check(dxu, wdxu, dtype, floor)
+    assert (loss.CE_FWD.launches, loss.CE_FUSED_GRAD.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def test_cross_entropy_unaligned_rows(dev):
+    """Rows that start off a 16-byte boundary take the element-wise path."""
+    from laser_tpu_torch.ops import loss
+
+    g = _gen(dev, 10)
+    x = _rnd(g, (7 * 64 + 1,), torch.bfloat16, dev)[1:].view(7, 64)
+    t = torch.randint(0, 64, (7,), generator=g, device=dev)
+    assert x.data_ptr() % 16
+    _check(loss.ce_fwd(x, t, 0.0)[0], loss.ce_rows_plain(x, t, 0.0), torch.float32)
+    _check(loss.ce_fused_grad(x, t, 0.0)[1], loss.ce_fused_grad_plain(x, t, 0.0)[1],
+           torch.bfloat16)
+
+
+def test_train_step_through_the_kernels(dev):
+    """A small f32 train step on the card: every training kernel launches, no
+    plain version runs, and the loss and gradients equal the plain route's."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models import transformer as tf
+    from laser_tpu_torch.ops.optim import tree_leaves, value_and_grad
+
+    params = tf.init_transformer(4, n_layers=2, d_model=128, n_heads=2, d_ff=256, vocab=300,
+                                 device=dev)
+    tokens = torch.randint(0, 300, (2, 33), generator=_gen(dev, 11), device=dev)
+    registry.reset_counts()
+    loss, grads = value_and_grad(lambda p, t: tf.transformer_lm_loss(p, t, n_heads=2))(
+        params, tokens)
+    counts = registry.counts()
+    for name in ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "ce_fused_grad"):
+        assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
+    ploss, pgrads = value_and_grad(lambda p, t: tf.transformer_lm_loss(
+        p, t, n_heads=2, plain=True))(params, tokens)
+    assert abs(loss.item() - ploss.item()) <= 1e-5 * abs(ploss.item())
+    # the gradients take different routes (the backward kernels against
+    # autograd of the plain forward): 1e-4 of each leaf's largest element
+    for a, b in zip(tree_leaves(grads), tree_leaves(pgrads)):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 4), (8, 2), (8, 1)])
 @pytest.mark.parametrize("hd,ps", [(64, 16), (128, 64), (256, 16)])
@@ -169,8 +266,9 @@ def test_engine_matches_plain_greedy_with_preemption(dev):
     registry.reset_counts()
     ids = [eng.add_request(p, 12) for p in prompts]
     out = eng.run()
-    assert all(c["plain_calls"] == 0 and c["launches"] > 0
-               for c in registry.counts().values())
+    counts = registry.counts()
+    assert all(counts[n]["plain_calls"] == 0 and counts[n]["launches"] > 0
+               for n in ("gemm", "norm", "flash_attention", "paged_attention"))
     assert eng.stats.get("preemptions", 0) >= 1
     for p, rid in zip(prompts, ids):
         want = greedy_decode(params, torch.as_tensor(p[None], device=dev).long(), n_heads=2,

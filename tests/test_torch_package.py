@@ -17,6 +17,8 @@ def test_import_pulls_in_no_jax():
     code = ("import sys\n"
             "import laser_tpu_torch.serving, laser_tpu_torch.models.transformer\n"
             "import laser_tpu_torch.convert, laser_tpu_torch.device_info\n"
+            "import laser_tpu_torch.ops.attention_bwd, laser_tpu_torch.ops.loss\n"
+            "import laser_tpu_torch.ops.optim, laser_tpu_torch.ops.attention\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'laser_tpu' not in sys.modules, 'laser_tpu imported'\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -51,9 +53,15 @@ def test_cpu_tensors_never_build(monkeypatch):
 
 
 def test_every_slice_kernel_registered():
+    import laser_tpu_torch.models.transformer  # noqa: F401
     import laser_tpu_torch.serving  # noqa: F401
 
-    assert set(registry.KERNELS) == {"gemm", "norm", "flash_attention", "paged_attention"}
+    assert set(registry.KERNELS) == {
+        "gemm", "norm", "flash_attention", "paged_attention",  # serving
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "ce_fwd", "ce_fused_grad"}
+    assert set(registry.SIGNATURES) == {
+        "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_flash_bwd_dq",
+        "ltt_flash_bwd_dkv", "ltt_ce_fwd", "ltt_ce_fused_grad"}
     for k in registry.KERNELS.values():
         assert (registry.PACKAGE_DIR.parent / k.source).is_file()
         assert k.replaces.startswith("laser_tpu/")
@@ -84,7 +92,7 @@ def test_params_from_numpy_bfloat16_exact():
     import ml_dtypes
 
     a = np.asarray([1.5, -2.25, 3e-3], np.float32).astype(ml_dtypes.bfloat16)
-    t = params_from_numpy({"w": [a]})["w"][0]
+    t = params_from_numpy({"w": [a]}, device="cpu")["w"][0]
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
 
@@ -99,3 +107,20 @@ def test_sampler_greedy_and_seeded():
     assert a[0].item() in (1, 2)   # top-k 2 keeps only the two 2.0 logits
     assert a[1].item() == 0        # top-p 0.5: the 5.0 logit alone holds > 0.5
     assert row_seed(7, 3) != row_seed(7, 4)
+
+
+@pytest.mark.parametrize("make", ["init_transformer", "init_decode_cache", "PagedKVCache",
+                                  "params_from_numpy"])
+def test_entry_points_default_to_the_card(make):
+    """Without a device argument the entry points allocate on CUDA, so on a
+    machine without a card they raise PyTorch's own error."""
+    import inspect
+
+    from laser_tpu_torch.models import transformer
+    from laser_tpu_torch.serving import engine
+
+    fn = {"init_transformer": transformer.init_transformer,
+          "init_decode_cache": transformer.init_decode_cache,
+          "PagedKVCache": engine.PagedKVCache.__init__,
+          "params_from_numpy": params_from_numpy}[make]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

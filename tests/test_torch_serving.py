@@ -26,7 +26,7 @@ VOCAB = 97
 def models():
     jparams = jtf.init_transformer(jax.random.PRNGKey(7), n_layers=2, d_model=128,
                                    n_heads=N_HEADS, d_ff=256, vocab=VOCAB)
-    return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def test_prefill_and_decode_step_logits(models):
@@ -36,7 +36,7 @@ def test_prefill_and_decode_step_logits(models):
     cap = 16
     jcache = jtf.init_decode_cache(2, 2, N_HEADS, 64, cap)
     jlog, jcache = jtf.prefill(jparams, jnp.asarray(prompt), jcache, n_heads=N_HEADS)
-    cache = tf.init_decode_cache(2, 2, N_HEADS, 64, cap)
+    cache = tf.init_decode_cache(2, 2, N_HEADS, 64, cap, device="cpu")
     log = tf.prefill(params, torch.from_numpy(prompt).long(), cache, n_heads=N_HEADS)
     assert np.abs(log.numpy() - np.asarray(jlog)).max() <= 1e-4
     np.testing.assert_allclose(cache.numpy(), np.asarray(jcache), atol=1e-4)
