@@ -11,19 +11,23 @@ printed:
 1. Print the card's name and power limit (nvidia-smi) and build the CUDA
    kernels from laser_tpu_torch/csrc (one nvcc per source, in parallel;
    timed).
-2. Each of the eight kernels at the full-width shapes its path gives it, in
+2. Each of the nine kernels at the full-width shapes its paths give it, in
    bf16, and once at a small f32 shape: compare it with its plain PyTorch
    version on the card against a stated bound, and time the kernel, the
    plain version and, where one PyTorch call computes the same function,
    that call (``library_ms``; the port never calls it), with CUDA events.
    Each bf16 case also gets ``bound_ms``, the least time the card could
-   take for the same work, from its bytes and operations.
+   take for the same work, from its bytes and operations. Beside the
+   transformer shapes: the int4 weight GEMM at the Llama-3-8B decode and
+   prefill shapes, the flash kernel's GQA map and the paged kernel over
+   int8 pages at those widths.
 3. The serving slice: ServingEngine over the 8-layer d2048 bf16 transformer
    with random weights from a seed, 12 greedy requests through 8 slots.
    Checks token counts and range, that every serving kernel launched and no
    plain version ran, the first-token logits of two requests against the
    plain dense forward, and prints the token agreement with the plain
-   greedy_decode.
+   greedy_decode. One more engine run under torch.profiler: device time by
+   kernel and the device's idle share.
 4. The same engine at 2 layers d512 in f32: its tokens must equal the plain
    f32 greedy_decode for every request.
 5. The training slice: ``transformer_train_step`` on the same 8-layer d2048
@@ -37,6 +41,21 @@ printed:
 6. f32 exactness: 2 layers d512, 4 heads, vocab 8192, batch 4 x 256, TF32
    off: loss and gradients through the kernels against ``plain=True``, and
    one train step each, with an Adam-aware bound on the updated params.
+7. Llama serving at the Llama-3-8B widths (d_model 4096, 32 query heads
+   over 8 kv heads of 128, d_ff 14336, vocab 128256, rope base 500000),
+   depth cut to 8 layers, bf16, random weights from a seed; phase 3's
+   traffic and engine config. Run (a) unquantized, run (b) with int4 block
+   weights (group 64) and int8 KV pages. Each run checks its tokens, that
+   every kernel of its path launched and no plain version ran, and the
+   first-token logits of two requests against the plain dense
+   ``llama_forward`` (on the dequantized weights in (b)); prints tokens/s,
+   the weight bytes and the token agreement with the plain bf16
+   ``llama_generate`` on the same (dequantized) weights, and in (b) with
+   (a), then profiles one more run.
+8. Llama f32 exactness at 2 layers d512, 8 heads over 2 kv heads, TF32 off:
+   the engine's tokens equal the plain ``llama_generate``'s for every
+   request, unquantized and with int4 weights (against the dequantized
+   weights); with int8 KV pages the first tokens are equal.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record, and the line before that the card.
@@ -79,12 +98,22 @@ F32_LOSS_REL, F32_GRAD_REL = 1e-5, 1e-4
 
 MODEL = dict(n_layers=8, d_model=2048, n_heads=16, d_ff=8192, vocab=8192)
 MODEL_F32 = dict(n_layers=2, d_model=512, n_heads=4, d_ff=2048, vocab=8192)
+# meta-llama/Meta-Llama-3-8B config.json widths, 8 of its 32 layers
+LLAMA = dict(n_layers=8, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336, vocab=128256)
+LLAMA_ROPE = dict(max_len=8192, base=500000.0)
+LLAMA_F32 = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=2, d_ff=1536, vocab=8192)
+LLAMA_INT4 = dict(weight_quant="int4", weight_quant_group=64)
 N_REQUESTS, NEW_TOKENS = 12, 64
+SERVE_CFG = dict(page_size=64, max_seqs=8, max_pages_per_seq=16, n_pages=129,
+                 prefill_buckets=(128, 256, 512))
 TRAIN_BATCH, TRAIN_F32_BATCH = (8, 1024), (4, 256)
 TRAIN_STEPS, LR, WD = 6, 3e-4, 0.01
 SERVING_KERNELS = ("gemm", "norm", "flash_attention", "paged_attention")
 TRAINING_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
                     "flash_attention_bwd_dkv", "ce_fused_grad", "ce_fwd")
+# run (b)'s block linears are all int4 and its logits torch.matmul: no gemm
+LLAMA_KERNELS = {"llama": ("gemm", "norm", "flash_attention", "paged_attention"),
+                 "llama_int4": ("w4_gemm", "norm", "flash_attention", "paged_attention")}
 DEVICE = "cuda"
 
 
@@ -156,13 +185,15 @@ def bound(case: Case, spec, dtype):
 def kernel_cases(dtype, full: bool):
     """Cases at the slices' full-width shapes (``full``) or small ones."""
     from laser_tpu_torch.ops import loss
-    from laser_tpu_torch.ops.attention import attention, attention_reference, flash_forward
+    from laser_tpu_torch.ops.attention import (attention, attention_gqa,
+                                               attention_gqa_reference, attention_reference,
+                                               flash_forward)
     from laser_tpu_torch.ops.attention_bwd import (bwd_dkv_cuda, bwd_dq_cuda,
                                                    flash_attention_bwd_reference)
     from laser_tpu_torch.ops.gemm import linear, linear_reference
     from laser_tpu_torch.ops.norm import layer_norm, layer_norm_reference
     from laser_tpu_torch.ops.paged_attention import (paged_attention,
-                                                     paged_attention_reference)
+                                                     paged_attention_reference, quantize_kv)
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(0)
@@ -178,6 +209,9 @@ def kernel_cases(dtype, full: bool):
         BHt, St = 8 * 16, 1024
         slots, H, hd, ps, pages = 8, 16, 128, 64, 16
         T, V, eps = 8 * 1023, 8192, 0.0
+        # the llama path: int4 decode GEMM (w_gate), GQA prefill, int8 pages
+        Mq, Kq, Nq, group = 8, 4096, 14336, 64
+        Bg, Hq, Hkv = 8, 32, 8
     else:
         M, K, N = 256, 512, 2048
         rows, cols = 256, 512
@@ -185,6 +219,8 @@ def kernel_cases(dtype, full: bool):
         BHt, St = 8, 200
         slots, H, hd, ps, pages = 4, 4, 128, 64, 4
         T, V, eps = 300, 8192, 0.1
+        Mq, Kq, Nq, group = 17, 256, 200, 64
+        Bg, Hq, Hkv = 2, 8, 2
     cases = []
 
     x, w, bias = rnd(M, K), rnd(K, N, std=K ** -0.5), rnd(N, std=0.1)
@@ -262,6 +298,32 @@ def kernel_cases(dtype, full: bool):
         flops=4 * keys * H * hd, nbytes=(2 * keys * H * hd + 2 * slots * H * hd) * isz
         + tables.numel() * 4 + slots * 4))
 
+    # GQA prefill: 8 prompts x 32 query heads over 8 kv heads
+    qg, kg, vg = rnd(Bg, Hq, S, D), rnd(Bg, Hkv, S, D), rnd(Bg, Hkv, S, D)
+    cases.append(Case(
+        "flash_attention", f"B{Bg} Hq{Hq} Hkv{Hkv} S{S} D{D} causal, GQA",
+        lambda: attention_gqa(qg, kg, vg, causal=True),
+        lambda: attention_gqa_reference(qg, kg, vg, causal=True),
+        flops=4 * D * causal_pairs(Bg * Hq, S), nbytes=2 * Bg * (Hq + Hkv) * S * D * isz,
+        library=_sdpa_gqa(qg, kg, vg),
+        library_call="F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        slot="gqa"))
+
+    # int8 pages at the llama widths: q in the model dtype, K/V rows int8
+    qi = rnd(slots, Hq, hd)
+    kpi, ksi = quantize_kv(rnd(P, Hkv, ps, hd))
+    vpi, vsi = quantize_kv(rnd(P, Hkv, ps, hd))
+    cases.append(Case(
+        "paged_attention", f"slots{slots} Hq{Hq} Hkv{Hkv} hd{hd} ps{ps} pages{pages} "
+        f"lengths 0..{pages * ps}, int8 pages",
+        lambda: paged_attention(qi, kpi, vpi, tables, lengths, k_scale=ksi, v_scale=vsi),
+        lambda: paged_attention_reference(qi, kpi, vpi, tables, lengths, k_scale=ksi,
+                                          v_scale=vsi),
+        flops=4 * keys * Hq * hd, nbytes=2 * keys * Hkv * (hd + 4) + 2 * slots * Hq * hd * isz
+        + tables.numel() * 4 + slots * 4, slot="int8"))
+
+    cases.append(w4_case(g, dtype, Mq, Kq, Nq, group))
+
     xl = rnd(T, V, std=2.0)
     tl = torch.randint(0, V, (T,), generator=g, device=DEVICE)
     cases.append(Case(
@@ -279,6 +341,34 @@ def kernel_cases(dtype, full: bool):
             F.cross_entropy(xg, tl, reduction="sum", label_smoothing=eps), xg),
         library_call="F.cross_entropy forward + backward"))
     return cases
+
+
+def w4_case(g, dtype, M, K, N, group, slot=""):
+    """The int4 weight GEMM on a (K, N) weight quantized from N(0, 1/K)."""
+    from laser_tpu_torch.ops.gemm.int4_kernel import dequantize_int4, gemm_w4, gemm_w4_plain
+    from laser_tpu_torch.ops.gemm.int4_kernel import quantize_int4
+
+    isz = torch.tensor([], dtype=dtype).element_size()
+    h = torch.randn((M, K), generator=g, device=DEVICE).to(dtype)
+    wq = quantize_int4(torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5, group=group)
+    wd = dequantize_int4(wq).to(dtype)
+    return Case("w4_gemm", f"M{M} K{K} N{N} group{group}", lambda: gemm_w4(h, wq),
+                lambda: gemm_w4_plain(h, wq), flops=2 * M * K * N,
+                nbytes=M * K * isz + K * N // 2 + (K // group) * N * 4 + M * N * isz,
+                library=lambda: torch.matmul(h, wd),
+                library_call="torch.matmul on the dequantized weight in the activation "
+                             "dtype: the same product from 4x the weight bytes (bf16)",
+                slot=slot)
+
+
+def _sdpa_gqa(q, k, v):
+    """SDPA with enable_gqa where the installed PyTorch has it, else None."""
+    try:
+        F.scaled_dot_product_attention(q[:1, :, :2], k[:1, :, :2], v[:1, :, :2],
+                                       is_causal=True, enable_gqa=True)
+    except TypeError:
+        return None
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
 
 def _sdpa_train_forward(q, k, v):
@@ -317,7 +407,10 @@ def phase_kernels(spec):
     print("phase 2: kernels vs plain versions", flush=True)
     record = {}
     f32 = kernel_cases(torch.float32, full=False)
-    bf16 = kernel_cases(torch.bfloat16, full=True) + [decode_gemm_case()]
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(2)
+    bf16 = kernel_cases(torch.bfloat16, full=True) + [
+        decode_gemm_case(), w4_case(g, torch.bfloat16, 4096, 4096, 14336, 64, slot="prefill")]
     for case in f32:
         compare(f"{case.name} {case.shape} [f32]", case.kern(), case.plain())
     for case in bf16:
@@ -344,12 +437,13 @@ def traffic(vocab: int):
     return [rs.randint(0, vocab, size=n).astype(np.int32) for n in lens]
 
 
-def serve(params, n_heads, prompts, keep_first_logits=False):
+def serve(params, n_heads, prompts, keep_first_logits=False, model="transformer", **quant):
+    """One engine over ``prompts``: (engine, tokens per request, wall s).
+    ``quant``: the ServingConfig quantisation fields."""
     from laser_tpu_torch.serving import ServingConfig, ServingEngine
 
-    cfg = ServingConfig(page_size=64, max_seqs=8, max_pages_per_seq=16, n_pages=129,
-                        prefill_buckets=(128, 256, 512))
-    eng = ServingEngine(params, n_heads=n_heads, cfg=cfg,
+    eng = ServingEngine(params, n_heads=n_heads, model=model,
+                        cfg=ServingConfig(**SERVE_CFG, **quant),
                         keep_first_logits=keep_first_logits)
     ids = [eng.add_request(p, NEW_TOKENS) for p in prompts]
     torch.cuda.synchronize()
@@ -368,9 +462,9 @@ def check_tokens(outs, vocab):
 
 
 def check_counts(counts, names, path):
-    for name in names:
-        c = counts[name]
-        if c["launches"] <= 0 or c["plain_calls"] != 0:
+    """Every kernel in ``names`` launched; no plain version of any ran."""
+    for name, c in counts.items():
+        if (name in names and c["launches"] <= 0) or c["plain_calls"] != 0:
             fail(f"{path}: {name}: launches {c['launches']}, plain calls {c['plain_calls']}")
 
 
@@ -417,7 +511,9 @@ def phase_slice():
         total += len(want)
     print(f"  token agreement with plain bf16 greedy_decode: {same}/{total} "
           f"({same / total:.4f})", flush=True)
-    return counts, {"wall_s": wall, "tokens": ntok, "tokens_per_s": ntok / wall}
+    prof = profile_step(lambda: serve(params, MODEL["n_heads"], prompts), "engine run")
+    return counts, {"wall_s": wall, "tokens": ntok, "tokens_per_s": ntok / wall,
+                    "profile": prof}
 
 
 def phase_f32():
@@ -487,9 +583,9 @@ def check_routes(params, tokens, n_heads, loss_rel, grad_rel, norm: str):
           f"worst {worst[0]} {worst[1]:.3e}", flush=True)
 
 
-def profile_step(step_fn):
-    """One step under torch.profiler: device time by kernel, busy and idle
-    share of the step's wall time."""
+def profile_step(step_fn, what: str = "step"):
+    """One step (or engine run) under torch.profiler: device time by kernel,
+    busy and idle share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -506,7 +602,7 @@ def profile_step(step_fn):
         fail("torch.profiler recorded no device time")
     busy = sum(r[0] for r in rows)
     rows.sort(reverse=True)
-    print(f"  profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+    print(f"  profiled {what}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {1 - busy / wall_ms:.4f}", flush=True)
     for ms, n, key in rows[:16]:
         print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% {n:5d}x {key[:110]}", flush=True)
@@ -594,6 +690,129 @@ def phase_train_f32():
         fail("f32 updated params outside the Adam-aware bound")
 
 
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def dequantized(params, eng_params):
+    """``params`` with the engine's int4 block weights dequantized to the
+    params' dtype: the dense model the quantized engine computes."""
+    from laser_tpu_torch.ops.gemm.int4_kernel import dequantize_int4
+
+    dt = params["embed"].dtype
+    return dict(params, blocks=[{k: dequantize_int4(w).to(dt) if isinstance(w, dict) else w
+                                 for k, w in blk.items()} for blk in eng_params["blocks"]])
+
+
+def plain_generate(params, prompts, n_heads, n_kv_heads):
+    from laser_tpu_torch.models.llama import llama_generate
+
+    return [llama_generate(params, torch.as_tensor(p[None], device=DEVICE), n_heads=n_heads,
+                           n_kv_heads=n_kv_heads, max_new_tokens=NEW_TOKENS,
+                           plain=True)[0, len(p):].tolist() for p in prompts]
+
+
+def agreement(outs, wants):
+    same = sum(a == b for o, w in zip(outs, wants) for a, b in zip(o, w))
+    return same, sum(len(w) for w in wants)
+
+
+def phase_llama():
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models.llama import init_llama, llama_forward
+    from laser_tpu_torch.ops.rope import rope_tables
+
+    H, Hkv, vocab = LLAMA["n_heads"], LLAMA["n_kv_heads"], LLAMA["vocab"]
+    print("phase 7: llama serving, Llama-3-8B widths, 8 layers bf16", flush=True)
+    params = init_llama(0, dtype=torch.bfloat16, device=DEVICE, max_len=LLAMA_ROPE["max_len"],
+                        **LLAMA)
+    params["rope_cos"], params["rope_sin"] = rope_tables(
+        LLAMA_ROPE["max_len"], LLAMA["d_model"] // H, base=LLAMA_ROPE["base"], device=DEVICE)
+    prompts = traffic(vocab)
+    counts_by_run, results, outs_a = {}, {}, None
+    for tag, quant in (("llama", {}), ("llama_int4", dict(**LLAMA_INT4, kv_quant=True))):
+        print(f"  run {tag} {quant}", flush=True)
+        serve(params, H, prompts[:1], model="llama", **quant)  # warm-up
+        registry.reset_counts()
+        eng, outs, wall = serve(params, H, prompts, keep_first_logits=True, model="llama",
+                                **quant)
+        counts = registry.counts()
+        print(f"  counts {json.dumps(counts)}", flush=True)
+        check_tokens(outs, vocab)
+        check_counts(counts, LLAMA_KERNELS[tag], tag)
+        ntok = sum(len(o) for o in outs)
+        wbytes = tree_bytes(eng.params["blocks"]) + tree_bytes(
+            [params["embed"], params["unembed"]])
+        print(f"  served {len(outs)} requests, {ntok} tokens in {wall:.3f} s: "
+              f"{ntok / wall:.1f} tokens/s; weights {wbytes / 1e9:.3f} GB (blocks "
+              f"{tree_bytes(eng.params['blocks']) / 1e9:.3f} GB); stats {eng.stats}",
+              flush=True)
+        ref = dequantized(params, eng.params) if quant else params
+        for i in (0, 1):
+            want = llama_forward(ref, torch.as_tensor(prompts[i][None], device=DEVICE),
+                                 n_heads=H, n_kv_heads=Hkv, plain=True)[0, -1].float().cpu()
+            err = (eng.first_logits[i] - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            print(f"  request {i} first-token logits vs plain llama_forward: max_abs_err "
+                  f"{err:.3e} rel {rel:.3e} (bound {LOGITS_REL_BOUND:.0e})", flush=True)
+            if not rel <= LOGITS_REL_BOUND:
+                fail(f"{tag} request {i}: first-token logits rel err {rel:.3e}")
+        plain = plain_generate(ref, prompts, H, Hkv)
+        del ref, eng
+        same, total = agreement(outs, plain)
+        firsts = sum(o[0] == w[0] for o, w in zip(outs, plain))
+        print(f"  token agreement with the plain bf16 llama_generate on "
+              f"{'the dequantized' if quant else 'the same'} weights: {same}/{total} "
+              f"({same / total:.4f}); first tokens {firsts}/{len(outs)}", flush=True)
+        agree = {"plain": [same, total], "plain_first": [firsts, len(outs)]}
+        if outs_a is None:
+            outs_a = outs
+        else:
+            same, total = agreement(outs, outs_a)
+            print(f"  token agreement with run llama (bf16 weights, bf16 pages): "
+                  f"{same}/{total} ({same / total:.4f})", flush=True)
+            agree["run_llama"] = [same, total]
+        prof = profile_step(lambda: serve(params, H, prompts, model="llama", **quant),
+                            "engine run")
+        torch.cuda.empty_cache()
+        counts_by_run[tag] = counts
+        results[tag] = {"wall_s": wall, "tokens": ntok, "tokens_per_s": ntok / wall,
+                        "weight_bytes": wbytes, "agreement": agree, "profile": prof}
+    return counts_by_run, results
+
+
+def phase_llama_f32():
+    from laser_tpu_torch.models.llama import init_llama
+
+    H, Hkv, vocab = LLAMA_F32["n_heads"], LLAMA_F32["n_kv_heads"], LLAMA_F32["vocab"]
+    print("phase 8: llama engine vs plain llama_generate, 2L d512 f32", flush=True)
+    params = init_llama(1, dtype=torch.float32, device=DEVICE,
+                        max_len=SERVE_CFG["max_pages_per_seq"] * SERVE_CFG["page_size"],
+                        **LLAMA_F32)
+    prompts = traffic(vocab)
+    dense = plain_generate(params, prompts, H, Hkv)
+    for tag, quant in (("unquantized", {}), ("int4 weights", LLAMA_INT4),
+                       ("int8 KV pages", dict(kv_quant=True))):
+        eng, outs, wall = serve(params, H, prompts, model="llama", **quant)
+        check_tokens(outs, vocab)
+        wants = plain_generate(dequantized(params, eng.params), prompts, H, Hkv) \
+            if "weight_quant" in quant else dense
+        same, total = agreement(outs, wants)
+        print(f"  {tag}: {same}/{total} tokens equal to plain llama_generate; engine wall "
+              f"{wall:.3f} s", flush=True)
+        if quant.get("kv_quant"):
+            if any(o[0] != w[0] for o, w in zip(outs, wants)):
+                fail(f"f32 llama {tag}: a first token differs from plain llama_generate")
+        elif same != total:
+            i, first = next((i, j) for i, (o, w) in enumerate(zip(outs, wants))
+                            for j, (a, b) in enumerate(zip(o, w)) if a != b)
+            fail(f"f32 llama {tag} request {i}: engine and plain differ from token {first}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -601,7 +820,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from laser_tpu_torch import device_info, registry
     from laser_tpu_torch.models import transformer  # noqa: F401  (registers every kernel)
-    from laser_tpu_torch.ops import paged_attention  # noqa: F401
+    from laser_tpu_torch.serving import engine  # noqa: F401
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -624,16 +843,20 @@ def main():
     phase_f32()
     train_counts, train = phase_train()
     phase_train_f32()
+    llama_counts, llama = phase_llama()
+    phase_llama_f32()
 
     kernels = []
     for name, k in registry.KERNELS.items():
         r = record[name]
         by_path = {"serving": serve_counts[name]["launches"],
-                   "training": train_counts[name]["launches"]}
+                   "training": train_counts[name]["launches"],
+                   **{tag: c[name]["launches"] for tag, c in llama_counts.items()}}
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **r})
-    print(json.dumps({"card": card, "engine": engine, "train": train}), flush=True)
+    print(json.dumps({"card": card, "engine": engine, "train": train, "llama": llama}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

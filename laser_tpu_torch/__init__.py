@@ -5,10 +5,12 @@ its weight layouts, so each port module sits where its JAX counterpart does
 and both compute the same function on the same numbers. Every TPU kernel on
 a ported path is a hand-written CUDA C++ kernel under ``csrc/``, built by
 ``registry.load_library`` at its first use on a CUDA tensor; on CPU tensors
-each wrapper runs the kernel's plain PyTorch version. Two user-facing paths
-are ported: serving (``serving.ServingEngine``) and training
-(``models.transformer.transformer_train_step``). Entry points that allocate
-put their tensors on the card unless the caller passes ``device``.
+each wrapper runs the kernel's plain PyTorch version. The user-facing paths
+ported: serving (``serving.ServingEngine``) of both model families,
+``models.transformer`` and ``models.llama``, with int8/int4 weights and int8
+KV pages as options, and training (``models.transformer.
+transformer_train_step``). Entry points that allocate put their tensors on
+the card unless the caller passes ``device``.
 
 Import the submodule you need: this package imports nothing eagerly.
 """

@@ -1,10 +1,12 @@
 """Move laser_tpu trees into the port and back.
 
 ``params_from_numpy`` takes a laser_tpu tree whose leaves are NumPy arrays
-(``jax.tree.map(np.asarray, tree)`` on the JAX side): a params pytree, or an
-AdamW ``(m, v)`` state, since tuples map like lists. It returns the same
-tree of torch tensors, so laser_tpu and laser_tpu_torch compute the same
-function on the same numbers. ``params_to_numpy`` goes the other way.
+(``jax.tree.map(np.asarray, tree)`` on the JAX side): a params pytree of
+either model family (llama's rope tables and quantized ``{"q", "s"}`` /
+``{"q4", "s4"}`` weights included), or an AdamW ``(m, v)`` state, since
+tuples map like lists. It returns the same tree of torch tensors, so
+laser_tpu and laser_tpu_torch compute the same function on the same
+numbers. ``params_to_numpy`` goes the other way.
 """
 
 from __future__ import annotations
@@ -15,10 +17,13 @@ import torch
 
 def params_from_numpy(tree, device="cuda", dtype=None):
     """dicts, lists and tuples map leaf by leaf; floating leaves are cast to
-    ``dtype`` when it is given. NumPy bfloat16 leaves (as JAX exports them)
-    arrive exactly, through float32. The tensors land on ``device``, the
-    card unless the caller names another."""
+    ``dtype`` when it is given, except the f32 scales of a quantized weight,
+    and integer leaves (int8 weights) keep their type. NumPy bfloat16
+    leaves (as JAX exports them) arrive exactly, through float32. The
+    tensors land on ``device``, the card unless the caller names another."""
     if isinstance(tree, dict):
+        if "q" in tree or "q4" in tree:
+            dtype = None
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, dtype) for v in tree)

@@ -14,8 +14,9 @@
 
 namespace ltt {
 
-// dtype codes shared with laser_tpu_torch/registry.py (DTYPE_CODES)
-enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+// dtype codes shared with laser_tpu_torch/registry.py (DTYPE_CODES; kI8 only
+// in POOL_DTYPE_CODES: the int8 KV pages of the paged attention kernel)
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 
 // finite "minus infinity": keeps exp() and the running-max rescale NaN-free
 // (laser_tpu/ops/attention.py:37)
@@ -24,6 +25,7 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }

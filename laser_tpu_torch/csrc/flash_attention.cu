@@ -1,7 +1,8 @@
 // Flash attention forward over (BH, S, D): softmax(Q K^T * scale [causal]) V.
 //
-// Replaces laser_tpu/ops/attention.py:60 _build_flash (value output, MHA,
-// causal or full mask), and its return_stats=True variant: when the m/l
+// Replaces laser_tpu/ops/attention.py:60 _build_flash (value output, MHA and
+// the GQA kv-head map, causal or full mask), and its return_stats=True
+// variant: when the m/l
 // pointers are not null, each row's running max of the SCALED scores and its
 // softmax denominator (fp32, (BH, S)) are written beside the output, as
 // the backward kernels (flash_attention_bwd.cu) expect them. The stats write
@@ -15,6 +16,11 @@
 // products as fp32 FFMA from shared memory (bf16 x bf16 products are exact
 // in fp32, so it computes what the MXU computes); moving them onto the
 // tensor cores is later work.
+//
+// GQA (attention.py:239-247): q holds B x Hq heads, k and v only B x Hkv;
+// query row b reads kv row (b / Hq) * Hkv + (b % Hq) / (Hq / Hkv), so each kv
+// head is read from HBM by its group of Hq / Hkv query heads and never
+// repeated. MHA callers pass Hq == Hkv (any equal pair maps b to b).
 //
 // Design: one block of 4 warps per (head, 16-query tile); each warp owns 4
 // query rows. Key/value tiles of 32 rows are staged in shared memory as fp32
@@ -50,7 +56,7 @@ template <typename T, int DC, bool STATS>
 __global__ void __launch_bounds__(FL_THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
-                     int S, int D, int causal, float scale) {
+                     int S, int D, int Hq, int Hkv, int causal, float scale) {
   constexpr int DP = DC * 32;
   extern __shared__ float smem[];
   float* Qs = smem;                       // [FL_BQ][DP]
@@ -63,6 +69,8 @@ __global__ void __launch_bounds__(FL_THREADS)
   const int warp = tid >> 5;
   const int q0 = blockIdx.x * FL_BQ;
   const size_t base = (size_t)blockIdx.y * S * D;
+  const int kv_row = (blockIdx.y / Hq) * Hkv + (blockIdx.y % Hq) / (Hq / Hkv);
+  const size_t kv_base = (size_t)kv_row * S * D;
 
   for (int i = tid; i < FL_BQ * DP; i += FL_THREADS) {
     const int r = i / DP, d = i % DP;
@@ -87,7 +95,7 @@ __global__ void __launch_bounds__(FL_THREADS)
       const int r = i / DP, d = i % DP;
       const int gk = k0 + r;
       const bool ok = gk < S && d < D;
-      const size_t off = base + (size_t)gk * D + d;
+      const size_t off = kv_base + (size_t)gk * D + d;
       Ks[r * (DP + 1) + d] = ok ? to_f32(k[off]) : 0.f;
       Vs[r * DP + d] = ok ? to_f32(v[off]) : 0.f;
     }
@@ -158,45 +166,47 @@ __global__ void __launch_bounds__(FL_THREADS)
 
 template <typename T, int DC, bool STATS>
 int launch(const void* q, const void* k, const void* v, void* o, float* m, float* l, int BH,
-           int S, int D, int causal, float scale, cudaStream_t stream) {
+           int S, int D, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
   const size_t smem = flash_smem_floats(DC * 32) * sizeof(float);
   const int err = ltt::allow_smem(flash_fwd_kernel<T, DC, STATS>, smem);
   if (err) return err;
   dim3 grid((S + FL_BQ - 1) / FL_BQ, BH);
   flash_fwd_kernel<T, DC, STATS><<<grid, FL_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), m, l, S, D, causal, scale);
+      static_cast<T*>(o), m, l, S, D, Hq, Hkv, causal, scale);
   return ltt::launch_status();
 }
 
 template <typename T, bool STATS>
 int launch_d(const void* q, const void* k, const void* v, void* o, float* m, float* l, int BH,
-             int S, int D, int causal, float scale, cudaStream_t s) {
-  if (D <= 32) return launch<T, 1, STATS>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
-  if (D <= 64) return launch<T, 2, STATS>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
-  if (D <= 128) return launch<T, 4, STATS>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
-  return launch<T, 8, STATS>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
+             int S, int D, int Hq, int Hkv, int causal, float scale, cudaStream_t s) {
+  if (D <= 32) return launch<T, 1, STATS>(q, k, v, o, m, l, BH, S, D, Hq, Hkv, causal, scale, s);
+  if (D <= 64) return launch<T, 2, STATS>(q, k, v, o, m, l, BH, S, D, Hq, Hkv, causal, scale, s);
+  if (D <= 128) return launch<T, 4, STATS>(q, k, v, o, m, l, BH, S, D, Hq, Hkv, causal, scale, s);
+  return launch<T, 8, STATS>(q, k, v, o, m, l, BH, S, D, Hq, Hkv, causal, scale, s);
 }
 
 template <typename T>
 int launch_t(const void* q, const void* k, const void* v, void* o, float* m, float* l, int BH,
-             int S, int D, int causal, float scale, cudaStream_t s) {
-  if (m) return launch_d<T, true>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
-  return launch_d<T, false>(q, k, v, o, m, l, BH, S, D, causal, scale, s);
+             int S, int D, int Hq, int Hkv, int causal, float scale, cudaStream_t s) {
+  if (m) return launch_d<T, true>(q, k, v, o, m, l, BH, S, D, Hq, Hkv, causal, scale, s);
+  return launch_d<T, false>(q, k, v, o, m, l, BH, S, D, Hq, Hkv, causal, scale, s);
 }
 
 }  // namespace
 
-// q, k, v, o: (BH, S, D) contiguous in dtype, D <= 256. m, l: (BH, S) fp32,
-// or both null for the value-only forward (m alone decides the variant).
+// q, o: (BH, S, D) and k, v: (BH / Hq * Hkv, S, D), contiguous in dtype,
+// D <= 256, Hq a multiple of Hkv. m, l: (BH, S) fp32, or both null for the
+// value-only forward (m alone decides the variant).
 LTT_API int ltt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* m, void* l,
-                          int BH, int S, int D, int causal, float scale, int dtype,
-                          void* stream) {
+                          int BH, int S, int D, int Hq, int Hkv, int causal, float scale,
+                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
-  if (dtype == ltt::kF32) return launch_t<float>(q, k, v, o, mf, lf, BH, S, D, causal, scale, s);
+  if (dtype == ltt::kF32)
+    return launch_t<float>(q, k, v, o, mf, lf, BH, S, D, Hq, Hkv, causal, scale, s);
   if (dtype == ltt::kBF16)
-    return launch_t<__nv_bfloat16>(q, k, v, o, mf, lf, BH, S, D, causal, scale, s);
-  return launch_t<__half>(q, k, v, o, mf, lf, BH, S, D, causal, scale, s);
+    return launch_t<__nv_bfloat16>(q, k, v, o, mf, lf, BH, S, D, Hq, Hkv, causal, scale, s);
+  return launch_t<__half>(q, k, v, o, mf, lf, BH, S, D, Hq, Hkv, causal, scale, s);
 }

@@ -2,15 +2,18 @@
 // block-table pages.
 //
 // Replaces laser_tpu/ops/paged_attention.py:121 build_paged_attention (float
-// pools, no window).
+// pools, and int8 pools with per-token scales; no window).
 //
 // Layouts (as the TPU kernel): q (S, Hq, hd); pools (P, Hkv, ps, hd);
-// tables (S, max_pages) int32; lengths (S,) int32; out (S, Hq, hd).
+// tables (S, max_pages) int32; lengths (S,) int32; out (S, Hq, hd); with
+// int8 pools also k_scale, v_scale (P, Hkv, ps) f32.
 //
 // What bounds it on the H100: each key and value row is read once and used
 // for `group` = Hq / Hkv dot products, so decode attention is bound by the
 // KV bytes streamed from HBM (8 slots x 16 heads x up to 1024 keys x 128 x
-// 2 x 2 bytes = 64 MiB per layer at the slice's full width).
+// 2 x 2 bytes = 64 MiB per layer at the serving slice's width; int8 pages
+// stream a quarter of the f32 bytes, half of bf16, plus 4 bytes of scale per
+// row).
 //
 // Design: one block per (slot, kv head), 4 warps. The Hq query heads fold
 // to (Hkv, group) with consecutive q heads per kv head (paged_attention.py:161).
@@ -21,8 +24,16 @@
 // the four at the end. Keys at or past `length` are never read, so pages past
 // the length are skipped and garbage rows left by a padded prefill are never
 // attended; `length == 0` writes zeros. Scores: lane = key; P.V: lane =
-// head-dim column, with P broadcast by shuffle and rounded to the pool dtype
+// head-dim column, with P broadcast by shuffle and rounded to the q dtype
 // first, as the TPU kernel does. Pool offsets are 64-bit.
+//
+// int8 pools (a compile-time variant, KT = int8_t) follow the TPU kernel's
+// order (paged_attention.py:162-214): the int8 row converts exactly to fp32,
+// s = (q.k) * scale * k_scale[token], l sums p BEFORE p *= v_scale[token],
+// then p rounds to the q dtype (a no-op for f32, JAX's "base" tier) and
+// enters the P.V product. The scales are never folded into the rows.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -35,12 +46,15 @@ constexpr int PA_WARPS = 4;
 constexpr int PA_THREADS = PA_WARPS * 32;
 constexpr int PA_MAXG = 8;  // query heads per kv head
 
-template <typename T, int DC>
+// KT: the pool element type, T or int8_t (then k_scale, v_scale are read)
+template <typename T, typename KT, int DC>
 __global__ void __launch_bounds__(PA_THREADS)
-    paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                           const T* __restrict__ v_pool, const int* __restrict__ tables,
+    paged_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k_pool,
+                           const KT* __restrict__ v_pool, const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale, const int* __restrict__ tables,
                            const int* __restrict__ lengths, T* __restrict__ out, int Hq,
                            int Hkv, int ps, int hd, int max_pages, float scale) {
+  constexpr bool QUANT = std::is_same<KT, int8_t>::value;
   constexpr int DP = DC * 32;
   __shared__ float qs[PA_MAXG][DP];
   __shared__ float ms[PA_WARPS][PA_MAXG];
@@ -79,14 +93,19 @@ __global__ void __launch_bounds__(PA_THREADS)
     float s[PA_MAXG];
 #pragma unroll
     for (int g = 0; g < PA_MAXG; ++g) s[g] = 0.f;
+    float ks = 1.f, vs = 1.f;  // this lane's token scales (int8 pools)
     if (valid) {
-      const size_t page = (size_t)table[pos / ps];
-      const T* kr = k_pool + ((page * Hkv + h) * ps + pos % ps) * hd;
+      const size_t row = ((size_t)table[pos / ps] * Hkv + h) * ps + pos % ps;
+      const KT* kr = k_pool + row * hd;
       for (int d = 0; d < hd; ++d) {
         const float kd = to_f32(kr[d]);
 #pragma unroll
         for (int g = 0; g < PA_MAXG; ++g)
           if (g < G) s[g] = fmaf(qs[g][d], kd, s[g]);
+      }
+      if constexpr (QUANT) {
+        ks = k_scale[row];
+        vs = v_scale[row];
       }
     }
     float p[PA_MAXG];
@@ -94,13 +113,15 @@ __global__ void __launch_bounds__(PA_THREADS)
     for (int g = 0; g < PA_MAXG; ++g) {
       p[g] = 0.f;
       if (g < G) {
-        const float sv = valid ? s[g] * scale : kNegInf;
+        float sv = s[g] * scale;
+        if constexpr (QUANT) sv *= ks;
+        sv = valid ? sv : kNegInf;
         const float m_new = fmaxf(m[g], ltt::warp_max(sv));
         const float corr = expf(m[g] - m_new);
         const float pv = valid ? expf(sv - m_new) : 0.f;
         l[g] = l[g] * corr + ltt::warp_sum(pv);
         m[g] = m_new;
-        p[g] = ltt::round_through<T>(pv);
+        p[g] = ltt::round_through<T>(QUANT ? pv * vs : pv);
 #pragma unroll
         for (int c = 0; c < DC; ++c) acc[g][c] *= corr;
       }
@@ -109,7 +130,7 @@ __global__ void __launch_bounds__(PA_THREADS)
     for (int j = 0; j < nvalid; ++j) {
       const int pj_pos = t * 32 + j;
       const size_t page = (size_t)table[pj_pos / ps];
-      const T* vr = v_pool + ((page * Hkv + h) * ps + pj_pos % ps) * hd;
+      const KT* vr = v_pool + ((page * Hkv + h) * ps + pj_pos % ps) * hd;
       float vv[DC];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
@@ -156,47 +177,72 @@ __global__ void __launch_bounds__(PA_THREADS)
   }
 }
 
-template <typename T, int DC>
-void launch(const void* q, const void* kp, const void* vp, const int* tables, const int* lengths,
-            void* out, int S, int Hq, int Hkv, int ps, int hd, int max_pages, float scale,
-            cudaStream_t s) {
+template <typename T, typename KT, int DC>
+void launch(const void* q, const void* kp, const void* vp, const float* ks, const float* vs,
+            const int* tables, const int* lengths, void* out, int S, int Hq, int Hkv, int ps,
+            int hd, int max_pages, float scale, cudaStream_t s) {
   dim3 grid(S, Hkv);
-  paged_attention_kernel<T, DC><<<grid, PA_THREADS, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), tables,
-      lengths, static_cast<T*>(out), Hq, Hkv, ps, hd, max_pages, scale);
+  paged_attention_kernel<T, KT, DC><<<grid, PA_THREADS, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(kp), static_cast<const KT*>(vp), ks, vs,
+      tables, lengths, static_cast<T*>(out), Hq, Hkv, ps, hd, max_pages, scale);
 }
 
-template <typename T>
-void launch_d(const void* q, const void* kp, const void* vp, const int* tables,
-              const int* lengths, void* out, int S, int Hq, int Hkv, int ps, int hd,
-              int max_pages, float scale, cudaStream_t s) {
+template <typename T, typename KT>
+void launch_d(const void* q, const void* kp, const void* vp, const float* ks, const float* vs,
+              const int* tables, const int* lengths, void* out, int S, int Hq, int Hkv, int ps,
+              int hd, int max_pages, float scale, cudaStream_t s) {
   if (hd <= 32)
-    launch<T, 1>(q, kp, vp, tables, lengths, out, S, Hq, Hkv, ps, hd, max_pages, scale, s);
+    launch<T, KT, 1>(q, kp, vp, ks, vs, tables, lengths, out, S, Hq, Hkv, ps, hd, max_pages,
+                     scale, s);
   else if (hd <= 64)
-    launch<T, 2>(q, kp, vp, tables, lengths, out, S, Hq, Hkv, ps, hd, max_pages, scale, s);
+    launch<T, KT, 2>(q, kp, vp, ks, vs, tables, lengths, out, S, Hq, Hkv, ps, hd, max_pages,
+                     scale, s);
   else if (hd <= 128)
-    launch<T, 4>(q, kp, vp, tables, lengths, out, S, Hq, Hkv, ps, hd, max_pages, scale, s);
+    launch<T, KT, 4>(q, kp, vp, ks, vs, tables, lengths, out, S, Hq, Hkv, ps, hd, max_pages,
+                     scale, s);
   else
-    launch<T, 8>(q, kp, vp, tables, lengths, out, S, Hq, Hkv, ps, hd, max_pages, scale, s);
+    launch<T, KT, 8>(q, kp, vp, ks, vs, tables, lengths, out, S, Hq, Hkv, ps, hd, max_pages,
+                     scale, s);
+}
+
+// the pool is either q's dtype or int8
+template <typename T>
+void launch_pool(const void* q, const void* kp, const void* vp, const float* ks,
+                 const float* vs, const int* tables, const int* lengths, void* out, int S,
+                 int Hq, int Hkv, int ps, int hd, int max_pages, float scale, int pool_dtype,
+                 cudaStream_t s) {
+  if (pool_dtype == ltt::kI8)
+    launch_d<T, int8_t>(q, kp, vp, ks, vs, tables, lengths, out, S, Hq, Hkv, ps, hd, max_pages,
+                        scale, s);
+  else
+    launch_d<T, T>(q, kp, vp, ks, vs, tables, lengths, out, S, Hq, Hkv, ps, hd, max_pages,
+                   scale, s);
 }
 
 }  // namespace
 
-// q (S, Hq, hd); k_pool, v_pool (P, Hkv, ps, hd); tables (S, max_pages) int32;
-// lengths (S,) int32; out (S, Hq, hd). hd <= 256, Hq / Hkv <= 8.
+// q (S, Hq, hd); k_pool, v_pool (P, Hkv, ps, hd) in q's dtype, or int8 with
+// k_scale, v_scale (P, Hkv, ps) f32 (null for float pools); tables
+// (S, max_pages) int32; lengths (S,) int32; out (S, Hq, hd). hd <= 256,
+// Hq / Hkv <= 8.
 LTT_API int ltt_paged_attention(const void* q, const void* k_pool, const void* v_pool,
-                                const void* tables, const void* lengths, void* out, int S,
-                                int Hq, int Hkv, int ps, int hd, int max_pages, float scale,
-                                int dtype, void* stream) {
+                                const void* k_scale, const void* v_scale, const void* tables,
+                                const void* lengths, void* out, int S, int Hq, int Hkv, int ps,
+                                int hd, int max_pages, float scale, int dtype, int pool_dtype,
+                                void* stream) {
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   const int* t = static_cast<const int*>(tables);
   const int* l = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ltt::kF32)
-    launch_d<float>(q, k_pool, v_pool, t, l, out, S, Hq, Hkv, ps, hd, max_pages, scale, s);
+    launch_pool<float>(q, k_pool, v_pool, ks, vs, t, l, out, S, Hq, Hkv, ps, hd, max_pages,
+                       scale, pool_dtype, s);
   else if (dtype == ltt::kBF16)
-    launch_d<__nv_bfloat16>(q, k_pool, v_pool, t, l, out, S, Hq, Hkv, ps, hd, max_pages, scale,
-                            s);
+    launch_pool<__nv_bfloat16>(q, k_pool, v_pool, ks, vs, t, l, out, S, Hq, Hkv, ps, hd,
+                               max_pages, scale, pool_dtype, s);
   else
-    launch_d<__half>(q, k_pool, v_pool, t, l, out, S, Hq, Hkv, ps, hd, max_pages, scale, s);
+    launch_pool<__half>(q, k_pool, v_pool, ks, vs, t, l, out, S, Hq, Hkv, ps, hd, max_pages,
+                        scale, pool_dtype, s);
   return ltt::launch_status();
 }

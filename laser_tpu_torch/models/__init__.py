@@ -1,1 +1,1 @@
-"""Model families of the port: ``models.transformer``."""
+"""Model families of the port: ``models.transformer`` and ``models.llama``."""

@@ -1,7 +1,8 @@
 """Operators of the port. Import the submodule you need: ``ops.gemm``
-(``gemm``, ``gemm_ad``, ``linear``), ``ops.norm``, ``ops.attention``
-(``attention``, ``attention_with_stats``, ``attention_trainable``),
-``ops.attention_bwd`` (``flash_attention_bwd``), ``ops.loss``
-(``cross_entropy``, ``lm_cross_entropy``), ``ops.optim`` (``adamw_step``
-and friends), ``ops.paged_attention``, ``ops.sampling``; nothing is imported
-eagerly here."""
+(``gemm``, ``gemm_ad``, ``linear``), ``ops.gemm.int4_kernel`` (``gemm_w4``,
+``quantize_int4``), ``ops.norm``, ``ops.rope``, ``ops.attention``
+(``attention``, ``attention_gqa``, ``attention_with_stats``,
+``attention_trainable``), ``ops.attention_bwd`` (``flash_attention_bwd``),
+``ops.loss`` (``cross_entropy``, ``lm_cross_entropy``), ``ops.optim``
+(``adamw_step`` and friends), ``ops.paged_attention`` (``paged_attention``,
+``quantize_kv``), ``ops.sampling``; nothing is imported eagerly here."""

@@ -1,5 +1,5 @@
 """Flash attention (port of laser_tpu/ops/attention.py: ``attention``,
-``attention_with_stats``, ``attention_trainable``).
+``attention_with_stats``, ``attention_trainable``, ``attention_gqa``).
 
 ``attention(q, k, v, causal=...)`` over (..., S, D) tensors runs the CUDA
 kernel (csrc/flash_attention.cu) for CUDA tensors: an online softmax with
@@ -11,15 +11,18 @@ differentiable form: under autograd its forward keeps ``(o, m, l)`` and its
 backward runs the flash backward kernels (ops/attention_bwd.py), as
 laser_tpu's custom VJP does; without grad it is ``attention``.
 ``attention_reference`` is the kernel's plain PyTorch version, differentiable
-by autograd. GQA, sliding windows, ``k_valid`` and ring offsets are not
-ported yet and raise.
+by autograd. ``attention_gqa`` is grouped-query attention over q
+(B, Hq, S, D) and k, v (B, Hkv, S, D): the same kernel maps each query head
+to its kv head, so K and V are read at Hkv heads and never repeated. The
+GQA backward, sliding windows, ``k_valid`` and ring offsets are not ported
+yet and raise.
 
-Replaces laser_tpu/ops/attention.py:60 _build_flash (value output, and the
-``return_stats=True`` variant). Bound on the H100: arithmetic at the serving
-prefill (S up to 512, D 128) and the training shape (S 1024). Design: 16
-query rows per block, 32-key tiles staged in shared memory, fp32 FFMA
-products (exact for bf16 inputs); tensor cores are later work
-(csrc/flash_attention.cu).
+Replaces laser_tpu/ops/attention.py:60 _build_flash (value output, the
+``return_stats=True`` variant and the GQA ``kv_heads`` map). Bound on the
+H100: arithmetic at the serving prefill (S up to 512, D 128) and the
+training shape (S 1024). Design: 16 query rows per block, 32-key tiles
+staged in shared memory, fp32 FFMA products (exact for bf16 inputs);
+tensor cores are later work (csrc/flash_attention.cu).
 """
 
 from __future__ import annotations
@@ -66,18 +69,22 @@ def causal_mask(S: int, causal: bool, device) -> torch.Tensor:
     return idx[None, :] <= idx[:, None]
 
 
-def _flash_plain(q3, k3, v3, causal: bool, scale: float, stats: bool):
+def _flash_plain(q3, k3, v3, causal: bool, scale: float, stats: bool, kv_heads):
     FLASH.plain_calls += 1
     pin_fp32_matmul()
-    s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * scale
-    valid = causal_mask(q3.shape[1], causal, q3.device)
+    BH, S, D = q3.shape
+    # consecutive query heads share a kv head: (B*Hkv, group, S, D)
+    qg = q3.reshape(k3.shape[0], kv_heads[0] // kv_heads[1], S, D)
+    s = torch.matmul(qg.float(), k3.float()[:, None].transpose(-1, -2)) * scale
+    valid = causal_mask(S, causal, q3.device)
     if not stats:
-        return masked_softmax_pv(s, valid, v3, q3.dtype).to(q3.dtype)
-    o, m, l = masked_softmax_pv(s, valid, v3, q3.dtype, return_stats=True)
-    return o.to(q3.dtype), m, l
+        o = masked_softmax_pv(s, valid, v3[:, None], q3.dtype)
+        return o.reshape(BH, S, D).to(q3.dtype)
+    o, m, l = masked_softmax_pv(s, valid, v3[:, None], q3.dtype, return_stats=True)
+    return o.reshape(BH, S, D).to(q3.dtype), m.reshape(BH, S), l.reshape(BH, S)
 
 
-def _flash_cuda(q3, k3, v3, causal: bool, scale: float, stats: bool):
+def _flash_cuda(q3, k3, v3, causal: bool, scale: float, stats: bool, kv_heads):
     if q3.dtype not in registry.DTYPE_CODES:
         raise TypeError(f"flash kernel: unsupported dtype {q3.dtype}")
     for t in (q3, k3, v3):
@@ -85,6 +92,7 @@ def _flash_cuda(q3, k3, v3, causal: bool, scale: float, stats: bool):
             raise ValueError("flash kernel: q, k, v must be contiguous, one "
                              "dtype, one device")
     BH, S, D = q3.shape
+    Hq, Hkv = kv_heads
     o = torch.empty_like(q3)
     m = l = None
     if stats:
@@ -94,7 +102,7 @@ def _flash_cuda(q3, k3, v3, causal: bool, scale: float, stats: bool):
         status = registry.load_library().ltt_flash_fwd(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
             None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
-            BH, S, D, int(causal), float(scale), registry.DTYPE_CODES[q3.dtype],
+            BH, S, D, Hq, Hkv, int(causal), float(scale), registry.DTYPE_CODES[q3.dtype],
             registry.stream_handle(q3))
         registry.check_launch(status, "flash_attention")
         FLASH.launches += 1
@@ -102,12 +110,19 @@ def _flash_cuda(q3, k3, v3, causal: bool, scale: float, stats: bool):
 
 
 def flash_forward(q3, k3, v3, causal: bool, scale: float, *, stats: bool = False,
-                  plain: bool = False):
+                  plain: bool = False, kv_heads=None):
     """The kernel for CUDA tensors, its plain version for CPU tensors (or
-    ``plain``): o, or (o, m, l) with ``stats``. q3, k3, v3: (BH, S, D)."""
+    ``plain``): o, or (o, m, l) with ``stats``. q3: (BH, S, D); k3, v3 the
+    same, or with ``kv_heads=(Hq, Hkv)`` (BH / Hq * Hkv, S, D), query head h
+    of each batch row reading kv head h // (Hq / Hkv)."""
+    Hq, Hkv = kv_heads or (1, 1)
+    if Hq % Hkv or q3.shape[0] % Hq or k3.shape != (q3.shape[0] // Hq * Hkv, *q3.shape[1:]) \
+            or v3.shape != k3.shape:
+        raise ValueError(f"flash: q {tuple(q3.shape)}, k {tuple(k3.shape)}, "
+                         f"v {tuple(v3.shape)} do not fit kv_heads {(Hq, Hkv)}")
     if plain or not registry.on_cuda(q3):
-        return _flash_plain(q3, k3, v3, causal, scale, stats)
-    return _flash_cuda(q3, k3, v3, causal, scale, stats)
+        return _flash_plain(q3, k3, v3, causal, scale, stats, (Hq, Hkv))
+    return _flash_cuda(q3, k3, v3, causal, scale, stats, (Hq, Hkv))
 
 
 def _prepare(q, k, v, scale, window):
@@ -142,6 +157,44 @@ def attention_reference(q, k, v, *, causal: bool = False,
                         window: Optional[int] = None) -> torch.Tensor:
     """``attention`` through the kernel's plain version, on any device."""
     return _attention(q, k, v, causal, scale, window, plain=True)
+
+
+def _attention_gqa(q, k, v, causal, scale, window, plain):
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError("attention_gqa expects (B, H, S, D) tensors")
+    B, Hq, S, D = q.shape
+    _, Hkv, Sk, Dk = k.shape
+    if Sk != S or Dk != D or k.shape != v.shape or k.shape[0] != B:
+        raise ValueError(f"k/v shape mismatch: {tuple(k.shape)} {tuple(v.shape)} "
+                         f"vs q {tuple(q.shape)}")
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    if Hq == Hkv:
+        return _attention(q, k, v, causal, scale, window, plain)
+    if window is not None:
+        raise NotImplementedError("attention_gqa: sliding window is not ported")
+    if D > MAX_HEAD_DIM:
+        raise NotImplementedError(f"attention_gqa: head dim {D} > {MAX_HEAD_DIM}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    q3 = q.reshape(B * Hq, S, D).contiguous()
+    k3, v3 = (t.reshape(B * Hkv, S, D).contiguous() for t in (k, v))
+    o = flash_forward(q3, k3, v3, causal, scale, plain=plain, kv_heads=(Hq, Hkv))
+    return o.reshape(q.shape)
+
+
+def attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = False, scale: Optional[float] = None,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Grouped-query attention: q (B, Hq, S, D), k and v (B, Hkv, S, D), Hq
+    a multiple of Hkv (MQA is Hkv = 1); ``attention`` when Hq == Hkv."""
+    return _attention_gqa(q, k, v, causal, scale, window, plain=False)
+
+
+def attention_gqa_reference(q, k, v, *, causal: bool = False,
+                            scale: Optional[float] = None,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """``attention_gqa`` through the kernel's plain version, on any device."""
+    return _attention_gqa(q, k, v, causal, scale, window, plain=True)
 
 
 def attention_with_stats(q, k, v, *, causal: bool = False,

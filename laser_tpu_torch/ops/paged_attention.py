@@ -1,5 +1,5 @@
 """Paged decode attention (port of laser_tpu/ops/paged_attention.py:
-``paged_attention``).
+``paged_attention``, ``paged_attention_reference``, ``quantize_kv``).
 
 Layouts, as in laser_tpu:
     q        (S, Hq, hd)        one decode token per sequence slot
@@ -8,12 +8,17 @@ Layouts, as in laser_tpu:
     tables   (S, max_pages)     int32 page ids per slot
     lengths  (S,)               int32 valid keys per slot (0 = inactive)
 
-The CUDA kernel (csrc/paged_attention.cu) takes f32/bf16/f16 pools with
-GQA (Hq a multiple of Hkv, at most 8 query heads per kv head, consecutive q
-heads sharing a kv head). Keys at or past a slot's length are never read;
-``length == 0`` gives zeros. int8 pools and ``window`` are not ported yet
-and raise. The caller keeps every table entry below ``lengths`` a valid
-page id: the kernel does not check them.
+The CUDA kernel (csrc/paged_attention.cu) takes pools in q's dtype
+(f32/bf16/f16) or int8 pools with per-(page, kv head, token) f32
+``k_scale``/``v_scale`` of shape (P, Hkv, ps), as ``quantize_kv`` makes them;
+GQA: Hq a multiple of Hkv, at most 8 query heads per kv head, consecutive q
+heads sharing a kv head. Keys at or past a slot's length are never read;
+``length == 0`` gives zeros. The int8 variant folds the scales into the
+scores and the probabilities, in laser_tpu's order; for f32 it computes in
+f32 throughout: laser_tpu's ``paged_quant_mode="base"`` (its bf16 limb
+tiers exist for the TPU's matrix unit and are not ported).
+``window`` is not ported yet and raises. The caller keeps every table entry
+below ``lengths`` a valid page id: the kernel does not check them.
 
 Replaces laser_tpu/ops/paged_attention.py:121 build_paged_attention. Bound
 on the H100: KV bytes from HBM. Design: one block per (slot, kv head) reads
@@ -39,13 +44,28 @@ MAX_GROUP = 8
 MAX_HEAD_DIM = 256
 
 
-def _paged_plain(q, k_pool, v_pool, tables, lengths, scale):
-    """Dense-gather version: materialise each slot's pages, masked softmax."""
+def quantize_kv(x: torch.Tensor):
+    """Per-token, per-head symmetric int8 for KV rows: x (..., hd) ->
+    (int8 rows, f32 scales (...,)): scale amax / 127 (1 for a zero row),
+    rows round half to even and clip to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    s = torch.where(amax > 0, amax / 127.0, 1.0)
+    qx = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return qx, s
+
+
+def _paged_plain(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
+    """Dense-gather version: materialise each slot's pages (dequantized when
+    int8), masked softmax."""
     PAGED.plain_calls += 1
     pin_fp32_matmul()
     S, Hq, hd = q.shape
     Hkv = k_pool.shape[1]
     tables = tables.long()
+    if k_scale is not None:  # int8 rows times their f32 scales
+        k_pool = k_pool.float() * k_scale[..., None]
+        v_pool = v_pool.float() * v_scale[..., None]
     k = k_pool[tables].transpose(1, 2).reshape(S, Hkv, -1, hd)  # (S, Hkv, T, hd)
     v = v_pool[tables].transpose(1, 2).reshape(S, Hkv, -1, hd)
     qg = q.reshape(S, Hkv, Hq // Hkv, hd)
@@ -56,15 +76,22 @@ def _paged_plain(q, k_pool, v_pool, tables, lengths, scale):
     return o.reshape(S, Hq, hd).to(q.dtype)
 
 
-def _paged_cuda(q, k_pool, v_pool, tables, lengths, scale):
+def _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
     if q.dtype not in registry.DTYPE_CODES:
         raise TypeError(f"paged attention kernel: unsupported dtype {q.dtype}")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool), ("tables", tables),
-                    ("lengths", lengths)):
+    quant = k_pool.dtype == torch.int8
+    operands = [("k_pool", k_pool), ("v_pool", v_pool), ("tables", tables),
+                ("lengths", lengths)]
+    if quant:
+        operands += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in operands:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"paged attention: {name} must be contiguous on {q.device}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"paged attention kernel: pools {k_pool.dtype} != q {q.dtype}")
+    if v_pool.dtype != k_pool.dtype or k_pool.dtype not in (q.dtype, torch.int8):
+        raise TypeError(f"paged attention kernel: pools {k_pool.dtype}/{v_pool.dtype} "
+                        f"with q {q.dtype}")
+    if quant and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise TypeError("paged attention kernel: k_scale and v_scale must be float32")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged attention kernel: tables and lengths must be int32")
     S, Hq, hd = q.shape
@@ -73,9 +100,11 @@ def _paged_cuda(q, k_pool, v_pool, tables, lengths, scale):
     if S == 0:
         return out
     status = registry.load_library().ltt_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), S, Hq, Hkv, ps, hd, tables.shape[1],
-        float(scale), registry.DTYPE_CODES[q.dtype], registry.stream_handle(q))
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, Hq, Hkv, ps, hd,
+        tables.shape[1], float(scale), registry.DTYPE_CODES[q.dtype],
+        registry.POOL_DTYPE_CODES[k_pool.dtype], registry.stream_handle(q))
     registry.check_launch(status, "paged_attention")
     PAGED.launches += 1
     return out
@@ -90,8 +119,14 @@ def _paged(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
                          f"inconsistent with q {tuple(q.shape)}")
     if Hq % Hkv:
         raise ValueError(f"Hq {Hq} not a multiple of Hkv {Hkv}")
-    if k_pool.dtype == torch.int8 or k_scale is not None or v_scale is not None:
-        raise NotImplementedError("paged attention: int8 KV pools are not ported")
+    if k_pool.dtype == torch.int8:
+        if k_scale is None or v_scale is None:
+            raise ValueError("int8 pools need k_scale/v_scale (P, Hkv, ps)")
+        if k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_pool.shape[:3]:
+            raise ValueError(f"scales {tuple(k_scale.shape)}/{tuple(v_scale.shape)} "
+                             f"do not match pools {tuple(k_pool.shape)}")
+    else:
+        k_scale = v_scale = None  # float pools ignore scales, as laser_tpu
     if window is not None:
         raise NotImplementedError("paged attention: sliding window is not ported")
     if Hq // Hkv > MAX_GROUP or hd > MAX_HEAD_DIM:
@@ -101,8 +136,8 @@ def _paged(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     if plain or not registry.on_cuda(q):
-        return _paged_plain(q, k_pool, v_pool, tables, lengths, scale)
-    return _paged_cuda(q, k_pool, v_pool, tables, lengths, scale)
+        return _paged_plain(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale)
+    return _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -117,8 +152,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 
 def paged_attention_reference(q, k_pool, v_pool, tables, lengths, *,
+                              k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None,
                               scale: Optional[float] = None,
                               window: Optional[int] = None) -> torch.Tensor:
-    """``paged_attention`` through the kernel's plain version, on any device."""
-    return _paged(q, k_pool, v_pool, tables, lengths, None, None, scale,
+    """``paged_attention`` through the kernel's plain version, on any device:
+    int8 pools are dequantized first, then the dense-gather oracle."""
+    return _paged(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
                   window, plain=True)

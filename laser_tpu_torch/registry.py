@@ -45,8 +45,10 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# dtype codes shared with csrc/common.cuh (enum DType)
+# dtype codes shared with csrc/common.cuh (enum DType): the float types every
+# kernel computes in, and beside them the int8 KV pages of the paged kernel
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+POOL_DTYPE_CODES = {**DTYPE_CODES, torch.int8: 3}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every pointer and the stream are c_void_p: undeclared, ctypes would pass
@@ -57,9 +59,9 @@ SIGNATURES = {
     "ltt_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
     # x, gamma, beta, y, rows, cols, kind, eps, dtype, stream
     "ltt_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # q, k, v, o, m (or null), l (or null), BH, S, D, causal, scale, dtype,
-    # stream
-    "ltt_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, o, m (or null), l (or null), BH, S, D, Hq, Hkv, causal, scale,
+    # dtype, stream
+    "ltt_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k, v, dout, m, l, dvec, dq, BH, S, D, causal, scale, dtype, stream
     "ltt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                          _I, _P),
@@ -70,10 +72,13 @@ SIGNATURES = {
     "ltt_ce_fwd": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     # x, targets, loss, dxu, T, V, eps, dtype, stream
     "ltt_ce_fused_grad": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
-    # q, k_pool, v_pool, tables, lengths, out, S, Hq, Hkv, ps, hd,
-    # max_pages, scale, dtype, stream
-    "ltt_paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _F, _I, _P),
+    # q, k_pool, v_pool, k_scale (or null), v_scale (or null), tables,
+    # lengths, out, S, Hq, Hkv, ps, hd, max_pages, scale, dtype, pool_dtype,
+    # stream
+    "ltt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _F, _I, _I, _P),
+    # h, q4, s4, out, M, N, K, group, dtype, stream
+    "ltt_w4_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

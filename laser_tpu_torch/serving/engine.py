@@ -1,5 +1,10 @@
 """Continuous-batching serving engine over a paged KV cache (port of
-laser_tpu/serving/engine.py, transformer family).
+laser_tpu/serving/engine.py).
+
+Two model families: ``model="transformer"`` (``models.transformer``: MHA,
+layer norms, tied embeddings) and ``model="llama"`` (``models.llama``:
+RMSNorm, RoPE, GQA, SwiGLU, untied embeddings; ``n_kv_heads`` is inferred
+from ``wkv``).
 
 Host (this engine): request queue, slot and page allocation from a free
 list, block tables, stop conditions, preemption. Device: one batched decode
@@ -9,16 +14,25 @@ same-bucket admissions. Unlike laser_tpu, which donates its pools to each
 jitted step and gets them back, the port updates the KV pool IN PLACE.
 
 Every generated token is identical to ``models.transformer.greedy_decode``
-on that request alone under greedy sampling, however requests interleave
-(tested against laser_tpu's engine as well).
+(``models.llama.llama_generate``) on that request alone under greedy
+sampling, however requests interleave (tested against laser_tpu's engine as
+well).
+
+Quantisation, as in laser_tpu: ``weight_quant`` (``True``/``"int8"``:
+per-column int8 block weights, a plain product then the scales; ``"int4"``:
+group-wise int4 through the ``w4_gemm`` kernel, ``weight_quant_group`` rows
+per scale) quantizes every block linear of either family, embeddings and
+the unembedding staying full precision; ``kv_quant`` keeps the KV pages in
+int8 with a per-(page, kv head, token) f32 scale, quantized at the scatter
+and read by the paged kernel's int8 variant.
 
 Ported: ``decode_burst=1``, page allocation, the trash page, preemption,
-per-request greedy/temperature/top-k/top-p sampling. Not ported, each
-raising ``NotImplementedError``: ``prefix_cache``, ``kv_quant``,
-``weight_quant``, speculative decoding (``spec_gamma``/``draft_params``),
-``pipeline_bursts``, ``decode_burst > 1``, ``mesh``, ``window``,
-``model="llama"``, and chunked prefill of a prompt longer than the largest
-bucket.
+per-request greedy/temperature/top-k/top-p sampling, both families,
+``weight_quant``, ``kv_quant``. Not ported, each raising
+``NotImplementedError``: ``prefix_cache``, speculative decoding
+(``spec_gamma``/``draft_params``/``draft_weight_quant``),
+``pipeline_bursts``, ``decode_burst > 1``, ``mesh``, ``window``, and
+chunked prefill of a prompt longer than the largest bucket.
 """
 
 from __future__ import annotations
@@ -29,12 +43,16 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..config import pin_fp32_matmul
 from ..models.transformer import split_heads
-from ..ops.attention import attention
+from ..ops.attention import attention, attention_gqa
 from ..ops.gemm import gemm_ad, linear
-from ..ops.norm import layer_norm
-from ..ops.paged_attention import paged_attention
+from ..ops.gemm.int4_kernel import gemm_w4, quantize_int4
+from ..ops.norm import layer_norm, rms_norm
+from ..ops.paged_attention import paged_attention, quantize_kv
+from ..ops.rope import apply_rope, apply_rope_at
 from ..ops.sampling import sample_logits_batch
 
 
@@ -56,10 +74,9 @@ class ServingConfig:
     pipeline_bursts: bool = False
 
 
-def _check_ported(cfg: ServingConfig, model, mesh, window, draft_params):
+def _check_ported(cfg: ServingConfig, mesh, window, draft_params):
     unported = []
-    for name in ("kv_quant", "weight_quant", "prefix_cache", "pipeline_bursts",
-                 "draft_weight_quant"):
+    for name in ("prefix_cache", "pipeline_bursts", "draft_weight_quant"):
         if getattr(cfg, name):
             unported.append(f"{name}={getattr(cfg, name)!r}")
     if cfg.decode_burst != 1:
@@ -70,8 +87,6 @@ def _check_ported(cfg: ServingConfig, model, mesh, window, draft_params):
         unported.append("mesh (tensor-parallel serving)")
     if window is not None:
         unported.append("window (sliding-window attention)")
-    if model != "transformer":
-        unported.append(f"model={model!r} (transformer only)")
     if unported:
         raise NotImplementedError("not ported to laser_tpu_torch yet: "
                                   + "; ".join(unported))
@@ -80,17 +95,20 @@ def _check_ported(cfg: ServingConfig, model, mesh, window, draft_params):
 class PagedKVCache:
     """Shared KV page pool on the device plus the host-side allocator.
 
-    pools: (L, 2, P, Hkv, ps, hd) tensor, updated in place.
+    pools: (L, 2, P, Hkv, ps, hd) tensor in ``dtype``, or int8 with
+    ``cfg.kv_quant``; scales: (L, 2, P, Hkv, ps) f32 with ``kv_quant``, else
+    None. Both are updated in place.
     tables/lengths: host int32 mirrors, copied to the device each step."""
 
     def __init__(self, n_layers: int, n_kv_heads: int, head_dim: int,
                  cfg: ServingConfig, dtype=torch.float32, device="cuda"):
-        if cfg.kv_quant:
-            raise NotImplementedError("kv_quant (int8 KV pages) is not ported")
         self.cfg = cfg
         self.pools = torch.zeros(
             (n_layers, 2, cfg.n_pages, n_kv_heads, cfg.page_size, head_dim),
-            dtype=dtype, device=device)
+            dtype=torch.int8 if cfg.kv_quant else dtype, device=device)
+        self.scales = torch.zeros(
+            (n_layers, 2, cfg.n_pages, n_kv_heads, cfg.page_size),
+            dtype=torch.float32, device=device) if cfg.kv_quant else None
         self.tables = np.zeros((cfg.max_seqs, cfg.max_pages_per_seq), np.int32)
         self.lengths = np.zeros((cfg.max_seqs,), np.int32)
         # page n_pages-1 is the trash page: inactive slots' decode writes land
@@ -140,7 +158,9 @@ class _Request:
 
 
 class ServingEngine:
-    """Serve the ``models.transformer`` schema (MHA, tied embeddings).
+    """``model``: "transformer" (``models.transformer`` schema, MHA) or
+    "llama" (``models.llama`` schema: RoPE + GQA + SwiGLU; n_kv_heads is
+    inferred from the wkv projection).
 
     ``keep_first_logits``: keep each request's first-token logits (fp32, on
     the host) in ``self.first_logits[req_id]``, for checking the prefill
@@ -155,7 +175,7 @@ class ServingEngine:
                  keep_first_logits: bool = False):
         if model not in ("transformer", "llama"):
             raise ValueError(f"unknown model family {model!r}")
-        _check_ported(cfg, model, mesh, window, draft_params)
+        _check_ported(cfg, mesh, window, draft_params)
         bad = [b for b in cfg.prefill_buckets if b % cfg.page_size]
         if bad:
             raise ValueError(f"prefill_buckets {bad} are not multiples of "
@@ -163,11 +183,27 @@ class ServingEngine:
                              f"whole pages)")
         self.n_heads = n_heads
         self.cfg = cfg
-        self.params = params
         D = params["embed"].shape[1]
         self.head_dim = D // n_heads
+        if model == "llama":
+            self.n_kv_heads = _w_out_dim(params["blocks"][0]["wkv"]) // (2 * self.head_dim)
+            capacity = cfg.max_pages_per_seq * cfg.page_size
+            if params["rope_cos"].shape[0] < capacity:
+                raise ValueError(
+                    f"rope table covers {params['rope_cos'].shape[0]} positions < "
+                    f"per-sequence capacity {capacity} (max_pages_per_seq * "
+                    f"page_size); re-init the model with a larger max_len")
+        else:
+            self.n_kv_heads = n_heads
+        if cfg.weight_quant:
+            params = quantize_block_weights(
+                params, model, mode="int4" if cfg.weight_quant == "int4" else "int8",
+                group=cfg.weight_quant_group)
+        self.params = params
+        self._decode_fn = _decode_step if model == "transformer" else _llama_decode_step
+        self._prefill_fn = _prefill_paged if model == "transformer" else _llama_prefill_paged
         self.device = params["embed"].device
-        self.cache = PagedKVCache(len(params["blocks"]), n_heads, self.head_dim,
+        self.cache = PagedKVCache(len(params["blocks"]), self.n_kv_heads, self.head_dim,
                                   cfg, dtype or params["embed"].dtype, self.device)
         self.queue: deque[_Request] = deque()
         self.running: List[Optional[_Request]] = [None] * cfg.max_seqs
@@ -264,8 +300,8 @@ class ServingEngine:
         if not active:
             return
         dev = self.device
-        logits = _decode_step(
-            self.params, self.cache.pools, torch.from_numpy(self.cache.tables).to(dev),
+        logits = self._decode_fn(
+            self.params, self.cache, torch.from_numpy(self.cache.tables).to(dev),
             torch.from_numpy(self.cache.lengths).to(dev),
             torch.from_numpy(write_page).to(dev), torch.from_numpy(self._tokens).to(dev),
             n_heads=self.n_heads, page_size=ps)
@@ -363,10 +399,10 @@ class ServingEngine:
             pages = self.cache.pages_of[slot][:-(-len(prompt) // ps)]
             page_vecs[i, :len(pages)] = pages
         dev = self.device
-        logits = _prefill_paged(self.params, self.cache.pools, torch.from_numpy(pad).to(dev),
-                                torch.from_numpy(lens).to(dev),
-                                torch.from_numpy(page_vecs).to(dev),
-                                n_heads=self.n_heads, page_size=ps, bucket=bucket)
+        logits = self._prefill_fn(self.params, self.cache, torch.from_numpy(pad).to(dev),
+                                  torch.from_numpy(lens).to(dev),
+                                  torch.from_numpy(page_vecs).to(dev),
+                                  n_heads=self.n_heads, page_size=ps, bucket=bucket)
         self.stats["prefills"] += 1
         self.stats["tokens_out"] += K
         reqs = [self.running[slot] for slot, _ in calls]
@@ -380,25 +416,104 @@ class ServingEngine:
 
 
 # ---------------------------------------------------------------------------
+# Weight-only quantisation of the block linears
+# ---------------------------------------------------------------------------
+
+_QUANT_KEYS = {"transformer": ("wqkv", "wo", "w1", "w2"),
+               "llama": ("wq", "wkv", "wo", "w_gate", "w_up", "w_down")}
+
+
+def _quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-output-column symmetric int8: {"q": (K, N) int8, "s": (N,) f32},
+    each column rounded as ``quantize_kv`` rounds a KV row."""
+    q, s = quantize_kv(w.t())
+    return {"q": q.t().contiguous(), "s": s}
+
+
+def quantize_block_weights(params: Dict, model: str, mode: str = "int8",
+                           group: int = 64) -> Dict:
+    """Quantize every block linear; norms, biases, embeddings and the
+    unembedding stay full precision. mode "int8" = per-output-column scales
+    ({"q", "s"} dicts); "int4" = group-wise packed nibbles ({"q4", "s4"}
+    dicts, ops/gemm/int4_kernel.py). A new tree; ``params`` is unchanged."""
+    if mode == "int4":
+        def qfn(w):
+            return quantize_int4(w, group=group)
+    else:
+        qfn = _quantize_weight
+    out = dict(params)
+    out["blocks"] = [{k: (qfn(v) if k in _QUANT_KEYS[model] else v) for k, v in blk.items()}
+                     for blk in params["blocks"]]
+    return out
+
+
+_Q_ACTS = {None: lambda y: y, "gelu": lambda y: F.gelu(y, approximate="tanh")}
+
+
+def _w_out_dim(w) -> int:
+    """Output width of a weight that may be quantized (dict) or plain."""
+    if isinstance(w, dict):
+        return w["q4"].shape[1] if "q4" in w else w["q"].shape[1]
+    return w.shape[1]
+
+
+def _linear_q(h, w, b=None, act=None):
+    """``linear`` that also takes a quantized weight dict. int8 ({"q", "s"}):
+    one plain product on the int8 weight cast to h's dtype, then the column
+    scales, as laser_tpu's ``jnp.dot`` there; int4 ({"q4", "s4"}): the
+    ``w4_gemm`` kernel. A bias and the activation follow in torch."""
+    if not isinstance(w, dict):
+        return linear(h, w, b, act)
+    if "q4" in w:
+        y = gemm_w4(h, w)
+    else:
+        if h.dtype == torch.float32:
+            pin_fp32_matmul()
+        y = torch.matmul(h, w["q"].to(h.dtype)) * w["s"].to(h.dtype)
+    if b is not None:
+        y = y + b
+    return _Q_ACTS[act](y)
+
+
+# ---------------------------------------------------------------------------
 # Device steps
 # ---------------------------------------------------------------------------
 
-def _kv_write_token(pools, li, write_page, row, k, v):
-    """pools[li, 0][write_page[s], :, row[s], :] = k[s] (and v), in place.
-    Inactive slots all write the trash page: duplicate indices there are
-    harmless, and they never touch a live page."""
-    pools[li, 0, write_page, :, row, :] = k
-    pools[li, 1, write_page, :, row, :] = v
+def _kv_write_token(kv: PagedKVCache, li, write_page, row, k, v):
+    """pools[li, 0][write_page[s], :, row[s], :] = k[s] (and v), in place,
+    quantized (with its scale) when the pages are int8. Inactive slots all
+    write the trash page: duplicate indices there are harmless, and they
+    never touch a live page."""
+    if kv.scales is not None:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        kv.scales[li, 0, write_page, :, row] = ks
+        kv.scales[li, 1, write_page, :, row] = vs
+    kv.pools[li, 0, write_page, :, row, :] = k
+    kv.pools[li, 1, write_page, :, row, :] = v
 
 
-def _kv_write_pages(pools, li, page_vec, kp, vp):
-    """Prefill scatter of whole pages: kp/vp (n_pg, Hkv, ps, hd), in place."""
-    pools[li, 0, page_vec] = kp
-    pools[li, 1, page_vec] = vp
+def _kv_write_pages(kv: PagedKVCache, li, page_vec, kp, vp):
+    """Prefill scatter of whole pages: kp/vp (n_pg, Hkv, ps, hd), in place,
+    quantized per token when the pages are int8."""
+    if kv.scales is not None:
+        kp, ks = quantize_kv(kp)
+        vp, vs = quantize_kv(vp)
+        kv.scales[li, 0, page_vec] = ks
+        kv.scales[li, 1, page_vec] = vs
+    kv.pools[li, 0, page_vec] = kp
+    kv.pools[li, 1, page_vec] = vp
+
+
+def _kv_attend(kv: PagedKVCache, li, q, tables, att_len):
+    scales = kv.scales
+    return paged_attention(q, kv.pools[li, 0], kv.pools[li, 1], tables, att_len,
+                           k_scale=None if scales is None else scales[li, 0],
+                           v_scale=None if scales is None else scales[li, 1])
 
 
 @torch.no_grad()
-def _decode_step(params, pools, tables, lengths, write_page, tokens, *,
+def _decode_step(params, kv, tables, lengths, write_page, tokens, *,
                  n_heads: int, page_size: int) -> torch.Tensor:
     """One batched decode step for all slots. Writes each slot's new K/V at
     row lengths[s] % ps of write_page[s], then attends over lengths + 1 keys
@@ -414,20 +529,20 @@ def _decode_step(params, pools, tables, lengths, write_page, tokens, *,
     x = params["embed"][tokens.long()][:, None, :]  # (S, 1, D)
     for li, blk in enumerate(params["blocks"]):
         h = layer_norm(x, blk["ln1_g"], blk["ln1_b"])
-        qkv = linear(h.reshape(S, D), blk["wqkv"], blk["bqkv"])
+        qkv = _linear_q(h.reshape(S, D), blk["wqkv"], blk["bqkv"])
         q, k, v = (t.reshape(S, n_heads, hd).contiguous() for t in qkv.split(D, dim=-1))
-        _kv_write_token(pools, li, write_page, row, k, v)
-        o = paged_attention(q, pools[li, 0], pools[li, 1], tables, att_len)
-        x = x + linear(o.reshape(S, D), blk["wo"], blk["bo"]).reshape(S, 1, D)
+        _kv_write_token(kv, li, write_page, row, k, v)
+        o = _kv_attend(kv, li, q, tables, att_len)
+        x = x + _linear_q(o.reshape(S, D), blk["wo"], blk["bo"]).reshape(S, 1, D)
         h = layer_norm(x, blk["ln2_g"], blk["ln2_b"])
-        f = linear(h.reshape(S, D), blk["w1"], blk["b1"], "gelu")
-        x = x + linear(f, blk["w2"], blk["b2"]).reshape(S, 1, D)
+        f = _linear_q(h.reshape(S, D), blk["w1"], blk["b1"], "gelu")
+        x = x + _linear_q(f, blk["w2"], blk["b2"]).reshape(S, 1, D)
     x = layer_norm(x, params["lnf_g"], params["lnf_b"])
     return gemm_ad(x.reshape(S, D), params["embed"], None, False, True)
 
 
 @torch.no_grad()
-def _prefill_paged(params, pools, prompts, lengths, page_vecs, *, n_heads: int,
+def _prefill_paged(params, kv, prompts, lengths, page_vecs, *, n_heads: int,
                    page_size: int, bucket: int) -> torch.Tensor:
     """BATCHED flash prefill that scatters K/V into pages. prompts (K, bucket)
     zero-padded; lengths (K,) true lengths; page_vecs (K, bucket/ps) page ids
@@ -448,17 +563,96 @@ def _prefill_paged(params, pools, prompts, lengths, page_vecs, *, n_heads: int,
 
     for li, blk in enumerate(params["blocks"]):
         h = layer_norm(x, blk["ln1_g"], blk["ln1_b"])
-        qkv = linear(h.reshape(K * bucket, D), blk["wqkv"], blk["bqkv"])
+        qkv = _linear_q(h.reshape(K * bucket, D), blk["wqkv"], blk["bqkv"])
         # row layout [q(D) | k(D) | v(D)]; heads made contiguous explicitly
         qh, kh, vh = (split_heads(t, K, bucket, n_heads) for t in qkv.split(D, dim=-1))
-        _kv_write_pages(pools, li, page_vec, pages_of(kh), pages_of(vh))
+        _kv_write_pages(kv, li, page_vec, pages_of(kh), pages_of(vh))
         o = attention(qh, kh, vh, causal=True)
         o = o.transpose(1, 2).reshape(K * bucket, D)
-        x = x + linear(o, blk["wo"], blk["bo"]).reshape(K, bucket, D)
+        x = x + _linear_q(o, blk["wo"], blk["bo"]).reshape(K, bucket, D)
         h = layer_norm(x, blk["ln2_g"], blk["ln2_b"])
-        f = linear(h.reshape(K * bucket, D), blk["w1"], blk["b1"], "gelu")
-        x = x + linear(f, blk["w2"], blk["b2"]).reshape(K, bucket, D)
+        f = _linear_q(h.reshape(K * bucket, D), blk["w1"], blk["b1"], "gelu")
+        x = x + _linear_q(f, blk["w2"], blk["b2"]).reshape(K, bucket, D)
     idx = (lengths.long() - 1).clamp(0, bucket - 1)
     last = x[torch.arange(K, device=x.device), idx]
     last = layer_norm(last, params["lnf_g"], params["lnf_b"])
     return gemm_ad(last, params["embed"], None, False, True)
+
+
+# ---------------------------------------------------------------------------
+# Llama-family device steps (models/llama.py schema: RoPE + GQA + SwiGLU)
+# ---------------------------------------------------------------------------
+
+def _llama_heads(params, n_heads: int):
+    hd = _w_out_dim(params["blocks"][0]["wq"]) // n_heads
+    return hd, _w_out_dim(params["blocks"][0]["wkv"]) // (2 * hd)
+
+
+@torch.no_grad()
+def _llama_decode_step(params, kv, tables, lengths, write_page, tokens, *,
+                       n_heads: int, page_size: int) -> torch.Tensor:
+    """``_decode_step`` for the llama schema: each slot rotates q and k at
+    its own position (its current length) and attends its Hkv-head pages."""
+    S = tokens.shape[0]
+    D = params["embed"].shape[1]
+    H = n_heads
+    hd, Hkv = _llama_heads(params, H)
+    lengths = lengths.int()
+    att_len = torch.where(lengths > 0, lengths + 1, 0).int()
+    row = (lengths % page_size).long()
+    write_page = write_page.long()
+    tables = tables.int()
+    cos, sin = params["rope_cos"], params["rope_sin"]
+    pos = torch.clamp(lengths, max=cos.shape[0] - 1)
+    x = params["embed"][tokens.long()][:, None, :]  # (S, 1, D)
+    for li, blk in enumerate(params["blocks"]):
+        h = rms_norm(x, blk["rms1"]).reshape(S, D)
+        q = _linear_q(h, blk["wq"]).reshape(S, H, hd)
+        kvp = _linear_q(h, blk["wkv"]).reshape(S, 2, Hkv, hd)
+        q = apply_rope_at(q, cos, sin, pos)
+        k = apply_rope_at(kvp[:, 0], cos, sin, pos)
+        _kv_write_token(kv, li, write_page, row, k, kvp[:, 1])
+        o = _kv_attend(kv, li, q, tables, att_len)
+        x = x + _linear_q(o.reshape(S, H * hd), blk["wo"]).reshape(S, 1, D)
+        h = rms_norm(x, blk["rms2"]).reshape(S, D)
+        f = F.silu(_linear_q(h, blk["w_gate"])) * _linear_q(h, blk["w_up"])
+        x = x + _linear_q(f, blk["w_down"]).reshape(S, 1, D)
+    x = rms_norm(x[:, 0, :], params["rms_f"])
+    return gemm_ad(x, params["unembed"])
+
+
+@torch.no_grad()
+def _llama_prefill_paged(params, kv, prompts, lengths, page_vecs, *, n_heads: int,
+                         page_size: int, bucket: int) -> torch.Tensor:
+    """Batched llama prefill: see ``_prefill_paged`` for the batching
+    contract. K and V are scattered and attended at Hkv heads (GQA flash)."""
+    D = params["embed"].shape[1]
+    H = n_heads
+    hd, Hkv = _llama_heads(params, H)
+    K = prompts.shape[0]
+    n_pg = bucket // page_size
+    page_vec = page_vecs.reshape(-1).long()
+    cos, sin = params["rope_cos"], params["rope_sin"]
+    x = params["embed"][prompts.long()]  # (K, bucket, D)
+
+    def pages_of(t):  # (K, Hkv, bucket, hd) -> (K*n_pg, Hkv, ps, hd)
+        return (t.reshape(K, Hkv, n_pg, page_size, hd).transpose(1, 2)
+                .reshape(K * n_pg, Hkv, page_size, hd))
+
+    for li, blk in enumerate(params["blocks"]):
+        h = rms_norm(x, blk["rms1"]).reshape(K * bucket, D)
+        q = _linear_q(h, blk["wq"]).reshape(K, bucket, H, hd).transpose(1, 2)
+        kvp = _linear_q(h, blk["wkv"]).reshape(K, bucket, 2, Hkv, hd)
+        q = apply_rope(q, cos, sin)                                  # (K, H, bkt, hd)
+        k = apply_rope(kvp[:, :, 0].transpose(1, 2), cos, sin)       # (K, Hkv, bkt, hd)
+        v = kvp[:, :, 1].transpose(1, 2).contiguous()
+        _kv_write_pages(kv, li, page_vec, pages_of(k), pages_of(v))
+        o = attention_gqa(q, k, v, causal=True)
+        o = o.transpose(1, 2).reshape(K * bucket, H * hd)
+        x = x + _linear_q(o, blk["wo"]).reshape(K, bucket, D)
+        h = rms_norm(x, blk["rms2"]).reshape(K * bucket, D)
+        f = F.silu(_linear_q(h, blk["w_gate"])) * _linear_q(h, blk["w_up"])
+        x = x + _linear_q(f, blk["w_down"]).reshape(K, bucket, D)
+    idx = (lengths.long() - 1).clamp(0, bucket - 1)
+    last = rms_norm(x[torch.arange(K, device=x.device), idx], params["rms_f"])
+    return gemm_ad(last, params["unembed"])

@@ -2,7 +2,9 @@
 card, at odd shapes the serving and training slices do not reach:
 transposes, f16, ragged tails, unaligned operands, narrow rows, other head
 dims, GQA; the flash stats and backward kernels at S 1-300 and D 32-256; the
-cross-entropy kernels at V 1, 127 and 8193 with label smoothing.
+cross-entropy kernels at V 1, 127 and 8193 with label smoothing; the int4
+weight GEMM at M 1-300, K 64-4096 and groups 16 and 64; the flash kernel's
+GQA map at groups 1-8; the paged kernel over int8 pages at groups 1-8.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine that has none. Run it there with
@@ -274,3 +276,107 @@ def test_engine_matches_plain_greedy_with_preemption(dev):
         want = greedy_decode(params, torch.as_tensor(p[None], device=dev).long(), n_heads=2,
                              max_new_tokens=12, plain=True)[0, len(p):].tolist()
         assert out[rid] == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 8, 17, 300])
+@pytest.mark.parametrize("K", [64, 192, 4096])
+@pytest.mark.parametrize("group", [16, 64])
+def test_w4_gemm(dev, dtype, M, K, group):
+    from laser_tpu_torch.ops.gemm.int4_kernel import W4_GEMM, gemm_w4, gemm_w4_plain, quantize_int4
+
+    g = _gen(dev, 12)
+    N = 200  # not a multiple of the 64-column tile
+    h = _rnd(g, (M, K), dtype, dev)
+    wq = quantize_int4(_rnd(g, (K, N), torch.float32, dev, std=K ** -0.5), group=group)
+    before = W4_GEMM.launches
+    _check(gemm_w4(h, wq), gemm_w4_plain(h, wq), dtype)
+    assert W4_GEMM.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_w4_gemm_scalar_loads(dev, dtype):
+    """N % 4 != 0 and an activation 2 bytes off a 16-byte boundary take the
+    element-wise loaders."""
+    from laser_tpu_torch.ops.gemm.int4_kernel import gemm_w4, gemm_w4_plain, quantize_int4
+
+    g = _gen(dev, 13)
+    M, K, N = 19, 96, 99
+    h = _rnd(g, (M * K + 1,), dtype, dev)[1:].view(M, K)
+    assert h.data_ptr() % 16
+    wq = quantize_int4(_rnd(g, (K, N), torch.float32, dev, std=K ** -0.5), group=32)
+    _check(gemm_w4(h, wq), gemm_w4_plain(h, wq), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hkv", [8, 4, 2, 1])
+@pytest.mark.parametrize("S", [1, 45, 131])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gqa(dev, dtype, Hkv, S, causal):
+    from laser_tpu_torch.ops.attention import FLASH, attention_gqa, attention_gqa_reference
+
+    g = _gen(dev, 14)
+    q = _rnd(g, (2, 8, S, 128), dtype, dev)
+    k, v = _rnd(g, (2, Hkv, S, 128), dtype, dev), _rnd(g, (2, Hkv, S, 128), dtype, dev)
+    before = FLASH.launches
+    _check(attention_gqa(q, k, v, causal=causal),
+           attention_gqa_reference(q, k, v, causal=causal), dtype)
+    assert FLASH.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 4), (8, 2), (8, 1)])
+@pytest.mark.parametrize("hd,ps", [(64, 16), (128, 64)])
+def test_paged_attention_int8(dev, dtype, Hq, Hkv, hd, ps):
+    from laser_tpu_torch.ops.paged_attention import (PAGED, paged_attention,
+                                                     paged_attention_reference, quantize_kv)
+
+    g = _gen(dev, 15)
+    S, mp = 5, 6
+    P = S * mp + 1
+    q = _rnd(g, (S, Hq, hd), dtype, dev)
+    kp, ks = quantize_kv(_rnd(g, (P, Hkv, ps, hd), dtype, dev))
+    vp, vs = quantize_kv(_rnd(g, (P, Hkv, ps, hd), dtype, dev))
+    tables = torch.randperm(P, generator=g, device=dev)[:S * mp].reshape(S, mp).int()
+    lengths = torch.tensor([0, 1, ps, 3 * ps + 5, mp * ps], device=dev, dtype=torch.int32)
+    before = PAGED.launches
+    got = paged_attention(q, kp, vp, tables, lengths, k_scale=ks, v_scale=vs)
+    assert PAGED.launches == before + 1
+    _check(got, paged_attention_reference(q, kp, vp, tables, lengths, k_scale=ks, v_scale=vs),
+           dtype)
+    assert (got[0] == 0).all()
+
+
+def test_llama_engine_int4_int8_kv_matches_plain(dev):
+    """The llama engine on the card with int4 weights and int8 KV pages:
+    every kernel of the path launches, no plain version runs, and in f32 the
+    first tokens equal the plain llama_generate's on the dequantized
+    weights."""
+    import numpy as np
+
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models.llama import init_llama, llama_generate
+    from laser_tpu_torch.ops.gemm.int4_kernel import dequantize_int4
+    from laser_tpu_torch.serving import ServingConfig, ServingEngine
+
+    params = init_llama(5, n_layers=2, d_model=128, n_heads=8, n_kv_heads=2, d_ff=256,
+                        vocab=97, max_len=256, device=dev)
+    cfg = ServingConfig(page_size=16, n_pages=32, max_seqs=2, max_pages_per_seq=6,
+                        prefill_buckets=(16, 32, 64), weight_quant="int4",
+                        weight_quant_group=16, kv_quant=True)
+    eng = ServingEngine(params, n_heads=8, model="llama", cfg=cfg)
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, 97, n).astype(np.int32) for n in (7, 21, 40)]
+    registry.reset_counts()
+    ids = [eng.add_request(p, 6) for p in prompts]
+    out = eng.run()
+    counts = registry.counts()
+    for n in ("w4_gemm", "norm", "flash_attention", "paged_attention"):
+        assert counts[n]["launches"] > 0, n
+    assert all(c["plain_calls"] == 0 for c in counts.values())
+    deq = dict(params, blocks=[{k: dequantize_int4(w) if isinstance(w, dict) else w
+                                for k, w in blk.items()} for blk in eng.params["blocks"]])
+    for p, rid in zip(prompts, ids):
+        want = llama_generate(deq, torch.as_tensor(p[None], device=dev), n_heads=8,
+                              n_kv_heads=2, max_new_tokens=6, plain=True)[0, len(p):].tolist()
+        assert out[rid][0] == want[0] and len(out[rid]) == 6

@@ -19,6 +19,8 @@ def test_import_pulls_in_no_jax():
             "import laser_tpu_torch.convert, laser_tpu_torch.device_info\n"
             "import laser_tpu_torch.ops.attention_bwd, laser_tpu_torch.ops.loss\n"
             "import laser_tpu_torch.ops.optim, laser_tpu_torch.ops.attention\n"
+            "import laser_tpu_torch.models.llama, laser_tpu_torch.ops.rope\n"
+            "import laser_tpu_torch.ops.gemm.int4_kernel\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'laser_tpu' not in sys.modules, 'laser_tpu imported'\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -57,11 +59,11 @@ def test_every_slice_kernel_registered():
     import laser_tpu_torch.serving  # noqa: F401
 
     assert set(registry.KERNELS) == {
-        "gemm", "norm", "flash_attention", "paged_attention",  # serving
+        "gemm", "norm", "flash_attention", "paged_attention", "w4_gemm",  # serving
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "ce_fwd", "ce_fused_grad"}
     assert set(registry.SIGNATURES) == {
-        "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_flash_bwd_dq",
-        "ltt_flash_bwd_dkv", "ltt_ce_fwd", "ltt_ce_fused_grad"}
+        "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
+        "ltt_flash_bwd_dq", "ltt_flash_bwd_dkv", "ltt_ce_fwd", "ltt_ce_fused_grad"}
     for k in registry.KERNELS.values():
         assert (registry.PACKAGE_DIR.parent / k.source).is_file()
         assert k.replaces.startswith("laser_tpu/")
@@ -110,17 +112,21 @@ def test_sampler_greedy_and_seeded():
 
 
 @pytest.mark.parametrize("make", ["init_transformer", "init_decode_cache", "PagedKVCache",
-                                  "params_from_numpy"])
+                                  "params_from_numpy", "init_llama", "init_llama_cache",
+                                  "rope_tables"])
 def test_entry_points_default_to_the_card(make):
     """Without a device argument the entry points allocate on CUDA, so on a
     machine without a card they raise PyTorch's own error."""
     import inspect
 
-    from laser_tpu_torch.models import transformer
+    from laser_tpu_torch.models import llama, transformer
+    from laser_tpu_torch.ops import rope
     from laser_tpu_torch.serving import engine
 
     fn = {"init_transformer": transformer.init_transformer,
           "init_decode_cache": transformer.init_decode_cache,
           "PagedKVCache": engine.PagedKVCache.__init__,
-          "params_from_numpy": params_from_numpy}[make]
+          "params_from_numpy": params_from_numpy,
+          "init_llama": llama.init_llama, "init_llama_cache": llama.init_llama_cache,
+          "rope_tables": rope.rope_tables}[make]
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -1,5 +1,7 @@
 """The port's transformer and serving engine against laser_tpu's, on
-laser_tpu-made params moved across with ``params_from_numpy``.
+laser_tpu-made params moved across with ``params_from_numpy``: the
+transformer family, and the llama family unquantized, with int8 and int4
+weights and with int8 KV pages.
 
 Tolerances: prefill / decode_step logits within 1e-4 absolute (f32, logits
 O(1)); generated greedy tokens identical.
@@ -11,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import laser_tpu.config as jconfig
+from laser_tpu.models import llama as jllama
 from laser_tpu.models import transformer as jtf
 from laser_tpu.serving import ServingConfig as JServingConfig
 from laser_tpu.serving import ServingEngine as JServingEngine
@@ -112,9 +116,33 @@ def test_sampled_request_is_deterministic(models):
     assert all(0 <= t < VOCAB for t in runs[0])
 
 
+def test_quantized_transformer_engine_matches_laser_tpu_engine(models):
+    """The transformer family through the same quantised linears: int4
+    weights (group 16) and int8 KV pages together, token-identical to
+    laser_tpu's engine (int8 pages at its f32 tier)."""
+    jparams, params = models
+    rng = np.random.RandomState(45)
+    prompts = [rng.randint(0, VOCAB, n).astype(np.int32) for n in (5, 9, 14)]
+    kw = dict(page_size=16, n_pages=16, max_seqs=2, max_pages_per_seq=3,
+              prefill_buckets=(16, 32), weight_quant="int4", weight_quant_group=16,
+              kv_quant=True)
+    old = jconfig.get_config().paged_quant_mode
+    try:
+        jconfig.set_config(paged_quant_mode="base")
+        jeng = JServingEngine(jparams, n_heads=N_HEADS, cfg=JServingConfig(**kw))
+        jids = [jeng.add_request(p, 5) for p in prompts]
+        jout = jeng.run()
+    finally:
+        jconfig.set_config(paged_quant_mode=old)
+    eng = ServingEngine(params, n_heads=N_HEADS, cfg=ServingConfig(**kw))
+    ids = [eng.add_request(p, 5) for p in prompts]
+    out = eng.run()
+    assert [out[i] for i in ids] == [[int(t) for t in jout[j]] for j in jids]
+    assert eng.cache.scales is not None and eng.params["blocks"][0]["wqkv"].keys() == {"q4", "s4"}
+
+
 @pytest.mark.parametrize("kw", [
-    dict(prefix_cache=True), dict(kv_quant=True), dict(weight_quant="int8"),
-    dict(weight_quant="int4"), dict(spec_gamma=2), dict(pipeline_bursts=True),
+    dict(prefix_cache=True), dict(spec_gamma=2), dict(pipeline_bursts=True),
     dict(decode_burst=4), dict(draft_weight_quant="int8"),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_config_raises(models, kw):
@@ -123,8 +151,8 @@ def test_unported_config_raises(models, kw):
         ServingEngine(params, n_heads=N_HEADS, cfg=ServingConfig(page_size=16, **kw))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(window=8), dict(model="llama"),
-                                dict(draft_params={})], ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(window=8), dict(draft_params={})],
+                         ids=lambda kw: next(iter(kw)))
 def test_unported_engine_arguments_raise(models, kw):
     _, params = models
     with pytest.raises(NotImplementedError):
@@ -137,3 +165,89 @@ def test_chunked_prefill_raises(models):
                         cfg=ServingConfig(page_size=16, prefill_buckets=(16, 32)))
     with pytest.raises(NotImplementedError):
         eng.add_request(np.zeros(40, np.int32), 4)
+
+
+# ---------------------------------------------------------------------------
+# The llama family: 2 layers, d_model 128, 8 heads over 2 kv heads
+# ---------------------------------------------------------------------------
+
+LLAMA_HEADS, LLAMA_KV_HEADS = 8, 2
+LLAMA_CFG = dict(page_size=16, n_pages=32, max_seqs=2, max_pages_per_seq=6,
+                 prefill_buckets=(16, 32, 64))
+# prompts of 7, 12 and 21 tokens: two buckets, a decode across a page
+# boundary, three requests through two slots
+LLAMA_PROMPTS, LLAMA_NEW = (7, 12, 21), 5
+LLAMA_CASES = {"unquantized": {}, "int8": dict(weight_quant="int8"),
+               "int4": dict(weight_quant="int4", weight_quant_group=16),
+               "kv_quant": dict(kv_quant=True)}
+
+
+@pytest.fixture(scope="module")
+def llama_models():
+    jparams = jllama.init_llama(jax.random.PRNGKey(3), n_layers=2, d_model=128,
+                                n_heads=LLAMA_HEADS, n_kv_heads=LLAMA_KV_HEADS, d_ff=256,
+                                vocab=VOCAB, max_len=256)
+    rng = np.random.RandomState(44)
+    prompts = [rng.randint(0, VOCAB, n).astype(np.int32) for n in LLAMA_PROMPTS]
+    return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu"), prompts
+
+
+def _jax_llama_tokens(jparams, prompts, kw):
+    """laser_tpu's engine on one config; int8 KV pages at its f32 tier."""
+    old = jconfig.get_config().paged_quant_mode
+    try:
+        jconfig.set_config(paged_quant_mode="base")
+        eng = JServingEngine(jparams, n_heads=LLAMA_HEADS, model="llama",
+                             cfg=JServingConfig(**LLAMA_CFG, **kw))
+        ids = [eng.add_request(p, LLAMA_NEW) for p in prompts]
+        out = eng.run()
+    finally:
+        jconfig.set_config(paged_quant_mode=old)
+    return [[int(t) for t in out[i]] for i in ids]
+
+
+@pytest.mark.parametrize("case", list(LLAMA_CASES))
+def test_llama_engine_tokens_match_laser_tpu_engine(llama_models, case):
+    jparams, params, prompts = llama_models
+    kw = LLAMA_CASES[case]
+    want = _jax_llama_tokens(jparams, prompts, kw)
+    eng = ServingEngine(params, n_heads=LLAMA_HEADS, model="llama",
+                        cfg=ServingConfig(**LLAMA_CFG, **kw))
+    assert eng.n_kv_heads == LLAMA_KV_HEADS
+    assert eng.cache.pools.dtype == (torch.int8 if kw.get("kv_quant") else torch.float32)
+    ids = [eng.add_request(p, LLAMA_NEW) for p in prompts]
+    out = eng.run()
+    assert [out[i] for i in ids] == want
+    assert eng.cache.n_free() == LLAMA_CFG["n_pages"] - 1
+    if not kw:  # and both engines are the dense llama_generate's
+        from laser_tpu_torch.models.llama import llama_generate
+
+        for p, toks in zip(prompts, want):
+            dense = llama_generate(params, torch.from_numpy(p[None]), n_heads=LLAMA_HEADS,
+                                   n_kv_heads=LLAMA_KV_HEADS, max_new_tokens=LLAMA_NEW)
+            assert dense[0, len(p):].tolist() == toks
+
+
+def test_llama_engine_checks_the_rope_table(llama_models):
+    _, params, _ = llama_models
+    with pytest.raises(ValueError, match="rope table"):
+        ServingEngine(params, n_heads=LLAMA_HEADS, model="llama",
+                      cfg=ServingConfig(page_size=16, max_pages_per_seq=17))
+
+
+def test_quantized_weights_keep_the_tree(llama_models):
+    """quantize_block_weights leaves norms, embeddings and the caller's tree
+    alone; params_from_numpy keeps int8 leaves int8 and scales f32."""
+    from laser_tpu.serving.engine import quantize_block_weights as jquantize
+    from laser_tpu_torch.serving.engine import quantize_block_weights
+
+    jparams, params, _ = llama_models
+    q = quantize_block_weights(params, "llama", mode="int4", group=16)
+    assert set(q["blocks"][0]["w_up"]) == {"q4", "s4"}
+    assert q["blocks"][0]["rms1"] is params["blocks"][0]["rms1"]
+    assert q["unembed"] is params["unembed"] and torch.is_tensor(params["blocks"][0]["w_up"])
+    moved = params_from_numpy(jax.tree.map(np.asarray, jquantize(jparams, "llama", "int8")),
+                              device="cpu", dtype=torch.bfloat16)
+    assert moved["blocks"][0]["wq"]["q"].dtype == torch.int8
+    assert moved["blocks"][0]["wq"]["s"].dtype == torch.float32
+    assert moved["blocks"][0]["rms1"].dtype == torch.bfloat16
