@@ -56,6 +56,29 @@ printed:
    the engine's tokens equal the plain ``llama_generate``'s for every
    request, unquantized and with int4 weights (against the dequantized
    weights); with int8 KV pages the first tokens are equal.
+9. Speculative serving, run S1 (laser_tpu's ``serving_spec_weightbound``
+   row, bench.py:950-985): phase 3's model, 8 prompts of 128 tokens, 256
+   new tokens each, greedy, decode bursts of 64, pipelined; the plain burst
+   engine, then the int8 quantized self-draft at gamma 4. Checks tokens and
+   that every kernel of each run launched with no plain version (the window
+   kernel in the speculative run); prints tokens/s, the acceptance alpha,
+   the speed ratio, the token agreement with the plain burst engine, and
+   the profile of one more run of each engine (64 new tokens per request).
+10. Run S2: phase 7's model, traffic and engine config with int8 pages,
+   bursts of 20, pipelined; the plain burst engine, then the int4
+   quantized self-draft at gamma 4 (``w4_gemm`` in the draft, the window
+   kernel's int8 variant in the verify). The same checks and prints (the
+   profiled runs with 16 new tokens per request).
+11. f32 speculation at phases 4 and 8's widths, TF32 off: the speculative
+   engine's tokens equal the plain engine's and the dense reference's
+   (``greedy_decode``, ``llama_generate``) for every request, with a
+   self-draft, a smaller different draft and an int4 self-draft; with int8
+   pages and pipelining, equal to the plain engine's on the same pages.
+
+Phase 2 also holds the paged window (verify) kernel against its plain
+version: bf16 at run S1's shape, int8 pages at the Llama widths, and f32,
+each output row against its own size, with one window ending past its
+table. The profiles record device activity only.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record, and the line before that the card.
@@ -109,6 +132,19 @@ SERVE_CFG = dict(page_size=64, max_seqs=8, max_pages_per_seq=16, n_pages=129,
 TRAIN_BATCH, TRAIN_F32_BATCH = (8, 1024), (4, 256)
 TRAIN_STEPS, LR, WD = 6, 3e-4, 0.01
 SERVING_KERNELS = ("gemm", "norm", "flash_attention", "paged_attention")
+# runs S1 and S2: the plain burst engine, then the quantized self-draft
+SPEC_GAMMA = 4
+S1_CFG = dict(page_size=64, n_pages=8 * 7 + 2, max_seqs=8, max_pages_per_seq=7,
+              prefill_buckets=(128,), decode_burst=64, pipeline_bursts=True)
+S1_TRAFFIC = dict(n=8, prompt=128, new=256)
+S2_CFG = dict(SERVE_CFG, kv_quant=True, decode_burst=20, pipeline_bursts=True)
+SPEC_KERNELS = {"s1_plain": SERVING_KERNELS,
+                "s1_spec": SERVING_KERNELS + ("paged_window_attention",),
+                "s2_plain": SERVING_KERNELS,
+                "s2_spec": SERVING_KERNELS + ("w4_gemm", "paged_window_attention")}
+SPEC_F32_CFG = dict(SERVE_CFG, decode_burst=20, pipeline_bursts=True)
+DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=2, d_ff=512, vocab=8192)
+LLAMA_DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab=8192)
 TRAINING_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
                     "flash_attention_bwd_dkv", "ce_fused_grad", "ce_fwd")
 # run (b)'s block linears are all int4 and its logits torch.matmul: no gemm
@@ -138,22 +174,35 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def compare(name, got, want):
-    """Max abs error of each output against the plain version, held to the
-    bound of its dtype; returns the largest."""
+def rel_error(got, want, per_row: bool = False):
+    """(max abs error, relative error) of ``got`` against ``want``: the
+    error over max |want|, or with ``per_row`` each row of the last axis
+    over its own max |want| (the worst row), for outputs whose rows differ
+    in size by more than the bound, as attention over one key and over a
+    thousand do."""
+    d = (got.float() - want.float()).abs()
+    if per_row:
+        rel = (d.amax(-1) / want.float().abs().amax(-1).clamp(min=1e-30)).max().item()
+    else:
+        rel = d.max().item() / max(want.float().abs().max().item(), 1e-30)
+    return d.max().item(), rel
+
+
+def compare(name, got, want, per_row: bool = False):
+    """Max abs error of each output against the plain version, its relative
+    error (``rel_error``) held to the bound of its dtype; returns the
+    largest abs error."""
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want, strict=True)):
         bound = REL_BOUND[g.dtype if g.dtype != torch.float16 else torch.bfloat16]
-        g, w = g.float(), w.float()
-        if g.shape != w.shape or not torch.isfinite(g).all():
+        if g.shape != w.shape or not torch.isfinite(g.float()).all():
             fail(f"{name}[{i}]: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite")
-        err = (g - w).abs().max().item()
-        rel = err / max(w.abs().max().item(), 1e-30)
-        print(f"  {name}[{i}]: max_abs_err {err:.3e} rel {rel:.3e} (bound {bound:.0e})",
-              flush=True)
+        err, rel = rel_error(g, w, per_row)
+        print(f"  {name}[{i}]: max_abs_err {err:.3e} rel{' (worst row)' if per_row else ''} "
+              f"{rel:.3e} (bound {bound:.0e})", flush=True)
         if not rel <= bound:
             fail(f"{name}[{i}]: relative error {rel:.3e} > {bound:.0e}")
         worst = max(worst, err)
@@ -171,6 +220,7 @@ class Case:
     library: Optional[Callable] = None
     library_call: Optional[str] = None
     slot: str = ""            # "" for the kernel's main shape, else a sub-record
+    per_row: bool = False     # rel_error per output row
 
 
 def bound(case: Case, spec, dtype):
@@ -322,6 +372,16 @@ def kernel_cases(dtype, full: bool):
         flops=4 * keys * Hq * hd, nbytes=2 * keys * Hkv * (hd + 4) + 2 * slots * Hq * hd * isz
         + tables.numel() * 4 + slots * 4, slot="int8"))
 
+    # the verify: W window queries per slot over the same pages, at the
+    # transformer width, then over the int8 pages at the llama widths; the
+    # longest window ends two positions past its table, as a full slot's
+    # last verify windows do in the engine
+    Wv = SPEC_GAMMA + 1
+    lengths_w = torch.linspace(Wv, pages * ps + 2, slots, device=DEVICE).int()
+    cases.append(window_case(rnd(slots, Wv, H, hd), kp, vp, tables, lengths_w))
+    cases.append(window_case(rnd(slots, Wv, Hq, hd), kpi, vpi, tables, lengths_w, ksi, vsi,
+                             slot="int8"))
+
     cases.append(w4_case(g, dtype, Mq, Kq, Nq, group))
 
     xl = rnd(T, V, std=2.0)
@@ -359,6 +419,58 @@ def w4_case(g, dtype, M, K, N, group, slot=""):
                 library_call="torch.matmul on the dequantized weight in the activation "
                              "dtype: the same product from 4x the weight bytes (bf16)",
                 slot=slot)
+
+
+def window_case(q, kp, vp, tables, lengths, ks=None, vs=None, slot=""):
+    """The paged window kernel; bytes count every key of each slot once
+    (its last query reads them all), operations every causal pair. Held to
+    its bound row by row: a row over 5 keys is a few times the size of one
+    over a thousand, so a bound on the whole output would let the long
+    slots drift."""
+    from laser_tpu_torch.ops.paged_attention import (paged_window_attention,
+                                                     paged_window_attention_reference)
+
+    S, W, Hq, hd = q.shape
+    Hkv, ps = kp.shape[1], kp.shape[2]
+    cap = tables.shape[1] * ps  # keys a table row holds
+    isz = q.element_size()
+    kw = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    lens = lengths.tolist()
+    keys = sum(min(n, cap) for n in lens)
+    pairs = sum(min(max(n - W + w + 1, 0), cap) for n in lens if n > 0 for w in range(W))
+    row = hd * isz if ks is None else hd + 4
+    return Case(
+        "paged_window_attention",
+        f"slots{S} W{W} Hq{Hq} Hkv{Hkv} hd{hd} ps{ps} pages{tables.shape[1]} lengths "
+        f"{min(lens)}..{max(lens)}{', int8 pages' if ks is not None else ''}",
+        lambda: paged_window_attention(q, kp, vp, tables, lengths, **kw),
+        lambda: paged_window_attention_reference(q, kp, vp, tables, lengths, **kw),
+        flops=4 * hd * Hq * pairs,
+        nbytes=2 * keys * Hkv * row + 2 * S * W * Hq * hd * isz + tables.numel() * 4 + S * 4,
+        library=_sdpa_window(q, kp, vp, tables, lengths, ks, vs),
+        library_call="F.scaled_dot_product_attention with the causal window mask on K/V "
+                     "already gathered from the pages (dequantized for int8 pages); the "
+                     "gather is not timed", slot=slot, per_row=True)
+
+
+def _sdpa_window(q, kp, vp, tables, lengths, ks, vs):
+    S, W, Hq, hd = q.shape
+    Hkv = kp.shape[1]
+    if ks is not None:
+        kp = (kp.float() * ks[..., None]).to(q.dtype)
+        vp = (vp.float() * vs[..., None]).to(q.dtype)
+    t = tables.long()
+    k = kp[t].transpose(1, 2).reshape(S, Hkv, -1, hd)
+    v = vp[t].transpose(1, 2).reshape(S, Hkv, -1, hd)
+    qpos = lengths.long()[:, None] - W + torch.arange(W, device=q.device)
+    mask = (torch.arange(k.shape[2], device=q.device)[None, None, :] <= qpos[:, :, None])[:, None]
+    qh = q.transpose(1, 2).contiguous()  # (S, Hq, W, hd)
+    kw = {}
+    if Hq != Hkv:
+        if _sdpa_gqa(qh, k, v) is None:
+            return None
+        kw = dict(enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, **kw)
 
 
 def _sdpa_gqa(q, k, v):
@@ -412,9 +524,10 @@ def phase_kernels(spec):
     bf16 = kernel_cases(torch.bfloat16, full=True) + [
         decode_gemm_case(), w4_case(g, torch.bfloat16, 4096, 4096, 14336, 64, slot="prefill")]
     for case in f32:
-        compare(f"{case.name} {case.shape} [f32]", case.kern(), case.plain())
+        compare(f"{case.name} {case.shape} [f32]", case.kern(), case.plain(), case.per_row)
     for case in bf16:
-        err = compare(f"{case.name} {case.shape} [bf16]", case.kern(), case.plain())
+        err = compare(f"{case.name} {case.shape} [bf16]", case.kern(), case.plain(),
+                      case.per_row)
         ms, pms = cuda_ms(case.kern), cuda_ms(case.plain, reps=5)
         lms = cuda_ms(case.library) if case.library else None
         bms, by = bound(case, spec, torch.bfloat16)
@@ -437,15 +550,17 @@ def traffic(vocab: int):
     return [rs.randint(0, vocab, size=n).astype(np.int32) for n in lens]
 
 
-def serve(params, n_heads, prompts, keep_first_logits=False, model="transformer", **quant):
+def serve(params, n_heads, prompts, keep_first_logits=False, model="transformer", *,
+          cfg=SERVE_CFG, new_tokens=NEW_TOKENS, draft=None, draft_n_heads=None, **quant):
     """One engine over ``prompts``: (engine, tokens per request, wall s).
-    ``quant``: the ServingConfig quantisation fields."""
+    ``quant``: more ServingConfig fields (quantisation, speculation)."""
     from laser_tpu_torch.serving import ServingConfig, ServingEngine
 
     eng = ServingEngine(params, n_heads=n_heads, model=model,
-                        cfg=ServingConfig(**SERVE_CFG, **quant),
-                        keep_first_logits=keep_first_logits)
-    ids = [eng.add_request(p, NEW_TOKENS) for p in prompts]
+                        cfg=ServingConfig(**{**cfg, **quant}),
+                        keep_first_logits=keep_first_logits, draft_params=draft,
+                        draft_n_heads=draft_n_heads)
+    ids = [eng.add_request(p, new_tokens) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = eng.run()
@@ -454,9 +569,9 @@ def serve(params, n_heads, prompts, keep_first_logits=False, model="transformer"
     return eng, [out[i] for i in ids], wall
 
 
-def check_tokens(outs, vocab):
+def check_tokens(outs, vocab, n=NEW_TOKENS):
     for i, toks in enumerate(outs):
-        if len(toks) != NEW_TOKENS or not all(0 <= t < vocab for t in toks):
+        if len(toks) != n or not all(0 <= t < vocab for t in toks):
             fail(f"request {i}: {len(toks)} tokens, range "
                  f"[{min(toks, default=-1)}, {max(toks, default=-1)}]")
 
@@ -585,11 +700,13 @@ def check_routes(params, tokens, n_heads, loss_rel, grad_rel, norm: str):
 
 def profile_step(step_fn, what: str = "step"):
     """One step (or engine run) under torch.profiler: device time by kernel,
-    busy and idle share of its wall time."""
+    busy and idle share of its wall time. Device activity only: tracing
+    every host op as well slows the host the idle share measures, and
+    summarising a speculative run's host ops took minutes."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step_fn()
         torch.cuda.synchronize()
@@ -813,6 +930,128 @@ def phase_llama_f32():
             fail(f"f32 llama {tag} request {i}: engine and plain differ from token {first}")
 
 
+def spec_runs(tag, params, n_heads, prompts, vocab, new_tokens, cfg, draft_quant,
+              profile_tokens, model="transformer"):
+    """The plain burst engine, then the speculative engine with the
+    quantized self-draft, each warmed up, counted and checked, then run once
+    more under torch.profiler with ``profile_tokens`` new tokens per request
+    (a shorter run, to keep the script's time down)."""
+    from laser_tpu_torch import registry
+
+    counts_by_run, results, outs_by_run = {}, {}, {}
+    for run, kw in ((f"{tag}_plain", dict(spec_gamma=0)),
+                    (f"{tag}_spec", dict(spec_gamma=SPEC_GAMMA, draft_weight_quant=draft_quant))):
+        draft = params if kw["spec_gamma"] else None
+        print(f"  run {run} {kw}", flush=True)
+        serve(params, n_heads, prompts[:1], model=model, cfg=cfg, new_tokens=8, draft=draft,
+              **kw)  # warm-up
+        registry.reset_counts()
+        eng, outs, wall = serve(params, n_heads, prompts, model=model, cfg=cfg,
+                                new_tokens=new_tokens, draft=draft, **kw)
+        counts = registry.counts()
+        print(f"  counts {json.dumps(counts)}", flush=True)
+        check_tokens(outs, vocab, new_tokens)
+        check_counts(counts, SPEC_KERNELS[run], run)
+        ntok = sum(len(o) for o in outs)
+        res = {"wall_s": wall, "tokens": ntok, "tokens_per_s": ntok / wall, "stats": eng.stats}
+        if kw["spec_gamma"]:
+            st = eng.stats
+            res["alpha"] = (st["spec_tokens"] / st["spec_live_rounds"] - 1) / SPEC_GAMMA
+        print(f"  served {len(outs)} requests, {ntok} tokens in {wall:.3f} s: "
+              f"{ntok / wall:.1f} tokens/s"
+              + (f"; alpha {res['alpha']:.4f}" if "alpha" in res else "")
+              + f"; stats {eng.stats}", flush=True)
+        del eng
+        res["profile"] = profile_step(lambda: serve(
+            params, n_heads, prompts, model=model, cfg=cfg, new_tokens=profile_tokens,
+            draft=draft, **kw), f"{run} engine run, {profile_tokens} new tokens per request")
+        counts_by_run[run], results[run], outs_by_run[run] = counts, res, outs
+    plain, spec = results[f"{tag}_plain"], results[f"{tag}_spec"]
+    spec["speed_vs_plain"] = spec["tokens_per_s"] / plain["tokens_per_s"]
+    same, total = agreement(outs_by_run[f"{tag}_spec"], outs_by_run[f"{tag}_plain"])
+    spec["agreement_with_plain"] = [same, total]
+    print(f"  speculative / plain burst engine: {spec['speed_vs_plain']:.3f}x; token "
+          f"agreement {same}/{total} ({same / total:.4f}; bf16 near-ties between the "
+          f"verify and decode numerics may flip an argmax: printed, not gated)", flush=True)
+    torch.cuda.empty_cache()
+    return counts_by_run, results
+
+
+def phase_spec_s1():
+    from laser_tpu_torch.models.transformer import init_transformer
+
+    print("phase 9: speculative serving S1, 8L d2048 bf16, int8 self-draft", flush=True)
+    params = init_transformer(0, dtype=torch.bfloat16, device=DEVICE, **MODEL)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, MODEL["vocab"], size=S1_TRAFFIC["prompt"]).astype(np.int32)
+               for _ in range(S1_TRAFFIC["n"])]
+    return spec_runs("s1", params, MODEL["n_heads"], prompts, MODEL["vocab"],
+                     S1_TRAFFIC["new"], S1_CFG, "int8", profile_tokens=64)
+
+
+def phase_spec_s2():
+    from laser_tpu_torch.models.llama import init_llama
+    from laser_tpu_torch.ops.rope import rope_tables
+
+    H = LLAMA["n_heads"]
+    print("phase 10: speculative serving S2, Llama-3-8B widths, 8 layers bf16, int4 "
+          "self-draft, int8 pages", flush=True)
+    params = init_llama(0, dtype=torch.bfloat16, device=DEVICE, max_len=LLAMA_ROPE["max_len"],
+                        **LLAMA)
+    params["rope_cos"], params["rope_sin"] = rope_tables(
+        LLAMA_ROPE["max_len"], LLAMA["d_model"] // H, base=LLAMA_ROPE["base"], device=DEVICE)
+    return spec_runs("s2", params, H, traffic(LLAMA["vocab"]), LLAMA["vocab"], NEW_TOKENS,
+                     S2_CFG, "int4", profile_tokens=16, model="llama")
+
+
+def phase_spec_f32():
+    from laser_tpu_torch.models.llama import init_llama
+    from laser_tpu_torch.models.transformer import greedy_decode, init_transformer
+
+    print("phase 11: speculative engine vs plain engine and dense reference, f32", flush=True)
+    cap = SERVE_CFG["max_pages_per_seq"] * SERVE_CFG["page_size"]
+    tparams = init_transformer(1, dtype=torch.float32, device=DEVICE, **MODEL_F32)
+    lparams = init_llama(1, dtype=torch.float32, device=DEVICE, max_len=cap, **LLAMA_F32)
+    families = {
+        "transformer": (tparams, MODEL_F32["n_heads"], [
+            ("self-draft", tparams, None, {}),
+            ("smaller different draft",
+             init_transformer(2, dtype=torch.float32, device=DEVICE, **DRAFT_F32),
+             DRAFT_F32["n_heads"], {})]),
+        "llama": (lparams, LLAMA_F32["n_heads"], [
+            ("int4 self-draft", lparams, None, dict(draft_weight_quant="int4")),
+            ("smaller different draft",
+             init_llama(2, dtype=torch.float32, device=DEVICE, max_len=cap, **LLAMA_DRAFT_F32),
+             LLAMA_DRAFT_F32["n_heads"], {}),
+            ("self-draft, int8 pages", lparams, None, dict(kv_quant=True))]),
+    }
+    prompts = traffic(MODEL_F32["vocab"])
+    for model, (params, H, drafts) in families.items():
+        if model == "llama":
+            dense = plain_generate(params, prompts, H, LLAMA_F32["n_kv_heads"])
+        else:
+            dense = [greedy_decode(params, torch.as_tensor(p[None], device=DEVICE).long(),
+                                   n_heads=H, max_new_tokens=NEW_TOKENS,
+                                   plain=True)[0, len(p):].tolist() for p in prompts]
+        plain_by_kv = {}
+        for tag, draft, dh, kw in drafts:
+            kvq = kw.get("kv_quant", False)
+            if kvq not in plain_by_kv:
+                plain_by_kv[kvq] = serve(params, H, prompts, model=model, cfg=SPEC_F32_CFG,
+                                         kv_quant=kvq)[1]
+            _, outs, wall = serve(params, H, prompts, model=model, cfg=SPEC_F32_CFG,
+                                  draft=draft, draft_n_heads=dh, spec_gamma=SPEC_GAMMA, **kw)
+            check_tokens(outs, MODEL_F32["vocab"])
+            same, total = agreement(outs, plain_by_kv[kvq])
+            dsame, _ = agreement(outs, dense)
+            print(f"  {model} {tag}: {same}/{total} tokens equal to the plain engine, "
+                  f"{dsame}/{total} to the dense reference; engine wall {wall:.3f} s",
+                  flush=True)
+            # int8 pages store K/V with an error the dense reference lacks
+            if same != total or (not kvq and dsame != total):
+                fail(f"f32 {model} speculative {tag}: tokens differ")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -838,25 +1077,37 @@ def main():
     print(f"phase 1: kernels built/loaded in {time.perf_counter() - t0:.1f} s "
           f"({registry.library_path().parent.name})", flush=True)
 
-    record = phase_kernels(spec)
-    serve_counts, engine = phase_slice()
-    phase_f32()
-    train_counts, train = phase_train()
-    phase_train_f32()
-    llama_counts, llama = phase_llama()
-    phase_llama_f32()
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        print(f"  ({phase.__name__}: {time.perf_counter() - t:.1f} s; "
+              f"{time.perf_counter() - t0:.1f} s since the build started)", flush=True)
+        return out
+
+    record = timed(phase_kernels, spec)
+    serve_counts, engine = timed(phase_slice)
+    timed(phase_f32)
+    train_counts, train = timed(phase_train)
+    timed(phase_train_f32)
+    llama_counts, llama = timed(phase_llama)
+    timed(phase_llama_f32)
+    s1_counts, s1 = timed(phase_spec_s1)
+    s2_counts, s2 = timed(phase_spec_s2)
+    timed(phase_spec_f32)
 
     kernels = []
     for name, k in registry.KERNELS.items():
         r = record[name]
         by_path = {"serving": serve_counts[name]["launches"],
                    "training": train_counts[name]["launches"],
-                   **{tag: c[name]["launches"] for tag, c in llama_counts.items()}}
+                   **{tag: c[name]["launches"] for tag, c in llama_counts.items()},
+                   **{tag: c[name]["launches"] for tag, c in s1_counts.items()},
+                   **{tag: c[name]["launches"] for tag, c in s2_counts.items()}}
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **r})
-    print(json.dumps({"card": card, "engine": engine, "train": train, "llama": llama}),
-          flush=True)
+    print(json.dumps({"card": card, "engine": engine, "train": train, "llama": llama,
+                      "spec_s1": s1, "spec_s2": s2}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,7 @@
 // the backward kernels (flash_attention_bwd.cu) expect them. The stats write
 // is a compile-time variant (STATS): with a run-time test of the pointers,
 // the value-only forward at the serving prefill's shape took 0.730 ms in
-// place of 0.640 on an H100 (scripts/time_flash_forward.py).
+// place of 0.640 on an H100 (scripts/time_in_turns.py flash_forward).
 //
 // What bounds it on the H100: at the serving slice's prefill (BH = 8 x 16,
 // S = bucket <= 512, D = 128) it is 2 x BH x S^2 x D FLOPs over only

@@ -1,30 +1,38 @@
-"""Paged decode attention (port of laser_tpu/ops/paged_attention.py:
-``paged_attention``, ``paged_attention_reference``, ``quantize_kv``).
+"""Paged decode attention and its W-query variant, the speculative verify
+(port of laser_tpu/ops/paged_attention.py: ``paged_attention``,
+``paged_window_attention``, their references, ``quantize_kv``).
 
 Layouts, as in laser_tpu:
     q        (S, Hq, hd)        one decode token per sequence slot
+             (S, W, Hq, hd)     W window tokens per slot (window variant)
     k_pool   (P, Hkv, ps, hd)   P pages of ps tokens each, shared pool
     v_pool   (P, Hkv, ps, hd)
     tables   (S, max_pages)     int32 page ids per slot
     lengths  (S,)               int32 valid keys per slot (0 = inactive)
 
-The CUDA kernel (csrc/paged_attention.cu) takes pools in q's dtype
-(f32/bf16/f16) or int8 pools with per-(page, kv head, token) f32
-``k_scale``/``v_scale`` of shape (P, Hkv, ps), as ``quantize_kv`` makes them;
-GQA: Hq a multiple of Hkv, at most 8 query heads per kv head, consecutive q
-heads sharing a kv head. Keys at or past a slot's length are never read;
-``length == 0`` gives zeros. The int8 variant folds the scales into the
-scores and the probabilities, in laser_tpu's order; for f32 it computes in
-f32 throughout: laser_tpu's ``paged_quant_mode="base"`` (its bf16 limb
-tiers exist for the TPU's matrix unit and are not ported).
-``window`` is not ported yet and raises. The caller keeps every table entry
-below ``lengths`` a valid page id: the kernel does not check them.
+The CUDA kernels (csrc/paged_attention.cu, csrc/paged_window_attention.cu)
+take pools in q's dtype (f32/bf16/f16) or int8 pools with per-(page, kv
+head, token) f32 ``k_scale``/``v_scale`` of shape (P, Hkv, ps), as
+``quantize_kv`` makes them; GQA: Hq a multiple of Hkv, consecutive q heads
+sharing a kv head, at most 8 query heads per kv head for the decode kernel
+and at most 64 folded rows W * (Hq / Hkv) for the window kernel. Keys at or
+past a slot's length are never read; ``length == 0`` gives zeros. In the
+window variant query w of slot s sits at position lengths[s] - W + w and
+attends causally (active slots have lengths[s] >= W). The int8 variants fold
+the scales into the scores and the probabilities, in laser_tpu's order; for
+f32 they compute in f32 throughout: laser_tpu's ``paged_quant_mode="base"``
+(its bf16 limb tiers exist for the TPU's matrix unit and are not ported).
+``window`` (sliding-window attention) is not ported yet and raises. The
+caller keeps every table entry below ``lengths`` a valid page id: the
+kernels do not check them.
 
-Replaces laser_tpu/ops/paged_attention.py:121 build_paged_attention. Bound
-on the H100: KV bytes from HBM. Design: one block per (slot, kv head) reads
-its own table row (no scalar prefetch on Hopper); four warps stream
-interleaved 32-key tiles with their own online softmax and merge at the end
-(csrc/paged_attention.cu).
+Replace laser_tpu/ops/paged_attention.py:121 build_paged_attention and :318
+build_paged_window_attention. Bound on the H100: KV bytes from HBM. Design:
+one block per (slot, kv head) reads its own table row (no scalar prefetch on
+Hopper). The decode kernel's four warps stream interleaved 32-key tiles with
+their own online softmax and merge at the end; the window kernel copies each
+32-key tile once into shared memory and gives each of its eight warps its
+own rows (csrc/*.cu).
 """
 
 from __future__ import annotations
@@ -39,9 +47,13 @@ from .attention import masked_softmax_pv
 
 PAGED = registry.kernel("paged_attention", "laser_tpu_torch/csrc/paged_attention.cu",
                         "laser_tpu/ops/paged_attention.py:121 build_paged_attention")
+PAGED_WINDOW = registry.kernel(
+    "paged_window_attention", "laser_tpu_torch/csrc/paged_window_attention.cu",
+    "laser_tpu/ops/paged_attention.py:318 build_paged_window_attention")
 
 MAX_GROUP = 8
 MAX_HEAD_DIM = 256
+MAX_WINDOW_ROWS = 64  # W * (Hq / Hkv) rows per (slot, kv head) block
 
 
 def quantize_kv(x: torch.Tensor):
@@ -76,24 +88,31 @@ def _paged_plain(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
     return o.reshape(S, Hq, hd).to(q.dtype)
 
 
-def _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
+def _check_cuda_operands(what, q, k_pool, v_pool, tables, lengths, k_scale, v_scale):
+    """The kernels' dtype, device and contiguity rules; True for int8 pools."""
     if q.dtype not in registry.DTYPE_CODES:
-        raise TypeError(f"paged attention kernel: unsupported dtype {q.dtype}")
+        raise TypeError(f"{what} kernel: unsupported dtype {q.dtype}")
     quant = k_pool.dtype == torch.int8
-    operands = [("k_pool", k_pool), ("v_pool", v_pool), ("tables", tables),
+    operands = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("tables", tables),
                 ("lengths", lengths)]
     if quant:
         operands += [("k_scale", k_scale), ("v_scale", v_scale)]
     for name, t in operands:
         if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"paged attention: {name} must be contiguous on {q.device}")
+            raise ValueError(f"{what}: {name} must be contiguous on {q.device}")
     if v_pool.dtype != k_pool.dtype or k_pool.dtype not in (q.dtype, torch.int8):
-        raise TypeError(f"paged attention kernel: pools {k_pool.dtype}/{v_pool.dtype} "
+        raise TypeError(f"{what} kernel: pools {k_pool.dtype}/{v_pool.dtype} "
                         f"with q {q.dtype}")
     if quant and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
-        raise TypeError("paged attention kernel: k_scale and v_scale must be float32")
+        raise TypeError(f"{what} kernel: k_scale and v_scale must be float32")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError("paged attention kernel: tables and lengths must be int32")
+        raise TypeError(f"{what} kernel: tables and lengths must be int32")
+    return quant
+
+
+def _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
+    quant = _check_cuda_operands("paged attention", q, k_pool, v_pool, tables, lengths,
+                                 k_scale, v_scale)
     S, Hq, hd = q.shape
     _, Hkv, ps, _ = k_pool.shape
     out = torch.empty_like(q)
@@ -110,29 +129,38 @@ def _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
     return out
 
 
-def _paged(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
-           window, plain):
-    S, Hq, hd = q.shape
+def _check_pools(q_shape, k_pool, v_pool, k_scale, v_scale, window):
+    """Shape rules shared by both kernels; returns the scales to use (None
+    for float pools, which ignore them, as laser_tpu)."""
+    hd = q_shape[-1]
+    Hq = q_shape[-2]
     P, Hkv, ps, hd_k = k_pool.shape
     if hd_k != hd or v_pool.shape != k_pool.shape:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
-                         f"inconsistent with q {tuple(q.shape)}")
+                         f"inconsistent with q {tuple(q_shape)}")
     if Hq % Hkv:
         raise ValueError(f"Hq {Hq} not a multiple of Hkv {Hkv}")
-    if k_pool.dtype == torch.int8:
-        if k_scale is None or v_scale is None:
-            raise ValueError("int8 pools need k_scale/v_scale (P, Hkv, ps)")
-        if k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_pool.shape[:3]:
-            raise ValueError(f"scales {tuple(k_scale.shape)}/{tuple(v_scale.shape)} "
-                             f"do not match pools {tuple(k_pool.shape)}")
-    else:
-        k_scale = v_scale = None  # float pools ignore scales, as laser_tpu
     if window is not None:
         raise NotImplementedError("paged attention: sliding window is not ported")
-    if Hq // Hkv > MAX_GROUP or hd > MAX_HEAD_DIM:
+    if hd > MAX_HEAD_DIM:
+        raise NotImplementedError(f"paged attention: head dim {hd} > {MAX_HEAD_DIM}")
+    if k_pool.dtype != torch.int8:
+        return None, None
+    if k_scale is None or v_scale is None:
+        raise ValueError("int8 pools need k_scale/v_scale (P, Hkv, ps)")
+    if k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_pool.shape[:3]:
+        raise ValueError(f"scales {tuple(k_scale.shape)}/{tuple(v_scale.shape)} "
+                         f"do not match pools {tuple(k_pool.shape)}")
+    return k_scale, v_scale
+
+
+def _paged(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
+           window, plain):
+    S, Hq, hd = q.shape
+    k_scale, v_scale = _check_pools(q.shape, k_pool, v_pool, k_scale, v_scale, window)
+    if Hq // k_pool.shape[1] > MAX_GROUP:
         raise NotImplementedError(
-            f"paged attention: group {Hq // Hkv} > {MAX_GROUP} or head dim "
-            f"{hd} > {MAX_HEAD_DIM}")
+            f"paged attention: group {Hq // k_pool.shape[1]} > {MAX_GROUP}")
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     if plain or not registry.on_cuda(q):
@@ -160,3 +188,91 @@ def paged_attention_reference(q, k_pool, v_pool, tables, lengths, *,
     int8 pools are dequantized first, then the dense-gather oracle."""
     return _paged(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
                   window, plain=True)
+
+
+# ---------------------------------------------------------------------------
+# W-query variant: the speculative verify
+# ---------------------------------------------------------------------------
+
+def _window_plain(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
+    """Dense-gather version: materialise each slot's pages (dequantized when
+    int8), fold (W, group) into rows w * group + g, causal masked softmax."""
+    PAGED_WINDOW.plain_calls += 1
+    pin_fp32_matmul()
+    S, W, Hq, hd = q.shape
+    Hkv = k_pool.shape[1]
+    group = Hq // Hkv
+    tables = tables.long()
+    if k_scale is not None:  # int8 rows times their f32 scales
+        k_pool = k_pool.float() * k_scale[..., None]
+        v_pool = v_pool.float() * v_scale[..., None]
+    k = k_pool[tables].transpose(1, 2).reshape(S, Hkv, -1, hd)  # (S, Hkv, T, hd)
+    v = v_pool[tables].transpose(1, 2).reshape(S, Hkv, -1, hd)
+    qf = q.reshape(S, W, Hkv, group, hd).permute(0, 2, 1, 3, 4).reshape(S, Hkv, W * group, hd)
+    s = torch.matmul(qf.float(), k.float().transpose(-1, -2)) * scale  # (S, Hkv, G, T)
+    qpos = lengths.to(q.device).long()[:, None] - W + torch.arange(W, device=q.device)
+    qpos = qpos.repeat_interleave(group, dim=1)                         # (S, G)
+    kpos = torch.arange(k.shape[2], device=q.device)
+    valid = kpos[None, None, None, :] <= qpos[:, None, :, None]
+    o = masked_softmax_pv(s, valid, v, q.dtype)                         # (S, Hkv, G, hd)
+    o = o.reshape(S, Hkv, W, group, hd).permute(0, 2, 1, 3, 4)
+    return o.reshape(S, W, Hq, hd).to(q.dtype)
+
+
+def _window_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
+    quant = _check_cuda_operands("paged window attention", q, k_pool, v_pool, tables,
+                                 lengths, k_scale, v_scale)
+    S, W, Hq, hd = q.shape
+    _, Hkv, ps, _ = k_pool.shape
+    out = torch.empty_like(q)
+    if S == 0:
+        return out
+    status = registry.load_library().ltt_paged_window_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, W, Hq, Hkv, ps, hd,
+        tables.shape[1], float(scale), registry.DTYPE_CODES[q.dtype],
+        registry.POOL_DTYPE_CODES[k_pool.dtype], registry.stream_handle(q))
+    registry.check_launch(status, "paged_window_attention")
+    PAGED_WINDOW.launches += 1
+    return out
+
+
+def _window(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, window, plain):
+    if q.ndim != 4:
+        raise ValueError(f"q must be (S, W, Hq, hd), got {tuple(q.shape)}")
+    S, W, Hq, hd = q.shape
+    k_scale, v_scale = _check_pools(q.shape, k_pool, v_pool, k_scale, v_scale, window)
+    if W * (Hq // k_pool.shape[1]) > MAX_WINDOW_ROWS:
+        raise NotImplementedError(
+            f"paged window attention: W {W} x group {Hq // k_pool.shape[1]} > "
+            f"{MAX_WINDOW_ROWS} rows")
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    if plain or not registry.on_cuda(q):
+        return _window_plain(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale)
+    return _window_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale)
+
+
+def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           tables: torch.Tensor, lengths: torch.Tensor, *,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """W-query (speculative verify) attention over paged KV: q (S, W, Hq, hd)
+    -> (S, W, Hq, hd); see the module docstring. The pages already hold the
+    K/V rows of all lengths[s] positions, the W new ones included."""
+    return _window(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
+                   window, plain=False)
+
+
+def paged_window_attention_reference(q, k_pool, v_pool, tables, lengths, *,
+                                     k_scale: Optional[torch.Tensor] = None,
+                                     v_scale: Optional[torch.Tensor] = None,
+                                     scale: Optional[float] = None,
+                                     window: Optional[int] = None) -> torch.Tensor:
+    """``paged_window_attention`` through the kernel's plain version, on any
+    device: int8 pools are dequantized first, then the dense-gather oracle."""
+    return _window(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
+                   window, plain=True)

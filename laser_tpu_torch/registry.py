@@ -79,6 +79,11 @@ SIGNATURES = {
                             _I, _F, _I, _I, _P),
     # h, q4, s4, out, M, N, K, group, dtype, stream
     "ltt_w4_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # q, k_pool, v_pool, k_scale (or null), v_scale (or null), tables,
+    # lengths, out, S, W, Hq, Hkv, ps, hd, max_pages, scale, dtype,
+    # pool_dtype, stream
+    "ltt_paged_window_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _F, _I, _I, _P),
 }
 
 

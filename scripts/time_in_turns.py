@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Time one laser_tpu_torch benchmark in two source trees, in turns on one
+CUDA card.
+
+    python3 scripts/time_in_turns.py BENCH TREE_A TREE_B
+
+BENCH is one of:
+
+- ``flash_forward``: the value-only flash forward ``attention(q, k, v,
+  causal=True)`` under ``no_grad`` at the serving prefill's shape (slots x
+  heads x the longest prefill bucket x head dim, bf16), with CUDA events:
+  ``per_call_ms``, the median over 20 calls of one call between two events,
+  as chip_smoke.py phase 2 times it (the wrapper's host work included);
+  ``batched_ms``, 50 calls between two events, over 50, median of 5 runs
+  (the device's time: the host enqueues faster than the kernel runs).
+- ``serving``: the single-step engine (``decode_burst=1``), each engine once
+  to warm up and once timed (tokens/s, host clock, synchronised):
+  ``transformer``, chip_smoke.py phase 3's model; ``llama_int4``, phase 7's
+  run (b) (int4 block weights, int8 KV pages), the engine whose wall depends
+  most on the host.
+
+Models, shapes, engine config and traffic are those of the chip_smoke.py
+beside this script, the same for both trees. Each TREE is the root of a
+checkout (for example the parent commit unpacked with ``git archive``, and
+this one). The trees run in the order A, B, B, A, each in its own process
+(the two packages share a name), so a drift of the card or of the host over
+the run falls on both. Every process builds its tree's kernels into that
+tree's ``build/``. Prints one JSON line per run, then the card's name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    """This checkout's chip_smoke.py (its laser_tpu_torch imports are made
+    inside its functions, so they reach the tree under test)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def flash_forward(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops.attention import attention
+
+    m, cfg = smoke.MODEL, smoke.SERVE_CFG
+    shape = (cfg["max_seqs"], m["n_heads"], max(cfg["prefill_buckets"]),
+             m["d_model"] // m["n_heads"])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+
+    def events(n: int) -> float:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            attention(q, k, v, causal=True)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    with torch.no_grad():
+        events(5)
+        per_call = statistics.median(events(1) for _ in range(20))
+        batched = statistics.median(events(50) for _ in range(5))
+    return {"shape": shape, "per_call_ms": per_call, "batched_ms": batched}
+
+
+def serving(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.models.llama import init_llama
+    from laser_tpu_torch.models.transformer import init_transformer
+    from laser_tpu_torch.ops.rope import rope_tables
+
+    def tokens_per_s(params, n_heads, model, **quant):
+        prompts = smoke.traffic(params["embed"].shape[0])
+        smoke.serve(params, n_heads, prompts, model=model, **quant)  # warm-up
+        _, outs, wall = smoke.serve(params, n_heads, prompts, model=model, **quant)
+        return sum(len(o) for o in outs) / wall
+
+    res = {}
+    params = init_transformer(0, dtype=torch.bfloat16, device="cuda", **smoke.MODEL)
+    res["transformer"] = tokens_per_s(params, smoke.MODEL["n_heads"], "transformer")
+    del params
+    rope, H = smoke.LLAMA_ROPE, smoke.LLAMA["n_heads"]
+    lp = init_llama(0, dtype=torch.bfloat16, device="cuda", max_len=rope["max_len"],
+                    **smoke.LLAMA)
+    lp["rope_cos"], lp["rope_sin"] = rope_tables(
+        rope["max_len"], smoke.LLAMA["d_model"] // H, base=rope["base"], device="cuda")
+    res["llama_int4"] = tokens_per_s(lp, H, "llama", **smoke.LLAMA_INT4, kv_quant=True)
+    return res
+
+
+BENCHES = {"flash_forward": flash_forward, "serving": serving}
+
+
+def _time_tree(bench: str, tree: str) -> dict:
+    sys.path.insert(0, tree)
+    import laser_tpu_torch
+    from laser_tpu_torch import registry
+
+    pkg = os.path.realpath(os.path.dirname(laser_tpu_torch.__file__))
+    if not pkg.startswith(os.path.realpath(tree) + os.sep):
+        raise SystemExit(f"imported {pkg}, not the package under {tree}")
+    registry.load_library()
+    return {"tree": tree, "bench": bench, **BENCHES[bench](_chip_smoke())}
+
+
+def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--one":
+        print(json.dumps(_time_tree(sys.argv[2], sys.argv[3])), flush=True)
+        return 0
+    if len(sys.argv) != 4 or sys.argv[1] not in BENCHES:
+        print(__doc__, file=sys.stderr)
+        return 2
+    bench = sys.argv[1]
+    a, b = (os.path.abspath(t) for t in sys.argv[2:])
+    for tree in (a, b, b, a):
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", bench, tree],
+                            cwd=tree).returncode
+        if rc:
+            return rc
+    subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,7 +4,9 @@ transposes, f16, ragged tails, unaligned operands, narrow rows, other head
 dims, GQA; the flash stats and backward kernels at S 1-300 and D 32-256; the
 cross-entropy kernels at V 1, 127 and 8193 with label smoothing; the int4
 weight GEMM at M 1-300, K 64-4096 and groups 16 and 64; the flash kernel's
-GQA map at groups 1-8; the paged kernel over int8 pages at groups 1-8.
+GQA map at groups 1-8; the paged kernel over int8 pages at groups 1-8; the
+paged window (verify) kernel at W 1-8, groups 1-8, float and int8 pages;
+bursts and speculative decoding in the engine on the card.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine that has none. Run it there with
@@ -52,6 +54,18 @@ def _check(got, want, dtype, floor=1e-30):
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
     err = (got - want).abs().max().item() / max(want.abs().max().item(), floor)
+    assert err <= REL[dtype], err
+
+
+def _check_rows(got, want, dtype):
+    """As ``_check``, each output row (last axis) against its own max:
+    attention rows over one key and over hundreds differ in size by far
+    more than the bound."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = ((got - want).abs().amax(-1) / want.abs().amax(-1).clamp(min=1e-30)).max().item()
     assert err <= REL[dtype], err
 
 
@@ -380,3 +394,98 @@ def test_llama_engine_int4_int8_kv_matches_plain(dev):
         want = llama_generate(deq, torch.as_tensor(p[None], device=dev), n_heads=8,
                               n_kv_heads=2, max_new_tokens=6, plain=True)[0, len(p):].tolist()
         assert out[rid][0] == want[0] and len(out[rid]) == 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("W", [1, 5, 8])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2), (32, 8), (8, 1)])
+@pytest.mark.parametrize("hd,ps,quant", [(64, 16, False), (128, 64, False), (128, 64, True),
+                                         (256, 16, False), (32, 16, True)])
+def test_paged_window_attention(dev, dtype, W, Hq, Hkv, hd, ps, quant):
+    from laser_tpu_torch.ops.paged_attention import (PAGED_WINDOW, paged_window_attention,
+                                                     paged_window_attention_reference,
+                                                     quantize_kv)
+
+    g = _gen(dev, 16)
+    S, mp = 6, 6
+    P = S * mp + 1
+    q = _rnd(g, (S, W, Hq, hd), dtype, dev)
+    kp, vp = _rnd(g, (P, Hkv, ps, hd), dtype, dev), _rnd(g, (P, Hkv, ps, hd), dtype, dev)
+    kw = {}
+    if quant:
+        kp, ks = quantize_kv(kp)
+        vp, vs = quantize_kv(vp)
+        kw = dict(k_scale=ks, v_scale=vs)
+    tables = torch.randperm(P, generator=g, device=dev)[:S * mp].reshape(S, mp).int()
+    # inactive, exactly W keys, a window across a page, mid-table, full, and
+    # a window two positions past the table (rows there see every key it holds)
+    lengths = torch.tensor([0, W, ps + W // 2 + 1, 3 * ps + 5, mp * ps, mp * ps + 2],
+                           device=dev, dtype=torch.int32)
+    before = PAGED_WINDOW.launches
+    got = paged_window_attention(q, kp, vp, tables, lengths, **kw)
+    assert PAGED_WINDOW.launches == before + 1
+    _check_rows(got, paged_window_attention_reference(q, kp, vp, tables, lengths, **kw), dtype)
+    assert (got[0] == 0).all()
+
+
+def test_paged_window_attention_rejects_non_contiguous_q(dev):
+    from laser_tpu_torch.ops.paged_attention import paged_window_attention
+
+    q = torch.zeros(2, 4, 3, 64, device=dev).transpose(1, 2)  # (2, 3, 4, 64), strided
+    kp = torch.zeros(4, 4, 16, 64, device=dev)
+    tables = torch.zeros(2, 2, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        paged_window_attention(q, kp, kp, tables, torch.full((2,), 3, device=dev,
+                                                             dtype=torch.int32))
+
+
+@pytest.mark.parametrize("fill", ["mixed", "at_capacity"])
+@pytest.mark.parametrize("model", ["transformer", "llama"])
+def test_speculative_engine_matches_plain_engine(dev, model, fill):
+    """Bursts, pipelining and speculation on the card: an f32 self-draft
+    (int4 for llama, with int8 pages) and a burst engine give the tokens of
+    the single-step engine, through the window kernel with no plain call.
+    ``at_capacity``: prompt + max_new fills each slot's 6 pages, so the last
+    verify windows reach past the table (lengths above max_pages *
+    page_size) and the emitted rows must still see every key up to their
+    own position."""
+    import numpy as np
+
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models.llama import init_llama
+    from laser_tpu_torch.models.transformer import init_transformer
+    from laser_tpu_torch.serving import ServingConfig, ServingEngine
+
+    if model == "llama":
+        params = init_llama(6, n_layers=2, d_model=128, n_heads=8, n_kv_heads=2, d_ff=256,
+                            vocab=97, max_len=256, device=dev)
+        extra = dict(kv_quant=True)
+        dq = "int4"
+    else:
+        params = init_transformer(7, n_layers=2, d_model=128, n_heads=2, d_ff=256, vocab=97,
+                                  device=dev)
+        extra, dq = {}, False
+    n_heads = 8 if model == "llama" else 2
+    rng = np.random.RandomState(9)
+    lens, new = ((7, 21, 40, 13), 17) if fill == "mixed" else ((64, 64, 64), 6 * 16 - 64)
+    prompts = [rng.randint(0, 97, n).astype(np.int32) for n in lens]
+
+    def run(**kw):
+        cfg = ServingConfig(page_size=16, n_pages=40, max_seqs=3, max_pages_per_seq=6,
+                            prefill_buckets=(16, 32, 64), **extra, **kw)
+        eng = ServingEngine(params, n_heads=n_heads, model=model, cfg=cfg,
+                            draft_params=params if kw.get("spec_gamma") else None)
+        ids = [eng.add_request(p, new) for p in prompts]
+        out = eng.run()
+        return [out[i] for i in ids], eng.stats
+
+    base, _ = run()
+    burst, _ = run(decode_burst=8, pipeline_bursts=True)
+    registry.reset_counts()
+    spec, stats = run(decode_burst=10, spec_gamma=4, pipeline_bursts=True,
+                      draft_weight_quant=dq)
+    counts = registry.counts()
+    assert counts["paged_window_attention"]["launches"] > 0
+    assert all(c["plain_calls"] == 0 for c in counts.values())
+    assert all(len(o) == new for o in base)
+    assert base == burst == spec and stats["spec_live_rounds"] > 0

@@ -60,9 +60,11 @@ def test_every_slice_kernel_registered():
 
     assert set(registry.KERNELS) == {
         "gemm", "norm", "flash_attention", "paged_attention", "w4_gemm",  # serving
+        "paged_window_attention",  # speculative verify
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "ce_fwd", "ce_fused_grad"}
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
+        "ltt_paged_window_attention",
         "ltt_flash_bwd_dq", "ltt_flash_bwd_dkv", "ltt_ce_fwd", "ltt_ce_fused_grad"}
     for k in registry.KERNELS.values():
         assert (registry.PACKAGE_DIR.parent / k.source).is_file()

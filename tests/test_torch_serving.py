@@ -146,16 +146,36 @@ def test_quantized_transformer_engine_matches_laser_tpu_engine(models):
     dict(decode_burst=4), dict(draft_weight_quant="int8"),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_config_raises(models, kw):
+    """``prefix_cache`` is not ported and raises. The other options are
+    served now and give the default engine's tokens: decode bursts and
+    pipelining run; ``spec_gamma`` and ``draft_weight_quant`` without a
+    draft are accepted and ignored, as laser_tpu ignores them."""
     _, params = models
-    with pytest.raises(NotImplementedError):
-        ServingEngine(params, n_heads=N_HEADS, cfg=ServingConfig(page_size=16, **kw))
+    cfg = dict(page_size=16, n_pages=16, max_seqs=2, max_pages_per_seq=3,
+               prefill_buckets=(16, 32))
+    if "prefix_cache" in kw:
+        with pytest.raises(NotImplementedError):
+            ServingEngine(params, n_heads=N_HEADS, cfg=ServingConfig(**cfg, **kw))
+        return
+    prompts = [np.random.RandomState(46).randint(0, VOCAB, n).astype(np.int32)
+               for n in (5, 20, 13)]
+    outs = []
+    for extra in ({}, kw):
+        eng = ServingEngine(params, n_heads=N_HEADS, cfg=ServingConfig(**cfg, **extra))
+        ids = [eng.add_request(p, 9) for p in prompts]
+        out = eng.run()
+        outs.append([out[i] for i in ids])
+        assert not eng.spec
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(window=8), dict(draft_params={})],
                          ids=lambda kw: next(iter(kw)))
 def test_unported_engine_arguments_raise(models, kw):
+    """``mesh`` and ``window`` are not ported; draft params without
+    ``spec_gamma >= 1`` are an error, as in laser_tpu."""
     _, params = models
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if "draft_params" in kw else NotImplementedError):
         ServingEngine(params, n_heads=N_HEADS, cfg=ServingConfig(page_size=16), **kw)
 
 
