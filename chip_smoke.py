@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive laser_tpu_torch's serving and training paths on one CUDA card.
+"""Drive laser_tpu_torch's serving, training and CNN paths on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -11,16 +11,21 @@ printed:
 1. Print the card's name and power limit (nvidia-smi) and build the CUDA
    kernels from laser_tpu_torch/csrc (one nvcc per source, in parallel;
    timed).
-2. Each of the nine kernels at the full-width shapes its paths give it, in
-   bf16, and once at a small f32 shape: compare it with its plain PyTorch
-   version on the card against a stated bound, and time the kernel, the
-   plain version and, where one PyTorch call computes the same function,
-   that call (``library_ms``; the port never calls it), with CUDA events.
-   Each bf16 case also gets ``bound_ms``, the least time the card could
-   take for the same work, from its bytes and operations. Beside the
+2. Each kernel at the full-width shapes its paths give it, and once at a
+   small f32 shape: compare it with its plain PyTorch version on the card
+   against a stated bound, and time the kernel, the plain version and,
+   where one PyTorch call computes the same function, that call
+   (``library_ms``; the port never calls it), with CUDA events. Each timed
+   case also gets ``bound_ms``, the least time the card could take for the
+   same work, from its bytes and operations at the peak rate of its input
+   type. The serving and training kernels run in bf16; beside the
    transformer shapes: the int4 weight GEMM at the Llama-3-8B decode and
    prefill shapes, the flash kernel's GQA map and the paged kernel over
-   int8 pages at those widths.
+   int8 pages at those widths. The CNN path's kernels run in f32 at C1's
+   shapes (the planewise conv at conv 1, the direct conv at convs 2 and 3,
+   the (16, 1000) softmax), with conv 3 also in bf16 and at stride 2, the
+   row softmax at 8192 x 4096 and the online softmax at 64 x 128256; the
+   library is cuDNN (TF32 off) or ``torch.softmax``.
 3. The serving slice: ServingEngine over the 8-layer d2048 bf16 transformer
    with random weights from a seed, 12 greedy requests through 8 slots.
    Checks token counts and range, that every serving kernel launched and no
@@ -74,6 +79,19 @@ printed:
    (``greedy_decode``, ``llama_generate``) for every request, with a
    self-draft, a smaller different draft and an int4 self-draft; with int8
    pages and pipelining, equal to the plain engine's on the same pages.
+
+12. The CNN slice, configuration C1: ``init_cnn`` with convs 3->20->64->64
+   at 224x224 (pooled 2x2 after each), head 50176->128->1000, f32, random
+   weights from a seed; ``cnn_predict`` on 16 images from a seed. Checks the
+   launches per forward (planewise conv 1, direct conv 2, gemm 2, softmax 1,
+   nothing else, no plain call), that each row of probabilities sums to 1
+   within 1e-5, and the logits within 1e-4 (of max) of the ``plain=True``
+   route and of the same forward on cuDNN/cuBLAS with TF32 off, argmax
+   identical; prints images/s of both (median of 20 synchronised forwards)
+   and the profile of 10 forwards, with the share of their device kernels
+   the trace kept. Then ``mlp_predict`` over [50176, 128,
+   1000] on the conv trunk's flattened features: rows sum to 1, gemm and
+   softmax launched.
 
 Phase 2 also holds the paged window (verify) kernel against its plain
 version: bf16 at run S1's shape, int8 pages at the Llama widths, and f32,
@@ -150,6 +168,24 @@ TRAINING_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
 # run (b)'s block linears are all int4 and its logits torch.matmul: no gemm
 LLAMA_KERNELS = {"llama": ("gemm", "norm", "flash_attention", "paged_attention"),
                  "llama_int4": ("w4_gemm", "norm", "flash_attention", "paged_attention")}
+# the CNN slice, C1: laser_tpu's init_cnn with convs at the conv benchmark's
+# shapes (bench.py:1061-1108: N16 C3->20 224^2, and 64->64 at 56^2 after two
+# pools) and ImageNet-1k's 1000 classes; batch 16, f32
+CNN = dict(in_channels=3, conv_channels=(20, 64, 64), hidden=128, num_classes=1000,
+           image_hw=224)
+CNN_BATCH, CNN_FORWARDS = 16, 20
+# launches of each kernel per cnn_predict (every other kernel: none), and
+# the device kernels of one forward: these 6 and PyTorch's bias add, ReLU
+# and mean pool after each conv
+CNN_LAUNCHES = {"conv_planewise": 1, "conv_direct": 2, "gemm": 2, "softmax": 1}
+CNN_DEVICE_KERNELS = 15
+# forwards in the profiled window: a trace late in the script once kept 1
+# of one forward's 15 kernels; over 10 a dropped record shows as coverage
+CNN_PROFILE_FORWARDS = 10
+# f32 logits, kernel route vs the plain route and vs cuDNN with TF32 off:
+# summation order only; probabilities sum to 1 within
+CNN_LOGITS_REL, PROB_SUM_TOL = 1e-4, 1e-5
+DTYPE_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 DEVICE = "cuda"
 
 
@@ -221,12 +257,14 @@ class Case:
     library_call: Optional[str] = None
     slot: str = ""            # "" for the kernel's main shape, else a sub-record
     per_row: bool = False     # rel_error per output row
+    dtype: torch.dtype = torch.bfloat16  # the input type: the bound's peak rate
 
 
-def bound(case: Case, spec, dtype):
+def bound(case: Case, spec):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the peak rate of the input type."""
-    peak = spec.bf16_tflops if dtype in (torch.bfloat16, torch.float16) else spec.f32_tflops
+    operations over the peak rate of the input type (989 TFLOP/s bf16/f16,
+    67 f32 FFMA)."""
+    peak = spec.bf16_tflops if case.dtype in (torch.bfloat16, torch.float16) else spec.f32_tflops
     t_ops = case.flops / (peak * 1e12) * 1e3
     t_bytes = case.nbytes / (spec.hbm_gbps * 1e9) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -515,22 +553,85 @@ def decode_gemm_case():
                 slot="decode")
 
 
+def cnn_cases():
+    """The CNN path's kernels at C1's shapes in f32 (conv 1 planewise, convs
+    2 and 3 direct, the (16, 1000) softmax), conv 3 in bf16, conv 3's input
+    at stride 2 (phase convs), and the softmax kernels at bench.py:421's
+    8192 x 4096 and at 64 rows of Llama-3's 128256-word vocabulary (online)."""
+    from laser_tpu_torch.ops.conv import (conv2d_direct, conv2d_direct_reference,
+                                          conv2d_planewise_reference, conv2d_required_ops,
+                                          conv_direct, conv_planewise)
+    from laser_tpu_torch.ops.vector_math import (softmax, softmax_online_reference,
+                                                 softmax_reference)
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(5)
+
+    def conv_case(name, xs, ws, kern, plain, dtype=torch.float32, stride=1, slot=""):
+        x = torch.randn(xs, generator=g, device=DEVICE).to(dtype)
+        w = (torch.randn(ws, generator=g, device=DEVICE) * (ws[1] * 9) ** -0.5).to(dtype)
+        N, _, H, W = xs
+        oh, ow = (H - 1) // stride + 1, (W - 1) // stride + 1
+        isz = x.element_size()
+        return Case(
+            name, f"N{N} C{xs[1]}->{ws[0]} {H}x{W} k3 p1" + (f" s{stride}" if stride > 1 else ""),
+            lambda: kern(x, w), lambda: plain(x, w),
+            flops=conv2d_required_ops(xs, ws, (1, 1), (stride, stride)),
+            nbytes=(x.numel() + w.numel() + N * ws[0] * oh * ow) * isz,
+            library=lambda: F.conv2d(x, w, padding=1, stride=stride),
+            library_call="F.conv2d (cuDNN, TF32 off)", slot=slot, dtype=dtype)
+
+    def softmax_case(name, rows, cols, plain, slot=""):
+        x = torch.randn((rows, cols), generator=g, device=DEVICE) * 4
+        return Case(name, f"{rows}x{cols}", lambda: softmax(x), lambda: plain(x),
+                    flops=5 * rows * cols, nbytes=2 * rows * cols * 4,
+                    library=lambda: torch.softmax(x, -1), library_call="torch.softmax",
+                    slot=slot, per_row=True, dtype=torch.float32)
+
+    p1 = (1, 1)
+
+    def direct(x, w):
+        return conv_direct(x, w, p1)
+
+    def direct_plain(x, w):
+        return conv2d_direct_reference(x, w, p1)
+
+    c3 = ((16, 64, 56, 56), (64, 64, 3, 3))
+    return [
+        conv_case("conv_planewise", (16, 3, 224, 224), (20, 3, 3, 3),
+                  lambda x, w: conv_planewise(x, w, p1),
+                  lambda x, w: conv2d_planewise_reference(x, w, p1)),
+        conv_case("conv_direct", (16, 20, 112, 112), (64, 20, 3, 3), direct, direct_plain),
+        conv_case("conv_direct", *c3, direct, direct_plain, slot="conv3"),
+        conv_case("conv_direct", *c3, direct, direct_plain, dtype=torch.bfloat16,
+                  slot="conv3_bf16"),
+        conv_case("conv_direct", *c3, lambda x, w: conv2d_direct(x, w, p1, (2, 2)),
+                  lambda x, w: conv2d_direct_reference(x, w, p1, (2, 2)), stride=2,
+                  slot="strided"),
+        softmax_case("softmax", 16, 1000, softmax_reference),
+        softmax_case("softmax", 8192, 4096, softmax_reference, slot="bench"),
+        softmax_case("softmax_online", 64, 128256, softmax_online_reference),
+    ]
+
+
 def phase_kernels(spec):
     print("phase 2: kernels vs plain versions", flush=True)
     record = {}
     f32 = kernel_cases(torch.float32, full=False)
     g = torch.Generator(device=DEVICE)
     g.manual_seed(2)
-    bf16 = kernel_cases(torch.bfloat16, full=True) + [
-        decode_gemm_case(), w4_case(g, torch.bfloat16, 4096, 4096, 14336, 64, slot="prefill")]
+    timed = kernel_cases(torch.bfloat16, full=True) + [
+        decode_gemm_case(), w4_case(g, torch.bfloat16, 4096, 4096, 14336, 64, slot="prefill")
+    ] + cnn_cases()
     for case in f32:
         compare(f"{case.name} {case.shape} [f32]", case.kern(), case.plain(), case.per_row)
-    for case in bf16:
-        err = compare(f"{case.name} {case.shape} [bf16]", case.kern(), case.plain(),
+    for case in timed:
+        err = compare(f"{case.name} {case.shape} [{DTYPE_TAGS[case.dtype]}]", case.kern(),
+                      case.plain(),
                       case.per_row)
         ms, pms = cuda_ms(case.kern), cuda_ms(case.plain, reps=5)
         lms = cuda_ms(case.library) if case.library else None
-        bms, by = bound(case, spec, torch.bfloat16)
+        bms, by = bound(case, spec)
         print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
               f"{'none' if lms is None else f'{lms:.4f} ms'}, bound {bms:.4f} ms ({by})",
               flush=True)
@@ -1052,13 +1153,115 @@ def phase_spec_f32():
                 fail(f"f32 {model} speculative {tag}: tokens differ")
 
 
+def cudnn_forward(params, x):
+    """C1's forward on PyTorch's own operators (cuDNN convolutions, cuBLAS
+    products, TF32 off): the yardstick the kernel route is held against."""
+    h = x
+    for layer in params[:-2]:
+        h = F.avg_pool2d(F.relu(F.conv2d(h, layer["w"], layer["b"], padding=1)), 2)
+    h = F.relu(torch.addmm(params[-2]["b"], h.flatten(1), params[-2]["w"]))
+    return torch.addmm(params[-1]["b"], h, params[-1]["w"])
+
+
+def images_per_s(fn) -> float:
+    """Images per second: the median of CNN_FORWARDS synchronised forwards."""
+    times = []
+    for _ in range(CNN_FORWARDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return CNN_BATCH / statistics.median(times)
+
+
+def phase_cnn():
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models.cnn import cnn_forward, cnn_predict, init_cnn, mean_pool2x2
+    from laser_tpu_torch.models.mlp import init_mlp, mlp_predict
+    from laser_tpu_torch.ops.conv import conv2d_direct
+
+    print("phase 12: CNN slice C1, f32, 16 images at 224x224, 1000 classes", flush=True)
+    params = init_cnn(0, dtype=torch.float32, device=DEVICE, **CNN)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(12)
+    hw = CNN["image_hw"]
+    x = torch.randn((CNN_BATCH, CNN["in_channels"], hw, hw), generator=g, device=DEVICE)
+    with torch.no_grad():
+        cnn_predict(params, x)  # warm-up
+        torch.cuda.synchronize()
+        registry.reset_counts()
+        probs = cnn_predict(params, x)
+        torch.cuda.synchronize()
+        counts = registry.counts()
+        print(f"  counts {json.dumps(counts)}", flush=True)
+        for name, c in counts.items():
+            if c["launches"] != CNN_LAUNCHES.get(name, 0) or c["plain_calls"]:
+                fail(f"cnn: {name}: launches {c['launches']} (want "
+                     f"{CNN_LAUNCHES.get(name, 0)}), plain calls {c['plain_calls']}")
+        if probs.shape != (CNN_BATCH, CNN["num_classes"]) or not torch.isfinite(probs).all():
+            fail(f"cnn: probabilities of shape {tuple(probs.shape)} or not finite")
+        dev_sum = (probs.double().sum(-1) - 1).abs().max().item()
+        print(f"  rows sum to 1 within {dev_sum:.3e} (bound {PROB_SUM_TOL:.0e})", flush=True)
+        if not dev_sum <= PROB_SUM_TOL:
+            fail(f"cnn: a row of probabilities sums to 1 +- {dev_sum:.3e}")
+        logits = cnn_forward(params, x)
+        arg = logits.argmax(-1)
+        if not torch.equal(probs.argmax(-1), arg):
+            fail("cnn: argmax of the probabilities differs from that of the logits")
+        for what, want in (("plain route", cnn_forward(params, x, plain=True)),
+                           ("cuDNN, TF32 off", cudnn_forward(params, x))):
+            err, rel = rel_error(logits, want)
+            same = torch.equal(arg, want.argmax(-1))
+            print(f"  logits vs {what}: max_abs_err {err:.3e} rel {rel:.3e} (bound "
+                  f"{CNN_LOGITS_REL:.0e}); argmax identical: {same}", flush=True)
+            if not (rel <= CNN_LOGITS_REL and same):
+                fail(f"cnn: logits vs {what}: rel {rel:.3e}, argmax identical {same}")
+        ips = images_per_s(lambda: cnn_predict(params, x))
+        lib_ips = images_per_s(lambda: torch.softmax(cudnn_forward(params, x), -1))
+        print(f"  cnn_predict {ips:.1f} images/s; the same forward on cuDNN/cuBLAS "
+              f"{lib_ips:.1f} images/s (median of {CNN_FORWARDS}, synchronised)", flush=True)
+        n = CNN_PROFILE_FORWARDS
+        prof = profile_step(lambda: [cnn_predict(params, x) for _ in range(n)],
+                            f"{n} cnn_predict forwards")
+        recorded = sum(r["calls"] for r in prof["top"])
+        print(f"  {recorded} device kernels recorded of {CNN_DEVICE_KERNELS * n} launched; "
+              f"per forward: wall {prof['wall_ms'] / n:.3f} ms, device busy "
+              f"{prof['busy_ms'] / n:.3f} ms", flush=True)
+        prof["kernels_recorded"] = [recorded, CNN_DEVICE_KERNELS * n]
+
+        # the MLP head on the conv trunk's flattened features
+        feats = x
+        for layer in params[:-2]:
+            feats = conv2d_direct(feats, layer["w"], padding=(1, 1))
+            feats = mean_pool2x2(torch.relu(feats + layer["b"][None, :, None, None]))
+        feats = feats.flatten(1)
+        dims = [feats.shape[1], CNN["hidden"], CNN["num_classes"]]
+        mlp = init_mlp(1, dims, device=DEVICE)
+        registry.reset_counts()
+        mprobs = mlp_predict(mlp, feats)
+        torch.cuda.synchronize()
+        mlp_counts = registry.counts()
+        msum = (mprobs.double().sum(-1) - 1).abs().max().item()
+        print(f"  mlp_predict {dims}: rows sum to 1 within {msum:.3e}; counts "
+              f"{json.dumps({k: v for k, v in mlp_counts.items() if v['launches']})}",
+              flush=True)
+        if (mlp_counts["gemm"]["launches"] != 2 or mlp_counts["softmax"]["launches"] != 1
+                or any(c["plain_calls"] for c in mlp_counts.values())
+                or not msum <= PROB_SUM_TOL):
+            fail(f"mlp: counts {mlp_counts}, row sums within {msum:.3e}")
+    return {"cnn": counts, "mlp": mlp_counts}, {
+        "images_per_s": ips, "cudnn_images_per_s": lib_ips, "profile": prof}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from laser_tpu_torch import device_info, registry
-    from laser_tpu_torch.models import transformer  # noqa: F401  (registers every kernel)
+    # importing the paths' modules registers every kernel
+    from laser_tpu_torch.models import cnn, mlp, transformer  # noqa: F401
     from laser_tpu_torch.serving import engine  # noqa: F401
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1094,6 +1297,7 @@ def main():
     s1_counts, s1 = timed(phase_spec_s1)
     s2_counts, s2 = timed(phase_spec_s2)
     timed(phase_spec_f32)
+    cnn_counts, cnn_result = timed(phase_cnn)
 
     kernels = []
     for name, k in registry.KERNELS.items():
@@ -1102,12 +1306,13 @@ def main():
                    "training": train_counts[name]["launches"],
                    **{tag: c[name]["launches"] for tag, c in llama_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in s1_counts.items()},
-                   **{tag: c[name]["launches"] for tag, c in s2_counts.items()}}
+                   **{tag: c[name]["launches"] for tag, c in s2_counts.items()},
+                   **{tag: c[name]["launches"] for tag, c in cnn_counts.items()}}
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **r})
     print(json.dumps({"card": card, "engine": engine, "train": train, "llama": llama,
-                      "spec_s1": s1, "spec_s2": s2}), flush=True)
+                      "spec_s1": s1, "spec_s2": s2, "cnn": cnn_result}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,9 +8,11 @@ a ported path is a hand-written CUDA C++ kernel under ``csrc/``, built by
 each wrapper runs the kernel's plain PyTorch version. The user-facing paths
 ported: serving (``serving.ServingEngine``) of both model families,
 ``models.transformer`` and ``models.llama``, with int8/int4 weights and int8
-KV pages as options, and training (``models.transformer.
-transformer_train_step``). Entry points that allocate put their tensors on
-the card unless the caller passes ``device``.
+KV pages as options, training (``models.transformer.
+transformer_train_step``), and the classifiers: ``models.cnn.cnn_predict``
+over the conv and softmax kernels, ``models.mlp.mlp_predict`` and
+``sgd_step``. Entry points that allocate put their tensors on the card
+unless the caller passes ``device``.
 
 Import the submodule you need: this package imports nothing eagerly.
 """

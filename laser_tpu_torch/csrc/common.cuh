@@ -8,6 +8,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #define LTT_API extern "C" __attribute__((visibility("default")))
@@ -65,6 +66,68 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   __syncthreads();
   float t = lane < nwarps ? red[lane] : 0.f;
   return warp_sum(t);
+}
+
+// Max over the whole block; every thread gets it. `red` holds 32 floats.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = warp_max(v);
+  __syncthreads();  // `red` may still be read from the previous reduction
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = lane < nwarps ? red[lane] : -INFINITY;
+  return warp_max(t);
+}
+
+// merge (m2, s2) into (m, s): s is the sum of exp(x - m) over the merged set
+__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
+  const float mn = fmaxf(m, m2);
+  if (mn == -INFINITY) return;  // both sets empty
+  s = (m == -INFINITY ? 0.f : s * expf(m - mn)) + (m2 == -INFINITY ? 0.f : s2 * expf(m2 - mn));
+  m = mn;
+}
+
+// Block-wide merge; every thread gets the row's (m, s). `red` holds 64 floats.
+__device__ __forceinline__ void block_lse(float& m, float& s, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    lse_merge(m, s, __shfl_xor_sync(0xffffffffu, m, o), __shfl_xor_sync(0xffffffffu, s, o));
+  __syncthreads();
+  if (lane == 0) {
+    red[warp] = m;
+    red[32 + warp] = s;
+  }
+  __syncthreads();
+  m = lane < nwarps ? red[lane] : -INFINITY;
+  s = lane < nwarps ? red[32 + lane] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    lse_merge(m, s, __shfl_xor_sync(0xffffffffu, m, o), __shfl_xor_sync(0xffffffffu, s, o));
+}
+
+// elements of T in one 16-byte vector
+template <typename T> __host__ __device__ constexpr int vec_n() { return 16 / sizeof(T); }
+
+// Call f(c, x_c) for every column of the row, thread-strided; `vec` selects
+// 16-byte loads (row width a multiple of the vector and the row aligned).
+template <typename T, typename F>
+__device__ __forceinline__ void for_row(const T* __restrict__ row, int V, bool vec, F f) {
+  constexpr int N = vec_n<T>();
+  if (vec) {
+    for (int c0 = threadIdx.x * N; c0 < V; c0 += blockDim.x * N) {
+      const uint4 w = *reinterpret_cast<const uint4*>(row + c0);
+      const T* wv = reinterpret_cast<const T*>(&w);
+#pragma unroll
+      for (int e = 0; e < N; ++e) f(c0 + e, to_f32(wv[e]));
+    }
+  } else {
+    for (int c = threadIdx.x; c < V; c += blockDim.x) f(c, to_f32(row[c]));
+  }
 }
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

@@ -33,55 +33,6 @@ namespace {
 using ltt::from_f32;
 using ltt::to_f32;
 
-// merge (m2, s2) into (m, s): s is the sum of exp(x - m) over the merged set
-__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
-  const float mn = fmaxf(m, m2);
-  if (mn == -INFINITY) return;  // both sets empty
-  s = (m == -INFINITY ? 0.f : s * expf(m - mn)) + (m2 == -INFINITY ? 0.f : s2 * expf(m2 - mn));
-  m = mn;
-}
-
-// Block-wide merge; every thread gets the row's (m, s). `red` holds 64 floats.
-__device__ __forceinline__ void block_lse(float& m, float& s, float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    lse_merge(m, s, __shfl_xor_sync(0xffffffffu, m, o), __shfl_xor_sync(0xffffffffu, s, o));
-  __syncthreads();
-  if (lane == 0) {
-    red[warp] = m;
-    red[32 + warp] = s;
-  }
-  __syncthreads();
-  m = lane < nwarps ? red[lane] : -INFINITY;
-  s = lane < nwarps ? red[32 + lane] : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    lse_merge(m, s, __shfl_xor_sync(0xffffffffu, m, o), __shfl_xor_sync(0xffffffffu, s, o));
-}
-
-// elements of T in one 16-byte vector
-template <typename T> __host__ __device__ constexpr int vec_n() { return 16 / sizeof(T); }
-
-// Call f(c, x_c) for every column of the row, thread-strided; `vec` selects
-// 16-byte loads (row width a multiple of the vector and the row aligned).
-template <typename T, typename F>
-__device__ __forceinline__ void for_row(const T* __restrict__ row, int V, bool vec, F f) {
-  constexpr int N = vec_n<T>();
-  if (vec) {
-    for (int c0 = threadIdx.x * N; c0 < V; c0 += blockDim.x * N) {
-      const uint4 w = *reinterpret_cast<const uint4*>(row + c0);
-      const T* wv = reinterpret_cast<const T*>(&w);
-#pragma unroll
-      for (int e = 0; e < N; ++e) f(c0 + e, to_f32(wv[e]));
-    }
-  } else {
-    for (int c = threadIdx.x; c < V; c += blockDim.x) f(c, to_f32(row[c]));
-  }
-}
-
 // One row's statistics: (m, s) for the logsumexp, the target logit and the
 // plain sum of the logits (label smoothing). Returns lse and the loss.
 template <typename T>
@@ -91,7 +42,7 @@ __device__ __forceinline__ void row_loss(const T* __restrict__ row, int V, int t
   m = -INFINITY;
   s = 0.f;
   float tv = 0.f, sv = 0.f;
-  for_row(row, V, vec, [&](int c, float x) {
+  ltt::for_row(row, V, vec, [&](int c, float x) {
     if (x == -INFINITY) return;
     if (x > m) {
       s *= expf(m - x);  // 0 while m is still -inf
@@ -101,7 +52,7 @@ __device__ __forceinline__ void row_loss(const T* __restrict__ row, int V, int t
     if (c == t) tv = x;
     sv += x;
   });
-  block_lse(m, s, red);
+  ltt::block_lse(m, s, red);
   tv = ltt::block_sum(tv, red + 64);
   if (eps != 0.f) sv = ltt::block_sum(sv, red + 64);
   lse = m + logf(s);
@@ -138,7 +89,7 @@ __global__ void ce_fused_grad_kernel(const T* __restrict__ x, const int* __restr
   // dxu = exp(x - m) / s - q, as the TPU kernel's p = e / s
   const float q_off = eps / V;            // smoothing mass on every column
   const float q_on = (1.f - eps) + q_off;  // the target column
-  constexpr int N = vec_n<T>();
+  constexpr int N = ltt::vec_n<T>();
   if (vec) {
     for (int c0 = threadIdx.x * N; c0 < V; c0 += blockDim.x * N) {
       const uint4 w = *reinterpret_cast<const uint4*>(xr + c0);
@@ -175,7 +126,7 @@ struct CeArgs {
 
 template <typename T>
 int launch(const CeArgs& a, bool fused) {
-  constexpr int N = vec_n<T>();
+  constexpr int N = ltt::vec_n<T>();
   const bool vec = a.V % N == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0 &&
                    (!fused || reinterpret_cast<uintptr_t>(a.out) % 16 == 0);
   const int threads = a.V >= 2048 ? 256 : (a.V >= 512 ? 128 : 32);

@@ -5,4 +5,6 @@
 ``attention_trainable``), ``ops.attention_bwd`` (``flash_attention_bwd``),
 ``ops.loss`` (``cross_entropy``, ``lm_cross_entropy``), ``ops.optim``
 (``adamw_step`` and friends), ``ops.paged_attention`` (``paged_attention``,
-``quantize_kv``), ``ops.sampling``; nothing is imported eagerly here."""
+``quantize_kv``), ``ops.sampling``, ``ops.conv`` (``conv2d_direct``,
+``conv2d_im2col``, ``conv_planewise``, ``conv_direct``), ``ops.vector_math``
+(``softmax``, ``softmax_online``); nothing is imported eagerly here."""

@@ -84,6 +84,12 @@ SIGNATURES = {
     # pool_dtype, stream
     "ltt_paged_window_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _F, _I, _I, _P),
+    # x, y (may be x), rows, cols, dtype, stream
+    "ltt_softmax_rows": (_P, _P, _I, _I, _I, _P),
+    "ltt_softmax_online": (_P, _P, _I, _I, _I, _P),
+    # x, w, out, N, C, H, W, c_out, kh, kw, ph, pw, dtype, stream
+    "ltt_conv_planewise": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ltt_conv_direct": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

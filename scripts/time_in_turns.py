@@ -18,6 +18,10 @@ BENCH is one of:
   ``transformer``, chip_smoke.py phase 3's model; ``llama_int4``, phase 7's
   run (b) (int4 block weights, int8 KV pages), the engine whose wall depends
   most on the host.
+- ``cnn``: chip_smoke.py phase 12's ``cnn_predict`` (configuration C1, f32,
+  16 images at 224x224) under ``no_grad``, after one warm-up forward:
+  ``images_per_s``, 16 over the median of 20 synchronised forwards (host
+  clock), as phase 12 prints it.
 
 Models, shapes, engine config and traffic are those of the chip_smoke.py
 beside this script, the same for both trees. Each TREE is the root of a
@@ -107,7 +111,22 @@ def serving(smoke) -> dict:
     return res
 
 
-BENCHES = {"flash_forward": flash_forward, "serving": serving}
+def cnn(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.models.cnn import cnn_predict, init_cnn
+
+    params = init_cnn(0, device="cuda", **smoke.CNN)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    hw = smoke.CNN["image_hw"]
+    x = torch.randn((smoke.CNN_BATCH, smoke.CNN["in_channels"], hw, hw), generator=g,
+                    device="cuda")
+    with torch.no_grad():
+        cnn_predict(params, x)
+        return {"images_per_s": smoke.images_per_s(lambda: cnn_predict(params, x))}
+
+
+BENCHES = {"flash_forward": flash_forward, "serving": serving, "cnn": cnn}
 
 
 def _time_tree(bench: str, tree: str) -> dict:

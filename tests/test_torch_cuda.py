@@ -6,7 +6,10 @@ cross-entropy kernels at V 1, 127 and 8193 with label smoothing; the int4
 weight GEMM at M 1-300, K 64-4096 and groups 16 and 64; the flash kernel's
 GQA map at groups 1-8; the paged kernel over int8 pages at groups 1-8; the
 paged window (verify) kernel at W 1-8, groups 1-8, float and int8 pages;
-bursts and speculative decoding in the engine on the card.
+bursts and speculative decoding in the engine on the card; the planewise
+and direct conv kernels at odd channel counts, kernel sizes, paddings and
+strides; both softmax kernels from 1 to 40001 columns, all -inf rows and
+``donate``; a small CNN and MLP through the kernels.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine that has none. Run it there with
@@ -489,3 +492,128 @@ def test_speculative_engine_matches_plain_engine(dev, model, fill):
     assert all(c["plain_calls"] == 0 for c in counts.values())
     assert all(len(o) == new for o in base)
     assert base == burst == spec and stats["spec_live_rounds"] > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("xs,ws,pad", [
+    ((2, 3, 17, 35), (5, 3, 3, 3), (1, 1)),
+    ((1, 1, 9, 40), (40, 1, 5, 5), (2, 2)),    # two blocks of 32 output channels
+    ((3, 64, 6, 7), (7, 64, 1, 1), (1, 0)),    # 64 taps, > 48 KB of shared memory
+    ((2, 2, 5, 3), (3, 2, 4, 2), (0, 1))])     # a kernel wider than its image
+def test_conv_planewise(dev, dtype, xs, ws, pad):
+    from laser_tpu_torch.ops.conv import (CONV_PLANEWISE, conv2d_planewise_reference,
+                                          conv_planewise)
+
+    g = _gen(dev, 30)
+    x, w = _rnd(g, xs, dtype, dev), _rnd(g, ws, torch.float32, dev)
+    before = CONV_PLANEWISE.launches
+    _check(conv_planewise(x, w, pad), conv2d_planewise_reference(x, w, pad), dtype)
+    assert CONV_PLANEWISE.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("xs,ws,pad", [
+    ((2, 8, 13, 17), (6, 8, 3, 3), (1, 1)),
+    ((1, 20, 30, 30), (70, 20, 3, 3), (1, 1)),   # two tiles of 64 output channels
+    ((2, 16, 9, 11), (5, 16, 5, 3), (2, 1)),
+    ((1, 65, 7, 7), (3, 65, 1, 1), (0, 0))])     # K = 65: a ragged last slab
+def test_conv_direct(dev, dtype, xs, ws, pad):
+    from laser_tpu_torch.ops.conv import CONV_DIRECT, conv2d_direct_reference, conv_direct
+
+    g = _gen(dev, 31)
+    x, w = _rnd(g, xs, dtype, dev), _rnd(g, ws, dtype, dev, std=(ws[1] * ws[2] * ws[3]) ** -0.5)
+    before = CONV_DIRECT.launches
+    _check(conv_direct(x, w, pad), conv2d_direct_reference(x, w, pad), dtype)
+    assert CONV_DIRECT.launches == before + 1
+
+
+@pytest.mark.parametrize("xs,ws,pad,strides", [
+    ((2, 8, 20, 20), (16, 8, 3, 3), (1, 1), (2, 2)),
+    ((1, 20, 17, 19), (6, 20, 5, 5), (2, 2), (3, 2))])
+def test_conv2d_direct_strided(dev, xs, ws, pad, strides):
+    """Strided convs as stride-1 phase convs on the kernels (and a 1x1 phase
+    on gemm), against the direct kernel's plain version at the stride."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.conv import conv2d_direct, conv2d_direct_reference
+
+    g = _gen(dev, 32)
+    x, w = _rnd(g, xs, torch.float32, dev), _rnd(g, ws, torch.float32, dev)
+    want = conv2d_direct_reference(x, w, pad, strides)
+    registry.reset_counts()
+    got = conv2d_direct(x, w, pad, strides)
+    assert all(c["plain_calls"] == 0 for c in registry.counts().values())
+    _check(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1), (3, 33), (16, 1000), (5, 4096), (2, 16384)])
+def test_softmax_rows(dev, dtype, shape):
+    from laser_tpu_torch.ops.vector_math import SOFTMAX, softmax, softmax_reference
+
+    g = _gen(dev, 33)
+    x = _rnd(g, shape, dtype, dev, std=4.0)
+    before = SOFTMAX.launches
+    _check_rows(softmax(x), softmax_reference(x), dtype)
+    assert SOFTMAX.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(3, 1), (4, 1000), (2, 16385), (3, 40001)])
+def test_softmax_online(dev, dtype, shape):
+    from laser_tpu_torch.ops.vector_math import (SOFTMAX_ONLINE, softmax_online,
+                                                 softmax_online_reference)
+
+    g = _gen(dev, 34)
+    x = _rnd(g, shape, dtype, dev, std=4.0)
+    before = SOFTMAX_ONLINE.launches
+    _check_rows(softmax_online(x), softmax_online_reference(x), dtype)
+    assert SOFTMAX_ONLINE.launches == before + 1
+
+
+@pytest.mark.parametrize("cols", [100, 20000])
+def test_softmax_all_neg_inf_rows_and_donate(dev, cols):
+    """Row 1 is all -inf: NaN from the row kernel, 0 from the online one
+    (cols > 16384), as laser_tpu's two kernels; ``donate`` writes in place."""
+    from laser_tpu_torch.ops.vector_math import softmax, softmax_online_reference
+
+    g = _gen(dev, 35)
+    x = _rnd(g, (3, cols), torch.float32, dev)
+    x[1] = -torch.inf
+    x[2, ::3] = -torch.inf
+    want = softmax_online_reference(x)
+    got = softmax(x.clone())
+    if cols > 16384:
+        assert (got[1] == 0).all()
+    else:
+        assert torch.isnan(got[1]).all()
+    _check_rows(got[0::2], want[0::2], torch.float32)
+    y = x.clone()
+    out = softmax(y, donate=True)
+    assert out.data_ptr() == y.data_ptr()
+    _check_rows(out[0::2], want[0::2], torch.float32)
+
+
+def test_cnn_and_mlp_through_the_kernels(dev):
+    """A small CNN and MLP on the card: logits of the kernel route against
+    the plain route, every conv, GEMM and softmax launched once per use and
+    no plain call."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models.cnn import cnn_forward, cnn_predict, init_cnn
+    from laser_tpu_torch.models.mlp import init_mlp, mlp_predict
+
+    params = init_cnn(3, conv_channels=(8, 12, 10), hidden=32, num_classes=17, image_hw=24,
+                      device=dev)
+    x = _rnd(_gen(dev, 36), (5, 3, 24, 24), torch.float32, dev)
+    with torch.no_grad():
+        want = cnn_forward(params, x, plain=True)
+        registry.reset_counts()
+        probs = cnn_predict(params, x)
+        c = registry.counts()
+        _check(cnn_forward(params, x), want, torch.float32)
+        assert (c["conv_planewise"]["launches"], c["conv_direct"]["launches"],
+                c["gemm"]["launches"], c["softmax"]["launches"]) == (1, 2, 2, 1)
+        assert all(v["plain_calls"] == 0 for v in c.values())
+        assert (probs.sum(-1) - 1).abs().max().item() <= 1e-5
+        mp = init_mlp(4, [50, 64, 9], device=dev)
+        xm = _rnd(_gen(dev, 37), (7, 50), torch.float32, dev)
+        _check(mlp_predict(mp, xm), mlp_predict(mp, xm, plain=True), torch.float32)

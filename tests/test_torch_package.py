@@ -21,6 +21,8 @@ def test_import_pulls_in_no_jax():
             "import laser_tpu_torch.ops.optim, laser_tpu_torch.ops.attention\n"
             "import laser_tpu_torch.models.llama, laser_tpu_torch.ops.rope\n"
             "import laser_tpu_torch.ops.gemm.int4_kernel\n"
+            "import laser_tpu_torch.models.cnn, laser_tpu_torch.models.mlp\n"
+            "import laser_tpu_torch.ops.conv, laser_tpu_torch.ops.vector_math\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'laser_tpu' not in sys.modules, 'laser_tpu imported'\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -55,17 +57,20 @@ def test_cpu_tensors_never_build(monkeypatch):
 
 
 def test_every_slice_kernel_registered():
+    import laser_tpu_torch.models.cnn  # noqa: F401
     import laser_tpu_torch.models.transformer  # noqa: F401
     import laser_tpu_torch.serving  # noqa: F401
 
     assert set(registry.KERNELS) == {
         "gemm", "norm", "flash_attention", "paged_attention", "w4_gemm",  # serving
         "paged_window_attention",  # speculative verify
-        "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "ce_fwd", "ce_fused_grad"}
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "ce_fwd", "ce_fused_grad",
+        "conv_planewise", "conv_direct", "softmax", "softmax_online"}  # CNN
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
-        "ltt_flash_bwd_dq", "ltt_flash_bwd_dkv", "ltt_ce_fwd", "ltt_ce_fused_grad"}
+        "ltt_flash_bwd_dq", "ltt_flash_bwd_dkv", "ltt_ce_fwd", "ltt_ce_fused_grad",
+        "ltt_conv_planewise", "ltt_conv_direct", "ltt_softmax_rows", "ltt_softmax_online"}
     for k in registry.KERNELS.values():
         assert (registry.PACKAGE_DIR.parent / k.source).is_file()
         assert k.replaces.startswith("laser_tpu/")
@@ -115,13 +120,13 @@ def test_sampler_greedy_and_seeded():
 
 @pytest.mark.parametrize("make", ["init_transformer", "init_decode_cache", "PagedKVCache",
                                   "params_from_numpy", "init_llama", "init_llama_cache",
-                                  "rope_tables"])
+                                  "rope_tables", "init_cnn", "init_mlp"])
 def test_entry_points_default_to_the_card(make):
     """Without a device argument the entry points allocate on CUDA, so on a
     machine without a card they raise PyTorch's own error."""
     import inspect
 
-    from laser_tpu_torch.models import llama, transformer
+    from laser_tpu_torch.models import cnn, llama, mlp, transformer
     from laser_tpu_torch.ops import rope
     from laser_tpu_torch.serving import engine
 
@@ -130,5 +135,6 @@ def test_entry_points_default_to_the_card(make):
           "PagedKVCache": engine.PagedKVCache.__init__,
           "params_from_numpy": params_from_numpy,
           "init_llama": llama.init_llama, "init_llama_cache": llama.init_llama_cache,
-          "rope_tables": rope.rope_tables}[make]
+          "rope_tables": rope.rope_tables, "init_cnn": cnn.init_cnn,
+          "init_mlp": mlp.init_mlp}[make]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
