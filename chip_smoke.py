@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive laser_tpu_torch's serving, training and CNN paths on one CUDA card.
+"""Drive laser_tpu_torch's serving, training, CNN and primitives paths on one
+CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -92,6 +93,27 @@ printed:
    the trace kept. Then ``mlp_predict`` over [50176, 128,
    1000] on the conv trunk's flattened features: rows sum to 1, gemm and
    softmax launched.
+
+13. The primitives path at bench.py's shapes (bench.py:293-337, 390-399), f32
+   unless stated: exp (accurate and fast, donated), log / tanh / sigmoid
+   (fast) on 8192 x 8192; for_each of x + y - sin z (donated) and
+   for_each_multi (x + y, x - y) on 4096 x 4096; reduce_sum and map_reduce
+   with a combine_fn outside the vocabulary (per-block partials, combined in
+   torch) on 8192 x 8192; row_reduce(exp, sum) on 8192 x 4096; Lux
+   a + b - lux_sin(c), lux_sum(a * b, axis=-1) and relu(a @ b + bias)
+   (M4096 K2048 N2048, the GEMM kernel's epilogue); bf16 for_each and exp on
+   8192 x 8192. The bodies' generated sources are built first, one nvcc
+   each, all at once (printed: count and seconds). Then the path runs once
+   with the counts at 0: for_each, for_each_multi, row_reduce and map_reduce
+   must have launched and no plain version run; a profile of one more run.
+   Each case is then held against its plain version on the same tensors
+   (bounds in PRIM_*: the accurate-tier exp bit for bit, other f32 values
+   1e-6, the fast tier 2e-5 and bf16 2^-7, each element against
+   max(|plain|, 1); sums 1e-6 of sum |mapped|), each reduction run twice
+   must give the same
+   bits, and the kernel, the plain version and the library call are timed
+   (median of 20 CUDA-event calls, 5 for plain) beside the bound, the
+   kernel also as 20 calls in a row between two events (its device time).
 
 Phase 2 also holds the paged window (verify) kernel against its plain
 version: bf16 at run S1's shape, int8 pages at the Llama widths, and f32,
@@ -207,6 +229,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def cuda_batched_ms(fn, n: int = 20, reps: int = 3) -> float:
+    """Milliseconds per call of ``n`` calls between two CUDA events (median
+    of ``reps``): the device's time per call wherever the host enqueues
+    faster than the kernel runs, which one call between two events hides
+    behind the wrapper's host work."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
 
 
@@ -1254,6 +1295,295 @@ def phase_cnn():
         "images_per_s": ips, "cudnn_images_per_s": lib_ips, "profile": prof}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the primitives path (for_each, for_each_multi, row_reduce,
+# map_reduce and what is built on them) at bench.py's shapes
+# ---------------------------------------------------------------------------
+
+# stated bounds, kernel vs plain version on the same card tensors; the
+# elementwise ones hold each element against max(|plain|, 1):
+# the accurate tier's cores ("exact"): the same bits, as the plain version
+# is the same polynomial rounded op by op
+# f32 elementwise (+ - * /, libm sinf/expf)
+PRIM_F32_REL = 1e-6
+# the fast tier: CUDA's intrinsics against torch's function: __expf is
+# 2 + floor(|1.173 x|) ulp, 1.3e-5 at 88
+PRIM_FAST_REL = 2e-5
+# bf16 outputs: one bf16 rounding
+PRIM_BF16_REL = 2.0 ** -7
+# sums: |d| <= 1e-6 * sum |mapped|, summation order only
+PRIM_SUM_REL = 1e-6
+# the f32 GEMM of relu(a @ b + bias): summation order over K = 2048
+PRIM_GEMM_REL = 1e-5
+PRIM_REPS = 20
+
+
+@dataclasses.dataclass
+class Prim:
+    name: str          # the kernel record
+    slot: str          # "" for the record's main case
+    shape: str
+    run: Callable      # the kernel path on fresh inputs (counted once)
+    plain: Callable    # its plain version on the same inputs
+    nbytes: float      # each input read once, each output written once
+    flops: float
+    check: str         # "exact", "rel", "fast", "bf16", "sum" or "gemm"
+    time_run: Optional[Callable] = None   # the kernel for timing (donated buffers)
+    library: Optional[Callable] = None
+    library_call: Optional[str] = None
+    sum_abs: Optional[Callable] = None    # sum |mapped| of a "sum" check
+    repeat: bool = False                  # a reduction: two runs bit-identical
+    dtype: torch.dtype = torch.float32
+
+
+# operations per element counted for a body's node (1) and for a
+# vector-math core or a libm call (20: a degree-5 polynomial and its range
+# reduction); memory bounds them all by far
+CORE_OPS = 20
+
+
+def prim_cases():
+    from laser_tpu_torch import lux
+    from laser_tpu_torch.ops import foreach as fe
+    from laser_tpu_torch.ops import reductions as R
+    from laser_tpu_torch.ops.gemm import gemm_reference
+    from laser_tpu_torch.ops import vector_math as vm
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(13)
+
+    def rnd(*shape, dtype=torch.float32, std=1.0):
+        return (torch.randn(shape, generator=g, device=DEVICE) * std).to(dtype)
+
+    big, mid, rows = (8192, 8192), (4096, 4096), (8192, 4096)
+    n_big, n_mid, n_rows = 8192 * 8192, 4096 * 4096, 8192 * 4096
+    xs = rnd(*big, std=4.0)
+    xpos = xs.abs() + 1e-3
+    a, b, c = rnd(*mid), rnd(*mid), rnd(*mid)
+    ra, rb = rnd(*rows), rnd(*rows)
+    xb = rnd(*big, dtype=torch.bfloat16, std=4.0)
+    yb, zb = rnd(*big, dtype=torch.bfloat16), rnd(*big, dtype=torch.bfloat16)
+    ga, gb, gbias = rnd(4096, 2048), rnd(2048, 2048, std=2048 ** -0.5), rnd(2048)
+    xyz = lambda x, y, z: x + y - torch.sin(z)  # noqa: E731  bench.py:293's body
+    cases = []
+
+    def vm_case(name, algo, x, check, library, slot, donate=False, dtype=torch.float32):
+        body = vm.pick(name, algo)
+        isz = x.element_size()
+        tbuf = x.clone() if donate else x
+        kern = getattr(vm, name)
+        cases.append(Prim(
+            name="for_each", slot=slot, shape="x".join(map(str, x.shape)),
+            run=lambda: kern(x.clone() if donate else x, algorithm=algo, donate=donate),
+            plain=lambda: fe.for_each_reference(body, x),
+            time_run=lambda: kern(tbuf, algorithm=algo, donate=donate),
+            nbytes=2 * x.numel() * isz, flops=CORE_OPS * x.numel(), check=check,
+            library=lambda: library(x), library_call=f"torch.{library.__name__}",
+            dtype=dtype))
+
+    vm_case("exp", "accurate", xs, "exact", torch.exp, "exp_accurate_donate", donate=True)
+    vm_case("exp", "fast", xs, "fast", torch.exp, "exp_fast_donate", donate=True)
+    vm_case("log", "fast", xpos, "fast", torch.log, "log_fast")
+    vm_case("tanh", "fast", xs, "fast", torch.tanh, "tanh_fast")
+    vm_case("sigmoid", "fast", xs, "fast", torch.sigmoid, "sigmoid_fast")
+    ta = a.clone()
+    cases.append(Prim(
+        "for_each", "", "4096x4096 x3, x + y - sin z, donate",
+        run=lambda: fe.for_each(xyz, a.clone(), b, c, donate=True),
+        plain=lambda: fe.for_each_reference(xyz, a, b, c),
+        time_run=lambda: fe.for_each(xyz, ta, b, c, donate=True),
+        nbytes=4 * n_mid * 4, flops=(2 + CORE_OPS) * n_mid, check="rel",
+        library=lambda: a + b - torch.sin(c), library_call="eager x + y - torch.sin(z)"))
+    pm = lambda x, y: (x + y, x - y)  # noqa: E731
+    cases.append(Prim(
+        "for_each_multi", "", "4096x4096 x2 -> (x + y, x - y)",
+        run=lambda: fe.for_each_multi(pm, a, b), plain=lambda: fe.for_each_multi_reference(pm, a, b),
+        nbytes=4 * n_mid * 4, flops=2 * n_mid, check="rel",
+        library=lambda: (a + b, a - b), library_call="eager x + y, x - y"))
+    cases.append(Prim(
+        "map_reduce", "", "8192x8192 reduce_sum",
+        run=lambda: R.reduce_sum(xs),
+        plain=lambda: fe.map_reduce_reference(lambda t: t, xs),
+        nbytes=n_big * 4, flops=n_big, check="sum", sum_abs=lambda: xs.abs().sum().item(),
+        repeat=True, library=lambda: torch.sum(xs), library_call="torch.sum"))
+    comb = lambda p: p.sum()  # noqa: E731
+    cases.append(Prim(
+        "map_reduce", "combine_fn", "8192x8192, per-block partials + combine_fn in torch",
+        run=lambda: fe.map_reduce(lambda t: t, xs, combine_fn=comb),
+        plain=lambda: fe.map_reduce_reference(lambda t: t, xs, combine_fn=comb),
+        nbytes=n_big * 4, flops=n_big, check="sum", sum_abs=lambda: xs.abs().sum().item(),
+        repeat=True, library=lambda: torch.sum(xs), library_call="torch.sum"))
+    cases.append(Prim(
+        "row_reduce", "", "8192x4096 row_reduce(exp, sum)",
+        run=lambda: fe.row_reduce(torch.exp, ra),
+        plain=lambda: fe.row_reduce_reference(torch.exp, ra),
+        nbytes=n_rows * 4 + 8192 * 4, flops=(CORE_OPS + 1) * n_rows, check="sum",
+        sum_abs=lambda: torch.exp(ra).sum(-1), repeat=True,
+        library=lambda: torch.exp(ra).sum(-1), library_call="torch.exp(x).sum(-1)"))
+    lx = lux.generate(lambda p, q, r: p + q - lux.lux_sin(r))
+    cases.append(Prim(
+        "for_each", "lux_xyz", "Lux a + b - lux_sin(c), 4096x4096",
+        run=lambda: lx(a, b, c), plain=lambda: fe.for_each_reference(xyz, a, b, c),
+        nbytes=4 * n_mid * 4, flops=(2 + CORE_OPS) * n_mid, check="rel",
+        library=lambda: a + b - torch.sin(c), library_call="eager x + y - torch.sin(z)"))
+    lr = lux.generate(lambda p, q: lux.lux_sum(p * q, axis=-1))
+    cases.append(Prim(
+        "row_reduce", "lux_sum_axis", "Lux lux_sum(a * b, axis=-1), 8192x4096",
+        run=lambda: lr(ra, rb), plain=lambda: fe.row_reduce_reference(lambda p, q: p * q, ra, rb),
+        nbytes=2 * n_rows * 4 + 8192 * 4, flops=2 * n_rows, check="sum",
+        sum_abs=lambda: (ra * rb).abs().sum(-1), repeat=True,
+        library=lambda: (ra * rb).sum(-1), library_call="(a * b).sum(-1)"))
+    lg = lux.generate(lambda p, q, r: lux.lux_relu(p @ q + r))
+    cases.append(Prim(
+        "lux_gemm", "", "Lux relu(a @ b + bias), M4096 K2048 N2048",
+        run=lambda: lg(ga, gb, gbias),
+        plain=lambda: gemm_reference(ga, gb, bias=gbias, epilogue="relu"),
+        nbytes=(4096 * 2048 * 2 + 2048 * 2048 + 2048) * 4, flops=2 * 4096 * 2048 * 2048,
+        check="gemm", library=lambda: torch.relu(torch.addmm(gbias, ga, gb)),
+        library_call="torch.relu(torch.addmm(bias, a, b))"))
+    cases.append(Prim(
+        "for_each", "bf16_xyz", "bf16 8192x8192 x3, x + y - sin z",
+        run=lambda: fe.for_each(xyz, xb, yb, zb), plain=lambda: fe.for_each_reference(xyz, xb, yb, zb),
+        nbytes=4 * n_big * 2, flops=(2 + CORE_OPS) * n_big, check="bf16",
+        library=lambda: xb + yb - torch.sin(zb), library_call="eager x + y - torch.sin(z)",
+        dtype=torch.bfloat16))
+    vm_case("exp", "accurate", xb, "exact", torch.exp, "bf16_exp_accurate", dtype=torch.bfloat16)
+    return cases
+
+
+def prim_check(case: Prim, got, want) -> float:
+    """The case's stated bound, kernel vs plain; returns max |d|."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for gt, wt in zip(got, want, strict=True):
+        if gt.shape != wt.shape:
+            fail(f"{case.name} {case.slot}: shape {tuple(gt.shape)} vs {tuple(wt.shape)}")
+        d = (gt.double() - wt.double()).abs()
+        fin = torch.isfinite(wt.double())
+        if not torch.equal(torch.isfinite(gt.double()), fin):
+            fail(f"{case.name} {case.slot}: finite where the plain version is not, or back")
+        err = d[fin].max().item() if fin.any() else 0.0
+        ref = wt.double()[fin].abs()
+        per_elem = (d[fin] / ref.clamp(min=1.0)).max().item() if fin.any() else 0.0
+        if case.check == "exact":  # elements whose bits differ (NaN matches NaN)
+            same = (gt == wt) | (torch.isnan(gt) & torch.isnan(wt))
+            rel, bound_ = float((~same).sum().item()), 0.0
+        elif case.check == "rel":
+            rel, bound_ = per_elem, PRIM_F32_REL
+        elif case.check == "fast":
+            rel, bound_ = per_elem, PRIM_FAST_REL
+        elif case.check == "bf16":
+            rel, bound_ = per_elem, PRIM_BF16_REL
+        elif case.check == "gemm":
+            rel, bound_ = err / max(ref.max().item(), 1e-30), PRIM_GEMM_REL
+        elif case.check == "sum":
+            sa = case.sum_abs()
+            rel = (d / torch.as_tensor(sa, device=d.device, dtype=torch.float64)).max().item()
+            bound_ = PRIM_SUM_REL
+        else:
+            raise ValueError(case.check)
+        print(f"  {case.name} {case.slot or 'main'} [{case.shape}]: max_abs_err {err:.3e}, "
+              f"{case.check} {rel:.3e} (bound {bound_:.0e})", flush=True)
+        if not rel <= bound_:
+            fail(f"{case.name} {case.slot}: {case.check} error {rel:.3e} > {bound_:.0e}")
+        worst = max(worst, err)
+    return worst
+
+
+def prim_sources():
+    """The generated sources of phase 13's bodies, to build them together."""
+    from laser_tpu_torch.ops import foreach as fe
+    from laser_tpu_torch.ops import vector_math as vm
+
+    f32 = torch.empty((8,), device=DEVICE)
+    bf = f32.bfloat16()
+    xyz = lambda x, y, z: x + y - torch.sin(z)  # noqa: E731
+    srcs = [fe.for_each_source(vm.pick(n, t), f32) for n, t in
+            (("exp", "accurate"), ("exp", "fast"), ("log", "fast"), ("tanh", "fast"),
+             ("sigmoid", "fast"))]
+    srcs += [fe.for_each_source(xyz, f32, f32, f32), fe.for_each_source(xyz, bf, bf, bf),
+             fe.for_each_source(vm.pick("exp", "accurate"), bf),
+             fe.for_each_multi_source(lambda x, y: (x + y, x - y), f32, f32),
+             fe.map_reduce_source(lambda t: t, f32),
+             fe.row_reduce_source(torch.exp, f32.reshape(2, 4)),
+             fe.row_reduce_source(lambda p, q: p * q, f32.reshape(2, 4), f32.reshape(2, 4))]
+    return srcs
+
+
+PRIM_KERNELS = ("for_each", "for_each_multi", "row_reduce", "map_reduce")
+
+
+def phase_primitives(spec):
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops import foreach  # noqa: F401  registers the records
+
+    print("phase 13: primitives path at bench.py's shapes (for_each, for_each_multi, "
+          "row_reduce, map_reduce, vector math, reductions, Lux)", flush=True)
+    t0 = time.perf_counter()
+    srcs = prim_sources()
+    registry.load_generated_many(srcs)
+    gb = registry.GEN_BUILDS
+    print(f"  generated bodies: {len(set(srcs))} sources, {gb['built']} built in parallel "
+          f"({gb['loaded']} loaded), {gb['seconds']:.1f} s of nvcc, "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    cases = prim_cases()
+    torch.cuda.synchronize()
+    registry.reset_counts()
+    outs = [case.run() for case in cases]
+    torch.cuda.synchronize()
+    counts = registry.counts()
+    print(f"  counts {json.dumps({k: v for k, v in counts.items() if any(v.values())})}",
+          flush=True)
+    for k in PRIM_KERNELS:
+        if counts[k]["launches"] == 0:
+            fail(f"primitives: {k} never launched")
+    if any(c["plain_calls"] for c in counts.values()):
+        fail(f"primitives: a plain version ran: {counts}")
+    print(f"  generated builds after the path: {json.dumps(registry.GEN_BUILDS)}", flush=True)
+    registry.reset_counts()
+    prof = profile_step(lambda: [case.run() for case in cases], "one primitives path")
+    # a late profiler session may keep only some kernels (phase 12): say how many
+    launched = sum(c["launches"] for c in registry.counts().values())
+    kept = sum(r["calls"] for r in prof["top"]
+               if "ltt::" in r["kernel"] or "gemm_f32_kernel" in r["kernel"])
+    print(f"  {kept} of the {launched} kernel launches of the port kept in the trace "
+          f"(the idle share holds for what was kept)", flush=True)
+    prof["kernels_recorded"] = [kept, launched]
+
+    entries = {}
+    for case, got in zip(cases, outs):
+        err = prim_check(case, got, case.plain())
+        if case.repeat:
+            again = case.run()
+            torch.cuda.synchronize()
+            same = torch.equal(got, again)
+            print(f"    run to run bit-identical: {same}", flush=True)
+            if not same:
+                fail(f"{case.name} {case.slot}: two runs differ")
+        kern = case.time_run or case.run
+        ms, pms = cuda_ms(kern, reps=PRIM_REPS), cuda_ms(case.plain, reps=5)
+        batched = cuda_batched_ms(kern)
+        lms = cuda_ms(case.library, reps=PRIM_REPS) if case.library else None
+        peak = spec.bf16_tflops if case.dtype == torch.bfloat16 else spec.f32_tflops
+        t_ops = case.flops / (peak * 1e12) * 1e3
+        t_bytes = case.nbytes / (spec.hbm_gbps * 1e9) * 1e3
+        bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        print(f"    time: kernel {ms:.4f} ms ({batched:.4f} ms per call of 20 in a row), "
+              f"plain {pms:.4f} ms, library "
+              f"{'none' if lms is None else f'{lms:.4f} ms'} ({case.library_call}), "
+              f"bound {bms:.4f} ms ({by}, {case.nbytes / 1e6:.1f} MB)", flush=True)
+        entry = {"shape": case.shape, "max_abs_err": err, "ms": ms, "batched_ms": batched,
+                 "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms,
+                 "library_call": case.library_call}
+        if case.slot:
+            entries.setdefault(case.name, {})[case.slot] = entry
+        else:
+            entries[case.name] = {**entry, **entries.get(case.name, {})}
+    return {"primitives": counts}, entries, {"profile": prof,
+                                             "generated_builds": dict(registry.GEN_BUILDS)}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1262,6 +1592,7 @@ def main():
     from laser_tpu_torch import device_info, registry
     # importing the paths' modules registers every kernel
     from laser_tpu_torch.models import cnn, mlp, transformer  # noqa: F401
+    from laser_tpu_torch.ops import foreach, reductions  # noqa: F401
     from laser_tpu_torch.serving import engine  # noqa: F401
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1298,6 +1629,9 @@ def main():
     s2_counts, s2 = timed(phase_spec_s2)
     timed(phase_spec_f32)
     cnn_counts, cnn_result = timed(phase_cnn)
+    prim_counts, prim_record, prim_result = timed(phase_primitives, spec)
+    record.update({k: v for k, v in prim_record.items() if k != "lux_gemm"})
+    record["gemm"]["lux_relu_bias"] = prim_record["lux_gemm"]
 
     kernels = []
     for name, k in registry.KERNELS.items():
@@ -1307,12 +1641,14 @@ def main():
                    **{tag: c[name]["launches"] for tag, c in llama_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in s1_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in s2_counts.items()},
-                   **{tag: c[name]["launches"] for tag, c in cnn_counts.items()}}
+                   **{tag: c[name]["launches"] for tag, c in cnn_counts.items()},
+                   **{tag: c[name]["launches"] for tag, c in prim_counts.items()}}
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **r})
     print(json.dumps({"card": card, "engine": engine, "train": train, "llama": llama,
-                      "spec_s1": s1, "spec_s2": s2, "cnn": cnn_result}), flush=True)
+                      "spec_s1": s1, "spec_s2": s2, "cnn": cnn_result,
+                      "primitives": prim_result}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

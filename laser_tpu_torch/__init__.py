@@ -11,8 +11,14 @@ ported: serving (``serving.ServingEngine``) of both model families,
 KV pages as options, training (``models.transformer.
 transformer_train_step``), and the classifiers: ``models.cnn.cnn_predict``
 over the conv and softmax kernels, ``models.mlp.mlp_predict`` and
-``sgd_step``. Entry points that allocate put their tensors on the card
-unless the caller passes ``device``.
+``sgd_step``; and the primitives the README's quick start calls:
+``ops.foreach`` (``for_each``, ``for_each_multi``, ``row_reduce``,
+``map_reduce``), ``ops.vector_math`` exp/log/tanh/sigmoid and
+``ops.reductions`` on them, and ``lux``, whose torch bodies
+``ops.codegen`` translates into CUDA C++ for the templates of
+``csrc/foreach.cuh``, built one library per body
+(``registry.load_generated``). Entry points that allocate put their
+tensors on the card unless the caller passes ``device``.
 
 Import the submodule you need: this package imports nothing eagerly.
 """

@@ -10,6 +10,16 @@ data makes the choice.
              plain versions (laser_tpu: 6-pass bf16 on the MXU). The default.
   "high"     3xTF32 (laser_tpu: 3-pass bf16). Not ported: raises.
   "default"  TF32 (laser_tpu: 1-pass bf16). Not ported: raises.
+
+``vector_math_algorithm`` is the default tier of ``ops.vector_math``'s
+exp/log/tanh/sigmoid: "accurate" (laser_tpu's polynomial cores, within
+1e-6 of float64) or "fast" (CUDA's own functions; see csrc/vector_math.cuh).
+
+``elementwise_grain`` and ``reduction_grain`` are laser_tpu's names for
+the VMEM block sizes of a v5e. The port accepts them, so a laser_tpu
+configuration carries over, and does not read them: the elementwise and
+reduction templates size their thread blocks from constants chosen for the
+H100 (csrc/foreach.cuh kElementwiseGrain, kReduceGrain).
 """
 
 from __future__ import annotations
@@ -20,11 +30,15 @@ import dataclasses
 import torch
 
 PRECISIONS = ("default", "high", "highest")
+ALGORITHMS = ("accurate", "fast")
 
 
 @dataclasses.dataclass
 class LaserConfig:
     matmul_precision: str = "highest"
+    vector_math_algorithm: str = "accurate"
+    elementwise_grain: int = 16384  # accepted, unused (see above)
+    reduction_grain: int = 65536    # accepted, unused
 
 
 _config = LaserConfig()
@@ -40,6 +54,10 @@ def set_config(**kwargs) -> LaserConfig:
             raise AttributeError(f"unknown laser config field: {k}")
         if k == "matmul_precision" and v not in PRECISIONS:
             raise ValueError(f"matmul_precision must be one of {PRECISIONS}, got {v!r}")
+        if k == "vector_math_algorithm" and v not in ALGORITHMS:
+            raise ValueError(f"vector_math_algorithm must be one of {ALGORITHMS}, got {v!r}")
+        if k in ("elementwise_grain", "reduction_grain") and not (isinstance(v, int) and v > 0):
+            raise ValueError(f"{k} must be a positive int, got {v!r}")
         setattr(_config, k, v)
     return _config
 

@@ -1,0 +1,317 @@
+// The three elementwise and reduction templates that a traced body fills.
+//
+// ops/codegen.py translates a user's torch body into a struct `Body` and
+// emits a short .cu that includes this header, defines `Body` and names one
+// entry macro below; registry.load_generated builds it with nvcc for
+// sm_90a into a library of its own. The templates replace laser_tpu's
+// ops/foreach.py kernels:
+// - for_each_kernel: `for_each` (foreach.py:109, pallas_call at :154) and
+//   `for_each_multi` (:172, at :199): N operands in, K outputs out;
+// - row_reduce_kernel: `row_reduce` (:219, at :262): reduce(map(...)) over
+//   the last axis of a (rows, cols) operand set;
+// - map_reduce_stage1/2: `map_reduce` (:277), both sites: the resident
+//   accumulator (:363) becomes a second launch over the per-block partials,
+//   and the per-block partials with a custom combine_fn (:379) are stage 1
+//   alone, combined by the caller in torch as laser_tpu does outside its
+//   kernel (:393).
+//
+// What bounds them on the H100: bytes. Each reads every operand once and
+// writes every output once (4096^2 f32 x + y - sin z: 268 MB, 80 us at
+// 3.35 TB/s); a body's few operations per element are far below the
+// 67 TFLOP/s f32 line.
+//
+// Design. The TPU kernels re-lay the operands out as (rows, 128 or 4096)
+// blocks that fit VMEM and walk a sequential grid; on Hopper:
+// - for_each is a grid-stride loop over the flat elements. When every
+//   pointer is 16-byte aligned each thread takes kVec consecutive elements
+//   per step (kVec = 16 bytes over the smallest element size, so every
+//   operand moves in whole 16-byte words), then a scalar tail; otherwise it
+//   goes element by element. The operand and output pointers travel in one
+//   by-value argument struct (PtrArgs). Output 0 may be operand 0 (donate):
+//   each element is read before the same thread writes it.
+// - row_reduce gives each row one block that streams it in any length (no
+//   VMEM limit: laser_tpu's `return None` past its VMEM budget, :240, is a
+//   TPU artifact), every thread folding kVec interleaved accumulators;
+//   then a fixed warp and block tree.
+// - map_reduce is deterministic with no atomics: block b of stage 1 folds
+//   the fixed range [b*chunk, (b+1)*chunk) in a fixed order (per thread kVec
+//   accumulators, a pairwise tree over them, a fixed warp and block tree),
+//   stage 2 is one block that folds the partials in index order the same
+//   way. The number of blocks depends on n and the dtypes only, so two runs
+//   give the same bits. Nothing is padded, so nothing but real elements is
+//   mapped (laser_tpu maps its identity padding; ROADMAP queue 3).
+// Float accumulators are f32 (a bf16 or f16 accumulator type is held in
+// f32 and rounded once where it is stored), integer ones int32 (narrower
+// types wrap to the same value when stored) or int64; min and max keep NaN,
+// as torch.amax and jnp.max do.
+#pragma once
+
+#include <algorithm>
+
+#include "common.cuh"
+#include "vector_math.cuh"
+
+namespace ltt {
+
+constexpr int kMaxIn = 16;
+constexpr int kMaxOut = 8;
+constexpr int kThreads = 256;
+constexpr int kMaxReduceBlocks = 4096;  // stage 1 of map_reduce
+// Elements per thread block: for_each gets one block per kElementwiseGrain
+// elements (64 per thread; 4096^2 f32 gets 1024 blocks, about 8 per SM, one
+// resident wave), and stage 1 of map_reduce one per kReduceGrain (8192^2
+// f32 gets the same 1024). laser_tpu's config grains size a v5e's VMEM
+// blocks instead; the port accepts those names and does not use them.
+constexpr int64_t kElementwiseGrain = 16384;
+constexpr int64_t kReduceGrain = 65536;  // ops/foreach.py REDUCE_GRAIN
+enum ReduceOp { kSum = 0, kMin = 1, kMax = 2 };
+
+struct PtrArgs {
+  const void* in[kMaxIn];
+  void* out[kMaxOut];
+};
+
+// V elements of T as whole 16-byte words (the caller keeps them aligned)
+template <typename T, int V> struct Vec {
+  static constexpr int kWords = V * static_cast<int>(sizeof(T)) / 16;
+  static_assert(kWords * 16 == V * static_cast<int>(sizeof(T)), "whole 16-byte words");
+  uint4 w[kWords];
+  __device__ __forceinline__ T& operator[](int k) { return reinterpret_cast<T*>(w)[k]; }
+  __device__ __forceinline__ void load(const void* p, int64_t i) {
+    const uint4* s = reinterpret_cast<const uint4*>(static_cast<const T*>(p) + i);
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) w[k] = s[k];
+  }
+  __device__ __forceinline__ void store(void* p, int64_t i) const {
+    uint4* d = reinterpret_cast<uint4*>(static_cast<T*>(p) + i);
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) d[k] = w[k];
+  }
+};
+
+// --- scalar helpers the generated bodies call -------------------------------
+
+__device__ __forceinline__ float max_nan(float a, float b) { return (a > b || isnan(a)) ? a : b; }
+__device__ __forceinline__ float min_nan(float a, float b) { return (a < b || isnan(a)) ? a : b; }
+template <typename I> __device__ __forceinline__ I max_nan(I a, I b) { return a > b ? a : b; }
+template <typename I> __device__ __forceinline__ I min_nan(I a, I b) { return a < b ? a : b; }
+
+__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
+template <typename I> __device__ __forceinline__ I radd(I a, I b) {
+  // integer sums wrap, as torch's and jnp's
+  return static_cast<I>(static_cast<uint64_t>(a) + static_cast<uint64_t>(b));
+}
+
+template <int Op, typename A> __device__ __forceinline__ A rcombine(A a, A b) {
+  if constexpr (Op == kSum) return radd(a, b);
+  else if constexpr (Op == kMin) return min_nan(a, b);
+  else return max_nan(a, b);
+}
+
+template <int Op, typename A> __device__ __forceinline__ A warp_reduce(A v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = rcombine<Op>(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// the block's fold in a fixed order; thread 0 gets it. `red` holds 32 A.
+template <int Op, typename A> __device__ __forceinline__ A block_reduce(A v, A ident, A* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = warp_reduce<Op>(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) v = warp_reduce<Op>(lane < nwarps ? red[lane] : ident);
+  return v;
+}
+
+// pairwise tree over a thread's V accumulators
+template <int Op, typename A, int V> __device__ __forceinline__ A fold_lanes(A (&acc)[V]) {
+#pragma unroll
+  for (int h = V / 2; h > 0; h >>= 1) {
+#pragma unroll
+    for (int k = 0; k < h; ++k) acc[k] = rcombine<Op>(acc[k], acc[k + h]);
+  }
+  return acc[0];
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <class B> inline bool all_aligned(const PtrArgs& a, int n_out) {
+  for (int k = 0; k < B::kIn; ++k)
+    if (!aligned16(a.in[k])) return false;
+  for (int k = 0; k < n_out; ++k)
+    if (!aligned16(a.out[k])) return false;
+  return true;
+}
+
+template <class B> inline PtrArgs make_args(const void* const* in, void* const* out, int n_out) {
+  static_assert(B::kIn >= 1 && B::kIn <= kMaxIn && B::kOut <= kMaxOut, "operand count");
+  PtrArgs a{};
+  for (int k = 0; k < B::kIn; ++k) a.in[k] = in[k];
+  for (int k = 0; k < n_out; ++k) a.out[k] = out[k];
+  return a;
+}
+
+inline int64_t cdiv64(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// --- for_each / for_each_multi ---------------------------------------------
+
+template <class B>
+__global__ void __launch_bounds__(kThreads) for_each_kernel(PtrArgs a, int64_t n, bool vec) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  int64_t i0 = 0;
+  if (vec) {
+    constexpr int V = B::kVec;
+    const int64_t nv = n / V;
+    for (int64_t j = t; j < nv; j += stride) B::template apply_vec<V>(a, j * V);
+    i0 = nv * V;
+  }
+  for (int64_t i = i0 + t; i < n; i += stride) B::apply1(a, i);
+}
+
+template <class B>
+int launch_for_each(const void* const* in, void* const* out, int64_t n, void* stream) {
+  const PtrArgs a = make_args<B>(in, out, B::kOut);
+  const bool vec = all_aligned<B>(a, B::kOut);
+  const int64_t items = vec ? n / B::kVec + n % B::kVec : n;
+  const int64_t blocks =
+      std::max<int64_t>(1, std::min<int64_t>({cdiv64(n, kElementwiseGrain), cdiv64(items, kThreads),
+                                              int64_t{1} << 30}));
+  for_each_kernel<B><<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a, n, vec);
+  return launch_status();
+}
+
+// --- one thread's fold over [lo, hi), V interleaved accumulators -------------
+
+template <class B, int Op>
+__device__ __forceinline__ typename B::acc_t fold_range(const PtrArgs& a, int64_t lo, int64_t hi,
+                                                        int tid, int nthreads, bool vec) {
+  using A = typename B::acc_t;
+  constexpr int V = B::kVec;
+  A acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = B::identity();
+  int64_t tail = lo;
+  if (vec) {  // lo is a multiple of V and every pointer 16-byte aligned
+    const int64_t hv = lo + (hi - lo) / V * V;
+    for (int64_t i = lo + static_cast<int64_t>(tid) * V; i < hv;
+         i += static_cast<int64_t>(nthreads) * V) {
+      A m[V];
+      B::template map_vec<V>(a, i, m);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] = rcombine<Op>(acc[k], m[k]);
+    }
+    tail = hv;
+  }
+  for (int64_t i = tail + tid; i < hi; i += nthreads) acc[0] = rcombine<Op>(acc[0], B::map1(a, i));
+  return fold_lanes<Op>(acc);
+}
+
+// --- row_reduce --------------------------------------------------------------
+
+template <class B>
+__global__ void row_reduce_kernel(PtrArgs a, void* out, int64_t cols, bool vec) {
+  using A = typename B::acc_t;
+  __shared__ A red[32];
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * cols;
+  A v = fold_range<B, B::kOp>(a, lo, lo + cols, threadIdx.x, blockDim.x, vec);
+  v = block_reduce<B::kOp>(v, B::identity(), red);
+  if (threadIdx.x == 0) B::store_out(out, blockIdx.x, v);
+}
+
+template <class B>
+int launch_row_reduce(const void* const* in, void* out, int64_t rows, int64_t cols,
+                      void* stream) {
+  const PtrArgs a = make_args<B>(in, nullptr, 0);
+  // every row starts on a 16-byte boundary when the width is whole vectors
+  const bool vec = all_aligned<B>(a, 0) && cols % B::kVec == 0;
+  const int threads = cols >= 2048 ? 256 : (cols >= 512 ? 128 : 32);
+  row_reduce_kernel<B><<<static_cast<unsigned>(rows), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a, out, cols, vec);
+  return launch_status();
+}
+
+// --- map_reduce --------------------------------------------------------------
+
+// block b folds [b*chunk, min(n, (b+1)*chunk)); raw partials stay in acc_t
+// for stage 2, otherwise they are stored in the accumulator dtype
+template <class B>
+__global__ void __launch_bounds__(kThreads)
+    map_reduce_stage1(PtrArgs a, void* partials, int64_t n, int64_t chunk, bool vec, bool raw) {
+  using A = typename B::acc_t;
+  __shared__ A red[32];
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * chunk;
+  const int64_t hi = lo + chunk < n ? lo + chunk : n;
+  A v = fold_range<B, B::kOp>(a, lo, hi, threadIdx.x, kThreads, vec);
+  v = block_reduce<B::kOp>(v, B::identity(), red);
+  if (threadIdx.x == 0) {
+    if (raw) static_cast<A*>(partials)[blockIdx.x] = v;
+    else B::store_acc(partials, blockIdx.x, v);
+  }
+}
+
+// one block folds the G raw partials in index order with the combine op
+template <class B, int Op>
+__global__ void __launch_bounds__(kThreads)
+    map_reduce_stage2(const void* partials, void* result, int g) {
+  using A = typename B::acc_t;
+  __shared__ A red[32];
+  const A* p = static_cast<const A*>(partials);
+  A v = B::identity();
+  for (int i = threadIdx.x; i < g; i += kThreads) v = rcombine<Op>(v, p[i]);
+  v = block_reduce<Op>(v, B::identity(), red);
+  if (threadIdx.x == 0) B::store_acc(result, 0, v);
+}
+
+// (blocks, chunk) of stage 1 for n elements: one block per kReduceGrain
+// elements, at most kMaxReduceBlocks, each chunk whole vectors
+inline void reduce_plan(int64_t n, int vec_n, int64_t* blocks, int64_t* chunk) {
+  int64_t g = std::max<int64_t>(1, std::min<int64_t>(cdiv64(n, kReduceGrain), kMaxReduceBlocks));
+  int64_t c = cdiv64(cdiv64(n, g), vec_n) * vec_n;
+  *chunk = c;
+  *blocks = cdiv64(n, c);
+}
+
+// result null: stage 1 alone, partials in the accumulator dtype (the
+// caller's combine_fn takes them); else partials are acc_t scratch of at
+// least kMaxReduceBlocks and stage 2 writes the result
+template <class B>
+int launch_map_reduce(const void* const* in, void* partials, void* result, int64_t n,
+                      int combine, void* stream) {
+  const PtrArgs a = make_args<B>(in, nullptr, 0);
+  const bool vec = all_aligned<B>(a, 0);
+  int64_t blocks, chunk;
+  reduce_plan(n, B::kVec, &blocks, &chunk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  map_reduce_stage1<B><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      a, partials, n, chunk, vec, result != nullptr);
+  if (result == nullptr) return launch_status();
+  const int g = static_cast<int>(blocks);
+  if (combine == kSum) map_reduce_stage2<B, kSum><<<1, kThreads, 0, s>>>(partials, result, g);
+  else if (combine == kMin) map_reduce_stage2<B, kMin><<<1, kThreads, 0, s>>>(partials, result, g);
+  else map_reduce_stage2<B, kMax><<<1, kThreads, 0, s>>>(partials, result, g);
+  return launch_status();
+}
+
+}  // namespace ltt
+
+#define LTT_FOR_EACH_ENTRY(B)                                                              \
+  LTT_API int ltt_gen_for_each(const void* const* in, void* const* out, int64_t n,          \
+                               void* stream) {                                              \
+    return ltt::launch_for_each<B>(in, out, n, stream);                                     \
+  }
+
+#define LTT_ROW_REDUCE_ENTRY(B)                                                            \
+  LTT_API int ltt_gen_row_reduce(const void* const* in, void* out, int64_t rows,            \
+                                 int64_t cols, void* stream) {                              \
+    return ltt::launch_row_reduce<B>(in, out, rows, cols, stream);                          \
+  }
+
+#define LTT_MAP_REDUCE_ENTRY(B)                                                            \
+  LTT_API int ltt_gen_map_reduce(const void* const* in, void* partials, void* result,       \
+                                 int64_t n, int combine, void* stream) {                    \
+    return ltt::launch_map_reduce<B>(in, partials, result, n, combine, stream);             \
+  }

@@ -7,4 +7,8 @@
 (``adamw_step`` and friends), ``ops.paged_attention`` (``paged_attention``,
 ``quantize_kv``), ``ops.sampling``, ``ops.conv`` (``conv2d_direct``,
 ``conv2d_im2col``, ``conv_planewise``, ``conv_direct``), ``ops.vector_math``
-(``softmax``, ``softmax_online``); nothing is imported eagerly here."""
+(``softmax``, ``softmax_online``, ``exp``, ``log``, ``tanh``, ``sigmoid``),
+``ops.foreach`` (``for_each``, ``for_each_multi``, ``row_reduce``,
+``map_reduce``), ``ops.reductions`` (``reduce_sum`` / ``min`` / ``max`` /
+``mean``), ``ops.codegen`` (body translation); nothing is imported eagerly
+here."""

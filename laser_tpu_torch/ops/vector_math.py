@@ -35,17 +35,36 @@ afterwards. Otherwise ``donate`` changes nothing.
 
 Plain versions, in fp32: ``softmax_reference`` (the row kernel's function)
 and ``softmax_online_reference`` (the online kernel's). On CPU tensors each
-wrapper runs its plain version. exp/log/tanh/sigmoid, which laser_tpu runs
-through ``for_each``, are not ported yet.
+wrapper runs its plain version.
+
+``exp``, ``log``, ``tanh`` and ``sigmoid`` (laser_tpu/ops/vector_math.py:172-
+197) run through ``ops.foreach.for_each``, whose body is one vector-math
+core, in two tiers (``algorithm``, default ``config.vector_math_algorithm``):
+
+- "accurate": laser_tpu's polynomial cores (``_exp_expr``, ``_log_expr``,
+  ``_tanh_expr``, ``_sigmoid_expr``). In a traced body each is one node that
+  the kernel computes with csrc/vector_math.cuh; evaluated eagerly (the
+  plain version) it is the same polynomial written in torch (``_exp_poly``
+  and friends), not ``torch.exp``, and the two agree bit for bit in f32.
+  Within 1e-6 of float64 (tests/test_torch_vector_math.py).
+- "fast": CUDA's own functions in the kernel (__expf, __logf, tanhf and
+  1 / (1 + __expf(-x)); errors in csrc/vector_math.cuh); the plain
+  version is torch.exp / log / tanh / sigmoid.
+
+Each takes float tensors and returns the input's dtype; ``donate=True``
+writes the result into x (see ``for_each``).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import registry
+from ..config import get_config
+from . import codegen
 
 SOFTMAX = registry.kernel("softmax", "laser_tpu_torch/csrc/softmax.cu",
                           "laser_tpu/ops/vector_math.py:276 softmax")
@@ -132,3 +151,140 @@ def softmax_online(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
     shape = x.shape
     x2 = x.reshape(-1, shape[-1] if x.ndim else 1).contiguous()
     return _run(x2, None, True, plain).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# exp / log / tanh / sigmoid
+# ---------------------------------------------------------------------------
+
+# laser_tpu/ops/vector_math.py:40-54, 92-98: clamp, Cody-Waite split of ln 2,
+# the degree-5 exp polynomial and musl's logf coefficients, as f32 values
+EXP_MAX, EXP_MIN = 88.0, -88.0
+_F = lambda v: float(np.float32(v))  # noqa: E731
+_LOG2E = _F(1.4426950408889634)
+_LN2_HI, _LN2_LO = _F(0.693359375), _F(-2.12194440e-4)
+_EXP_P = tuple(_F(v) for v in (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+                               4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1))
+_LG1, _LG2, _LG3, _LG4 = (_F(v) for v in (0.66666662693, 0.40000972152, 0.28498786688,
+                                          0.24279078841))
+
+
+def _exp_poly(x: torch.Tensor) -> torch.Tensor:
+    """laser_tpu's _exp_expr in torch: f32 throughout, one cast at the end."""
+    orig = x.dtype
+    xc = torch.clamp(x.float(), EXP_MIN, EXP_MAX)  # keeps NaN
+    n = torch.round(xc * _LOG2E)
+    r = xc - n * _LN2_HI
+    r = r - n * _LN2_LO
+    p = _EXP_P[0] * r + _EXP_P[1]
+    for c in _EXP_P[2:]:
+        p = p * r + c
+    p = p * (r * r) + r + 1.0
+    ni = torch.where(torch.isnan(n), torch.zeros_like(n), n).to(torch.int32)
+    s = ((ni + 127).clamp_min(0) << 23).view(torch.float32)
+    return (p * s).to(orig)
+
+
+def _log_poly(x: torch.Tensor) -> torch.Tensor:
+    """laser_tpu's _log_expr in torch: bitfield reduction, musl's core."""
+    xf = x.float()
+    shifted = xf.view(torch.int32) + (0x3F800000 - 0x3F3504F3)
+    k = ((shifted >> 23) - 127).float()
+    m = ((shifted & 0x007FFFFF) + 0x3F3504F3).view(torch.float32)
+    f = m - 1.0
+    s = f / (2.0 + f)
+    z = s * s
+    w = z * z
+    t1 = w * (_LG2 + w * _LG4)
+    t2 = z * (_LG1 + w * _LG3)
+    r = t2 + t1
+    hfsq = 0.5 * f * f
+    res = k * _LN2_HI + (s * (hfsq + r) + k * _LN2_LO + f - hfsq)
+    res = torch.where(xf == 0, -torch.inf, res)
+    res = torch.where(xf < 0, torch.nan, res)
+    res = torch.where(torch.isinf(xf) & (xf > 0), torch.inf, res)
+    res = torch.where(torch.isnan(xf), torch.nan, res)
+    return res.to(x.dtype)
+
+
+def _tanh_poly(x: torch.Tensor) -> torch.Tensor:
+    """laser_tpu's _tanh_expr: in x's dtype, through the exp core."""
+    e = _exp_poly(torch.clamp_max(2.0 * x.abs(), 40.0))
+    t = 1.0 - 2.0 / (e + 1.0)
+    return (torch.sign(x) * t).to(x.dtype)
+
+
+def _sigmoid_poly(x: torch.Tensor) -> torch.Tensor:
+    """laser_tpu's _sigmoid_expr: in x's dtype, through the exp core."""
+    e = _exp_poly(-x.abs())
+    pos = 1.0 / (1.0 + e)
+    return torch.where(x >= 0, pos, 1.0 - pos).to(x.dtype)
+
+
+def _core(name: str, eager):
+    """A body op: one node of a traced body (csrc/vector_math.cuh
+    ``ltt::vm::<name>``), ``eager`` on a tensor."""
+    def f(x):
+        if codegen.is_traced(x):
+            return codegen.special(name, x)
+        if x.dtype not in codegen.FLOATS:
+            raise TypeError(f"{name}: takes a float tensor, got {x.dtype}")
+        return eager(x)
+    f.__name__ = name
+    return f
+
+
+exp_acc = _core("exp_acc", _exp_poly)
+log_acc = _core("log_acc", _log_poly)
+tanh_acc = _core("tanh_acc", _tanh_poly)
+sigmoid_acc = _core("sigmoid_acc", _sigmoid_poly)
+exp_fast = _core("exp_fast", torch.exp)
+log_fast = _core("log_fast", torch.log)
+tanh_fast = _core("tanh_fast", torch.tanh)
+sigmoid_fast = _core("sigmoid_fast", torch.sigmoid)
+
+CORES = {
+    "exp": {"accurate": exp_acc, "fast": exp_fast},
+    "log": {"accurate": log_acc, "fast": log_fast},
+    "tanh": {"accurate": tanh_acc, "fast": tanh_fast},
+    "sigmoid": {"accurate": sigmoid_acc, "fast": sigmoid_fast},
+}
+
+
+def pick(name: str, algorithm: Optional[str] = None):
+    """The body of ``name`` in tier ``algorithm`` (default: the config's)."""
+    algo = algorithm or get_config().vector_math_algorithm
+    try:
+        return CORES[name][algo]
+    except KeyError:
+        raise ValueError(f"{name}: unknown algorithm {algo!r} "
+                         "(want 'accurate' or 'fast')") from None
+
+
+def _elementwise(name: str, x: torch.Tensor, algorithm, donate) -> torch.Tensor:
+    from .foreach import for_each
+
+    return for_each(pick(name, algorithm), x, donate=donate)
+
+
+def exp(x: torch.Tensor, *, algorithm: Optional[str] = None,
+        donate: bool = False) -> torch.Tensor:
+    """Elementwise exp through ``for_each`` (laser_tpu/ops/vector_math.py:172).
+    ``donate=True`` writes the result into x; the same for log, tanh and
+    sigmoid."""
+    return _elementwise("exp", x, algorithm, donate)
+
+
+def log(x: torch.Tensor, *, algorithm: Optional[str] = None,
+        donate: bool = False) -> torch.Tensor:
+    return _elementwise("log", x, algorithm, donate)
+
+
+def tanh(x: torch.Tensor, *, algorithm: Optional[str] = None,
+         donate: bool = False) -> torch.Tensor:
+    return _elementwise("tanh", x, algorithm, donate)
+
+
+def sigmoid(x: torch.Tensor, *, algorithm: Optional[str] = None,
+            donate: bool = False) -> torch.Tensor:
+    return _elementwise("sigmoid", x, algorithm, donate)

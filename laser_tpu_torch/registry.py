@@ -11,6 +11,17 @@ package, so an edited source rebuilds and an unchanged one loads at once.
 There is no fallback: without ``nvcc`` the first CUDA call raises
 ``KernelBuildError``. CPU tensors never build anything.
 
+A second route builds *generated* sources: ``ops/codegen.py`` turns a
+user's elementwise body into a short ``.cu`` text that includes a
+hand-written template (``csrc/foreach.cuh``). ``load_generated`` compiles
+each such text with its own ``nvcc`` (the same flags) into
+``build/laser_tpu_torch/gen/<hash>/``, keyed on the text, every
+``csrc/*.cuh`` and the flags, loads it through ctypes and memoises it in
+the process; ``load_generated_many`` starts the builds of several texts
+together. ``GEN_BUILDS`` counts the builds and their seconds. As for the
+library, there is no fallback: a failed build raises ``KernelBuildError``
+with nvcc's log.
+
 Each kernel is described by a ``Kernel`` record holding two plain int
 counters: ``launches`` (its wrapper adds one right after a successful
 launch, and nowhere else) and ``plain_calls`` (its plain PyTorch version
@@ -269,6 +280,126 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# Generated sources (the elementwise and reduction templates)
+# ---------------------------------------------------------------------------
+
+GEN_ROOT = BUILD_ROOT / "gen"
+GEN_LIB = "libltt_gen.so"
+# builds of generated sources in this process (cache hits on disk count as
+# loads, not builds) and the wall seconds they took
+GEN_BUILDS = {"built": 0, "loaded": 0, "seconds": 0.0}
+
+_I64 = ctypes.c_int64
+# every generated library exports one entry point of its kind
+GEN_SIGNATURES = {
+    # in[], out[], n, stream
+    "ltt_gen_for_each": (_P, _P, _I64, _P),
+    # in[], out, rows, cols, stream
+    "ltt_gen_row_reduce": (_P, _P, _I64, _I64, _P),
+    # in[], partials, result (or null: partials only), n, combine op, stream
+    "ltt_gen_map_reduce": (_P, _P, _P, _I64, _I, _P),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _headers_digest(csrc: Path, flags: tuple) -> bytes:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in sorted(csrc.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.digest()
+
+
+def generated_hash(text: str) -> str:
+    """Key of a generated source: its text, every csrc/*.cuh it may include
+    (read once per process), and the flags."""
+    h = hashlib.sha256(_headers_digest(CSRC_DIR, NVCC_FLAGS))
+    h.update(text.encode())
+    return h.hexdigest()[:16]
+
+
+def _gen_start(text: str):
+    """(path, process or None): start nvcc on ``text`` unless its library
+    exists already."""
+    out = GEN_ROOT / generated_hash(text) / GEN_LIB
+    if out.is_file():
+        return out, None
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (searched $CUDA_HOME/bin, PATH and "
+            f"{DEFAULT_CUDA_HOME}/bin): generated kernels are compiled at their "
+            "first use on a CUDA tensor and need the CUDA toolkit")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src = out.parent / "body.cu"
+    src.write_text(text)
+    tmp = out.with_name(f"{GEN_LIB}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", f"-I{CSRC_DIR}", str(src), "-o", str(tmp)]
+    return out, (cmd, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+
+
+def _gen_finish(out: Path, job) -> None:
+    if job is None:
+        return
+    cmd, tmp, proc = job
+    log, _ = proc.communicate()
+    (out.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(f"nvcc failed on the generated source {out.parent / 'body.cu'}"
+                               f" (exit code {proc.returncode}):\n{log[-6000:]}")
+    os.replace(tmp, out)
+
+
+# the loaded library of each generated source, keyed by its text
+_GEN_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _gen_open(out: Path) -> ctypes.CDLL:
+    try:
+        lib = ctypes.CDLL(str(out))
+    except OSError as e:
+        raise KernelBuildError(f"cannot load {out}: {e}") from e
+    for fname, argtypes in GEN_SIGNATURES.items():
+        fn = getattr(lib, fname, None)
+        if fn is not None:
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def load_generated_many(texts) -> list:
+    """The libraries of several generated sources, built together: one nvcc
+    process per text not yet built, all started at once."""
+    texts = list(texts)
+    todo = [t for t in dict.fromkeys(texts) if t not in _GEN_LOADED]
+    if todo:
+        t0 = time.perf_counter()
+        jobs = {t: _gen_start(t) for t in todo}
+        errors = []
+        for t, (out, job) in jobs.items():
+            try:
+                _gen_finish(out, job)
+            except KernelBuildError as e:
+                errors.append(str(e))
+                continue
+            _GEN_LOADED[t] = _gen_open(out)
+            GEN_BUILDS["built" if job is not None else "loaded"] += 1
+        if any(job is not None for _, job in jobs.values()):
+            GEN_BUILDS["seconds"] += time.perf_counter() - t0
+        if errors:
+            raise KernelBuildError("\n".join(errors))
+    return [_GEN_LOADED[t] for t in texts]
+
+
+def load_generated(text: str) -> ctypes.CDLL:
+    """The library of one generated source, built on first use."""
+    lib = _GEN_LOADED.get(text)
+    return lib if lib is not None else load_generated_many([text])[0]
 
 
 def stream_handle(t: torch.Tensor) -> int:

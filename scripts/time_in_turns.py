@@ -22,6 +22,10 @@ BENCH is one of:
   16 images at 224x224) under ``no_grad``, after one warm-up forward:
   ``images_per_s``, 16 over the median of 20 synchronised forwards (host
   clock), as phase 12 prints it.
+- ``primitives``: every case of chip_smoke.py phase 13 (for_each,
+  for_each_multi, row_reduce, map_reduce, vector math, reductions, Lux at
+  bench.py's shapes), its generated bodies built first: the kernel's ms as
+  phase 13 times it (median of 20 calls, one call between two CUDA events).
 
 Models, shapes, engine config and traffic are those of the chip_smoke.py
 beside this script, the same for both trees. Each TREE is the root of a
@@ -126,7 +130,17 @@ def cnn(smoke) -> dict:
         return {"images_per_s": smoke.images_per_s(lambda: cnn_predict(params, x))}
 
 
-BENCHES = {"flash_forward": flash_forward, "serving": serving, "cnn": cnn}
+def primitives(smoke) -> dict:
+    from laser_tpu_torch import registry
+
+    registry.load_generated_many(smoke.prim_sources())
+    return {f"{c.name}/{c.slot or 'main'}": smoke.cuda_ms(c.time_run or c.run,
+                                                         reps=smoke.PRIM_REPS)
+            for c in smoke.prim_cases()}
+
+
+BENCHES = {"flash_forward": flash_forward, "serving": serving, "cnn": cnn,
+           "primitives": primitives}
 
 
 def _time_tree(bench: str, tree: str) -> dict:

@@ -9,7 +9,13 @@ paged window (verify) kernel at W 1-8, groups 1-8, float and int8 pages;
 bursts and speculative decoding in the engine on the card; the planewise
 and direct conv kernels at odd channel counts, kernel sizes, paddings and
 strides; both softmax kernels from 1 to 40001 columns, all -inf rows and
-``donate``; a small CNN and MLP through the kernels.
+``donate``; a small CNN and MLP through the kernels; the templates of
+csrc/foreach.cuh filled with generated bodies: for_each over bodies of each
+vocabulary group in f32/bf16/f16 and integer types, sizes 1 to 151557, with
+unaligned operands (the scalar path), donate and for_each_multi; the
+vector-math tiers; reduce_* (f32, bf16, int32, sizes 1 and 2^29 + 3) and
+row_reduce run twice to the same bits; map_reduce with a custom
+combine_fn; Lux's three lowering kinds on the kernels.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine that has none. Run it there with
@@ -19,7 +25,8 @@ so it runs on a machine that has none. Run it there with
 (``--noconftest``: tests/conftest.py imports JAX for the laser_tpu tests).
 
 Tolerance: max |kernel - plain| / max |plain| <= 1e-5 in f32 (summation
-order only), 1e-2 in bf16/f16 (one output rounding apart). Outputs that are
+order only), 1e-2 in bf16/f16 (one output rounding apart); the templates'
+own bounds are stated beside their cases. Outputs that are
 zero up to rounding are held against max(max |plain|, 1) instead: at V = 1
 the cross-entropy loss and unit gradient, and at S = 1 the attention
 gradients dq and dk (the one probability is 1, so ds is zero).
@@ -617,3 +624,219 @@ def test_cnn_and_mlp_through_the_kernels(dev):
         mp = init_mlp(4, [50, 64, 9], device=dev)
         xm = _rnd(_gen(dev, 37), (7, 50), torch.float32, dev)
         _check(mlp_predict(mp, xm), mlp_predict(mp, xm, plain=True), torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The elementwise and reduction templates (csrc/foreach.cuh) with generated
+# bodies: each result against the plain version on the same card tensors.
+# Elementwise f32 bodies of + - * / and the accurate vector-math cores are
+# exact (the kernel rounds each op as eager PyTorch does); library
+# functions (sinf, expf, ...) may differ from PyTorch's by an ulp or two.
+# ---------------------------------------------------------------------------
+
+FE_BODIES = {
+    "arith": lambda x, y: (x + y) * x - y / (x.abs() + 1.0),
+    "transcendental": lambda x, y: torch.sin(x) + torch.cos(y) * torch.exp(-x.abs()),
+    "select": lambda x, y: torch.where(x > y, torch.maximum(x, y) ** 2, -torch.relu(y)),
+    "cast": lambda x, y: (x.to(torch.bfloat16) * 3.0).float() + y.clamp(-1.0, 1.0),
+}
+
+
+def _fe_operands(dev, dtype, n, seed, offset=0):
+    g = _gen(dev, seed)
+    if dtype.is_floating_point:
+        base = [_rnd(g, (n + offset,), dtype, dev) for _ in range(2)]
+    else:
+        base = [torch.randint(-50, 50, (n + offset,), generator=g, device=dev, dtype=dtype)
+                for _ in range(2)]
+    return [b[offset:] for b in base]
+
+
+@pytest.mark.parametrize("body", sorted(FE_BODIES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n,offset", [(1, 0), (1000, 0), (4097 * 3, 0), (1000, 1),
+                                      (4096 * 37 + 5, 3)])
+def test_for_each_bodies(dev, body, dtype, n, offset):
+    """n 1 to 151557; offset > 0: every operand starts 1-3 elements into its
+    buffer, so the pointers are not 16-byte aligned (the scalar path)."""
+    from laser_tpu_torch.ops.foreach import FOR_EACH, for_each, for_each_reference
+
+    x, y = _fe_operands(dev, dtype, n, 40 + n % 7, offset)
+    fn = FE_BODIES[body]
+    want = for_each_reference(fn, x, y)
+    before = FOR_EACH.launches
+    got = for_each(fn, x, y)
+    assert FOR_EACH.launches == before + 1
+    _check(got, want, dtype, floor=1.0)
+    if body == "arith" and dtype == torch.float32:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8, torch.int64])
+def test_for_each_integer_and_bool(dev, dtype):
+    from laser_tpu_torch.ops.foreach import for_each, for_each_reference
+
+    x, y = _fe_operands(dev, dtype, 5003, 41)
+    for fn in (lambda a, b: a * 3 - b, lambda a, b: torch.maximum(a, b).abs(),
+               lambda a, b: (a > b) | (b == 0), lambda a, b: a / (b.abs() + 1)):
+        assert torch.equal(for_each(fn, x, y), for_each_reference(fn, x, y))
+
+
+def test_for_each_donate_and_multi(dev):
+    from laser_tpu_torch.ops.foreach import (for_each, for_each_multi,
+                                             for_each_multi_reference, for_each_reference)
+
+    x, y = _fe_operands(dev, torch.float32, 70001, 42)
+    want = for_each_reference(lambda a, b: a * 2 + b, x, y)
+    xd = x.clone()
+    out = for_each(lambda a, b: a * 2 + b, xd, y, donate=True)
+    assert out.data_ptr() == xd.data_ptr() and torch.equal(xd, want)
+    fn = lambda a, b: (a + b, (a - b).to(torch.bfloat16), a > b)  # noqa: E731
+    got, ref = for_each_multi(fn, x, y), for_each_multi_reference(fn, x, y)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref, strict=True))
+
+
+def test_body_reads_its_closure_on_every_call(dev):
+    """A body whose closure scalar changes between calls gives this call's
+    value on the card, as the plain version does (the body is traced on
+    every call)."""
+    from laser_tpu_torch.ops.foreach import for_each, map_reduce, row_reduce
+
+    x, _ = _fe_operands(dev, torch.float32, 4099, 44)
+    scale = 2.0
+    body = lambda a: a * scale  # noqa: E731
+    assert torch.equal(for_each(body, x), x * 2.0)
+    scale = 3.0
+    assert torch.equal(for_each(body, x), x * 3.0)
+    ones = torch.ones(8, 64, device=dev)
+    assert torch.equal(row_reduce(body, ones), torch.full((8,), 192.0, device=dev))
+    scale = -1.0
+    assert map_reduce(body, ones).item() == -512.0
+
+
+@pytest.mark.parametrize("name", ["exp", "log", "tanh", "sigmoid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vector_math_tiers(dev, name, dtype):
+    """The accurate tier equals its plain version (laser_tpu's polynomial in
+    torch) bit for bit; the fast tier (CUDA intrinsics) is within 2e-5 of
+    torch's function in f32 (__expf: 105 ulp at 88) and one bf16 rounding."""
+    from laser_tpu_torch.ops import vector_math as vm
+    from laser_tpu_torch.ops.foreach import for_each_reference
+
+    g = _gen(dev, 43)
+    x = torch.cat([_rnd(g, (100003,), torch.float32, dev, std=30.0),
+                   torch.tensor([0.0, -0.0, 88.0, -88.0, 87.5, -87.5, torch.inf, -torch.inf,
+                                 torch.nan, 1e-30, -1e-30], device=dev)]).to(dtype)
+    if name == "log":
+        x = x.abs()
+    acc = getattr(vm, name)(x, algorithm="accurate")
+    want = for_each_reference(vm.pick(name, "accurate"), x)
+    assert torch.equal(torch.nan_to_num(acc.float(), nan=7.0),
+                       torch.nan_to_num(want.float(), nan=7.0))
+    fast = getattr(vm, name)(x, algorithm="fast")
+    ref = {"exp": torch.exp, "log": torch.log, "tanh": torch.tanh, "sigmoid": torch.sigmoid}
+    r = ref[name](x.float())
+    ok = torch.isfinite(r) & (r.abs() < 1e37)
+    err = ((fast.float() - r).abs() / r.abs().clamp(min=1.0))[ok].max().item()
+    assert err <= (2e-5 if dtype == torch.float32 else 2 ** -8), err
+
+
+def _reduce_inputs(dev, dtype, n, seed):
+    g = _gen(dev, seed)
+    if dtype.is_floating_point:
+        return _rnd(g, (n,), dtype, dev)
+    return torch.randint(-1000, 1000, (n,), generator=g, device=dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("n", [1, 2, 1000, 65536 * 3 + 17])
+def test_reductions_deterministic(dev, dtype, n):
+    """Sums within 1e-6 of sum |x| of the plain version (order only), min
+    and max exact, the same bits twice."""
+    from laser_tpu_torch.ops import reductions as R
+
+    x = _reduce_inputs(dev, dtype, n, 44)
+    s1, s2 = R.reduce_sum(x), R.reduce_sum(x)
+    assert torch.equal(s1, s2) and s1.dtype == dtype
+    want = x.double().sum().item()
+    if dtype.is_floating_point:
+        tol = 1e-6 * x.double().abs().sum().item() + (0 if dtype == torch.float32 else
+                                                      abs(want) * 2 ** -8)
+        assert abs(s1.item() - want) <= tol
+    else:
+        assert s1.item() == int(x.long().sum().item())
+    assert R.reduce_min(x).item() == x.min().item()
+    assert R.reduce_max(x).item() == x.max().item()
+    f32 = R.reduce_sum(x, acc_dtype=torch.float32)
+    assert abs(f32.item() - want) <= 1e-6 * x.double().abs().sum().item() + 1e-6
+
+
+def test_reduce_sum_quarter_of_int_range(dev):
+    """n = 2^29 + 3 f32 elements (2 GB): 64-bit indexing, within 1e-6 of
+    sum |x|, the same bits twice."""
+    from laser_tpu_torch.ops.reductions import reduce_sum
+
+    x = torch.rand((2 ** 29 + 3,), generator=_gen(dev, 45), device=dev)
+    a, b = reduce_sum(x), reduce_sum(x)
+    assert torch.equal(a, b)
+    assert abs(a.item() - x.double().sum().item()) <= 1e-6 * x.double().sum().item()
+
+
+@pytest.mark.parametrize("reduce_fn", [torch.sum, torch.amin, torch.amax])
+@pytest.mark.parametrize("shape", [(1, 1), (7, 333), (64, 4096), (3, 100003)])
+def test_row_reduce(dev, reduce_fn, shape):
+    from laser_tpu_torch.ops.foreach import ROW_REDUCE, row_reduce, row_reduce_reference
+
+    g = _gen(dev, 46)
+    x, y = _rnd(g, shape, torch.float32, dev), _rnd(g, shape, torch.float32, dev)
+    fn = lambda a, b: torch.exp(a * 0.5) - b  # noqa: E731
+    ident = {torch.sum: 0.0, torch.amin: float("inf"), torch.amax: -float("inf")}[reduce_fn]
+    before = ROW_REDUCE.launches
+    got = row_reduce(fn, x, y, reduce_fn=reduce_fn, identity=ident)
+    assert ROW_REDUCE.launches == before + 1
+    want = row_reduce_reference(fn, x, y, reduce_fn=reduce_fn, identity=ident)
+    assert torch.equal(got, row_reduce(fn, x, y, reduce_fn=reduce_fn, identity=ident))
+    if reduce_fn is torch.sum:
+        bound = fn(x, y).abs().sum(-1) * 1e-6 + 1e-6
+        assert ((got - want).abs() <= bound).all(), (got - want).abs().max()
+    else:
+        # the maps are the same expf on both sides, up to an ulp
+        assert ((got - want).abs() <= 1e-6 * want.abs() + 1e-6).all()
+
+
+def test_map_reduce_custom_combine_and_padding(dev):
+    """A combine_fn outside the vocabulary gets the per-block partials;
+    exp summed over 1000 values maps no padding."""
+    from laser_tpu_torch.ops.foreach import MAP_REDUCE, map_reduce, map_reduce_reference
+
+    x = _rnd(_gen(dev, 47), (300001,), torch.float32, dev)
+    before = MAP_REDUCE.launches
+    got = map_reduce(lambda a: a * a, x, combine_fn=lambda p: p.sum() / p.numel())
+    want = map_reduce_reference(lambda a: a * a, x, combine_fn=lambda p: p.sum() / p.numel())
+    assert MAP_REDUCE.launches == before + 1
+    assert abs(got.item() - want.item()) <= 1e-6 * abs(want.item())
+    small = x[:1000]
+    e = map_reduce(torch.exp, small)
+    assert abs(e.item() - small.double().exp().sum().item()) <= 1e-5 * e.item()
+
+
+def test_lux_on_the_kernels(dev):
+    from laser_tpu_torch import lux, registry
+
+    g = _gen(dev, 48)
+    a, b, c = (_rnd(g, (33, 70), torch.float32, dev) for _ in range(3))
+    w = _rnd(g, (70, 24), torch.float32, dev)
+    bias = _rnd(g, (24,), torch.float32, dev)
+    registry.reset_counts()
+    f = lux.generate(lambda p, q, r: p + q - lux.lux_sin(r))
+    _check(f(a, b, c), a + b - torch.sin(c), torch.float32)
+    rr = lux.generate(lambda p, q: lux.lux_sum(p * q, axis=-1))
+    _check(rr(a, b), (a * b).sum(-1), torch.float32)
+    mr = lux.generate(lambda p: lux.lux_max(lux.lux_exp(p)))
+    _check(mr(a), torch.exp(a).max(), torch.float32)
+    gm = lux.generate(lambda p, q, r: lux.lux_relu(p @ q + r))
+    _check(gm(a, w, bias), torch.relu(a @ w + bias), torch.float32)
+    c_ = registry.counts()
+    assert [c_[k]["launches"] for k in ("for_each", "row_reduce", "map_reduce", "gemm")] == \
+        [1, 1, 1, 1]
+    assert all(v["plain_calls"] == 0 for v in c_.values())

@@ -23,6 +23,8 @@ def test_import_pulls_in_no_jax():
             "import laser_tpu_torch.ops.gemm.int4_kernel\n"
             "import laser_tpu_torch.models.cnn, laser_tpu_torch.models.mlp\n"
             "import laser_tpu_torch.ops.conv, laser_tpu_torch.ops.vector_math\n"
+            "import laser_tpu_torch.ops.foreach, laser_tpu_torch.ops.codegen\n"
+            "import laser_tpu_torch.ops.reductions, laser_tpu_torch.lux\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'laser_tpu' not in sys.modules, 'laser_tpu imported'\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -44,6 +46,27 @@ def test_loader_raises_clearly_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists() or not any((tmp_path / "build").rglob("*.so"))
 
 
+def test_generated_sources_key_and_build_error(monkeypatch, tmp_path):
+    """A generated source is keyed on its text and every csrc/*.cuh; without
+    nvcc its first use raises KernelBuildError."""
+    from laser_tpu_torch.ops.foreach import for_each_source
+
+    src = for_each_source(lambda x: x + 1, torch.ones(3))
+    h = registry.generated_hash(src)
+    assert h != registry.generated_hash(src + "\n")
+    monkeypatch.setattr(registry, "CSRC_DIR", tmp_path)
+    assert registry.generated_hash(src) != h  # the headers are part of the key
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(registry, "DEFAULT_CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(registry, "GEN_ROOT", tmp_path / "gen")
+    with pytest.raises(registry.KernelBuildError, match="nvcc not found"):
+        registry.load_generated(src)
+    assert set(registry.GEN_SIGNATURES) == {"ltt_gen_for_each", "ltt_gen_row_reduce",
+                                            "ltt_gen_map_reduce"}
+
+
 def test_cpu_tensors_never_build(monkeypatch):
     from laser_tpu_torch.ops.norm import NORM, layer_norm
 
@@ -57,15 +80,18 @@ def test_cpu_tensors_never_build(monkeypatch):
 
 
 def test_every_slice_kernel_registered():
+    import laser_tpu_torch.lux  # noqa: F401
     import laser_tpu_torch.models.cnn  # noqa: F401
     import laser_tpu_torch.models.transformer  # noqa: F401
+    import laser_tpu_torch.ops.reductions  # noqa: F401
     import laser_tpu_torch.serving  # noqa: F401
 
     assert set(registry.KERNELS) == {
         "gemm", "norm", "flash_attention", "paged_attention", "w4_gemm",  # serving
         "paged_window_attention",  # speculative verify
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "ce_fwd", "ce_fused_grad",
-        "conv_planewise", "conv_direct", "softmax", "softmax_online"}  # CNN
+        "conv_planewise", "conv_direct", "softmax", "softmax_online",  # CNN
+        "for_each", "for_each_multi", "row_reduce", "map_reduce"}  # generated bodies
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
