@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive laser_tpu_torch's serving, training, CNN and primitives paths on one
-CUDA card.
+"""Drive laser_tpu_torch's serving, training, CNN, primitives and layout paths
+on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -114,6 +114,24 @@ printed:
    bits, and the kernel, the plain version and the library call are timed
    (median of 20 CUDA-event calls, 5 for plain) beside the bound, the
    kernel also as 20 calls in a row between two events (its device time).
+
+14. The layout and strided primitives at bench.py's shapes (bench.py:339-413),
+   f32 unless stated, nothing cut: for_each(p * 2) over every second row of
+   16384 x 4096 as a TensorView (offset 4096) and as x[1::2]; transpose2d
+   of 8192^2 out of place (f32 and bf16) and in place (donate=True);
+   nchw2nhwc / nhwc2nchw at C1's conv-3 activation 16 x 64 x 56 x 56;
+   mean_var, argmax and argmin of 8192^2 and a custom map_reduce_staged
+   body (count of positives, sum of negatives); beside them odd shapes: a
+   1 x 1 and a 100 x 37 transpose, in place at N 128 and 384, 1-D strided,
+   negative-stride and transposed views, argmax with its maximum twice.
+   The 5 generated bodies are built first, in parallel. The path runs once
+   with the counts at 0 (launches by path "layout"; all four kernels must
+   launch, no plain version run), then under the profiler. Each case is
+   held against its plain version on the same card tensors: transposes and
+   the strided body bit for bit, mean_var within 1e-5 of float64 and of
+   plain, arg-reductions equal to numpy's, reductions bit-identical on two
+   runs; then timed as in phase 13 (kernel, 20 in a row, plain, library,
+   bound).
 
 Phase 2 also holds the paged window (verify) kernel against its plain
 version: bf16 at run S1's shape, int8 pages at the Llama widths, and f32,
@@ -1491,6 +1509,53 @@ def prim_check(case: Prim, got, want) -> float:
     return worst
 
 
+def _same_bits(a, b) -> bool:
+    """Two results (a tensor, a tuple or a dict of them) are the same bits."""
+    a = a if isinstance(a, (tuple, dict)) else (a,)
+    b = b if isinstance(b, (tuple, dict)) else (b,)
+    if isinstance(a, dict):
+        a, b = tuple(a.values()), tuple(b.values())
+    return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+def check_and_time(spec, cases, outs, check):
+    """Each case's first result (``outs``) held to its bound by
+    ``check(case, got) -> max abs error``; a reduction run again must give
+    the same bits; then the kernel (one call between two events, and 20 in a
+    row), the plain version and the library call timed beside the bound.
+    Returns the record entries by kernel name (a slot's under its name)."""
+    entries = {}
+    for case, got in zip(cases, outs):
+        err = check(case, got)
+        if case.repeat:
+            again = case.run()
+            torch.cuda.synchronize()
+            same = _same_bits(got, again)
+            print(f"    run to run bit-identical: {same}", flush=True)
+            if not same:
+                fail(f"{case.name} {case.slot}: two runs differ")
+        kern = case.time_run or case.run
+        ms, pms = cuda_ms(kern, reps=PRIM_REPS), cuda_ms(case.plain, reps=5)
+        batched = cuda_batched_ms(kern)
+        lms = cuda_ms(case.library, reps=PRIM_REPS) if case.library else None
+        peak = spec.bf16_tflops if case.dtype == torch.bfloat16 else spec.f32_tflops
+        t_ops = case.flops / (peak * 1e12) * 1e3
+        t_bytes = case.nbytes / (spec.hbm_gbps * 1e9) * 1e3
+        bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        print(f"    time: kernel {ms:.4f} ms ({batched:.4f} ms per call of 20 in a row), "
+              f"plain {pms:.4f} ms, library "
+              f"{'none' if lms is None else f'{lms:.4f} ms'} ({case.library_call}), "
+              f"bound {bms:.4f} ms ({by}, {case.nbytes / 1e6:.1f} MB)", flush=True)
+        entry = {"shape": case.shape, "max_abs_err": err, "ms": ms, "batched_ms": batched,
+                 "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms,
+                 "library_call": case.library_call}
+        if case.slot:
+            entries.setdefault(case.name, {})[case.slot] = entry
+        else:
+            entries[case.name] = {**entry, **entries.get(case.name, {})}
+    return entries
+
+
 def prim_sources():
     """The generated sources of phase 13's bodies, to build them together."""
     from laser_tpu_torch.ops import foreach as fe
@@ -1551,37 +1616,304 @@ def phase_primitives(spec):
           f"(the idle share holds for what was kept)", flush=True)
     prof["kernels_recorded"] = [kept, launched]
 
-    entries = {}
-    for case, got in zip(cases, outs):
-        err = prim_check(case, got, case.plain())
-        if case.repeat:
-            again = case.run()
-            torch.cuda.synchronize()
-            same = torch.equal(got, again)
-            print(f"    run to run bit-identical: {same}", flush=True)
-            if not same:
-                fail(f"{case.name} {case.slot}: two runs differ")
-        kern = case.time_run or case.run
-        ms, pms = cuda_ms(kern, reps=PRIM_REPS), cuda_ms(case.plain, reps=5)
-        batched = cuda_batched_ms(kern)
-        lms = cuda_ms(case.library, reps=PRIM_REPS) if case.library else None
-        peak = spec.bf16_tflops if case.dtype == torch.bfloat16 else spec.f32_tflops
-        t_ops = case.flops / (peak * 1e12) * 1e3
-        t_bytes = case.nbytes / (spec.hbm_gbps * 1e9) * 1e3
-        bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-        print(f"    time: kernel {ms:.4f} ms ({batched:.4f} ms per call of 20 in a row), "
-              f"plain {pms:.4f} ms, library "
-              f"{'none' if lms is None else f'{lms:.4f} ms'} ({case.library_call}), "
-              f"bound {bms:.4f} ms ({by}, {case.nbytes / 1e6:.1f} MB)", flush=True)
-        entry = {"shape": case.shape, "max_abs_err": err, "ms": ms, "batched_ms": batched,
-                 "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms,
-                 "library_call": case.library_call}
-        if case.slot:
-            entries.setdefault(case.name, {})[case.slot] = entry
-        else:
-            entries[case.name] = {**entry, **entries.get(case.name, {})}
+    entries = check_and_time(spec, cases, outs, lambda case, got: prim_check(case, got,
+                                                                             case.plain()))
     return {"primitives": counts}, entries, {"profile": prof,
                                              "generated_builds": dict(registry.GEN_BUILDS)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the layout and strided primitives (transpose2d out of place and
+# in place, for_each over strided views, map_reduce_staged with mean_var /
+# argmax / argmin) at bench.py's shapes
+# ---------------------------------------------------------------------------
+
+# mean and variance against the float64 oracle and the plain version
+MEAN_VAR_REL = 1e-5
+LAYOUT_KERNELS = ("transpose", "transpose_inplace", "for_each_strided", "map_reduce_staged")
+
+
+@dataclasses.dataclass
+class Layout:
+    name: str          # the kernel record
+    slot: str          # "" for the record's main case
+    shape: str
+    run: Callable      # the kernel path on fresh inputs (counted once)
+    plain: Callable    # its plain version on the same inputs
+    check: Callable    # (got, want) -> max abs error; fails the phase past its bound
+    nbytes: float      # each input read once, each output written once
+    flops: float = 0.0
+    time_run: Optional[Callable] = None
+    library: Optional[Callable] = None
+    library_call: Optional[str] = None
+    repeat: bool = False   # a reduction: two runs bit-identical
+    dtype: torch.dtype = torch.float32  # the input type: the bound's peak rate
+
+
+def _bits_equal(tag):
+    def check(got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        worst = 0.0
+        for g, w in zip(got, want, strict=True):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{tag}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+            differ = int((g.view(torch.uint8) != w.view(torch.uint8)).sum().item())
+            worst = max(worst, (g.double() - w.double()).abs().max().item() if g.numel() else 0.0)
+            print(f"  {tag}: {differ} differing bytes of {g.numel() * g.element_size()} "
+                  f"(bound 0)", flush=True)
+            if differ:
+                fail(f"{tag}: kernel and plain version differ in {differ} bytes")
+        return worst
+    return check
+
+
+def _mean_var_check(x):
+    x64 = x.double()
+    m64, v64 = x64.mean().item(), x64.var(unbiased=False).item()
+
+    def check(got, want):
+        worst = 0.0
+        for tag, g, w, o in (("mean", got[0], want[0], m64), ("var", got[1], want[1], v64)):
+            rel_o = abs(g.item() - o) / abs(o)
+            rel_p = abs(g.item() - w.item()) / abs(w.item())
+            print(f"  map_reduce_staged mean_var {tag}: {g.item():.9g}, rel {rel_o:.3e} of "
+                  f"float64, {rel_p:.3e} of plain (bound {MEAN_VAR_REL:.0e})", flush=True)
+            if not (rel_o <= MEAN_VAR_REL and rel_p <= MEAN_VAR_REL):
+                fail(f"mean_var {tag}: {g.item()} vs float64 {o}, plain {w.item()}")
+            worst = max(worst, abs(g.item() - o))
+        return worst
+    return check
+
+
+def _arg_check(x, fn):
+    """index and value equal numpy's on the same data (first occurrence)"""
+    host = x.float().cpu().numpy().reshape(-1) if x.dtype == torch.bfloat16 else \
+        x.cpu().numpy().reshape(-1)
+    i_np = int(getattr(np, fn)(host))
+
+    def check(got, want):
+        i, v = got
+        print(f"  map_reduce_staged {fn} [{tuple(x.shape)}]: index {i.item()} (numpy {i_np}, "
+              f"plain {want[0].item()}), value {v.item()} (numpy {host[i_np].item()})",
+              flush=True)
+        if not (i.item() == i_np == want[0].item() and v.item() == host[i_np].item()
+                == want[1].item()):
+            fail(f"{fn}: kernel ({i.item()}, {v.item()}) vs numpy ({i_np}, {host[i_np]})")
+        return 0.0
+    return check
+
+
+def _custom_block(ctx, b):
+    """count of positives and sum of negatives (tests/test_foreach.py:173-195),
+    the count in int64, torch's count dtype: laser_tpu's f32 count is not
+    exact past 2^24 elements, and 8192^2 has 2^26"""
+    pos = (b > 0) & ctx.valid
+    neg = (b < 0) & ctx.valid
+    return {"npos": pos.sum(), "sneg": torch.where(neg, b, 0.0).sum()}
+
+
+def _custom_combine(a, b):
+    return {"npos": a["npos"] + b["npos"], "sneg": a["sneg"] + b["sneg"]}
+
+
+def _custom_check(x):
+    npos = int((x > 0).sum().item())
+    sabs = x.double().abs().sum().item()
+
+    def check(got, want):
+        d = abs(got["sneg"].item() - want["sneg"].item())
+        print(f"  map_reduce_staged custom: npos {got['npos'].item()} (exact {npos}), "
+              f"sneg |d| {d:.3e} of sum |x| {sabs:.3e} (bound 1e-6)", flush=True)
+        if got["npos"].item() != npos or got["npos"].item() != want["npos"].item() \
+                or not d <= 1e-6 * sabs:
+            fail(f"custom staged body: {got} vs {want}, npos {npos}")
+        return d
+    return check
+
+
+def layout_sources():
+    """The generated sources of phase 14's bodies, to build them together."""
+    from laser_tpu_torch.ops import foreach as fe
+    from laser_tpu_torch.ops import reductions as R
+    from laser_tpu_torch.ops import strided as S
+
+    f32 = torch.empty((8,), device=DEVICE)
+    srcs = [S.strided_for_each_source(lambda p: p * 2.0, [torch.float32], torch.float32),
+            fe.map_reduce_staged_source(R._mean_var_block, f32, combine=R._mean_var_combine),
+            fe.map_reduce_staged_source(_custom_block, f32, combine=_custom_combine)]
+    for take_max in (True, False):
+        block, comb = R.arg_reduce_fns(torch.float32, take_max)
+        srcs.append(fe.map_reduce_staged_source(block, f32, combine=comb))
+    return srcs
+
+
+def layout_cases():
+    from laser_tpu_torch.ops import foreach as fe
+    from laser_tpu_torch.ops import reductions as R
+    from laser_tpu_torch.ops import strided as S
+    from laser_tpu_torch.ops import transpose as T
+    from laser_tpu_torch.tensor import TensorView
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(14)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+
+    cases = []
+    # bench.py:339-385: every second row of 16384 x 4096 f32, o = 2x
+    Mb, Cb = 16384, 4096
+    xs = rnd(Mb, Cb)
+    view = TensorView(xs.reshape(-1), (Mb // 2, Cb), (2 * Cb, 1), Cb)
+    two = lambda p: p * 2.0  # noqa: E731
+    n_half = Mb // 2 * Cb
+    for slot, v in (("", view), ("torch_every2row", xs[1::2])):
+        cases.append(Layout(
+            "for_each_strided", slot, f"{Mb}x{Cb} every 2nd row, o = 2x"
+            + (" (TensorView, offset 4096)" if not slot else " (x[1::2])"),
+            run=lambda v=v: fe.for_each(two, v), plain=lambda v=v: S.strided_for_each_reference(
+                two, [v]), check=_bits_equal(f"for_each_strided {slot or 'main'}"),
+            nbytes=2 * n_half * 4, flops=n_half,
+            library=lambda: xs[1::2] * 2.0, library_call="x[1::2] * 2.0"))
+    small = rnd(1024, 1000)
+    flat = small.reshape(-1)
+    for slot, v in (("strided_1d", flat[5::7]),
+                    ("negative_stride", TensorView(flat, (1024, 1000), (-1000, 1), 1023 * 1000)),
+                    ("transposed", small.t())):
+        n = v.size if isinstance(v, TensorView) else v.numel()
+        cases.append(Layout(
+            "for_each_strided", slot, f"{slot} view of 1024x1000",
+            run=lambda v=v: fe.for_each(two, v), plain=lambda v=v: S.strided_for_each_reference(
+                two, [v]), check=_bits_equal(f"for_each_strided {slot}"),
+            nbytes=2 * n * 4, flops=n))
+    # bench.py:398-413: 8192^2 f32 out of place and in place
+    N = 8192
+    xt = rnd(N, N)
+    nb = N * N * 4
+    cases.append(Layout(
+        "transpose", "", f"{N}x{N} f32 out of place", run=lambda: T.transpose2d(xt),
+        plain=lambda: T.transpose2d_reference(xt), check=_bits_equal("transpose main"),
+        nbytes=2 * nb, library=lambda: xt.t().contiguous(),
+        library_call="x.t().contiguous()"))
+    xtb = rnd(N, N, dtype=torch.bfloat16)
+    cases.append(Layout(
+        "transpose", "bf16", f"{N}x{N} bf16 out of place", run=lambda: T.transpose2d(xtb),
+        plain=lambda: T.transpose2d_reference(xtb), check=_bits_equal("transpose bf16"),
+        nbytes=2 * N * N * 2, library=lambda: xtb.t().contiguous(),
+        library_call="x.t().contiguous()", dtype=torch.bfloat16))
+    # C1's conv-3 activation (phase 12), 16 x 64 x 56 x 56 f32
+    act = rnd(16, 64, 56, 56)
+    act_hwc = act.permute(0, 2, 3, 1).contiguous()
+    cases.append(Layout(
+        "transpose", "nchw2nhwc", "16x64x56x56 f32", run=lambda: T.nchw2nhwc(act),
+        plain=lambda: T.transpose2d_batched_reference(act.flatten(2)).reshape(act_hwc.shape),
+        check=_bits_equal("transpose nchw2nhwc"),
+        nbytes=2 * act.numel() * 4, library=lambda: act.permute(0, 2, 3, 1).contiguous(),
+        library_call="x.permute(0, 2, 3, 1).contiguous()"))
+    cases.append(Layout(
+        "transpose", "nhwc2nchw", "16x56x56x64 f32", run=lambda: T.nhwc2nchw(act_hwc),
+        plain=lambda: T.transpose2d_batched_reference(act_hwc.flatten(1, 2)).reshape(act.shape),
+        check=_bits_equal("transpose nhwc2nchw"),
+        nbytes=2 * act.numel() * 4, library=lambda: act_hwc.permute(0, 3, 1, 2).contiguous(),
+        library_call="x.permute(0, 3, 1, 2).contiguous()"))
+    for shape in ((1, 1), (100, 37)):
+        xo = rnd(*shape)
+        cases.append(Layout(
+            "transpose", "x".join(map(str, shape)), f"{shape[0]}x{shape[1]} f32",
+            run=lambda xo=xo: T.transpose2d(xo), plain=lambda xo=xo: T.transpose2d_reference(xo),
+            check=_bits_equal(f"transpose {shape}"), nbytes=2 * xo.numel() * 4))
+    for n_ in (N, 128, 384):
+        xi = rnd(n_, n_)
+        tbuf = xi.clone()
+        main = n_ == N
+        cases.append(Layout(
+            "transpose_inplace", "" if main else f"n{n_}", f"{n_}x{n_} f32 in place (donate)",
+            run=lambda xi=xi: T.transpose2d(xi.clone(), donate=True),
+            plain=lambda xi=xi: T.transpose_inplace_reference(xi.clone()),
+            time_run=lambda tbuf=tbuf: T.transpose2d(tbuf, donate=True),
+            check=_bits_equal(f"transpose_inplace {n_}"), nbytes=2 * n_ * n_ * 4,
+            library=(lambda xi=xi: xi.t().contiguous()) if main else None,
+            library_call="x.t().contiguous() (torch has no in-place transpose)" if main
+            else None))
+    # mean_var / argmax / argmin of 8192^2 f32, one read each
+    xr = rnd(N, N) * 3.0 + 1.0
+    n_r = N * N
+    def mean_var_plain():
+        acc = fe.map_reduce_staged_reference(R._mean_var_block, xr, combine=R._mean_var_combine)
+        return acc["mean"], acc["m2"] / acc["n"].clamp_min(1.0)
+
+    def arg_plain(x, fn):
+        block, comb = R.arg_reduce_fns(x.dtype, fn == "argmax")
+        acc = fe.map_reduce_staged_reference(block, x, combine=comb)
+        return acc["idx"], acc["val"]
+
+    cases.append(Layout(
+        "map_reduce_staged", "", f"{N}x{N} f32 mean_var", run=lambda: R.mean_var(xr),
+        plain=mean_var_plain, check=_mean_var_check(xr), nbytes=n_r * 4, flops=8 * n_r,
+        repeat=True, library=lambda: torch.var_mean(xr, correction=0),
+        library_call="torch.var_mean(x, correction=0)"))
+    for fn in ("argmax", "argmin"):
+        cases.append(Layout(
+            "map_reduce_staged", fn, f"{N}x{N} f32 {fn}", run=lambda fn=fn: getattr(R, fn)(xr),
+            plain=lambda fn=fn: arg_plain(xr, fn), check=_arg_check(xr, fn), nbytes=n_r * 4,
+            flops=4 * n_r, repeat=True,
+            library=(lambda: torch.max(xr.flatten(), 0)) if fn == "argmax"
+            else (lambda: torch.min(xr.flatten(), 0)),
+            library_call=f"torch.{fn[3:]}(x.flatten(), 0)"))
+    xc = xr - 1.0
+    cases.append(Layout(
+        "map_reduce_staged", "custom", f"{N}x{N} f32 count of positives, sum of negatives",
+        run=lambda: fe.map_reduce_staged(_custom_block, xc, combine=_custom_combine),
+        plain=lambda: fe.map_reduce_staged_reference(_custom_block, xc, combine=_custom_combine),
+        check=_custom_check(xc), nbytes=n_r * 4, flops=6 * n_r, repeat=True))
+    tie = torch.zeros(300001, device=DEVICE)
+    tie[123457] = tie[200000] = 5.0
+    cases.append(Layout(
+        "map_reduce_staged", "argmax_tie", "300001 f32, the maximum twice",
+        run=lambda: R.argmax(tie), plain=lambda: arg_plain(tie, "argmax"),
+        check=_arg_check(tie, "argmax"), nbytes=tie.numel() * 4, repeat=True))
+    return cases
+
+
+def phase_layout(spec):
+    from laser_tpu_torch import registry
+
+    print("phase 14: layout and strided primitives at bench.py's shapes (transpose2d out of "
+          "place and in place, for_each over strided views, map_reduce_staged: mean_var, "
+          "argmax, argmin, a custom pytree body)", flush=True)
+    t0 = time.perf_counter()
+    built = dict(registry.GEN_BUILDS)
+    srcs = layout_sources()
+    registry.load_generated_many(srcs)
+    print(f"  generated bodies: {len(set(srcs))} sources, "
+          f"{registry.GEN_BUILDS['built'] - built['built']} built in parallel, "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    cases = layout_cases()
+    torch.cuda.synchronize()
+    registry.reset_counts()
+    outs = [case.run() for case in cases]
+    torch.cuda.synchronize()
+    counts = registry.counts()
+    print(f"  counts {json.dumps({k: v for k, v in counts.items() if any(v.values())})}",
+          flush=True)
+    for k in LAYOUT_KERNELS:
+        if counts[k]["launches"] == 0:
+            fail(f"layout: {k} never launched")
+    if any(c["plain_calls"] for c in counts.values()):
+        fail(f"layout: a plain version ran: {counts}")
+    registry.reset_counts()
+    prof = profile_step(lambda: [case.run() for case in cases], "one layout path")
+    launched = sum(c["launches"] for c in registry.counts().values())
+    # a staged reduction is one counted launch of two kernels: count stage 1
+    kept = sum(r["calls"] for r in prof["top"] if "stage2" not in r["kernel"]
+               and ("ltt::" in r["kernel"] or "transpose" in r["kernel"]))
+    print(f"  {kept} of the {launched} kernel launches of the port kept in the trace "
+          f"(the idle share holds for what was kept)", flush=True)
+    prof["kernels_recorded"] = [kept, launched]
+
+    entries = check_and_time(spec, cases, outs, lambda case, got: case.check(got, case.plain()))
+    return {"layout": counts}, entries, {"profile": prof}
 
 
 def main():
@@ -1592,7 +1924,7 @@ def main():
     from laser_tpu_torch import device_info, registry
     # importing the paths' modules registers every kernel
     from laser_tpu_torch.models import cnn, mlp, transformer  # noqa: F401
-    from laser_tpu_torch.ops import foreach, reductions  # noqa: F401
+    from laser_tpu_torch.ops import foreach, reductions, strided, transpose  # noqa: F401
     from laser_tpu_torch.serving import engine  # noqa: F401
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1632,6 +1964,8 @@ def main():
     prim_counts, prim_record, prim_result = timed(phase_primitives, spec)
     record.update({k: v for k, v in prim_record.items() if k != "lux_gemm"})
     record["gemm"]["lux_relu_bias"] = prim_record["lux_gemm"]
+    layout_counts, layout_record, layout_result = timed(phase_layout, spec)
+    record.update(layout_record)
 
     kernels = []
     for name, k in registry.KERNELS.items():
@@ -1642,13 +1976,14 @@ def main():
                    **{tag: c[name]["launches"] for tag, c in s1_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in s2_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in cnn_counts.items()},
-                   **{tag: c[name]["launches"] for tag, c in prim_counts.items()}}
+                   **{tag: c[name]["launches"] for tag, c in prim_counts.items()},
+                   **{tag: c[name]["launches"] for tag, c in layout_counts.items()}}
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **r})
     print(json.dumps({"card": card, "engine": engine, "train": train, "llama": llama,
                       "spec_s1": s1, "spec_s2": s2, "cnn": cnn_result,
-                      "primitives": prim_result}), flush=True)
+                      "primitives": prim_result, "layout": layout_result}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,32 @@ over the conv and softmax kernels, ``models.mlp.mlp_predict`` and
 (``registry.load_generated``). Entry points that allocate put their
 tensors on the card unless the caller passes ``device``.
 
-Import the submodule you need: this package imports nothing eagerly.
+The layout and strided primitives (``tensor.TensorView``, ``for_each`` over
+views through ``ops.strided``, ``ops.transpose``, ``map_reduce_staged`` and
+``mean_var`` / ``argmax`` / ``argmin``) fill the templates of
+``csrc/foreach.cuh`` and run ``csrc/transpose.cu``.
+
+Import the submodule you need: this package imports nothing eagerly. The
+names laser_tpu exports for those primitives (laser_tpu/__init__.py) are
+here too, resolved from their submodule at first use.
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+_EXPORTS = {
+    "TensorView": "tensor", "as_view": "tensor", "from_nested": "tensor",
+    "row_major_strides": "tensor", "zeros": "tensor",
+    "map_reduce_staged": "ops.foreach",
+    "mean_var": "ops.reductions", "argmax": "ops.reductions", "argmin": "ops.reductions",
+    "transpose2d": "ops.transpose", "transpose2d_batched": "ops.transpose",
+    "nchw2nhwc": "ops.transpose", "nhwc2nchw": "ops.transpose",
+}
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

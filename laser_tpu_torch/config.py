@@ -29,6 +29,11 @@ import dataclasses
 
 import torch
 
+# the highest rank of a TensorView (laser_tpu/config.py LASER_MAXRANK, after
+# the reference's laser/dynamic_stack_arrays.nim:6), and of the strided
+# template's iteration space (csrc/foreach.cuh kMaxDims)
+LASER_MAXRANK = 6
+
 PRECISIONS = ("default", "high", "highest")
 ALGORITHMS = ("accurate", "fast")
 

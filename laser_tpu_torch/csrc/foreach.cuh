@@ -1,4 +1,4 @@
-// The three elementwise and reduction templates that a traced body fills.
+// The five elementwise and reduction templates that a traced body fills.
 //
 // ops/codegen.py translates a user's torch body into a struct `Body` and
 // emits a short .cu that includes this header, defines `Body` and names one
@@ -13,7 +13,11 @@
 //   accumulator (:363) becomes a second launch over the per-block partials,
 //   and the per-block partials with a custom combine_fn (:379) are stage 1
 //   alone, combined by the caller in torch as laser_tpu does outside its
-//   kernel (:393).
+//   kernel (:393);
+// - for_each_strided_kernel: for_each over strided views, replacing
+//   laser_tpu/ops/strided.py:222 build_strided_foreach (pallas_call at :305);
+// - staged_stage1/2: `map_reduce_staged` (foreach.py:442, at :494), an
+//   accumulator pytree of scalar leaves per block and a traced combine.
 //
 // What bounds them on the H100: bytes. Each reads every operand once and
 // writes every output once (4096^2 f32 x + y - sin z: 268 MB, 80 us at
@@ -40,6 +44,14 @@
 //   way. The number of blocks depends on n and the dtypes only, so two runs
 //   give the same bits. Nothing is padded, so nothing but real elements is
 //   mapped (laser_tpu maps its identity padding; ROADMAP queue 3).
+// - for_each_strided walks the views' merged iteration space (see
+//   StridedGeom below): one divmod per thread, then an odometer; 16-byte
+//   vectors along rows where every operand's rows are whole aligned
+//   vectors. It reads each element of the views once and writes the dense
+//   output once, as the contiguous template.
+// - map_reduce_staged holds a block's elements in registers, so a body of
+//   reduction depth D (mean_var's m, then sum (b - m)^2: D = 2) sweeps its
+//   registers D times and reads device memory once; see its section below.
 // Float accumulators are f32 (a bf16 or f16 accumulator type is held in
 // f32 and rounded once where it is stored), integer ones int32 (narrower
 // types wrap to the same value when stored) or int64; min and max keep NaN,
@@ -55,6 +67,7 @@ namespace ltt {
 
 constexpr int kMaxIn = 16;
 constexpr int kMaxOut = 8;
+constexpr int kMaxDims = 6;  // config.py LASER_MAXRANK
 constexpr int kThreads = 256;
 constexpr int kMaxReduceBlocks = 4096;  // stage 1 of map_reduce
 // Elements per thread block: for_each gets one block per kElementwiseGrain
@@ -296,6 +309,180 @@ int launch_map_reduce(const void* const* in, void* partials, void* result, int64
   return launch_status();
 }
 
+// --- for_each over strided views ---------------------------------------------
+
+// The iteration space of a strided for_each: the view's logical shape with
+// dims merged where they are contiguous with each other on every operand,
+// padded in front with extent-1 dims to kMaxDims; on the vector path the
+// innermost extent is in vectors of V elements and its strides are V.
+// Each operand: its buffer start (in PtrArgs), its element offset and its
+// element strides (negative or zero allowed). The output is dense.
+struct StridedGeom {
+  int64_t shape[kMaxDims];
+  int64_t offset[kMaxIn];
+  int64_t stride[kMaxIn][kMaxDims];
+};
+
+// Grid-stride over the items (elements, or V-element vectors): each thread
+// turns its first index into digits over the shape by divmod once, then
+// steps its digits by the grid stride's own digits with carries (the
+// reference's odometer, foreach.nim:64-113), and each operand's offset is
+// its offset plus digits times strides.
+template <class B, int V>
+__global__ void __launch_bounds__(kThreads)
+    for_each_strided_kernel(PtrArgs a, StridedGeom g, int64_t items) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
+  int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (j >= items) return;
+  int64_t d[kMaxDims], sd[kMaxDims];
+  int64_t r = j, q = step;
+#pragma unroll
+  for (int k = kMaxDims - 1; k >= 0; --k) {
+    d[k] = r % g.shape[k];
+    r /= g.shape[k];
+    sd[k] = q % g.shape[k];
+    q /= g.shape[k];
+  }
+  for (; j < items; j += step) {
+    int64_t off[B::kIn];
+#pragma unroll
+    for (int o = 0; o < B::kIn; ++o) {
+      int64_t v = g.offset[o];
+#pragma unroll
+      for (int k = 0; k < kMaxDims; ++k) v += d[k] * g.stride[o][k];
+      off[o] = v;
+    }
+    if constexpr (V > 1) B::template apply_vec_at<V>(a, off, j * V);
+    else B::apply1_at(a, off, j);
+    int64_t carry = 0;
+#pragma unroll
+    for (int k = kMaxDims - 1; k >= 0; --k) {
+      d[k] += sd[k] + carry;
+      carry = d[k] >= g.shape[k];
+      if (carry) d[k] -= g.shape[k];
+    }
+  }
+}
+
+// geom: shape[kMaxDims], then per operand offset and strides[kMaxDims], as
+// ops/strided.py packs them; vec: B::kVec (the caller checked that every
+// row is whole aligned vectors) or 1
+template <class B>
+int launch_for_each_strided(const void* const* in, void* const* out, const int64_t* geom,
+                            int64_t items, int vec, void* stream) {
+  const PtrArgs a = make_args<B>(in, out, B::kOut);
+  StridedGeom g{};
+  for (int k = 0; k < kMaxDims; ++k) g.shape[k] = geom[k];
+  for (int o = 0; o < B::kIn; ++o) {
+    const int64_t* p = geom + kMaxDims + o * (kMaxDims + 1);
+    g.offset[o] = p[0];
+    for (int k = 0; k < kMaxDims; ++k) g.stride[o][k] = p[1 + k];
+  }
+  const int64_t n = items * vec;
+  const int64_t blocks =
+      std::max<int64_t>(1, std::min<int64_t>({cdiv64(n, kElementwiseGrain), cdiv64(items, kThreads),
+                                              int64_t{1} << 30}));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == B::kVec && vec > 1)
+    for_each_strided_kernel<B, B::kVec><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(a, g, items);
+  else if (vec == 1)
+    for_each_strided_kernel<B, 1><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(a, g, items);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_status();
+}
+
+// --- map_reduce_staged -----------------------------------------------------------
+
+// Stage 1: block b owns the fixed block [b*G, (b+1)*G) of G = kStagedGrain
+// elements; thread t holds elements b*G + e*kStagedThreads + t, e <
+// kStagedPer, in registers (coalesced loads, all issued before any
+// arithmetic). Positions past n are never loaded: their value is 0 and
+// `valid` false there. The generated body then runs one sweep over the
+// registers per reduction level, each reduction a per-thread fold in
+// register order and a block_allreduce (fixed warp and block trees), and
+// thread 0 writes the block's leaves to the typed (n_blocks,) partials of
+// each leaf. Stage 2: one block folds the partials with the generated
+// combine: thread t folds partials t, t + T, t + 2T, ... in that order,
+// then a halving tree with an odd tail (laser_tpu's order,
+// foreach.py:507-522) runs over the T accumulators in shared memory. Every
+// order is fixed, so a result is the same bits run after run; no atomics.
+constexpr int kStagedThreads = 256;
+constexpr int kStagedPer = 16;
+constexpr int64_t kStagedGrain = int64_t{kStagedThreads} * kStagedPer;  // ops/foreach.py STAGED_GRAIN
+constexpr int kMaxLeaves = 16;
+
+struct StagedArgs {
+  const void* in[kMaxIn];
+  void* part[kMaxLeaves];  // per leaf: (n_blocks,) partials in the leaf's dtype
+  void* out[kMaxLeaves];   // per leaf: the 0-d result
+};
+
+// the block's fold of v in a fixed order, returned to every thread. `red`
+// holds 33 A; successive calls may reuse it with another A (each call's
+// reads of red end before its last __syncthreads)
+template <int Op, typename A> __device__ __forceinline__ A block_allreduce(A v, A ident, A* red) {
+  v = block_reduce<Op>(v, ident, red);
+  if (threadIdx.x == 0) red[32] = v;
+  __syncthreads();
+  return red[32];
+}
+
+template <class B>
+__global__ void __launch_bounds__(kStagedThreads) staged_stage1(StagedArgs a, int64_t n) {
+  __shared__ __align__(16) unsigned char red[33 * 8];
+  B::block(a, n, static_cast<int64_t>(blockIdx.x) * kStagedGrain, red);
+}
+
+template <class B, int T>
+__global__ void __launch_bounds__(T) staged_stage2(StagedArgs a, int nb) {
+  using Acc = typename B::Acc;
+  __shared__ Acc s[T];
+  const int t = threadIdx.x;
+  const int m0 = nb < T ? nb : T;
+  if (t < m0) {
+    Acc acc;
+    B::load_partial(a, t, acc);
+    for (int i = t + T; i < nb; i += T) {
+      Acc p;
+      B::load_partial(a, i, p);
+      B::combine(acc, p, acc);
+    }
+    s[t] = acc;
+  }
+  __syncthreads();
+  for (int m = m0; m > 1;) {
+    const int h = m / 2;
+    if (t < h) B::combine(s[t], s[t + h], s[t]);
+    __syncthreads();
+    if ((m & 1) && t == 0) s[h] = s[2 * h];
+    __syncthreads();
+    m = h + (m & 1);
+  }
+  if (t == 0) B::store_result(a, s[0]);
+}
+
+template <class B>
+int launch_staged(const void* const* in, void* const* part, void* const* out, int64_t n,
+                  void* stream) {
+  static_assert(B::kIn >= 1 && B::kIn <= kMaxIn && B::kLeaves >= 1 && B::kLeaves <= kMaxLeaves,
+                "operand and leaf counts");
+  StagedArgs a{};
+  for (int k = 0; k < B::kIn; ++k) a.in[k] = in[k];
+  for (int k = 0; k < B::kLeaves; ++k) {
+    a.part[k] = part[k];
+    a.out[k] = out[k];
+  }
+  const int64_t nb = cdiv64(n, kStagedGrain);
+  if (n <= 0 || nb > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  staged_stage1<B><<<static_cast<unsigned>(nb), kStagedThreads, 0, s>>>(a, n);
+  // the stage 2 accumulators stay within 32 KB of shared memory
+  constexpr int T2 = sizeof(typename B::Acc) <= 32 ? 1024 : 256;
+  staged_stage2<B, T2><<<1, T2, 0, s>>>(a, static_cast<int>(nb));
+  return launch_status();
+}
+
 }  // namespace ltt
 
 #define LTT_FOR_EACH_ENTRY(B)                                                              \
@@ -314,4 +501,17 @@ int launch_map_reduce(const void* const* in, void* partials, void* result, int64
   LTT_API int ltt_gen_map_reduce(const void* const* in, void* partials, void* result,       \
                                  int64_t n, int combine, void* stream) {                    \
     return ltt::launch_map_reduce<B>(in, partials, result, n, combine, stream);             \
+  }
+
+#define LTT_FOR_EACH_STRIDED_ENTRY(B)                                                      \
+  LTT_API int ltt_gen_for_each_strided(const void* const* in, void* const* out,             \
+                                       const int64_t* geom, int64_t items, int vec,         \
+                                       void* stream) {                                      \
+    return ltt::launch_for_each_strided<B>(in, out, geom, items, vec, stream);              \
+  }
+
+#define LTT_STAGED_ENTRY(B)                                                                \
+  LTT_API int ltt_gen_map_reduce_staged(const void* const* in, void* const* part,           \
+                                        void* const* out, int64_t n, void* stream) {        \
+    return ltt::launch_staged<B>(in, part, out, n, stream);                                 \
   }

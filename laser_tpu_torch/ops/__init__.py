@@ -8,7 +8,9 @@
 ``quantize_kv``), ``ops.sampling``, ``ops.conv`` (``conv2d_direct``,
 ``conv2d_im2col``, ``conv_planewise``, ``conv_direct``), ``ops.vector_math``
 (``softmax``, ``softmax_online``, ``exp``, ``log``, ``tanh``, ``sigmoid``),
-``ops.foreach`` (``for_each``, ``for_each_multi``, ``row_reduce``,
-``map_reduce``), ``ops.reductions`` (``reduce_sum`` / ``min`` / ``max`` /
-``mean``), ``ops.codegen`` (body translation); nothing is imported eagerly
-here."""
+``ops.foreach`` (``for_each``, also over strided views, ``for_each_multi``,
+``row_reduce``, ``map_reduce``, ``map_reduce_staged``), ``ops.strided``
+(``strided_for_each``), ``ops.reductions`` (``reduce_sum`` / ``min`` /
+``max`` / ``mean``, ``mean_var``, ``argmax``, ``argmin``), ``ops.transpose``
+(``transpose2d``, ``transpose2d_batched``, ``nchw2nhwc``, ``nhwc2nchw``),
+``ops.codegen`` (body translation); nothing is imported eagerly here."""

@@ -3,8 +3,10 @@
 laser_tpu has no counterpart: there Pallas traces the jnp body into the
 kernel itself. Here ``trace`` runs the user's callable once over symbolic
 values (``Sym``) and records every operation into a typed graph; ``emit``
-writes that graph out as a ``struct Body`` for one of the three templates
-in ``csrc/foreach.cuh``, which ``registry.load_generated`` builds with nvcc.
+writes that graph out as a ``struct Body`` for one of the five templates
+in ``csrc/foreach.cuh``, which ``registry.load_generated`` builds with nvcc
+(``emit_for_each`` with ``strided``: the strided template's loads;
+``emit_staged``: a map_reduce_staged block and its combine).
 
 Why a ``__torch_function__`` recorder and not ``torch.fx.symbolic_trace``:
 a body may call the port's own vector-math cores (``vector_math.exp`` with
@@ -32,6 +34,24 @@ op, on every device, since the wrappers trace on the CPU too):
 - scalar constants, ``.to(dtype)`` and ``.float()`` / ``.half()`` /
   ``.bfloat16()`` / ``.int()`` / ``.long()`` / ``.bool()``.
 
+The block vocabulary of a ``map_reduce_staged`` body (``trace_staged``)
+adds to it:
+
+- whole-block reductions: ``torch.sum``, ``torch.mean`` (floats),
+  ``torch.amax`` / ``torch.max``, ``torch.amin`` / ``torch.min`` with no
+  ``dim``: an element node in, a *block scalar* out (floats fold in f32,
+  integer sums in int64); element nodes may read block scalars, which
+  broadcasts them (``b - m``);
+- the context: ``ctx.valid`` (a bool element node), ``ctx.flat_indices(
+  b.shape)`` (the element's global flat index, int64), ``ctx.offset`` and
+  ``ctx.width`` (int64 block scalars), ``b.shape``;
+- accumulator leaves must be block scalars; ``combine(a, b)`` is traced
+  over scalar nodes with the elementwise ops (``trace_combine``).
+
+A node's reduction depth is the number of reductions on its longest path;
+the emitted block runs one sweep over its registers per depth level
+(``mean_var`` and ``argmax`` take two).
+
 Each node's result is rounded to the dtype its plain evaluation has, so a
 bf16 body rounds after every op as eager PyTorch (and laser_tpu's jnp block
 math) does; a float value is held in an f32 register, rounded. f32 adds,
@@ -44,11 +64,13 @@ int16, int32, int64.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils._pytree as pytree
 
 # storage C type, value C type held in registers, itemsize
 _CTYPES = {
@@ -123,6 +145,14 @@ def _table():
 
 
 _FUNCS = _table()
+# whole-block reductions of a map_reduce_staged body; torch.max / torch.min
+# of two tensors are maximum / minimum
+_REDUCTIONS = {torch.sum: "rsum", torch.Tensor.sum: "rsum",
+               torch.mean: "rmean", torch.Tensor.mean: "rmean",
+               torch.amax: "rmax", torch.Tensor.amax: "rmax",
+               torch.amin: "rmin", torch.Tensor.amin: "rmin",
+               torch.max: "max", torch.Tensor.max: "max",
+               torch.min: "min", torch.Tensor.min: "min"}
 _REVERSED = {torch.Tensor.__rsub__, torch.Tensor.__rtruediv__, torch.Tensor.__rpow__}
 _CASTS = {"float": torch.float32, "half": torch.float16, "bfloat16": torch.bfloat16,
           "int": torch.int32, "long": torch.int64, "bool": torch.bool}
@@ -130,15 +160,23 @@ _CASTS = {"float": torch.float32, "half": torch.float16, "bfloat16": torch.bfloa
 
 @dataclasses.dataclass
 class Node:
-    op: str                 # "input", a vocabulary op, "cast" or a SPECIALS name
+    op: str                 # "input", a vocabulary op, "cast", a SPECIALS name, a
+    #                         REDUCTIONS op, or a staged block's context: "valid",
+    #                         "flat_index", "offset", "width"
     args: Tuple[Any, ...]   # node ids (int) or ("c", python scalar)
     dtype: torch.dtype      # the dtype the plain evaluation gives
     compute: torch.dtype    # the dtype the op computes in (promotion of args)
+    scalar: bool = False    # a block scalar (one value per block), else per element
 
 
 class Graph:
-    def __init__(self):
+    """The recorded nodes. ``block_shape`` is set for a map_reduce_staged
+    block body, which may reduce the whole block; elsewhere a reduction is
+    outside the vocabulary."""
+
+    def __init__(self, block_shape=None):
         self.nodes: List[Node] = []
+        self.block_shape = block_shape
 
     def add(self, node: Node) -> "Sym":
         self.nodes.append(node)
@@ -159,6 +197,15 @@ class Sym:
     def dtype(self) -> torch.dtype:
         return self.graph.nodes[self.idx].dtype
 
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """A staged block's shape (a block scalar's is ()); elementwise
+        bodies have none."""
+        if self.graph.block_shape is None:
+            raise NotImplementedError("for_each body: .shape is outside the elementwise "
+                                      "vocabulary (a body sees one element)")
+        return () if self.graph.nodes[self.idx].scalar else self.graph.block_shape
+
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         return _record(func, args, kwargs or {})
@@ -176,7 +223,7 @@ class Sym:
         if name in _CASTS:
             return lambda: _record(torch.Tensor.to, (self, _CASTS[name]), {})
         f = getattr(torch.Tensor, name, None)
-        if f is None or f not in _FUNCS:
+        if f is None or (f not in _FUNCS and f not in _REDUCTIONS):
             raise NotImplementedError(f"for_each body: Tensor.{name} is outside the "
                                       "elementwise vocabulary (ops/codegen.py)")
         return lambda *a, **k: _record(f, (self, *a), k)
@@ -227,6 +274,8 @@ def _name(func) -> str:
 
 
 def _record(func, args, kwargs) -> Sym:
+    if func in _REDUCTIONS:
+        return _reduction(func, args, kwargs)
     op = _FUNCS.get(func)
     if op is None:
         raise NotImplementedError(f"for_each body: op {_name(func)} is outside the "
@@ -263,7 +312,47 @@ def _record(func, args, kwargs) -> Sym:
     _check_dtype(compute, op)
     if op == "pow" and compute not in FLOATS:
         raise NotImplementedError("for_each body: integer pow is outside the vocabulary")
-    return graph.add(Node(op, nargs, dtype, compute))
+    scalar = all(graph.nodes[a].scalar for a in nargs if isinstance(a, int))
+    return graph.add(Node(op, nargs, dtype, compute, scalar))
+
+
+def _reduction(func, args, kwargs) -> Sym:
+    """A whole-block reduction of a staged body: an element node in, a
+    block scalar out (sum and mean of floats in f32, of integers in int64;
+    min and max in the value's type)."""
+    red = _REDUCTIONS[func]
+    if red in ("max", "min"):
+        if len(args) == 2 and not kwargs and all(isinstance(a, Sym) for a in args):
+            return _record(torch.maximum if red == "max" else torch.minimum, args, {})
+        red = "r" + red
+    x = args[0] if args else None
+    graph = x.graph if isinstance(x, Sym) else None
+    if graph is None or graph.block_shape is None:
+        raise NotImplementedError(f"for_each body: op {_name(func)} is outside the "
+                                  "elementwise vocabulary (ops/codegen.py)")
+    if len(args) != 1 or kwargs:
+        raise NotImplementedError(
+            f"map_reduce_staged body: {_name(func)} reduces the whole block; a dim, keepdim "
+            "or dtype argument is outside the block vocabulary (ops/codegen.py)")
+    if graph.nodes[x.idx].scalar:
+        raise NotImplementedError(f"map_reduce_staged body: {_name(func)} of a block scalar "
+                                  "is outside the block vocabulary")
+    dtype = _reduction_dtype(func, x.dtype)
+    _check_dtype(dtype, red)
+    if red == "rmean" and x.dtype not in FLOATS:
+        raise NotImplementedError("map_reduce_staged body: mean of a non-float block")
+    return graph.add(Node(red, (x.idx,), dtype, x.dtype, True))
+
+
+@functools.lru_cache(maxsize=None)
+def _reduction_dtype(func, dtype) -> torch.dtype:
+    """The dtype of a whole-block reduction ``func`` of a ``dtype`` block,
+    from PyTorch's meta kernels."""
+    try:
+        return func(torch.empty((1,), dtype=dtype, device="meta")).dtype
+    except RuntimeError as e:
+        raise NotImplementedError(f"map_reduce_staged body: {_name(func)} of {dtype}: "
+                                  f"{e}") from None
 
 
 # (func, op, each argument's dtype or Python type) -> (dtype, compute dtype)
@@ -295,7 +384,8 @@ def _check_dtype(dt, what):
 def _cast(x, dtype):
     _check_dtype(dtype, "cast")
     if isinstance(x, Sym):
-        return x.graph.add(Node("cast", (x.idx,), dtype, dtype))
+        return x.graph.add(Node("cast", (x.idx,), dtype, dtype,
+                                x.graph.nodes[x.idx].scalar))
     raise NotImplementedError("for_each body: cast of a non-traced value")
 
 
@@ -306,7 +396,7 @@ def special(name: str, x):
         raise NotImplementedError(f"unknown vector-math core {name}")
     if x.dtype not in FLOATS:
         raise TypeError(f"{name}: takes a float tensor, got {x.dtype}")
-    return x.graph.add(Node(name, (x.idx,), x.dtype, x.dtype))
+    return x.graph.add(Node(name, (x.idx,), x.dtype, x.dtype, x.graph.nodes[x.idx].scalar))
 
 
 def is_traced(x) -> bool:
@@ -331,8 +421,8 @@ class Traced:
     outputs: Tuple[int, ...]           # node ids
 
     def __post_init__(self):
-        self.key = (tuple((n.op, tuple(_key_arg(a) for a in n.args), n.dtype, n.compute)
-                          for n in self.graph.nodes), self.outputs)
+        self.key = (tuple((n.op, tuple(_key_arg(a) for a in n.args), n.dtype, n.compute,
+                           n.scalar) for n in self.graph.nodes), self.outputs)
 
     def __hash__(self):
         return hash(self.key)
@@ -369,6 +459,63 @@ def trace(fn: Callable, in_dtypes: Sequence[torch.dtype], multi: bool = False) -
             raise TypeError("the body must return values computed from its operands, "
                             f"got {type(o).__name__}")
     return Traced(g, tuple(in_dtypes), tuple(o.idx for o in outs))
+
+
+REDUCTIONS = ("rsum", "rmean", "rmax", "rmin")
+MAX_LEAVES = 16  # csrc/foreach.cuh kMaxLeaves
+
+
+def _leaf_syms(leaves, what: str) -> Tuple[int, ...]:
+    if not 1 <= len(leaves) <= MAX_LEAVES:
+        raise ValueError(f"{what}: 1 to {MAX_LEAVES} accumulator leaves, got {len(leaves)}")
+    for leaf in leaves:
+        if not isinstance(leaf, Sym):
+            raise TypeError(f"{what}: every accumulator leaf is a value computed from the "
+                            f"block, got {type(leaf).__name__}")
+    return tuple(leaf.idx for leaf in leaves)
+
+
+def trace_staged(block_fn: Callable, in_dtypes: Sequence[torch.dtype], block_shape,
+                 make_ctx: Callable):
+    """Run a map_reduce_staged ``block_fn(ctx, *blocks)`` over one symbolic
+    block of ``block_shape``; ``make_ctx(valid, offset, width, flat_index)``
+    builds its context from those four nodes. Returns (the trace,
+    whose outputs are the accumulator's leaves, and the pytree spec)."""
+    if not 1 <= len(in_dtypes) <= MAX_IN:
+        raise ValueError(f"map_reduce_staged takes 1 to {MAX_IN} operands, got {len(in_dtypes)}")
+    g = Graph(block_shape=tuple(block_shape))
+    syms = []
+    for dt in in_dtypes:
+        _check_dtype(dt, "an operand")
+        syms.append(g.add(Node("input", (len(syms),), dt, dt)))
+    i64 = torch.int64
+    valid = g.add(Node("valid", (), torch.bool, torch.bool))
+    ids = g.add(Node("flat_index", (), i64, i64))
+    offset = g.add(Node("offset", (), i64, i64, True))
+    width = g.add(Node("width", (), i64, i64, True))
+    out = block_fn(make_ctx(valid, offset, width, ids), *syms)
+    leaves, spec = pytree.tree_flatten(out)
+    idx = _leaf_syms(leaves, "map_reduce_staged block_fn")
+    for leaf in leaves:
+        if not g.nodes[leaf.idx].scalar:
+            raise ValueError("map_reduce_staged accumulator leaves must be scalars, got "
+                             f"shape {tuple(leaf.shape)}")
+    return Traced(g, tuple(in_dtypes), idx), spec
+
+
+def trace_combine(combine: Callable, spec, leaf_dtypes: Sequence[torch.dtype]) -> Traced:
+    """Run ``combine(a, b)`` over two accumulators of symbolic scalars with
+    the pytree ``spec``; inputs 0..L-1 are a's leaves, L..2L-1 b's."""
+    g = Graph()
+    syms = [g.add(Node("input", (k,), dt, dt, True))
+            for k, dt in enumerate(tuple(leaf_dtypes) * 2)]
+    n = len(leaf_dtypes)
+    out = combine(pytree.tree_unflatten(syms[:n], spec), pytree.tree_unflatten(syms[n:], spec))
+    leaves, out_spec = pytree.tree_flatten(out)
+    if out_spec != spec:
+        raise ValueError(f"map_reduce_staged combine returned {out_spec}, the accumulator "
+                         f"is {spec}")
+    return Traced(g, tuple(leaf_dtypes) * 2, _leaf_syms(leaves, "map_reduce_staged combine"))
 
 
 # ---------------------------------------------------------------------------
@@ -597,46 +744,55 @@ def _elem(em: _Emitter, in_dtypes, out_vtypes, outputs) -> List[str]:
             [f"    {s}" for s in em.body(outputs)] + ["  }"])
 
 
-def _loads(in_dtypes, vec: bool) -> Tuple[List[str], List[str]]:
-    """(statements, argument expressions) loading every operand."""
+def _loads(in_dtypes, vec: bool, strided: bool = False) -> Tuple[List[str], List[str]]:
+    """(statements, argument expressions) loading every operand: at element
+    ``i``, or with ``strided`` at its own element offset ``off[k]``."""
+    at = [f"off[{i}]" if strided else "i" for i in range(len(in_dtypes))]
     if vec:
-        lines = [f"    ltt::Vec<{_CTYPES[d][0]}, V> x{i}; x{i}.load(a.in[{i}], i);"
+        lines = [f"    ltt::Vec<{_CTYPES[d][0]}, V> x{i}; x{i}.load(a.in[{i}], {at[i]});"
                  for i, d in enumerate(in_dtypes)]
         return lines, [_load_expr(f"x{i}[k]", d) for i, d in enumerate(in_dtypes)]
-    return [], [_load_expr(f"static_cast<const {_CTYPES[d][0]}*>(a.in[{i}])[i]", d)
+    return [], [_load_expr(f"static_cast<const {_CTYPES[d][0]}*>(a.in[{i}])[{at[i]}]", d)
                 for i, d in enumerate(in_dtypes)]
 
 
-def emit_for_each(traced: Traced, out_dtypes: Sequence[torch.dtype]) -> str:
+def emit_for_each(traced: Traced, out_dtypes: Sequence[torch.dtype],
+                  strided: bool = False) -> str:
     """The source of a for_each / for_each_multi body: output k is traced
-    output k cast to ``out_dtypes[k]``."""
+    output k cast to ``out_dtypes[k]``. ``strided``: the body of the strided
+    template, whose operand k is read at its own element offset ``off[k]``
+    (the outputs are dense, written at ``i``)."""
     ins = traced.in_dtypes
     for d in out_dtypes:
         _check_dtype(d, "an output")
     em = _Emitter(traced)
     outs = list(zip(traced.outputs, out_dtypes))
     V = vec_width(list(ins) + list(out_dtypes))
-    L = _header("for_each")
+    L = _header("strided for_each" if strided else "for_each")
     L += [f"  static constexpr int kIn = {len(ins)}, kOut = {len(outs)}, kVec = {V};"]
     L += _elem(em, ins, [_vtype(d) for d in out_dtypes], outs)
     decl = [f"      {_vtype(d)} o{k};" for k, d in enumerate(out_dtypes)]
     call_o = [f"o{k}" for k in range(len(outs))]
-    lv, av = _loads(ins, True)
+    sfx, off = ("_at", ", const int64_t (&off)[kIn]") if strided else ("", "")
+    lv, av = _loads(ins, True, strided)
     L += ["  template <int V>",
-          "  __device__ __forceinline__ static void apply_vec(const ltt::PtrArgs& a, int64_t i) {"]
+          f"  __device__ __forceinline__ static void apply_vec{sfx}(const ltt::PtrArgs& a{off}, "
+          "int64_t i) {"]
     L += lv
     L += [f"    ltt::Vec<{_CTYPES[d][0]}, V> y{k};" for k, d in enumerate(out_dtypes)]
     L += ["#pragma unroll", "    for (int k = 0; k < V; ++k) {"] + decl
     L += [f"      elem({', '.join(av + call_o)});"]
     L += [f"      y{k}[k] = {_store_expr(f'o{k}', d)};" for k, d in enumerate(out_dtypes)]
     L += ["    }"] + [f"    y{k}.store(a.out[{k}], i);" for k in range(len(outs))] + ["  }"]
-    _, a1 = _loads(ins, False)
-    L += ["  __device__ __forceinline__ static void apply1(const ltt::PtrArgs& a, int64_t i) {"]
+    _, a1 = _loads(ins, False, strided)
+    L += [f"  __device__ __forceinline__ static void apply1{sfx}(const ltt::PtrArgs& a{off}, "
+          "int64_t i) {"]
     L += [f"    {_vtype(d)} o{k};" for k, d in enumerate(out_dtypes)]
     L += [f"    elem({', '.join(a1 + call_o)});"]
     L += [f"    static_cast<{_CTYPES[d][0]}*>(a.out[{k}])[i] = {_store_expr(f'o{k}', d)};"
           for k, d in enumerate(out_dtypes)]
-    L += ["  }", "};", "", "}  // namespace", "", "LTT_FOR_EACH_ENTRY(Body)", ""]
+    entry = "LTT_FOR_EACH_STRIDED_ENTRY" if strided else "LTT_FOR_EACH_ENTRY"
+    L += ["  }", "};", "", "}  // namespace", "", f"{entry}(Body)", ""]
     return "\n".join(L)
 
 
@@ -697,3 +853,155 @@ def _acc_lit(identity, dt, acc) -> str:
     else:
         v = int(max(min(int(identity), info.max), info.min))
     return f"static_cast<{acc}>({v}LL)"
+
+
+# ---------------------------------------------------------------------------
+# map_reduce_staged: the block body and the combine
+# ---------------------------------------------------------------------------
+
+_RED_OP = {"rsum": "ltt::kSum", "rmean": "ltt::kSum", "rmax": "ltt::kMax", "rmin": "ltt::kMin"}
+
+
+def _red_acc(n: Node) -> torch.dtype:
+    """The dtype a reduction folds in: f32 for floats, int64 for integer
+    sums, int32 or int64 for integer and bool min/max."""
+    if n.compute in FLOATS:
+        return torch.float32
+    if n.op in ("rsum", "rmean") or n.compute == torch.int64:
+        return torch.int64
+    return torch.int32
+
+
+def _red_identity(n: Node, acc) -> str:
+    if n.op in ("rsum", "rmean"):
+        return "0.f" if acc == torch.float32 else "int64_t{0}"
+    big = n.op == "rmin"
+    if acc == torch.float32:
+        return "INFINITY" if big else "(-INFINITY)"
+    bits = 64 if acc == torch.int64 else 32
+    return f"INT{bits}_MAX" if big else f"INT{bits}_MIN"
+
+
+def _levels(nodes: Sequence[Node]) -> List[int]:
+    """How many reductions lie on each node's longest path: a reduction of
+    level s runs in sweep s, after every scalar of a lower level."""
+    level = []
+    for n in nodes:
+        args = [a for a in n.args if isinstance(a, int)] if n.op != "input" else []
+        level.append(max((level[a] for a in args), default=0) + (n.op in REDUCTIONS))
+    return level
+
+
+def _reach(nodes, roots, through) -> set:
+    """Nodes reachable from ``roots`` over argument edges, entering only
+    nodes for which ``through(i)`` holds (the roots always)."""
+    seen, stack = set(), list(roots)
+    while stack:
+        i = stack.pop()
+        if i in seen:
+            continue
+        seen.add(i)
+        if nodes[i].op != "input":
+            stack.extend(a for a in nodes[i].args if isinstance(a, int) and through(a))
+    return seen
+
+
+def emit_staged(block: Traced, combine: Traced, leaf_dtypes: Sequence[torch.dtype]) -> str:
+    """The source of a map_reduce_staged body for the staged template of
+    csrc/foreach.cuh: ``block`` turns one block of kStagedGrain elements
+    (held in registers, kStagedPer per thread) into the accumulator's
+    leaves, one sweep over the registers per reduction level; ``combine``
+    merges two accumulators."""
+    nodes = block.graph.nodes
+    ins = block.in_dtypes
+    level = _levels(nodes)
+    need = _reach(nodes, block.outputs, lambda a: True)
+    em = _Emitter(block)
+    L = _header("map_reduce_staged")
+    L += [f"  static constexpr int kIn = {len(ins)}, kLeaves = {len(leaf_dtypes)};",
+          "  struct Acc {"] + \
+         [f"    {_vtype(d)} l{j};" for j, d in enumerate(leaf_dtypes)] + ["  };"]
+    # the block: loads into registers, then the sweeps
+    L += ["  __device__ __forceinline__ static void block(const ltt::StagedArgs& a, int64_t n,",
+          "                                             int64_t base, unsigned char* red) {"]
+    L += [f"    {_vtype(d)} x{k}[ltt::kStagedPer];" for k, d in enumerate(ins)]
+    L += ["#pragma unroll", "    for (int e = 0; e < ltt::kStagedPer; ++e) {",
+          "      const int64_t p = base + static_cast<int64_t>(e) * ltt::kStagedThreads + "
+          "threadIdx.x;"]
+    L += [f"      x{k}[e] = p < n ? "
+          f"{_load_expr(f'static_cast<const {_CTYPES[d][0]}*>(a.in[{k}])[p]', d)} : "
+          f"{_lit(0, d)};" for k, d in enumerate(ins)]
+    L += ["    }"]
+
+    def scalars(s):
+        out = []
+        for i, nd in enumerate(nodes):
+            if i not in need or not nd.scalar or level[i] != s or nd.op in REDUCTIONS:
+                continue
+            if nd.op == "offset":
+                out.append(f"    const int64_t v{i} = base;")
+            elif nd.op == "width":
+                out.append(f"    const int64_t v{i} = ltt::kStagedGrain;")
+            else:
+                out.append(f"    const {_vtype(nd.dtype)} v{i} = {em.expr(nd)};")
+        return out
+
+    L += scalars(0)
+    for s in range(1, max((level[i] for i in need), default=0) + 1):
+        reds = [i for i in sorted(need) if nodes[i].op in REDUCTIONS and level[i] == s]
+        elems = _reach(nodes, [nodes[r].args[0] for r in reds], lambda a: not nodes[a].scalar)
+        elems = {i for i in elems if not nodes[i].scalar}
+        L += [f"    // sweep {s}: {', '.join(f'{nodes[r].op} v{r}' for r in reds)}"]
+        L += [f"    {_vtype(_red_acc(nodes[r]))} r{r} = {_red_identity(nodes[r], _red_acc(nodes[r]))};"
+              for r in reds]
+        L += ["#pragma unroll", "    for (int e = 0; e < ltt::kStagedPer; ++e) {",
+              "      const int64_t p = base + static_cast<int64_t>(e) * ltt::kStagedThreads + "
+              "threadIdx.x;"]
+        for i in sorted(elems):
+            nd = nodes[i]
+            if nd.op == "input":
+                rhs = f"x{nd.args[0]}[e]"
+            elif nd.op == "valid":
+                rhs = "p < n"
+            elif nd.op == "flat_index":
+                rhs = "p"
+            else:
+                rhs = em.expr(nd)
+            L += [f"      const {_vtype(nd.dtype)} v{i} = {rhs};"]
+        for r in reds:
+            acc, src = _red_acc(nodes[r]), nodes[r].args[0]
+            L += [f"      r{r} = ltt::rcombine<{_RED_OP[nodes[r].op]}>(r{r}, "
+                  f"{_conv(f'v{src}', nodes[src].dtype, acc)});"]
+        L += ["    }"]
+        for r in reds:
+            nd, acc = nodes[r], _red_acc(nodes[r])
+            v = (f"ltt::block_allreduce<{_RED_OP[nd.op]}>(r{r}, "
+                 f"{_red_identity(nd, acc)}, reinterpret_cast<{_vtype(acc)}*>(red))")
+            if nd.op == "rmean":
+                v = f"__fdiv_rn({v}, static_cast<float>(ltt::kStagedGrain))"
+            L += [f"    const {_vtype(nd.dtype)} v{r} = {_conv(v, acc, nd.dtype)};"]
+        L += scalars(s)
+    L += ["    if (threadIdx.x == 0) {"]
+    L += [f"      static_cast<{_CTYPES[d][0]}*>(a.part[{j}])[blockIdx.x] = "
+          f"{_store_expr(_conv(f'v{i}', nodes[i].dtype, d), d)};"
+          for j, (i, d) in enumerate(zip(block.outputs, leaf_dtypes))]
+    L += ["    }", "  }"]
+    # the partials and the result, and the combine
+    L += ["  __device__ __forceinline__ static void load_partial(const ltt::StagedArgs& a, "
+          "int64_t i, Acc& r) {"]
+    L += [f"    r.l{j} = {_load_expr(f'static_cast<const {_CTYPES[d][0]}*>(a.part[{j}])[i]', d)};"
+          for j, d in enumerate(leaf_dtypes)] + ["  }"]
+    L += ["  __device__ __forceinline__ static void store_result(const ltt::StagedArgs& a, "
+          "const Acc& r) {"]
+    L += [f"    *static_cast<{_CTYPES[d][0]}*>(a.out[{j}]) = {_store_expr(f'r.l{j}', d)};"
+          for j, d in enumerate(leaf_dtypes)] + ["  }"]
+    cem = _Emitter(combine)
+    L += _elem(cem, combine.in_dtypes, [_vtype(d) for d in leaf_dtypes],
+               list(zip(combine.outputs, leaf_dtypes)))
+    args = [f"x.l{j}" for j in range(len(leaf_dtypes))] + \
+           [f"y.l{j}" for j in range(len(leaf_dtypes))] + \
+           [f"r.l{j}" for j in range(len(leaf_dtypes))]
+    L += ["  __device__ __forceinline__ static void combine(const Acc& x, const Acc& y, Acc& r) {",
+          f"    elem({', '.join(args)});", "  }"]
+    L += ["};", "", "}  // namespace", "", "LTT_STAGED_ENTRY(Body)", ""]
+    return "\n".join(L)

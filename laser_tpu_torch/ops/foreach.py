@@ -24,7 +24,15 @@ The kernels, with the TPU kernels they replace:
   after run; with a ``combine_fn`` outside {sum, min, max} (laser_tpu's
   per-block-partials site, :379) the first launch alone, and
   ``combine_fn`` applies to the partials in torch, as laser_tpu applies it
-  outside its kernel.
+  outside its kernel;
+- ``map_reduce_staged`` (:442): two launches; each block of STAGED_GRAIN
+  elements held in registers runs the body's block vocabulary (one sweep
+  per reduction level) into an accumulator pytree of scalars, then one
+  block merges the blocks' accumulators with the traced ``combine``.
+
+``for_each`` over a TensorView or a non-contiguous tensor runs
+``ops/strided.py``'s strided template (laser_tpu/ops/strided.py:222); the
+other wrappers materialise such operands first, as laser_tpu does.
 
 What laser_tpu does for the TPU alone, and the port does not:
 - ``_native_2d``, ``_flat_width`` and ``_prepare_flat``'s relayout into
@@ -46,11 +54,8 @@ max keep NaN. ``identity`` is the value of an empty reduction and the start
 of each thread's fold, so it must be neutral for ``reduce_fn`` (laser_tpu
 pads with it on the same assumption).
 
-Not ported, raising ``NotImplementedError``: a non-contiguous operand
-(laser_tpu routes ``TensorView``s to ``ops/strided.py``, row 23 of the
-kernel table, not ported yet); ``reduce_fn`` outside {``torch.sum``,
-``torch.amin``/``torch.min``, ``torch.amax``/``torch.max``};
-``map_reduce_staged`` (row 22).
+Not ported, raising ``NotImplementedError``: ``reduce_fn`` outside
+{``torch.sum``, ``torch.amin``/``torch.min``, ``torch.amax``/``torch.max``}.
 """
 
 from __future__ import annotations
@@ -61,9 +66,11 @@ import functools
 from typing import Callable, List, Optional, Sequence
 
 import torch
+import torch.utils._pytree as pytree
 
 from .. import registry
-from . import codegen
+from ..tensor import as_view
+from . import codegen, strided
 
 SOURCE = "laser_tpu_torch/csrc/foreach.cuh"
 FOR_EACH = registry.kernel("for_each", SOURCE, "laser_tpu/ops/foreach.py:109 for_each")
@@ -71,11 +78,16 @@ FOR_EACH_MULTI = registry.kernel("for_each_multi", SOURCE,
                                  "laser_tpu/ops/foreach.py:172 for_each_multi")
 ROW_REDUCE = registry.kernel("row_reduce", SOURCE, "laser_tpu/ops/foreach.py:219 row_reduce")
 MAP_REDUCE = registry.kernel("map_reduce", SOURCE, "laser_tpu/ops/foreach.py:277 map_reduce")
+MAP_REDUCE_STAGED = registry.kernel("map_reduce_staged", SOURCE,
+                                    "laser_tpu/ops/foreach.py:442 map_reduce_staged")
 
 # csrc/foreach.cuh kMaxReduceBlocks and kReduceGrain: the first launch's
 # block plan, which the per-block partials of a custom combine_fn follow
 REDUCE_MAX_BLOCKS = 4096
 REDUCE_GRAIN = 65536
+# csrc/foreach.cuh kStagedGrain: the elements of one map_reduce_staged block
+# (256 threads holding 16 each in registers)
+STAGED_GRAIN = 4096
 _REDUCE_FNS = {torch.sum: "sum", torch.amin: "min", torch.min: "min",
                torch.amax: "max", torch.max: "max"}
 
@@ -97,22 +109,21 @@ def result_type(dtypes: Sequence[torch.dtype]) -> torch.dtype:
 
 
 def _operands(operands, what: str) -> List[torch.Tensor]:
+    """The operands as contiguous tensors of one shape on one device: a
+    TensorView or a non-contiguous tensor is materialised first, as
+    laser_tpu's ``_prepare_flat`` does (foreach.py:70-98)."""
     if not operands:
         raise ValueError(f"{what} needs at least one operand")
-    ops = list(operands)
+    ops = strided.materialized(operands)
     for o in ops:
         if not isinstance(o, torch.Tensor):
-            raise TypeError(f"{what}: operands are torch tensors, got {type(o).__name__}")
+            raise TypeError(f"{what}: operands are torch tensors or TensorViews, got "
+                            f"{type(o).__name__}")
         if o.shape != ops[0].shape:
             raise ValueError(f"operand shape mismatch: {tuple(o.shape)} vs "
                              f"{tuple(ops[0].shape)}")
         if o.device != ops[0].device:
             raise ValueError(f"{what}: operands on {o.device} and {ops[0].device}")
-        if not o.is_contiguous():
-            raise NotImplementedError(
-                f"{what}: a non-contiguous operand (a strided view) goes to laser_tpu's "
-                "ops/strided.py build_strided_foreach (kernel table row 23), which is not "
-                "ported yet; pass a contiguous tensor")
     return ops
 
 
@@ -244,8 +255,18 @@ def for_each(fn: Callable, *operands, out_dtype=None, pad_value=0,
     dtype, as jnp.result_type). ``donate=True`` writes the result into
     operand 0's storage when the dtypes match and returns it (laser_tpu
     aliases operand 0 as the output); operand 0 holds the result afterwards.
-    ``pad_value`` is laser_tpu's padding value; nothing is padded here."""
+    ``pad_value`` is laser_tpu's padding value; nothing is padded here.
+
+    An operand that is a TensorView or a non-contiguous tensor sends the
+    call to ``ops.strided.strided_for_each`` (one pass of the strided
+    kernel, no materialisation; laser_tpu: foreach.py:132-140), unless
+    every view is a contiguous window. The result is then a new dense
+    tensor whatever ``donate`` says, as in laser_tpu."""
     del pad_value
+    if strided.needs_strided(operands):
+        views = [as_view(o) for o in operands]
+        if not all(v.is_c_contiguous() for v in views):
+            return strided.strided_for_each(fn, views, out_dtype)
     ops = _operands(operands, "for_each")
     plan = _plan_for_each(fn, ops, None if out_dtype is None else (out_dtype,), False)
     out_dtype = plan.out_dtypes[0]
@@ -419,8 +440,155 @@ def for_each_staged(*operands, before_loop=None, in_loop: Callable,
     return map_reduce(in_loop, *operands, reduce_fn=after_loop, identity=identity, **kw)
 
 
-def map_reduce_staged(block_fn, *operands, combine, **kw):
-    """Not ported yet (laser_tpu/ops/foreach.py:442, kernel table row 22)."""
-    raise NotImplementedError(
-        "map_reduce_staged (laser_tpu/ops/foreach.py:442, kernel table row 22: per-block "
-        "pytree accumulators) is not ported yet; it waits for a block-level body vocabulary")
+# ---------------------------------------------------------------------------
+# map_reduce_staged: accumulator pytrees of scalar leaves
+# ---------------------------------------------------------------------------
+
+class StageCtx:
+    """What ``block_fn`` sees of its block (laser_tpu's StageCtx,
+    foreach.py:424): ``valid`` is True for the block's real elements (a
+    bool per element; past the operands' end the loaded value is 0),
+    ``offset`` the flat index of the block's first element, ``width`` the
+    block's element count (STAGED_GRAIN), and ``flat_indices(shape)`` each
+    element's global flat index (int64; laser_tpu's is int32). The port's
+    block is 1-D, so ``shape`` is the block's own (``b.shape``)."""
+
+    def __init__(self, valid, offset, width, ids):
+        self.valid = valid
+        self.offset = offset
+        self.width = width
+        self._ids = ids
+
+    def flat_indices(self, shape):
+        if tuple(shape) != (STAGED_GRAIN,):
+            raise ValueError(f"flat_indices of a block of shape ({STAGED_GRAIN},), "
+                             f"got {tuple(shape)}")
+        return self._ids
+
+
+@dataclasses.dataclass
+class _StagedPlan:
+    source: str
+    leaf_dtypes: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_staged_cached(block: codegen.Traced, comb: codegen.Traced) -> _StagedPlan:
+    leaves = block.out_dtypes
+    return _StagedPlan(codegen.emit_staged(block, comb, leaves), leaves)
+
+
+def _plan_staged(block_fn, dtypes, combine):
+    """(plan, pytree spec): the block body and the combine traced on every
+    call, the emitted source memoised on the two traces."""
+    block, spec = codegen.trace_staged(block_fn, dtypes, (STAGED_GRAIN,), StageCtx)
+    comb = codegen.trace_combine(combine, spec, block.out_dtypes)
+    return _plan_staged_cached(block, comb), spec
+
+
+# the plans of bodies that read nothing that changes between calls (the
+# library's own: mean_var's, argmax's), memoised on the functions
+_plan_staged_constant = functools.lru_cache(maxsize=64)(_plan_staged)
+
+
+def map_reduce_staged_source(block_fn, *operands, combine) -> str:
+    """The generated source ``map_reduce_staged`` builds for these operands."""
+    ops = _operands(operands, "map_reduce_staged")
+    return _plan_staged(block_fn, tuple(o.dtype for o in ops), combine)[0].source
+
+
+def staged_blocks(n: int) -> int:
+    """The number of blocks (of STAGED_GRAIN elements) over n elements."""
+    return -(-n // STAGED_GRAIN)
+
+
+def map_reduce_staged_reference(block_fn: Callable, *operands, combine: Callable):
+    """The plain version: the operands cut into the kernel's blocks of
+    STAGED_GRAIN elements (the last padded with 0, ``valid`` false there),
+    ``block_fn`` on each block (``torch.func.vmap`` over the blocks, each a
+    real (STAGED_GRAIN,) tensor to the body), then laser_tpu's pairwise
+    halving tree of ``combine`` over the blocks' accumulators, each leaf
+    kept in its block dtype."""
+    MAP_REDUCE_STAGED.plain_calls += 1
+    flat = [o.reshape(-1) for o in operands]
+    n = flat[0].numel()
+    nb = staged_blocks(n)
+    dev = flat[0].device
+    blocks = [torch.cat([f, f.new_zeros(nb * STAGED_GRAIN - n)]).reshape(nb, STAGED_GRAIN)
+              for f in flat]
+    ids = torch.arange(nb * STAGED_GRAIN, device=dev).reshape(nb, STAGED_GRAIN)
+    spec = []
+
+    def one(valid, ids_b, offset, *bs):
+        leaves, sp = pytree.tree_flatten(block_fn(StageCtx(valid, offset, STAGED_GRAIN, ids_b),
+                                                  *bs))
+        for leaf in leaves:
+            if leaf.dim() != 0:
+                raise ValueError("map_reduce_staged accumulator leaves must be scalars, got "
+                                 f"shape {tuple(leaf.shape)}")
+        spec[:] = [sp]
+        return tuple(leaves)
+
+    leaves = torch.func.vmap(one)(ids < n, ids, ids[:, 0], *blocks)
+    dtypes = [leaf.dtype for leaf in leaves]
+    accs = pytree.tree_unflatten(list(leaves), spec[0])
+    m = nb
+    while m > 1:
+        h = m // 2
+        lo = pytree.tree_map(lambda a: a[:h], accs)
+        hi = pytree.tree_map(lambda a: a[h:2 * h], accs)
+        merged = pytree.tree_leaves(combine(lo, hi))
+        if m % 2:
+            tail = pytree.tree_leaves(accs)
+            merged = [torch.cat([x.to(dt), t[2 * h:]]) for x, t, dt in zip(merged, tail, dtypes)]
+        accs = pytree.tree_unflatten([x.to(dt) for x, dt in zip(merged, dtypes)], spec[0])
+        m = h + m % 2
+    return pytree.tree_map(lambda a: a[0], accs)
+
+
+def map_reduce_staged(block_fn: Callable, *operands, combine: Callable):
+    """Fused block fold and deterministic combine over an accumulator
+    pytree of scalar leaves (laser_tpu/ops/foreach.py:442).
+
+    ``block_fn(ctx, *blocks)`` returns one block's accumulator: a pytree of
+    block scalars made with the block vocabulary (ops/codegen.py: the
+    elementwise ops, whole-block torch.sum / amax / max / amin / min / mean,
+    ``ctx``); ``combine(a, b)`` merges two accumulators with the elementwise
+    ops. Operands of any shape are flattened (a view is materialised first);
+    the result has the accumulator's structure, each leaf a 0-d tensor of
+    its dtype. On a CUDA tensor it runs the staged template of
+    csrc/foreach.cuh (two launches, no atomics, the same bits run after
+    run); on a CPU tensor ``map_reduce_staged_reference``. Leaves that are
+    not scalars raise ValueError, ops outside the vocabulary
+    NotImplementedError, on every device."""
+    return _staged(block_fn, operands, combine, _plan_staged)
+
+
+def map_reduce_staged_constant(block_fn: Callable, *operands, combine: Callable):
+    """``map_reduce_staged`` for a body and a combine that read no value
+    that changes from call to call (no mutable closure cell or global), as
+    the library's own mean_var / argmax / argmin: their plan is memoised on
+    the two functions and the dtypes, so a call skips the trace (0.2-0.6 ms
+    of host work for those bodies). Any other body goes through
+    ``map_reduce_staged``, which traces it on every call."""
+    return _staged(block_fn, operands, combine, _plan_staged_constant)
+
+
+def _staged(block_fn, operands, combine, planner):
+    ops = _operands(operands, "map_reduce_staged")
+    if ops[0].numel() == 0:
+        raise ValueError("map_reduce_staged of empty operands")
+    plan, spec = planner(block_fn, tuple(o.dtype for o in ops), combine)
+    if not registry.on_cuda(ops[0]):
+        return map_reduce_staged_reference(block_fn, *ops, combine=combine)
+    dev = ops[0].device
+    n = ops[0].numel()
+    nb = staged_blocks(n)
+    parts = [torch.empty((nb,), dtype=dt, device=dev) for dt in plan.leaf_dtypes]
+    outs = [torch.empty((), dtype=dt, device=dev) for dt in plan.leaf_dtypes]
+    lib = registry.load_generated(plan.source)
+    status = lib.ltt_gen_map_reduce_staged(_ptrs(ops), _ptrs(parts), _ptrs(outs), n,
+                                           registry.stream_handle(ops[0]))
+    registry.check_launch(status, MAP_REDUCE_STAGED.name)
+    MAP_REDUCE_STAGED.launches += 1
+    return pytree.tree_unflatten(outs, spec)

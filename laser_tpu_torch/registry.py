@@ -61,7 +61,7 @@ NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 POOL_DTYPE_CODES = {**DTYPE_CODES, torch.int8: 3}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 # every pointer and the stream are c_void_p: undeclared, ctypes would pass
 # them as 32-bit ints and cut the address
 SIGNATURES = {
@@ -101,6 +101,10 @@ SIGNATURES = {
     # x, w, out, N, C, H, W, c_out, kh, kw, ph, pw, dtype, stream
     "ltt_conv_planewise": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "ltt_conv_direct": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, B, R, C, element size, stream
+    "ltt_transpose": (_P, _P, _I64, _I64, _I64, _I, _P),
+    # x, N, element size, stream
+    "ltt_transpose_inplace": (_P, _I64, _I, _P),
 }
 
 
@@ -292,7 +296,6 @@ GEN_LIB = "libltt_gen.so"
 # loads, not builds) and the wall seconds they took
 GEN_BUILDS = {"built": 0, "loaded": 0, "seconds": 0.0}
 
-_I64 = ctypes.c_int64
 # every generated library exports one entry point of its kind
 GEN_SIGNATURES = {
     # in[], out[], n, stream
@@ -301,6 +304,11 @@ GEN_SIGNATURES = {
     "ltt_gen_row_reduce": (_P, _P, _I64, _I64, _P),
     # in[], partials, result (or null: partials only), n, combine op, stream
     "ltt_gen_map_reduce": (_P, _P, _P, _I64, _I, _P),
+    # in[] (buffer starts), out[], geometry (int64: shape, then each
+    # operand's offset and strides), items, vector width (1: scalar), stream
+    "ltt_gen_for_each_strided": (_P, _P, _P, _I64, _I, _P),
+    # in[], partials[] (one per leaf), results[] (one per leaf), n, stream
+    "ltt_gen_map_reduce_staged": (_P, _P, _P, _I64, _P),
 }
 
 

@@ -15,7 +15,13 @@ vocabulary group in f32/bf16/f16 and integer types, sizes 1 to 151557, with
 unaligned operands (the scalar path), donate and for_each_multi; the
 vector-math tiers; reduce_* (f32, bf16, int32, sizes 1 and 2^29 + 3) and
 row_reduce run twice to the same bits; map_reduce with a custom
-combine_fn; Lux's three lowering kinds on the kernels.
+combine_fn; Lux's three lowering kinds on the kernels; the transposes of
+csrc/transpose.cu at ragged tiles for every element size (1, 2, 4, 8
+bytes), in place at N 128, 384 and 8192 and on ragged N; for_each over
+strided views (offsets, every k-th row or column, negative strides on each
+axis, 1-D, transposed, broadcast; the vector and scalar paths);
+map_reduce_staged bodies of reduction depth 1 and 2 on ragged tails, run
+twice to the same bits, and argmax / argmin in every dtype.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine that has none. Run it there with
@@ -840,3 +846,209 @@ def test_lux_on_the_kernels(dev):
     assert [c_[k]["launches"] for k in ("for_each", "row_reduce", "map_reduce", "gemm")] == \
         [1, 1, 1, 1]
     assert all(v["plain_calls"] == 0 for v in c_.values())
+
+
+# ---------------------------------------------------------------------------
+# the layout and strided primitives: csrc/transpose.cu, the strided and
+# staged templates of csrc/foreach.cuh
+# ---------------------------------------------------------------------------
+
+# one dtype of each element size the transpose kernels move, and beside them
+ELEM_DTYPES = [torch.uint8, torch.int8, torch.bfloat16, torch.float16, torch.float32,
+               torch.int32, torch.float64, torch.int64]
+
+
+def _any(g, shape, dtype, dev):
+    if dtype.is_floating_point:
+        return _rnd(g, shape, dtype, dev)
+    return torch.randint(-100 if dtype != torch.uint8 else 0, 100, shape, generator=g,
+                         device=dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ELEM_DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1), (100, 37), (7, 300), (33, 65), (3, 100, 50),
+                                   (2, 1, 129)])
+def test_transpose_out_of_place(dev, dtype, shape):
+    """Ragged tiles on both axes, batched and not: the same bits as torch."""
+    from laser_tpu_torch.ops.transpose import TRANSPOSE, transpose2d, transpose2d_batched
+
+    x = _any(_gen(dev, 60), shape, dtype, dev)
+    before = TRANSPOSE.launches
+    got = transpose2d(x) if x.dim() == 2 else transpose2d_batched(x)
+    assert TRANSPOSE.launches == before + 1
+    assert torch.equal(got, x.transpose(-1, -2).contiguous())
+
+
+# every dtype at N 128 and 384, and each element size once at 8192
+IN_PLACE_CASES = [(dt, n) for n in (128, 384) for dt in ELEM_DTYPES] + [
+    (dt, 8192) for dt in (torch.uint8, torch.bfloat16, torch.float32, torch.int64)]
+
+
+@pytest.mark.parametrize("dtype,n", IN_PLACE_CASES)
+def test_transpose_in_place(dev, dtype, n):
+    from laser_tpu_torch.ops.transpose import TRANSPOSE_INPLACE, transpose2d
+
+    x = _any(_gen(dev, 61), (n, n), dtype, dev)
+    want = x.t().contiguous()
+    before = TRANSPOSE_INPLACE.launches
+    got = transpose2d(x, donate=True)
+    assert TRANSPOSE_INPLACE.launches == before + 1
+    assert got.data_ptr() == x.data_ptr() and torch.equal(x, want)
+
+
+@pytest.mark.parametrize("n", [1, 31, 100, 130])
+def test_transpose_in_place_kernel_ragged(dev, n):
+    """The in-place kernel masks a ragged edge, though transpose2d routes
+    such N out of place."""
+    from laser_tpu_torch.ops.transpose import _transpose_inplace_cuda, transpose2d
+
+    x = _any(_gen(dev, 62), (n, n), torch.float32, dev)
+    want = x.t().contiguous()
+    _transpose_inplace_cuda(x)
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)
+    y = _any(_gen(dev, 63), (n, n), torch.float32, dev)
+    assert transpose2d(y, donate=True).data_ptr() != y.data_ptr()
+
+
+def test_nchw_nhwc_round_trip(dev):
+    from laser_tpu_torch.ops.transpose import nchw2nhwc, nhwc2nchw
+
+    x = _rnd(_gen(dev, 64), (3, 19, 7, 11), torch.float32, dev)
+    y = nchw2nhwc(x)
+    assert torch.equal(y, x.permute(0, 2, 3, 1).contiguous())
+    assert torch.equal(nhwc2nchw(y), x)
+
+
+def _strided_cases(dev, dtype):
+    """(name, operand, its plain value) over one (24, 40, 36) buffer."""
+    from laser_tpu_torch.tensor import TensorView
+
+    g = _gen(dev, 65)
+    base = _any(g, (24, 40, 36), dtype, dev)
+    flat = base.reshape(-1)
+    return [
+        ("every2row_offset", TensorView(flat, (12, 40, 36), (2 * 1440, 36, 1), 1440),
+         base[1::2]),
+        ("torch_every2row", base[1::2], base[1::2]),
+        ("every3col", base[:, :, 1::3], base[:, :, 1::3]),
+        ("neg_rows", TensorView(flat, (24, 40, 36), (-1440, 36, 1), 23 * 1440), base.flip(0)),
+        ("neg_cols", TensorView(flat, (24, 40, 36), (1440, 36, -1), 35), base.flip(2)),
+        ("neg_mid_skip", TensorView(flat, (24, 20, 36), (1440, -72, 1), 39 * 36),
+         base.flip(1)[:, ::2]),
+        ("strided_1d", flat[5::7], flat[5::7]),
+        ("transposed", base.transpose(0, 2), base.transpose(0, 2)),
+        ("broadcast", TensorView(flat, (24, 40, 36), (0, 36, 1), 0),
+         base[0:1].expand(24, 40, 36)),
+        ("window", base[3:9, 2:30, 4:32], base[3:9, 2:30, 4:32]),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int8,
+                                   torch.int64])
+def test_for_each_over_strided_views(dev, dtype):
+    """Offsets, every k-th row or column, negative strides on each axis, 1-D
+    strided, transposed and broadcast views, alone and beside a contiguous
+    operand: the same bits as the plain version."""
+    from laser_tpu_torch.ops.foreach import for_each
+    from laser_tpu_torch.ops.strided import FOR_EACH_STRIDED, strided_for_each_reference
+
+    for name, view, plain in _strided_cases(dev, dtype):
+        dense = plain.contiguous()
+        before = FOR_EACH_STRIDED.launches
+        got = for_each(lambda p: p * 2, view)
+        assert FOR_EACH_STRIDED.launches == before + 1, name
+        assert torch.equal(got, dense * 2), name
+        other = torch.ones_like(dense)
+        got2 = for_each(lambda p, q: p + q - p * q, view, other)
+        assert torch.equal(got2, strided_for_each_reference(lambda p, q: p + q - p * q,
+                                                            [view, other])), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,cols,step", [(64, 4096, 2), (33, 1024, 3), (8, 8, 2),
+                                            (1000, 12, 2)])
+def test_strided_rows_vector_and_scalar_paths(dev, dtype, rows, cols, step):
+    """Every step-th row: rows of whole aligned vectors take the vector
+    path, others (12 f32 columns are 48 bytes, 12 bf16 24) the scalar one."""
+    from laser_tpu_torch.ops.foreach import for_each
+
+    x = _rnd(_gen(dev, 66), (rows, cols), dtype, dev)
+    for off in (0, 1):
+        v = x[off::step]
+        assert torch.equal(for_each(lambda p: torch.sin(p) * 2.0 + 1.0, v),
+                           (torch.sin(v) * 2.0 + 1.0))
+
+
+def _custom_block(ctx, b):
+    """count of positives and sum of negatives (laser_tpu's
+    tests/test_foreach.py:173-195, in torch): reduction depth 1"""
+    pos = (b > 0) & ctx.valid
+    neg = (b < 0) & ctx.valid
+    return {"npos": pos.float().sum(), "sneg": torch.where(neg, b, 0.0).sum()}
+
+
+def _custom_combine(a, b):
+    return {"npos": a["npos"] + b["npos"], "sneg": a["sneg"] + b["sneg"]}
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4096, 4097, 300001])
+def test_map_reduce_staged_depths_and_tail(dev, n):
+    """A body of reduction depth 1 (count and sum) and of depth 2
+    (mean_var, argmax) on a ragged tail: against the plain version, and the
+    same bits on a second run."""
+    from laser_tpu_torch.ops import reductions as R
+    from laser_tpu_torch.ops.foreach import (MAP_REDUCE_STAGED, map_reduce_staged,
+                                             map_reduce_staged_reference)
+
+    x = _rnd(_gen(dev, 67), (n,), torch.float32, dev) * 3 + 1
+    before = MAP_REDUCE_STAGED.launches
+    got = map_reduce_staged(_custom_block, x, combine=_custom_combine)
+    want = map_reduce_staged_reference(_custom_block, x, combine=_custom_combine)
+    assert MAP_REDUCE_STAGED.launches == before + 1
+    assert got["npos"].item() == want["npos"].item() == (x > 0).sum().item()
+    assert abs(got["sneg"].item() - want["sneg"].item()) <= 1e-6 * x.abs().sum().item()
+    m, v = R.mean_var(x)
+    m64, v64 = x.double().mean().item(), x.double().var(unbiased=False).item()
+    assert abs(m.item() - m64) <= 1e-5 * abs(m64) and abs(v.item() - v64) <= 1e-5 * v64
+    m2, v2 = R.mean_var(x)
+    assert torch.equal(m, m2) and torch.equal(v, v2)
+    x[n // 2] = x[n // 3] = 1e6  # the maximum twice: the first one wins
+    i, val = R.argmax(x)
+    assert i.item() == (n // 3 if n > 2 else 0)
+    assert val.item() == x.max().item()
+    j, mn = R.argmin(x)
+    assert j.item() == x.argmin().item() and mn.item() == x.min().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8, torch.bfloat16, torch.float16,
+                                   torch.int64])
+def test_arg_reductions_every_dtype(dev, dtype):
+    from laser_tpu_torch.ops import reductions as R
+
+    x = _any(_gen(dev, 68), (37, 301), dtype, dev)
+    for f, ref in ((R.argmax, torch.argmax), (R.argmin, torch.argmin)):
+        i, v = f(x)
+        assert i.dtype == torch.int64 and v.dtype == dtype
+        assert i.item() == ref(x).item() and v.item() == x.reshape(-1)[i].item()
+
+
+def test_map_reduce_staged_strided_operand_and_bf16_leaf(dev):
+    """A strided operand is materialised first; a bf16 leaf is stored as
+    bf16 and combined in it; max and min of a block and mean of a block."""
+    from laser_tpu_torch.ops.foreach import map_reduce_staged, map_reduce_staged_reference
+
+    x = _rnd(_gen(dev, 69), (300, 70), torch.bfloat16, dev)[::2, 3:]
+
+    def block(ctx, b):
+        return (torch.amax(torch.where(ctx.valid, b, -1e4)), torch.mean(b.float()),
+                torch.min(torch.where(ctx.valid, b, 1e4)))
+
+    def comb(a, b):
+        return (torch.maximum(a[0], b[0]), a[1] + b[1], torch.minimum(a[2], b[2]))
+
+    got = map_reduce_staged(block, x, combine=comb)
+    want = map_reduce_staged_reference(block, x.contiguous(), combine=comb)
+    assert got[0].dtype == torch.bfloat16 and got[0].item() == x.max().item()
+    assert got[2].item() == x.min().item()
+    assert abs(got[1].item() - want[1].item()) <= 1e-5 * max(abs(want[1].item()), 1.0)

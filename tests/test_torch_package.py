@@ -25,6 +25,9 @@ def test_import_pulls_in_no_jax():
             "import laser_tpu_torch.ops.conv, laser_tpu_torch.ops.vector_math\n"
             "import laser_tpu_torch.ops.foreach, laser_tpu_torch.ops.codegen\n"
             "import laser_tpu_torch.ops.reductions, laser_tpu_torch.lux\n"
+            "import laser_tpu_torch.tensor, laser_tpu_torch.ops.strided\n"
+            "import laser_tpu_torch.ops.transpose, laser_tpu_torch as ltt\n"
+            "ltt.transpose2d, ltt.mean_var, ltt.TensorView\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'laser_tpu' not in sys.modules, 'laser_tpu imported'\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -64,7 +67,8 @@ def test_generated_sources_key_and_build_error(monkeypatch, tmp_path):
     with pytest.raises(registry.KernelBuildError, match="nvcc not found"):
         registry.load_generated(src)
     assert set(registry.GEN_SIGNATURES) == {"ltt_gen_for_each", "ltt_gen_row_reduce",
-                                            "ltt_gen_map_reduce"}
+                                            "ltt_gen_map_reduce", "ltt_gen_for_each_strided",
+                                            "ltt_gen_map_reduce_staged"}
 
 
 def test_cpu_tensors_never_build(monkeypatch):
@@ -84,6 +88,8 @@ def test_every_slice_kernel_registered():
     import laser_tpu_torch.models.cnn  # noqa: F401
     import laser_tpu_torch.models.transformer  # noqa: F401
     import laser_tpu_torch.ops.reductions  # noqa: F401
+    import laser_tpu_torch.ops.strided  # noqa: F401
+    import laser_tpu_torch.ops.transpose  # noqa: F401
     import laser_tpu_torch.serving  # noqa: F401
 
     assert set(registry.KERNELS) == {
@@ -91,12 +97,21 @@ def test_every_slice_kernel_registered():
         "paged_window_attention",  # speculative verify
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "ce_fwd", "ce_fused_grad",
         "conv_planewise", "conv_direct", "softmax", "softmax_online",  # CNN
-        "for_each", "for_each_multi", "row_reduce", "map_reduce"}  # generated bodies
+        "for_each", "for_each_multi", "row_reduce", "map_reduce",  # generated bodies
+        "for_each_strided", "map_reduce_staged",  # generated, layout slice
+        "transpose", "transpose_inplace"}  # layout slice
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
         "ltt_flash_bwd_dq", "ltt_flash_bwd_dkv", "ltt_ce_fwd", "ltt_ce_fused_grad",
-        "ltt_conv_planewise", "ltt_conv_direct", "ltt_softmax_rows", "ltt_softmax_online"}
+        "ltt_conv_planewise", "ltt_conv_direct", "ltt_softmax_rows", "ltt_softmax_online",
+        "ltt_transpose", "ltt_transpose_inplace"}
+    replaced = {k.name: k.replaces for k in registry.KERNELS.values()}
+    assert replaced["transpose"] == "laser_tpu/ops/transpose.py:42 _build_transpose"
+    assert replaced["transpose_inplace"].startswith(
+        "laser_tpu/ops/transpose.py:151 _build_inplace_transpose_pipelined")
+    assert replaced["for_each_strided"] == "laser_tpu/ops/strided.py:222 build_strided_foreach"
+    assert replaced["map_reduce_staged"] == "laser_tpu/ops/foreach.py:442 map_reduce_staged"
     for k in registry.KERNELS.values():
         assert (registry.PACKAGE_DIR.parent / k.source).is_file()
         assert k.replaces.startswith("laser_tpu/")
@@ -164,3 +179,23 @@ def test_entry_points_default_to_the_card(make):
           "rope_tables": rope.rope_tables, "init_cnn": cnn.init_cnn,
           "init_mlp": mlp.init_mlp}[make]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_package_exports_laser_tpus_names():
+    """The names laser_tpu/__init__.py exports for these primitives resolve
+    lazily to the port's functions."""
+    import laser_tpu_torch as ltt
+    from laser_tpu_torch import tensor
+    from laser_tpu_torch.ops import foreach, reductions, transpose
+
+    assert ltt.TensorView is tensor.TensorView and ltt.as_view is tensor.as_view
+    assert ltt.zeros is tensor.zeros and ltt.from_nested is tensor.from_nested
+    assert ltt.row_major_strides is tensor.row_major_strides
+    assert ltt.map_reduce_staged is foreach.map_reduce_staged
+    assert (ltt.mean_var, ltt.argmax, ltt.argmin) == (reductions.mean_var, reductions.argmax,
+                                                       reductions.argmin)
+    assert (ltt.transpose2d, ltt.transpose2d_batched, ltt.nchw2nhwc, ltt.nhwc2nchw) == (
+        transpose.transpose2d, transpose.transpose2d_batched, transpose.nchw2nhwc,
+        transpose.nhwc2nchw)
+    with pytest.raises(AttributeError):
+        ltt.not_a_name  # noqa: B018

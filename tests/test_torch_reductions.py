@@ -6,7 +6,9 @@ Tolerances: f32 sums within 1e-6 of sum |x| (the two sides add in
 different orders); bf16 sums each against the float64 sum: the port's f32
 accumulator rounded once to bf16 (2^-8 of |sum|), laser_tpu's bf16 pairwise
 tree rounding at each of its log2(n) levels (ROADMAP queue 3); min and max
-exact, integers exact. mean_var, argmax and argmin raise (kernel table row 22).
+exact, integers exact. mean_var, argmax and argmin (kernel table row 22)
+run on map_reduce_staged; tests/test_torch_staged.py holds them against
+laser_tpu.
 """
 
 import ml_dtypes
@@ -95,5 +97,14 @@ def test_integer_sentinels():
 
 @pytest.mark.parametrize("name", ["mean_var", "argmax", "argmin"])
 def test_row_22_functions_raise(name):
-    with pytest.raises(NotImplementedError, match="row 22"):
-        getattr(R, name)(torch.ones(8))
+    """Row 22's functions run now (tests/test_torch_staged.py holds them
+    against laser_tpu): on a CPU tensor through map_reduce_staged's plain
+    version; an empty input still raises."""
+    x = torch.tensor([3.0, -1.0, 3.0, 0.5])
+    registry.reset_counts()
+    out = getattr(R, name)(x)
+    assert registry.counts()["map_reduce_staged"] == {"launches": 0, "plain_calls": 1}
+    want = {"mean_var": (1.375, 2.921875), "argmax": (0, 3.0), "argmin": (1, -1.0)}[name]
+    assert tuple(v.item() for v in out) == want
+    with pytest.raises(ValueError, match="empty"):
+        getattr(R, name)(torch.ones(0))
