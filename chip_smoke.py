@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive laser_tpu_torch's serving, training, CNN, primitives and layout paths
-on one CUDA card.
+"""Drive laser_tpu_torch's serving, training, CNN, primitives, layout and
+GEMM dtype table paths on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -133,8 +133,28 @@ printed:
    runs; then timed as in phase 13 (kernel, 20 in a row, plain, library,
    bound).
 
-Phase 2 also holds the paged window (verify) kernel against its plain
-version: bf16 at run S1's shape, int8 pages at the Llama widths, and f32,
+15. The GEMM dtype table at bench.py's shapes and data (bench.py:128-273)
+   and BASELINE.json's batched GEMM: ``gemm`` int8 4096^3 (randint(-8, 8))
+   -> int32; ``gemm`` int32 2048^3 (randint(-1000, 1000)), the kernel timed
+   on pre-split limbs; the limb kernel on the 8 digit planes of full-range
+   int64 2048^3 and ``gemm`` int64 end to end; ``gemm_f64`` 2048^3 (randn *
+   2^[-30, 30)) at 8 and 4 slices and the limb kernel on its digits;
+   ``gemm_batched`` bf16 B4 4096^3; ``quantize_int8`` of 4096^2 f32 per
+   row, global and stochastic; ``gemm_quantized`` 4096^3 f32. The path
+   runs once with the counts at 0 (launches by path "gemm_table"; gemm,
+   gemm_batched, gemm_int32, gemm_limbs and quantize_int8 must launch, no
+   plain version run). Integer results and quantization are held to their
+   plain versions bit for bit, each integer plain version's 64 x 64 corner
+   to an exact integer oracle on the host and int8 also to
+   ``torch._int_mm``; f64 within 1e-15 of plain and 2^-50 (8 slices) or
+   2^-24 (4) of cuBLAS DGEMM, relative to K rowmax|a| colmax|b|; bf16
+   batched within 2^-7; then timed as in phase 13, the bound at the rate
+   of the work's type (int8 1979 TOP/s, f64 67 TFLOP/s, bf16 989). It also
+   prints what torch.matmul does with CUDA int32 and int64.
+
+Phase 2 also runs each kernel of phase 15 once at a small odd shape, bit
+for bit against its plain version, and holds the paged window (verify)
+kernel against its plain version: bf16 at run S1's shape, int8 pages at the Llama widths, and f32,
 each output row against its own size, with one window ending past its
 table. The profiles record device activity only.
 
@@ -684,6 +704,7 @@ def phase_kernels(spec):
     ] + cnn_cases()
     for case in f32:
         compare(f"{case.name} {case.shape} [f32]", case.kern(), case.plain(), case.per_row)
+    table_small_checks()
     for case in timed:
         err = compare(f"{case.name} {case.shape} [{DTYPE_TAGS[case.dtype]}]", case.kern(),
                       case.plain(),
@@ -1538,7 +1559,8 @@ def check_and_time(spec, cases, outs, check):
         ms, pms = cuda_ms(kern, reps=PRIM_REPS), cuda_ms(case.plain, reps=5)
         batched = cuda_batched_ms(kern)
         lms = cuda_ms(case.library, reps=PRIM_REPS) if case.library else None
-        peak = spec.bf16_tflops if case.dtype == torch.bfloat16 else spec.f32_tflops
+        peak = getattr(case, "peak", 0.0) or (
+            spec.bf16_tflops if case.dtype == torch.bfloat16 else spec.f32_tflops)
         t_ops = case.flops / (peak * 1e12) * 1e3
         t_bytes = case.nbytes / (spec.hbm_gbps * 1e9) * 1e3
         bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -1915,6 +1937,317 @@ def phase_layout(spec):
     entries = check_and_time(spec, cases, outs, lambda case, got: case.check(got, case.plain()))
     return {"layout": counts}, entries, {"profile": prof}
 
+# ---------------------------------------------------------------------------
+# Phase 15: the GEMM dtype table at bench.py's shapes (int8 -> int32, exact
+# int32 / int64 / f64, the batched GEMM, int8 quantization)
+# ---------------------------------------------------------------------------
+
+TABLE_KERNELS = ("gemm", "gemm_batched", "gemm_int32", "gemm_limbs", "quantize_int8")
+# f64 through digit slices, relative to K * rowmax|a| * colmax|b|: against
+# the plain route (the same digits and bucket sums) and against cuBLAS
+# DGEMM (8 slices: the classical f64 bound; 4 slices: the fast tier)
+F64_PLAIN_REL = 1e-15
+F64_DGEMM_REL = {8: 2.0 ** -50, 4: 2.0 ** -24}
+# bf16 batched outputs: one bf16 rounding of max |plain|
+BATCHED_BF16_REL = 2.0 ** -7
+ORACLE_CORNER = 64
+
+
+@dataclasses.dataclass
+class Table:
+    name: str          # the kernel record
+    slot: str          # "" for the record's main case
+    shape: str
+    run: Callable      # the path through the kernel (counted once)
+    plain: Callable    # its plain version on the same inputs
+    check: Callable    # (got, want) -> max abs error; fails the phase past its bound
+    nbytes: float      # each input read once, each output written once
+    flops: float
+    peak: float        # the rate of the work's type, TOP/s or TFLOP/s
+    time_run: Optional[Callable] = None   # the kernel alone (pre-split digits)
+    library: Optional[Callable] = None
+    library_call: Optional[str] = None
+    repeat: bool = False
+    dtype: torch.dtype = torch.float32
+
+
+def _wrap_np(w, bits):
+    """object or int64 numpy integers -> their value mod 2^bits as signed."""
+    u = np.vectorize(lambda v: int(v) % 2**bits, otypes=[object])(w)
+    return u.astype(np.uint64).astype(np.uint64 if bits == 64 else np.uint32).view(
+        np.int64 if bits == 64 else np.int32)
+
+
+def _int_check(tag, oracle, library=None):
+    """Bits equal to the plain version; the plain version's 64 x 64 corner
+    equal to an exact host oracle; the library call's bits, if any."""
+    bits = _bits_equal(tag)
+
+    def check(got, want):
+        err = bits(got, want)
+        corner = want[:ORACLE_CORNER, :ORACLE_CORNER].cpu().numpy()
+        ok = np.array_equal(corner, oracle())
+        print(f"  {tag}: plain's {corner.shape[0]}x{corner.shape[1]} corner equals the exact "
+              f"integer oracle: {ok}", flush=True)
+        if not ok:
+            fail(f"{tag}: the plain version differs from the exact oracle")
+        if library is not None:
+            same = torch.equal(got, library())
+            print(f"  {tag}: bit-identical to the library call: {same}", flush=True)
+            if not same:
+                fail(f"{tag}: kernel and library call differ")
+        return err
+    return check
+
+
+def _f64_check(tag, a, b, slices):
+    K = a.shape[1]
+    scale = K * a.abs().amax(1)[:, None] * b.abs().amax(0)[None, :]
+
+    def check(got, want):
+        torch.cuda.synchronize()
+        rel_p = ((got - want).abs() / scale).max().item()
+        dgemm = torch.matmul(a, b)
+        rel_d = ((got - dgemm).abs() / scale).max().item()
+        print(f"  {tag}: {rel_p:.3e} of K rowmax colmax from plain (bound {F64_PLAIN_REL:.0e}), "
+              f"{rel_d:.3e} from cuBLAS DGEMM (bound {F64_DGEMM_REL[slices]:.1e})", flush=True)
+        if not (rel_p <= F64_PLAIN_REL and rel_d <= F64_DGEMM_REL[slices]):
+            fail(f"{tag}: f64 error {rel_p:.3e} / {rel_d:.3e} past its bound")
+        return (got - want).abs().max().item()
+    return check
+
+
+def _rel_check(tag, bound_):
+    def check(got, want):
+        torch.cuda.synchronize()
+        err, rel = rel_error(got, want)
+        print(f"  {tag}: max_abs_err {err:.3e} rel {rel:.3e} (bound {bound_:.1e})", flush=True)
+        if not rel <= bound_:
+            fail(f"{tag}: relative error {rel:.3e} > {bound_:.1e}")
+        return err
+    return check
+
+
+def _quant_check(tag):
+    bits = _bits_equal(tag)
+
+    def check(got, want):
+        return max(bits(got[0], want[0]), bits(got[1], want[1]))
+    return check
+
+
+def table_cases(spec, n: int = 4096, m: int = 2048):
+    """bench.py's GEMM dtype rows (bench.py:128-273: int8 at n^3, the
+    others at m^3) and BASELINE.json's batched GEMM (n^3), data as bench.py
+    makes it, from a seed."""
+    from laser_tpu_torch.ops import quant as Q
+    from laser_tpu_torch.ops.gemm import batched as BT
+    from laser_tpu_torch.ops.gemm import f64_kernel as F64
+    from laser_tpu_torch.ops.gemm import int32_kernel as I32
+    from laser_tpu_torch.ops.gemm import int64_kernel as I64
+    from laser_tpu_torch.ops.gemm import kernel as KR
+    from laser_tpu_torch.ops.gemm import limb_kernel as L
+    from laser_tpu_torch.ops.gemm.api import gemm
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(15)
+    C = ORACLE_CORNER
+    cases = []
+
+    # int8 4096^3, randint(-8, 8) (bench.py:128-176, :1130)
+    a8 = torch.randint(-8, 8, (n, n), generator=g, device=DEVICE, dtype=torch.int8)
+    b8 = torch.randint(-8, 8, (n, n), generator=g, device=DEVICE, dtype=torch.int8)
+    cases.append(Table(
+        "gemm", "int8", f"{n}^3 int8 -> int32, randint(-8, 8)", run=lambda: gemm(a8, b8),
+        plain=lambda: KR.gemm_plain(a8, b8),
+        check=_int_check("gemm int8", lambda: a8[:C].cpu().numpy().astype(np.int64)
+                         @ b8[:, :C].cpu().numpy().astype(np.int64),
+                         library=lambda: torch._int_mm(a8, b8)),
+        nbytes=2 * n * n + 4 * n * n, flops=2 * n ** 3, peak=spec.int8_tops,
+        library=lambda: torch._int_mm(a8, b8), library_call="torch._int_mm (cuBLASLt int8)",
+        dtype=torch.int8))
+
+    # int32 2048^3, randint(-1000, 1000) (bench.py:178-204): 10 limb products
+    a32 = torch.randint(-1000, 1000, (m, m), generator=g, device=DEVICE, dtype=torch.int32)
+    b32 = torch.randint(-1000, 1000, (m, m), generator=g, device=DEVICE, dtype=torch.int32)
+    la, lb = I32.int32_limbs(a32), I32.int32_limbs(b32)
+    cases.append(Table(
+        "gemm_int32", "", f"{m}^3 int32, randint(-1000, 1000), exact mod 2^32",
+        run=lambda: gemm(a32, b32), time_run=lambda: I32.gemm_int32_limbs(la, lb),
+        plain=lambda: I32.gemm_int32_limbs_plain(la, lb),
+        check=_int_check("gemm_int32", lambda: _wrap_np(
+            a32[:C].cpu().numpy().astype(np.int64) @ b32[:, :C].cpu().numpy().astype(np.int64),
+            32)),
+        nbytes=3 * 4 * m * m, flops=10 * 2 * m ** 3, peak=spec.int8_tops, dtype=torch.int32))
+
+    # int64 2048^3, full range (bench.py:258-273): 36 limb products; the
+    # limb kernel alone on the pre-split digits is bench.py's device rate
+    a64 = torch.randint(-2**63, 2**63 - 1, (m, m), generator=g, device=DEVICE,
+                        dtype=torch.int64)
+    b64 = torch.randint(-2**63, 2**63 - 1, (m, m), generator=g, device=DEVICE,
+                        dtype=torch.int64)
+    da, db = I64.int64_limbs(a64).contiguous(), I64.int64_limbs(b64).contiguous()
+
+    def oracle64():
+        w = a64[:C].cpu().numpy().astype(object) @ b64[:, :C].cpu().numpy().astype(object)
+        return _wrap_np(w, 64)
+
+    cases.append(Table(
+        "gemm_limbs", "", f"{m}^3, 8 x 8 int8 digit planes of int64 -> 8 buckets",
+        run=lambda: L.gemm_limbs(da, db, 8), plain=lambda: L.gemm_limbs_plain(da, db, 8),
+        check=_bits_equal("gemm_limbs int64 digits"),
+        nbytes=2 * 8 * m * m + 8 * 4 * m * m, flops=36 * 2 * m ** 3, peak=spec.int8_tops,
+        dtype=torch.int8))
+    cases.append(Table(
+        "gemm_limbs", "int64_gemm", f"gemm {m}^3 int64, full range, exact mod 2^64 "
+        "(digit split, limb kernel, combine)", run=lambda: gemm(a64, b64),
+        plain=lambda: I64.gemm_int64(a64, b64, limbs=L.gemm_limbs_plain),
+        check=_int_check("gemm int64", oracle64), nbytes=3 * 8 * m * m,
+        flops=36 * 2 * m ** 3, peak=spec.int8_tops, dtype=torch.int64))
+
+    # f64 2048^3, randn * 2^[-30, 30) (bench.py:207-256): 8 and 4 slices;
+    # the least time for an f64 product is cuBLAS DGEMM's rate
+    af = torch.randn(m, m, generator=g, device=DEVICE, dtype=torch.float64) * torch.exp2(
+        torch.randint(-30, 30, (m, m), generator=g, device=DEVICE).double())
+    bf = torch.randn(m, m, generator=g, device=DEVICE, dtype=torch.float64) * torch.exp2(
+        torch.randint(-30, 30, (m, m), generator=g, device=DEVICE).double())
+    fa, _ = F64.f64_digits(af, 1, 8)
+    fb, _ = F64.f64_digits(bf, 0, 8)
+    for slices, tag in ((8, "accurate"), (4, "fast")):
+        cases.append(Table(
+            "gemm_limbs", f"f64_{tag}", f"gemm_f64 {m}^3, randn * 2^[-30, 30), {slices} slices",
+            run=(lambda s=slices: F64.gemm_f64(af, bf, slices=s)),
+            plain=(lambda s=slices: F64.gemm_f64(af, bf, slices=s, limbs=L.gemm_limbs_plain)),
+            check=_f64_check(f"gemm_f64 {tag}", af, bf, slices), nbytes=3 * 8 * m * m,
+            flops=2 * m ** 3, peak=spec.f64_tflops,
+            library=lambda: torch.matmul(af, bf), library_call="torch.matmul f64 (cuBLAS DGEMM)",
+            dtype=torch.float64))
+    cases.append(Table(
+        "gemm_limbs", "f64_digits", f"{m}^3, 8 x 8 f64 digit planes -> 8 buckets",
+        run=lambda: L.gemm_limbs(fa, fb, 8), plain=lambda: L.gemm_limbs_plain(fa, fb, 8),
+        check=_bits_equal("gemm_limbs f64 digits"), nbytes=2 * 8 * m * m + 8 * 4 * m * m,
+        flops=2 * m ** 3, peak=spec.f64_tflops,
+        library=lambda: torch.matmul(af, bf), library_call="torch.matmul f64 (cuBLAS DGEMM)",
+        dtype=torch.int8))
+
+    # BASELINE.json:11's bf16 4096^3 batched GEMM, 4 entries
+    B = 4
+    ab = torch.randn(B, n, n, generator=g, device=DEVICE).bfloat16()
+    bb = (torch.randn(B, n, n, generator=g, device=DEVICE) * n ** -0.5).bfloat16()
+    cases.append(Table(
+        "gemm_batched", "", f"B{B} {n}^3 bf16", run=lambda: BT.gemm_batched(ab, bb),
+        plain=lambda: BT.gemm_batched_plain(ab, bb, torch.bfloat16),
+        check=_rel_check("gemm_batched bf16", BATCHED_BF16_REL),
+        nbytes=3 * B * n * n * 2, flops=2 * B * n ** 3, peak=spec.bf16_tflops,
+        library=lambda: torch.bmm(ab, bb), library_call="torch.bmm (cuBLAS)",
+        dtype=torch.bfloat16))
+
+    # quantize_int8 of a 4096^2 f32 activation: per row, global, stochastic
+    xq = torch.randn(n, n, generator=g, device=DEVICE) * 3.0
+    qbytes = n * n * 4 + n * n
+    for slot, kw in (("", dict()), ("global", dict(per_row=False)),
+                     ("stochastic", dict(stochastic=True, seed=5))):
+        cases.append(Table(
+            "quantize_int8", slot, f"{n}x{n} f32 {slot or 'per row'}",
+            run=(lambda kw=kw: Q.quantize_int8(xq, **kw)),
+            plain=(lambda kw=kw: Q.quantize_int8_plain(xq, kw.get("per_row", True),
+                                                        kw.get("stochastic", False),
+                                                        kw.get("seed", 0))),
+            check=_quant_check(f"quantize_int8 {slot or 'per row'}"),
+            nbytes=qbytes + 4 * (n if not slot == "global" else 1), flops=3 * n * n,
+            peak=spec.f32_tflops))
+
+    # gemm_quantized of 4096^3 f32: two quantizations, the int8 GEMM, rescale
+    aq = torch.randn(n, n, generator=g, device=DEVICE)
+    bq = torch.randn(n, n, generator=g, device=DEVICE)
+
+    def quantized_plain():
+        qa, sa = Q.quantize_int8_plain(aq)
+        qb, sb = Q.quantize_int8_plain(bq.t(), seed=1)
+        return KR.gemm_plain(qa, qb, transpose_b=True).float() * sa * sb.reshape(1, -1)
+
+    cases.append(Table(
+        "gemm", "quantized", f"gemm_quantized {n}^3 f32 (int8 per row / per column)",
+        run=lambda: Q.gemm_quantized(aq, bq), plain=quantized_plain,
+        check=_bits_equal("gemm_quantized"), nbytes=3 * 4 * n * n, flops=2 * n ** 3,
+        peak=spec.int8_tops))
+    return cases
+
+
+def table_small_checks():
+    """Each new kernel once at a small odd shape, bit for bit against its
+    plain version (phase 2)."""
+    from laser_tpu_torch.ops import quant as Q
+    from laser_tpu_torch.ops.gemm import batched as BT
+    from laser_tpu_torch.ops.gemm import int32_kernel as I32
+    from laser_tpu_torch.ops.gemm import kernel as KR
+    from laser_tpu_torch.ops.gemm import limb_kernel as L
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(2)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=DEVICE, dtype=torch.int8)
+
+    def i32(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=g, device=DEVICE,
+                             dtype=torch.int32)
+
+    a, bt, c, bias = i8(37, 100), i8(45, 100), i32(37, 45), i32(45)
+    kw = dict(alpha=3, beta=-2, c=c, bias=bias, epilogue="relu", transpose_b=True)
+    la, lb, lc = I32.int32_limbs(i32(5, 100)), I32.int32_limbs(i32(100, 7)), i32(5, 7)
+    da, db = i8(3, 33, 31), i8(5, 31, 65)
+    ab, bb = i8(3, 17, 33), i8(3, 33, 9)
+    xq = torch.randn(37, 100, generator=g, device=DEVICE)
+    checks = (
+        ("gemm int8 37x100x45, B^T, C, bias, relu", lambda: KR.gemm_fused(a, bt, **kw),
+         lambda: KR.gemm_plain(a, bt, **kw)),
+        ("gemm_batched int8 3x17x33x9", lambda: BT.gemm_batched(ab, bb),
+         lambda: BT.gemm_batched_plain(ab, bb, torch.int32)),
+        ("gemm_int32 5x100x7, alpha, beta, C",
+         lambda: I32.gemm_int32_limbs(la, lb, -2**31, 2**31 - 1, lc),
+         lambda: I32.gemm_int32_limbs_plain(la, lb, -2**31, 2**31 - 1, lc)),
+        ("gemm_limbs 3 x 5 planes 33x31x65 -> 6 buckets", lambda: L.gemm_limbs(da, db, 6),
+         lambda: L.gemm_limbs_plain(da, db, 6)),
+        ("quantize_int8 37x100 stochastic", lambda: Q.quantize_int8(xq, stochastic=True, seed=3),
+         lambda: Q.quantize_int8_plain(xq, True, True, 3)))
+    for tag, kern, plain in checks:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not _same_bits(got, want):
+            fail(f"{tag}: kernel and plain version differ")
+        print(f"  {tag}: bit-identical to the plain version", flush=True)
+
+
+def phase_gemm_table(spec):
+    from laser_tpu_torch import registry
+
+    print("phase 15: GEMM dtype table at bench.py's shapes (int8 -> int32, int32, int64, f64, "
+          "batched bf16, int8 quantization)", flush=True)
+    for dt in (torch.int32, torch.int64):
+        x = torch.ones(2, 2, dtype=dt, device=DEVICE)
+        try:
+            torch.matmul(x, x)
+            print(f"  torch.matmul on CUDA {dt}: runs", flush=True)
+        except RuntimeError as e:
+            print(f"  torch.matmul on CUDA {dt}: {str(e).splitlines()[0]} (no library GEMM)",
+                  flush=True)
+    cases = table_cases(spec)
+    torch.cuda.synchronize()
+    registry.reset_counts()
+    outs = [case.run() for case in cases]
+    torch.cuda.synchronize()
+    counts = registry.counts()
+    print(f"  counts {json.dumps({k: v for k, v in counts.items() if any(v.values())})}",
+          flush=True)
+    for k in TABLE_KERNELS:
+        if counts[k]["launches"] == 0:
+            fail(f"gemm table: {k} never launched")
+    if any(c["plain_calls"] for c in counts.values()):
+        fail(f"gemm table: a plain version ran: {counts}")
+    entries = check_and_time(spec, cases, outs, lambda case, got: case.check(got, case.plain()))
+    return {"gemm_table": counts}, entries
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1924,7 +2257,7 @@ def main():
     from laser_tpu_torch import device_info, registry
     # importing the paths' modules registers every kernel
     from laser_tpu_torch.models import cnn, mlp, transformer  # noqa: F401
-    from laser_tpu_torch.ops import foreach, reductions, strided, transpose  # noqa: F401
+    from laser_tpu_torch.ops import foreach, quant, reductions, strided, transpose  # noqa: F401
     from laser_tpu_torch.serving import engine  # noqa: F401
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1966,6 +2299,9 @@ def main():
     record["gemm"]["lux_relu_bias"] = prim_record["lux_gemm"]
     layout_counts, layout_record, layout_result = timed(phase_layout, spec)
     record.update(layout_record)
+    table_counts, table_record = timed(phase_gemm_table, spec)
+    for k, v in table_record.items():
+        record.setdefault(k, {}).update(v)
 
     kernels = []
     for name, k in registry.KERNELS.items():
@@ -1977,7 +2313,8 @@ def main():
                    **{tag: c[name]["launches"] for tag, c in s2_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in cnn_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in prim_counts.items()},
-                   **{tag: c[name]["launches"] for tag, c in layout_counts.items()}}
+                   **{tag: c[name]["launches"] for tag, c in layout_counts.items()},
+                   **{tag: c[name]["launches"] for tag, c in table_counts.items()}}
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **r})

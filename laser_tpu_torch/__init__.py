@@ -23,7 +23,11 @@ tensors on the card unless the caller passes ``device``.
 The layout and strided primitives (``tensor.TensorView``, ``for_each`` over
 views through ``ops.strided``, ``ops.transpose``, ``map_reduce_staged`` and
 ``mean_var`` / ``argmax`` / ``argmin``) fill the templates of
-``csrc/foreach.cuh`` and run ``csrc/transpose.cu``.
+``csrc/foreach.cuh`` and run ``csrc/transpose.cu``. ``ops.gemm`` has
+laser_tpu's whole dtype table (int8 -> int32 on ``csrc/gemm.cu``; exact
+int32, int64 and f64 GEMMs over ``csrc/limb_gemm.cu``), ``gemm_strided``
+and ``gemm_batched``; ``ops.quant`` int8 quantization
+(``csrc/quantize.cu``) and ``gemm_quantized``.
 
 Import the submodule you need: this package imports nothing eagerly. The
 names laser_tpu exports for those primitives (laser_tpu/__init__.py) are
@@ -41,6 +45,10 @@ _EXPORTS = {
     "mean_var": "ops.reductions", "argmax": "ops.reductions", "argmin": "ops.reductions",
     "transpose2d": "ops.transpose", "transpose2d_batched": "ops.transpose",
     "nchw2nhwc": "ops.transpose", "nhwc2nchw": "ops.transpose",
+    "gemm": "ops.gemm", "gemm_ad": "ops.gemm", "gemm_batched": "ops.gemm",
+    "gemm_strided": "ops.gemm", "linear": "ops.gemm",
+    "quantize_int8": "ops.quant", "dequantize_int8": "ops.quant",
+    "gemm_quantized": "ops.quant",
 }
 
 

@@ -15,9 +15,10 @@
 
 namespace ltt {
 
-// dtype codes shared with laser_tpu_torch/registry.py (DTYPE_CODES; kI8 only
-// in POOL_DTYPE_CODES: the int8 KV pages of the paged attention kernel)
-enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
+// dtype codes shared with laser_tpu_torch/registry.py (DTYPE_CODES; kI8 in
+// POOL_DTYPE_CODES: the int8 KV pages of the paged attention kernel and the
+// int8 GEMM's inputs; kI32 the int8 GEMM's accumulator output, GEMM_DTYPE_CODES)
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3, kI32 = 4 };
 
 // finite "minus infinity": keeps exp() and the running-max rescale NaN-free
 // (laser_tpu/ops/attention.py:37)
@@ -35,6 +36,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half(x);
+}
+template <> __device__ __forceinline__ int8_t from_f32<int8_t>(float x) {
+  return static_cast<int8_t>(x);
 }
 
 // x rounded through T and back: the point where the TPU kernels cast the

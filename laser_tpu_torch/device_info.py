@@ -27,12 +27,17 @@ class GpuSpec:
     bf16_tflops: float       # dense tensor-core bf16/fp16, fp32 accumulate
     tf32_tflops: float       # dense tensor-core TF32
     f32_tflops: float        # FFMA outside the tensor cores
+    int8_tops: float         # dense tensor-core int8, int32 accumulate
+    f64_tflops: float        # dense FP64 tensor cores (DMMA)
 
 
 H100_TABLE = {
-    "h100-sxm": GpuSpec("H100 SXM5 80GB", 132, 227 * KiB, 80 * GB, 3350.0, 989.0, 495.0, 67.0),
-    "h100-nvl": GpuSpec("H100 NVL 94GB", 132, 227 * KiB, 94 * GB, 3900.0, 835.0, 418.0, 60.0),
-    "h100-pcie": GpuSpec("H100 PCIe 80GB", 114, 227 * KiB, 80 * GB, 2000.0, 756.0, 378.0, 51.0),
+    "h100-sxm": GpuSpec("H100 SXM5 80GB", 132, 227 * KiB, 80 * GB, 3350.0, 989.0, 495.0, 67.0,
+                        1979.0, 67.0),
+    "h100-nvl": GpuSpec("H100 NVL 94GB", 132, 227 * KiB, 94 * GB, 3900.0, 835.0, 418.0, 60.0,
+                        1670.0, 60.0),
+    "h100-pcie": GpuSpec("H100 PCIe 80GB", 114, 227 * KiB, 80 * GB, 2000.0, 756.0, 378.0, 51.0,
+                         1513.0, 51.0),
 }
 
 

@@ -2,16 +2,25 @@
 
 Port of laser_tpu/ops/gemm/kernel.py. The kernel (csrc/gemm.cu) computes
 ``act(alpha * op(A) @ op(B) + beta * C + bias)`` with fp32 accumulation:
-bf16/f16 inputs on the tensor cores (WMMA), f32 inputs as full-fp32 FFMA.
-Transposed operands are read in place; M/N/K tails are masked.
+bf16/f16 inputs on the tensor cores (WMMA), f32 inputs as full-fp32 FFMA;
+int8 inputs on the int8 tensor cores with an int32 accumulator that wraps
+mod 2^32, the epilogue in int32 (alpha and beta cast to int32 first, as
+laser_tpu casts them to the accumulator type: alpha = 0.5 is 0), relu on
+the int and any other activation in fp32 on its value, then one cast to
+the output dtype (int32 by default). Transposed operands are read in
+place; M/N/K tails are masked.
 
 Replaces laser_tpu/ops/gemm/kernel.py:62 build_gemm. Bound on the H100:
 tensor-core throughput at prefill (M up to 4096), weight bytes from HBM at
-decode (M = 8). Design: one 64x64 output tile per block, K walked through
-shared memory, fp32 epilogue before one cast (details in csrc/gemm.cu).
+decode (M = 8); int8 at 4096^3, the int8 tensor-core rate. Design: one
+64x64 output tile per block, K walked through shared memory, the epilogue
+in the accumulator type before one cast (details in csrc/gemm.cu).
 
 ``gemm_fused`` launches the kernel for CUDA tensors and runs
-``gemm_plain`` for CPU tensors; there is no other fallback.
+``gemm_plain`` for CPU tensors; there is no other fallback. torch has no
+integer product on the card, so the plain int8 version multiplies in f64,
+exact for every integer sum below 2^53 (|a b| <= 2^14, so any K below
+2^39), and wraps the sum to int32 without relying on int32 overflow.
 """
 
 from __future__ import annotations
@@ -40,6 +49,46 @@ _ACT = {
 }
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the int8 path's output types in the kernel (any other: cast outside)
+INT8_OUT_DTYPES = (torch.int32, *FLOAT_DTYPES)
+_M32 = 0xFFFFFFFF
+
+
+def wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with the same value mod 2^32, by masks on int64
+    values below 2^33 (no int32 overflow)."""
+    return (((x & _M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def int32_scalar(v) -> int:
+    """A scalar cast to int32 as ``jnp.asarray(v, jnp.int32)``: truncated
+    toward zero (then wrapped to 32 bits)."""
+    return ((int(v) + 2**31) % 2**32) - 2**31
+
+
+def exact_int_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of integer tensors as int64, through one f64 product: exact
+    while every partial sum stays below 2^53 (torch has no integer product
+    on the card)."""
+    return torch.matmul(a.double(), b.double()).to(torch.int64)
+
+
+def int_epilogue(acc, *, alpha, beta, c, bias, epilogue, out_dtype):
+    """The int8 path's epilogue on an int64 ``acc`` (values mod 2^32):
+    alpha * acc + beta * C + bias mod 2^32 by masked int64 products, relu on
+    the int32 value, another activation in fp32 on it, one cast."""
+    r = ((acc & _M32) * int32_scalar(alpha)) & _M32
+    if c is not None:
+        r = r + ((c.to(torch.int32).long() * int32_scalar(beta)) & _M32)
+    if bias is not None:
+        r = r + (bias.to(torch.int32).long().reshape(1, -1) & _M32)
+    v = wrap32(r)
+    code = _epilogue_code(epilogue)
+    if code == 1:
+        v = torch.clamp_min(v, 0)
+    elif code:
+        return _ACT[code](v.float()).to(out_dtype)
+    return v.to(out_dtype)
 
 
 def epilogue_names():
@@ -56,13 +105,17 @@ def gemm_plain(a, b, *, alpha=1.0, beta=0.0, c=None, bias=None,
                epilogue=None, out_dtype=None, transpose_a=False,
                transpose_b=False):
     """The kernel's function in plain PyTorch: the products in fp32 (exact
-    for bf16/f16 inputs, TF32 off for f32), the epilogue in fp32, one cast."""
+    for bf16/f16 inputs, TF32 off for f32), the epilogue in fp32, one cast;
+    int8 inputs: the exact product wrapped mod 2^32, the int32 epilogue."""
     GEMM.plain_calls += 1
+    A = a.t() if transpose_a else a
+    B = b.t() if transpose_b else b
+    if a.dtype == torch.int8:
+        return int_epilogue(exact_int_product(A, B), alpha=alpha, beta=beta, c=c, bias=bias,
+                            epilogue=epilogue, out_dtype=out_dtype or torch.int32)
     pin_fp32_matmul()
     act = _ACT[_epilogue_code(epilogue)]
     out_dtype = out_dtype or a.dtype
-    A = a.t() if transpose_a else a
-    B = b.t() if transpose_b else b
     r = torch.matmul(A.float(), B.float()) * alpha
     if c is not None:
         r = r + beta * c.float()
@@ -90,22 +143,28 @@ def _gemm_cuda(a, b, *, alpha, beta, c, bias, epilogue, out_dtype,
         raise ValueError(f"gemm: bias has {bias.numel()} elements, N = {N}")
     if b.dtype != a.dtype:
         raise TypeError(f"gemm kernel: a {a.dtype} and b {b.dtype} differ")
-    if a.dtype not in registry.DTYPE_CODES or out_dtype not in registry.DTYPE_CODES:
+    int8 = a.dtype == torch.int8
+    if not (a.dtype in registry.DTYPE_CODES and out_dtype in registry.DTYPE_CODES
+            or int8 and out_dtype in INT8_OUT_DTYPES):
         raise TypeError(f"gemm kernel: unsupported dtypes {a.dtype} -> {out_dtype}")
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M == 0 or N == 0:
         return out
-    # C and the bias enter the fp32 epilogue; their fp32 copies are exact
-    c32 = c.float().contiguous() if c is not None else None
-    bias32 = bias.float().reshape(-1).contiguous() if bias is not None else None
+    # C and the bias enter the epilogue in the accumulator type (fp32, or
+    # int32 for int8 inputs), as laser_tpu casts them
+    acc_t = torch.int32 if int8 else torch.float32
+    c_acc = c.to(acc_t).contiguous() if c is not None else None
+    bias_acc = bias.to(acc_t).reshape(-1).contiguous() if bias is not None else None
+    if int8:
+        alpha, beta = int32_scalar(alpha), int32_scalar(beta)
     lib = registry.load_library()
     status = lib.ltt_gemm(
         a.data_ptr(), b.data_ptr(),
-        None if c32 is None else c32.data_ptr(),
-        None if bias32 is None else bias32.data_ptr(),
+        None if c_acc is None else c_acc.data_ptr(),
+        None if bias_acc is None else bias_acc.data_ptr(),
         out.data_ptr(), M, N, K, int(transpose_a), int(transpose_b),
         float(alpha), float(beta), _epilogue_code(epilogue),
-        registry.DTYPE_CODES[a.dtype], registry.DTYPE_CODES[out_dtype],
+        registry.GEMM_DTYPE_CODES[a.dtype], registry.GEMM_DTYPE_CODES[out_dtype],
         registry.stream_handle(a))
     registry.check_launch(status, "gemm")
     GEMM.launches += 1
@@ -116,9 +175,10 @@ def gemm_fused(a, b, *, alpha=1.0, beta=0.0, c=None, bias=None,
                epilogue=None, out_dtype=None, transpose_a=False,
                transpose_b=False):
     """The hand kernel for a CUDA tensor, its plain version for a CPU one.
-    a, b share one float dtype; c is (M, N); bias is (N,)."""
+    a, b share one float dtype or int8; c is (M, N); bias is (N,)."""
+    default_out = torch.int32 if a.dtype == torch.int8 else a.dtype
     kw = dict(alpha=alpha, beta=beta, c=c, bias=bias, epilogue=epilogue,
-              out_dtype=out_dtype or a.dtype, transpose_a=transpose_a,
+              out_dtype=out_dtype or default_out, transpose_a=transpose_a,
               transpose_b=transpose_b)
     if registry.on_cuda(a):
         return _gemm_cuda(a, b, **kw)

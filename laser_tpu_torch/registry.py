@@ -60,14 +60,26 @@ NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # kernel computes in, and beside them the int8 KV pages of the paged kernel
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 POOL_DTYPE_CODES = {**DTYPE_CODES, torch.int8: 3}
+# the GEMM kernel's input and output types: int8 inputs, int32 accumulator
+GEMM_DTYPE_CODES = {**POOL_DTYPE_CODES, torch.int32: 4}
 
 _P, _I, _F, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
+_D = ctypes.c_double
 # every pointer and the stream are c_void_p: undeclared, ctypes would pass
 # them as 32-bit ints and cut the address
 SIGNATURES = {
-    # a, b, c, bias, out, M, N, K, trans_a, trans_b, alpha, beta, epilogue,
-    # in_dtype, out_dtype, stream
-    "ltt_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
+    # a, b, c, bias, out, M, N, K, trans_a, trans_b, alpha, beta (the int32
+    # values for int8 inputs), epilogue, in_dtype, out_dtype, stream
+    "ltt_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P),
+    # a, b, out, B, M, N, K, in_dtype, out_dtype, stream
+    "ltt_gemm_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # a digits, b digits, out, nA, nB, n_buckets, M, N, K, stream
+    "ltt_gemm_limbs": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # a limbs, b limbs, c (or null), out, M, N, K, alpha, beta, stream
+    "ltt_gemm_int32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, q, scales, partials (or null), rows, cols, per_row, stochastic,
+    # seed, dtype, stream
+    "ltt_quantize_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _I, _P),
     # x, gamma, beta, y, rows, cols, kind, eps, dtype, stream
     "ltt_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, o, m (or null), l (or null), BH, S, D, Hq, Hkv, causal, scale,

@@ -21,7 +21,15 @@ bytes), in place at N 128, 384 and 8192 and on ragged N; for_each over
 strided views (offsets, every k-th row or column, negative strides on each
 axis, 1-D, transposed, broadcast; the vector and scalar paths);
 map_reduce_staged bodies of reduction depth 1 and 2 on ragged tails, run
-twice to the same bits, and argmax / argmin in every dtype.
+twice to the same bits, and argmax / argmin in every dtype; the GEMM dtype
+table bit for bit: the int8 GEMM at M 1-130, K 1-4096 in every transpose,
+its int32 epilogue (alpha, beta * C, bias, activations, wrapping) and
+accumulator wrap (K = 140000), unaligned operands; the batched GEMM in
+f32/bf16/f16/int8 and past the grid's 65535 entries; the limb kernel at
+1-8 planes, buckets 1-8, K 1-8192 and all-(-128) digits; the int32 kernel
+at INT_MIN/MAX with alpha, beta, C and uint32; int64 across its K chunk
+and f64 against the CPU route; int8 quantization (per row, global,
+stochastic, f32/bf16/f16, 1 x 1 to 4096 x 3) and gemm_quantized.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine that has none. Run it there with
@@ -1052,3 +1060,228 @@ def test_map_reduce_staged_strided_operand_and_bf16_leaf(dev):
     assert got[0].dtype == torch.bfloat16 and got[0].item() == x.max().item()
     assert got[2].item() == x.min().item()
     assert abs(got[1].item() - want[1].item()) <= 1e-5 * max(abs(want[1].item()), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# The GEMM dtype table: the int8 GEMM, the batched GEMM, the limb and int32
+# kernels, int64 and f64 through them, int8 quantization. Integer outputs
+# and quantization are held to their plain versions bit for bit.
+# ---------------------------------------------------------------------------
+
+def _int8(g, shape, dev, extreme=False):
+    if extreme:
+        return torch.full(shape, -128, dtype=torch.int8, device=dev)
+    return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 100, 33), (17, 15, 64), (64, 16, 1),
+                                   (130, 257, 65), (33, 4096, 17)])
+def test_gemm_int8(dev, ta, tb, shape):
+    from laser_tpu_torch.ops.gemm.kernel import GEMM, gemm_fused, gemm_plain
+
+    M, K, N = shape
+    g = _gen(dev, 70)
+    a = _int8(g, (K, M) if ta else (M, K), dev)
+    b = _int8(g, (N, K) if tb else (K, N), dev)
+    before = GEMM.launches
+    got = gemm_fused(a, b, transpose_a=ta, transpose_b=tb)
+    assert GEMM.launches == before + 1 and got.dtype == torch.int32
+    _equal(got, gemm_plain(a, b, transpose_a=ta, transpose_b=tb))
+
+
+@pytest.mark.parametrize("epilogue,out_dtype", [(None, torch.int32), ("relu", torch.int32),
+                                                ("tanh", torch.float32),
+                                                ("sigmoid", torch.float32),
+                                                (None, torch.float32), ("relu", torch.bfloat16)])
+def test_gemm_int8_epilogue_wraps(dev, epilogue, out_dtype):
+    """alpha, beta * C and the bias wrap mod 2^32 in int32; 0.5 casts to 0."""
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused, gemm_plain
+
+    g = _gen(dev, 71)
+    M, K, N = 45, 99, 70
+    a, b = _int8(g, (M, K), dev), _int8(g, (K, N), dev)
+    c = torch.randint(-2**31, 2**31 - 1, (M, N), generator=g, device=dev, dtype=torch.int32)
+    bias = torch.randint(-2**31, 2**31 - 1, (N,), generator=g, device=dev, dtype=torch.int32)
+    for alpha, beta in ((3, -7), (0.5, 1.5), (2**31 - 1, -2**31)):
+        kw = dict(alpha=alpha, beta=beta, c=c, bias=bias, epilogue=epilogue,
+                  out_dtype=out_dtype)
+        got, want = gemm_fused(a, b, **kw), gemm_plain(a, b, **kw)
+        if out_dtype == torch.int32 or epilogue is None:
+            _equal(got, want)
+        else:
+            _check(got, want, torch.float32 if out_dtype == torch.float32 else torch.bfloat16)
+
+
+def test_gemm_int8_accumulator_wraps(dev):
+    """All -128 over K = 140000: the int32 sum passes 2^31 and wraps."""
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused, gemm_plain
+
+    a, b = _int8(None, (3, 140000), dev, True), _int8(None, (140000, 5), dev, True)
+    got = gemm_fused(a, b)
+    _equal(got, gemm_plain(a, b))
+    assert got[0, 0].item() == (140000 * 16384 + 2**31) % 2**32 - 2**31
+
+
+def test_gemm_int8_unaligned_operands(dev):
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused, gemm_plain
+
+    g = _gen(dev, 72)
+    M, K, N = 40, 64, 48
+    a = _int8(g, (M * K + 1,), dev)[1:].view(M, K)
+    b = _int8(g, (K * N + 1,), dev)[1:].view(K, N)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    _equal(gemm_fused(a, b), gemm_plain(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int8])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (3, 20, 37, 19), (2, 130, 64, 70)])
+def test_gemm_batched(dev, dtype, shape):
+    from laser_tpu_torch.ops.gemm.batched import GEMM_BATCHED, gemm_batched, gemm_batched_plain
+
+    B, M, K, N = shape
+    g = _gen(dev, 73)
+    if dtype == torch.int8:
+        a, b = _int8(g, (B, M, K), dev), _int8(g, (B, K, N), dev)
+    else:
+        a, b = _rnd(g, (B, M, K), dtype, dev), _rnd(g, (B, K, N), dtype, dev, std=K ** -0.5)
+    before = GEMM_BATCHED.launches
+    got = gemm_batched(a, b)
+    assert GEMM_BATCHED.launches == before + 1
+    want = gemm_batched_plain(a, b, got.dtype)
+    if dtype == torch.int8:
+        _equal(got, want)
+    else:
+        _check(got, want, dtype)
+
+
+def test_gemm_batched_past_the_grid_limit(dev):
+    """65537 entries: two launches (gridDim.z is at most 65535)."""
+    from laser_tpu_torch.ops.gemm.batched import GEMM_BATCHED, gemm_batched, gemm_batched_plain
+
+    g = _gen(dev, 74)
+    a, b = _int8(g, (65537, 2, 3), dev), _int8(g, (65537, 3, 2), dev)
+    before = GEMM_BATCHED.launches
+    got = gemm_batched(a, b)
+    assert GEMM_BATCHED.launches == before + 2
+    _equal(got, gemm_batched_plain(a, b, torch.int32))
+
+
+@pytest.mark.parametrize("planes", [(8, 8, 8), (4, 4, 4), (3, 5, 6), (1, 1, 1), (8, 8, 1)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (33, 31, 65), (32, 32, 64), (40, 100, 17),
+                                   (7, 8192, 9)])
+def test_gemm_limbs(dev, planes, shape):
+    from laser_tpu_torch.ops.gemm.limb_kernel import GEMM_LIMBS, gemm_limbs, gemm_limbs_plain
+
+    nA, nB, nb = planes
+    M, K, N = shape
+    g = _gen(dev, 75)
+    da, db = _int8(g, (nA, M, K), dev), _int8(g, (nB, K, N), dev)
+    before = GEMM_LIMBS.launches
+    got = gemm_limbs(da, db, nb)
+    assert GEMM_LIMBS.launches == before + 1
+    _equal(got, gemm_limbs_plain(da, db, nb))
+
+
+def test_gemm_limbs_extreme_digits(dev):
+    """Every digit -128 at K = 8192, the int64 chunk: the largest bucket
+    is 8 * 8192 * 2^14 = 2^30, exact."""
+    from laser_tpu_torch.ops.gemm.limb_kernel import gemm_limbs, gemm_limbs_plain
+
+    da, db = _int8(None, (8, 5, 8192), dev, True), _int8(None, (8, 8192, 3), dev, True)
+    got = gemm_limbs(da, db, 8)
+    _equal(got, gemm_limbs_plain(da, db, 8))
+    assert got[7, 0, 0].item() == 8 * 8192 * 16384
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (5, 100, 7), (64, 257, 130), (1, 4096, 33)])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_gemm_int32_kernel(dev, shape, extreme):
+    from laser_tpu_torch.ops.gemm.int32_kernel import (GEMM_INT32, gemm_int32,
+                                                       gemm_int32_limbs_plain, int32_limbs)
+
+    M, K, N = shape
+    g = _gen(dev, 76)
+    lims = (-2**31, 2**31 - 1)
+
+    def rnd(*s):
+        if extreme:
+            pool = torch.tensor([lims[0], lims[1], -1, 0, 1], device=dev, dtype=torch.int32)
+            return pool[torch.randint(0, 5, s, generator=g, device=dev)]
+        return torch.randint(*lims, s, generator=g, device=dev, dtype=torch.int32)
+
+    a, b, c = rnd(M, K), rnd(K, N), rnd(M, N)
+    for alpha, beta, cc in ((1, 0, None), (lims[0], lims[1], c), (-3, 7, c)):
+        before = GEMM_INT32.launches
+        got = gemm_int32(a, b, alpha=alpha, beta=beta, c=cc)
+        assert GEMM_INT32.launches == before + 1
+        _equal(got, gemm_int32_limbs_plain(int32_limbs(a), int32_limbs(b), alpha, beta, cc))
+    ua, ub = a.view(torch.uint32), b.view(torch.uint32)
+    _equal(gemm_int32(ua, ub).view(torch.int32), gemm_int32(a, b))
+
+
+def test_int64_and_f64_gemm_match_the_cpu_route(dev):
+    """int64 across the 8192 K-chunk with alpha, beta and C, uint64, and
+    f64 (8 and 4 slices, a zero row) give the CPU route's result: the
+    same digits, the same bucket sums, the same combine."""
+    from laser_tpu_torch.ops.gemm import gemm
+    from laser_tpu_torch.ops.gemm.f64_kernel import gemm_f64
+    from laser_tpu_torch.ops.gemm.limb_kernel import GEMM_LIMBS
+
+    g = torch.Generator().manual_seed(77)
+    a = torch.randint(-2**63, 2**63 - 1, (6, 8200), generator=g, dtype=torch.int64)
+    b = torch.randint(-2**63, 2**63 - 1, (8200, 5), generator=g, dtype=torch.int64)
+    c = torch.randint(-2**63, 2**63 - 1, (6, 5), generator=g, dtype=torch.int64)
+    before = GEMM_LIMBS.launches
+    got = gemm(a.to(dev), b.to(dev), alpha=3, beta=-5, c=c.to(dev))
+    assert GEMM_LIMBS.launches == before + 2  # two K chunks
+    _equal(got, gemm(a, b, alpha=3, beta=-5, c=c))
+    _equal(gemm(a.to(dev).view(torch.uint64), b.to(dev).view(torch.uint64)),
+           gemm(a.view(torch.uint64), b.view(torch.uint64)))
+    af = torch.randn(17, 300, generator=g, dtype=torch.float64) * torch.exp2(
+        torch.randint(-30, 30, (17, 300), generator=g).double())
+    bf = torch.randn(300, 11, generator=g, dtype=torch.float64)
+    af[3] = 0.0
+    for slices in (8, 4):
+        got = gemm_f64(af.to(dev), bf.to(dev), slices=slices)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), gemm_f64(af, bf, slices=slices))
+        assert bool((got[3] == 0).all())
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 5000), (37, 100), (4096, 3), (300, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("per_row", [True, False])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_quantize_int8(dev, shape, dtype, per_row, stochastic):
+    from laser_tpu_torch.ops.quant import QUANTIZE, quantize_int8, quantize_int8_plain
+
+    x = _rnd(_gen(dev, 78), shape, dtype, dev, std=4.0)
+    x[0, 0] = 0.0
+    before = QUANTIZE.launches
+    q, s = quantize_int8(x, per_row=per_row, stochastic=stochastic, seed=11)
+    assert QUANTIZE.launches == before + 1
+    wq, ws = quantize_int8_plain(x, per_row, stochastic, 11)
+    _equal(s, ws)
+    _equal(q, wq)
+
+
+def test_quantize_int8_zero_row_and_gemm_quantized(dev):
+    from laser_tpu_torch.ops.quant import gemm_quantized, quantize_int8, quantize_int8_plain
+
+    g = _gen(dev, 79)
+    x = _rnd(g, (9, 300), torch.float32, dev)
+    x[4] = 0.0
+    q, s = quantize_int8(x)
+    _equal(s, quantize_int8_plain(x)[1])
+    assert bool((q[4] == 0).all())
+    a, b = _rnd(g, (70, 130), torch.float32, dev), _rnd(g, (130, 45), torch.float32, dev)
+    got = gemm_quantized(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), gemm_quantized(a.cpu(), b.cpu()))

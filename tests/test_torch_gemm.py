@@ -103,5 +103,6 @@ def test_bf16_output_dtype_and_rounding():
 
 
 def test_unported_dtype_raises():
+    """A dtype laser_tpu's ``_dispatch`` refuses too (bool)."""
     with pytest.raises(NotImplementedError):
-        gemm(torch.ones(2, 2, dtype=torch.int8), torch.ones(2, 2, dtype=torch.int8))
+        gemm(torch.ones(2, 2, dtype=torch.bool), torch.ones(2, 2, dtype=torch.bool))

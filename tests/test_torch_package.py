@@ -1,6 +1,7 @@
 """laser_tpu_torch package-level properties: no JAX, the kernel loader, the
 device table, config, conversion and sampling."""
 
+import ctypes
 import subprocess
 import sys
 
@@ -27,7 +28,9 @@ def test_import_pulls_in_no_jax():
             "import laser_tpu_torch.ops.reductions, laser_tpu_torch.lux\n"
             "import laser_tpu_torch.tensor, laser_tpu_torch.ops.strided\n"
             "import laser_tpu_torch.ops.transpose, laser_tpu_torch as ltt\n"
-            "ltt.transpose2d, ltt.mean_var, ltt.TensorView\n"
+            "import laser_tpu_torch.ops.quant, laser_tpu_torch.ops.gemm.batched\n"
+            "import laser_tpu_torch.ops.gemm.f64_kernel, laser_tpu_torch.ops.gemm.int64_kernel\n"
+            "ltt.transpose2d, ltt.mean_var, ltt.TensorView, ltt.gemm_quantized\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'laser_tpu' not in sys.modules, 'laser_tpu imported'\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -87,6 +90,7 @@ def test_every_slice_kernel_registered():
     import laser_tpu_torch.lux  # noqa: F401
     import laser_tpu_torch.models.cnn  # noqa: F401
     import laser_tpu_torch.models.transformer  # noqa: F401
+    import laser_tpu_torch.ops.quant  # noqa: F401
     import laser_tpu_torch.ops.reductions  # noqa: F401
     import laser_tpu_torch.ops.strided  # noqa: F401
     import laser_tpu_torch.ops.transpose  # noqa: F401
@@ -99,14 +103,23 @@ def test_every_slice_kernel_registered():
         "conv_planewise", "conv_direct", "softmax", "softmax_online",  # CNN
         "for_each", "for_each_multi", "row_reduce", "map_reduce",  # generated bodies
         "for_each_strided", "map_reduce_staged",  # generated, layout slice
-        "transpose", "transpose_inplace"}  # layout slice
+        "transpose", "transpose_inplace",  # layout slice
+        "gemm_batched", "gemm_int32", "gemm_limbs", "quantize_int8"}  # GEMM dtype table
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
         "ltt_flash_bwd_dq", "ltt_flash_bwd_dkv", "ltt_ce_fwd", "ltt_ce_fused_grad",
         "ltt_conv_planewise", "ltt_conv_direct", "ltt_softmax_rows", "ltt_softmax_online",
-        "ltt_transpose", "ltt_transpose_inplace"}
+        "ltt_transpose", "ltt_transpose_inplace",
+        "ltt_gemm_batched", "ltt_gemm_limbs", "ltt_gemm_int32", "ltt_quantize_int8"}
+    # alpha and beta are doubles: an int8 GEMM's int32 alpha passes exactly
+    assert registry.SIGNATURES["ltt_gemm"][10:12] == (ctypes.c_double, ctypes.c_double)
+    assert registry.SIGNATURES["ltt_quantize_int8"][8] is ctypes.c_int64  # the seed's 64 bits
     replaced = {k.name: k.replaces for k in registry.KERNELS.values()}
+    assert replaced["gemm_batched"] == "laser_tpu/ops/gemm/batched.py:28 _build_batched"
+    assert replaced["gemm_int32"] == "laser_tpu/ops/gemm/int32_kernel.py:65 build_gemm_int32"
+    assert replaced["gemm_limbs"] == "laser_tpu/ops/gemm/limb_kernel.py:75 build_gemm_limbs"
+    assert replaced["quantize_int8"] == "laser_tpu/ops/quant.py:29 _build_quantize"
     assert replaced["transpose"] == "laser_tpu/ops/transpose.py:42 _build_transpose"
     assert replaced["transpose_inplace"].startswith(
         "laser_tpu/ops/transpose.py:151 _build_inplace_transpose_pipelined")
@@ -197,5 +210,14 @@ def test_package_exports_laser_tpus_names():
     assert (ltt.transpose2d, ltt.transpose2d_batched, ltt.nchw2nhwc, ltt.nhwc2nchw) == (
         transpose.transpose2d, transpose.transpose2d_batched, transpose.nchw2nhwc,
         transpose.nhwc2nchw)
+    from laser_tpu_torch.ops import gemm, quant
+
+    assert (ltt.gemm, ltt.gemm_ad, ltt.linear) == (gemm.gemm, gemm.gemm_ad, gemm.linear)
+    assert (ltt.gemm_strided, ltt.gemm_batched) == (gemm.gemm_strided, gemm.gemm_batched)
+    assert (ltt.quantize_int8, ltt.dequantize_int8, ltt.gemm_quantized) == (
+        quant.quantize_int8, quant.dequantize_int8, quant.gemm_quantized)
     with pytest.raises(AttributeError):
         ltt.not_a_name  # noqa: B018
+    for name in ("gemm_packed", "gemm_prepack_a", "gemm_prepack_b"):  # row 32, not ported
+        with pytest.raises(AttributeError):
+            getattr(ltt, name)
