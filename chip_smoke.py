@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive laser_tpu_torch's serving, training, CNN, primitives, layout and
-GEMM dtype table paths on one CUDA card.
+"""Drive laser_tpu_torch's serving, training, CNN, primitives, layout, GEMM
+dtype table and library paths on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -152,8 +152,28 @@ printed:
    of the work's type (int8 1979 TOP/s, f64 67 TFLOP/s, bf16 989). It also
    prints what torch.matmul does with CUDA int32 and int64.
 
-Phase 2 also runs each kernel of phase 15 once at a small odd shape, bit
-for bit against its plain version, and holds the paged window (verify)
+16. The library surface at full size, path "library": the card's name and
+   power limit; ``adamw_step(backend="pallas")`` at steps 1 (weight decay
+   0.0) and 3 (0.1) and ``sgd_momentum_step(backend="pallas")`` without and
+   with Nesterov, over phase 5's 8L d2048 bf16 tree and the gradients of
+   one ``value_and_grad`` of its loss on phase 5's batch, lr a 0-d CUDA
+   tensor; ``stencil_solve`` red-black and Jacobi on 1024^2 f32 (randn,
+   seed 0), f = 0, 100 iterations (bench.py:576-610); ``gemm_packed`` bf16
+   and f32 at 4096^3 (randn * 0.05, alpha 0.05, bench.py:54-63) with B
+   packed once and 4 different A. The path runs once with the counts at 0
+   (all four kernels must launch, no plain version run). The updates and
+   the stencil are held to their plain versions bit for bit, the packed
+   products to the plain version and to torch.matmul on the unpacked
+   operands (bf16 2^-7, f32 1e-5 of max), the card's packed bytes to a CPU
+   pack; a 16^2 grid with zero edges converges (interior < 1e-4 after 500
+   red-black iterations). Then timed as in phase 13, with the default
+   backends, torch.optim's fused AdamW / SGD and torch.matmul as library
+   calls, the stencil's sweeps/s, effective GB/s and streaming bound, and
+   the packing times.
+
+Phase 2 also runs each kernel of phases 15 and 16 once at a small odd
+shape against its plain version (bit for bit but for the packed float
+products), and holds the paged window (verify)
 kernel against its plain version: bf16 at run S1's shape, int8 pages at the Llama widths, and f32,
 each output row against its own size, with one window ending past its
 table. The profiles record device activity only.
@@ -705,6 +725,7 @@ def phase_kernels(spec):
     for case in f32:
         compare(f"{case.name} {case.shape} [f32]", case.kern(), case.plain(), case.per_row)
     table_small_checks()
+    library_small_checks()
     for case in timed:
         err = compare(f"{case.name} {case.shape} [{DTYPE_TAGS[case.dtype]}]", case.kern(),
                       case.plain(),
@@ -2219,6 +2240,82 @@ def table_small_checks():
         print(f"  {tag}: bit-identical to the plain version", flush=True)
 
 
+def library_small_checks():
+    """Each library kernel once at a small odd shape against its plain
+    version (phase 2): the packed GEMM at 100 x 120 x 90 on an odd plan
+    (48 x 80 x 40, the gather route) with beta * C, int8 -> int32 and f16,
+    and bf16 on a planned (blocks) route; the stencil at 12 x 16, 2 x 5 (no
+    interior: no launch) and bf16 33 x 65; the optimizers on a 37-element
+    bias and a (3, 5, 7) leaf in f32 and bf16. Bit for bit, the floats of the
+    packed GEMM within PACKED_REL (f16 as bf16)."""
+    from laser_tpu_torch.ops import optim
+    from laser_tpu_torch.ops import stencil as ST
+    from laser_tpu_torch.ops.gemm import prepacked as PK
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(16)
+    M, N, K = 100, 120, 90
+    odd = PK.GemmTiles(48, 80, 40, 0)
+    for dt in (torch.float32, torch.float16, torch.int8, torch.bfloat16):
+        if dt == torch.int8:
+            a = torch.randint(-128, 128, (M, K), generator=g, device=DEVICE, dtype=dt)
+            b = torch.randint(-128, 128, (K, N), generator=g, device=DEVICE, dtype=dt)
+            c = torch.randint(-2**31, 2**31 - 1, (M, N), generator=g, device=DEVICE,
+                              dtype=torch.int32)
+            alpha, beta, acc = 3, -2, torch.int32
+        else:
+            a = torch.randn(M, K, generator=g, device=DEVICE).to(dt)
+            b = (torch.randn(K, N, generator=g, device=DEVICE) * K ** -0.5).to(dt)
+            c = torch.randn(M, N, generator=g, device=DEVICE)
+            alpha, beta, acc = 0.5, -1.5, torch.float32
+        tiles = None if dt == torch.bfloat16 else odd
+        pa, pb = PK.gemm_prepack_a(a, tiles=tiles), PK.gemm_prepack_b(b, tiles=tiles)
+        got = PK.gemm_packed(alpha, pa, pb, beta, c)
+        want = PK.gemm_packed_plain(alpha, pa, pb, beta, c, dt, acc, got.dtype)
+        route = "blocks" if PK.blocks_route(dt, pa.block[0], pb.block[1], pa.block[1]) \
+            else "gather"
+        tag = f"gemm_packed {M}x{N}x{K} {dt} tiles {pa.block[0]}x{pb.block[1]}x{pa.block[1]} " \
+              f"({route} route), beta * C"
+        if dt == torch.int8:
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"{tag}: kernel and plain version differ")
+            print(f"  {tag}: bit-identical to the plain version", flush=True)
+        else:
+            _rel_check(tag, PACKED_REL[torch.float32 if dt == torch.float32
+                                       else torch.bfloat16])(got, want)
+    for shape, dt in (((12, 16), torch.float32), ((2, 5), torch.float32),
+                      ((33, 65), torch.bfloat16)):
+        u = torch.randn(shape, generator=g, device=DEVICE).to(dt)
+        f = (torch.randn(shape, generator=g, device=DEVICE) * 0.5).to(dt)
+        for method in ("redblack", "jacobi"):
+            got = ST.stencil_solve(u, f, iters=3, method=method)
+            torch.cuda.synchronize()
+            if not _same_bits(got, ST.stencil_sweeps_plain(u, f, 3, method)):
+                fail(f"stencil {shape} {dt} {method}: kernel and plain version differ")
+        print(f"  stencil {shape[0]}x{shape[1]} {DTYPE_TAGS[dt]}, 3 red-black and 3 Jacobi "
+              f"iterations: bit-identical to the plain version", flush=True)
+    for dt in (torch.float32, torch.bfloat16):
+        tree = lambda: {"bias": torch.randn(37, generator=g, device=DEVICE).to(dt),  # noqa: E731
+                        "w": torch.randn(3, 5, 7, generator=g, device=DEVICE).to(dt)}
+        p, grads = tree(), tree()
+        m, v = optim.adamw_init(p)
+        mom = optim.tree_map(torch.zeros_like, p)
+        lr = torch.tensor(1e-2, device=DEVICE)
+        want_p, want_m, want_v = _clone_tree((p, m, v))
+        for step, wd in ((1, 0.0), (2, 0.1)):
+            optim.adamw_step(p, grads, m, v, step, lr=lr, weight_decay=wd, backend="pallas")
+            _plain_adamw(want_p, grads, want_m, want_v, step, lr, wd)
+        _tree_bits(f"adamw_update bias 37 + (3, 5, 7) {DTYPE_TAGS[dt]}, 2 steps", (p, m, v),
+                   (want_p, want_m, want_v))
+        want = _clone_tree((p, mom))
+        for nesterov in (False, True):
+            optim.sgd_momentum_step(p, grads, mom, lr=lr, nesterov=nesterov, backend="pallas")
+            _plain_sgd(*want[:1], grads, want[1], lr, nesterov)
+        _tree_bits(f"sgdm_update bias 37 + (3, 5, 7) {DTYPE_TAGS[dt]}, plain and Nesterov",
+                   (p, mom), want)
+
+
 def phase_gemm_table(spec):
     from laser_tpu_torch import registry
 
@@ -2249,6 +2346,328 @@ def phase_gemm_table(spec):
     return {"gemm_table": counts}, entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the library surface (the fused AdamW and SGD-momentum updates,
+# the stencil solver, the prepacked GEMM) at full size
+# ---------------------------------------------------------------------------
+
+LIBRARY_KERNELS = ("adamw_update", "sgdm_update", "stencil_sweep", "gemm_packed")
+# packed GEMM, kernel vs plain and vs torch.matmul on the unpacked operands
+# (TF32 off), max |d| / max |want|: bf16 one output rounding, f32 summation
+# order over K = 4096
+PACKED_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+STENCIL_N, STENCIL_ITERS = 1024, 100
+PACKED_N, PACKED_A_COUNT, PACKED_ALPHA = 4096, 4, 0.05
+# f32 operations a stencil cell update takes: 4 adds or subtracts, 1 multiply
+STENCIL_FLOPS = 6
+# AdamW and SGD operations an element: counted in csrc/optim.cu's adam_elem
+# (with the decay) and sgd_elem (Nesterov)
+ADAMW_FLOPS, SGD_FLOPS = 16, 5
+
+
+def _clone_tree(tree):
+    from laser_tpu_torch.ops.optim import tree_map
+
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _tree_bits(tag, got, want):
+    """Every leaf of two trees the same bits; returns max |d|."""
+    from laser_tpu_torch.ops.optim import tree_leaves
+
+    torch.cuda.synchronize()
+    differ, worst = 0, 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{tag}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+        differ += int((g.view(torch.uint8) != w.view(torch.uint8)).sum().item())
+        worst = max(worst, (g.double() - w.double()).abs().max().item())
+        if not torch.isfinite(g.float()).all():
+            fail(f"{tag}: non-finite values")
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(got))
+    print(f"  {tag}: {differ} differing bytes of {nbytes} (bound 0)", flush=True)
+    if differ:
+        fail(f"{tag}: kernel and plain version differ in {differ} bytes")
+    return worst
+
+
+def _plain_adamw(params, grads, m, v, step, lr, wd):
+    """adamw_step(backend="pallas")'s arithmetic through the plain versions,
+    leaf by leaf, in place."""
+    from laser_tpu_torch.ops import optim
+
+    bc1, bc2 = optim._bias_corrections(step, 0.9, 0.999)
+    for p, g, mm, vv in zip(*(optim.tree_leaves(t) for t in (params, grads, m, v)), strict=True):
+        optim.adamw_update_plain(p, g, mm, vv, lr=lr, b1=0.9, b2=0.999, omb1=float(1.0 - 0.9),
+                                 omb2=float(1.0 - 0.999), eps=1e-8, wd=wd, bc1=bc1, bc2=bc2,
+                                 has_wd=not (isinstance(wd, float) and wd == 0.0))
+    return params, m, v
+
+
+def _plain_sgd(params, grads, mom, lr, nesterov):
+    from laser_tpu_torch.ops import optim
+
+    for p, g, mm in zip(*(optim.tree_leaves(t) for t in (params, grads, mom)), strict=True):
+        optim.sgdm_update_plain(p, g, mm, lr=lr, mu=0.9, nesterov=nesterov)
+    return params, mom
+
+
+def _torch_optimizer(params, grads, kind):
+    """torch.optim's fused AdamW or SGD over copies of the leaves (the
+    library yardstick, weight decay 0), its step as a callable."""
+    import inspect
+
+    from laser_tpu_torch.ops.optim import tree_leaves
+
+    leaves = [torch.nn.Parameter(p.detach().clone()) for p in tree_leaves(params)]
+    for leaf, g in zip(leaves, tree_leaves(grads), strict=True):
+        leaf.grad = g.clone()
+    cls = torch.optim.AdamW if kind == "adamw" else torch.optim.SGD
+    fused = "fused" in inspect.signature(cls).parameters
+    kw = dict(lr=LR, weight_decay=0.0) if kind == "adamw" else dict(lr=LR, momentum=0.9)
+    opt = cls(leaves, **kw, **({"fused": True} if fused else {"foreach": True}))
+    return opt.step, f"torch.optim.{cls.__name__}({'fused' if fused else 'foreach'}=True).step"
+
+
+def library_cases(spec):
+    """The path's inputs, its counted run (the kernel routes), and one Table
+    per case for the checks and timings after it."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models import transformer as tf
+    from laser_tpu_torch.ops import optim
+    from laser_tpu_torch.ops import stencil as ST
+    from laser_tpu_torch.ops.gemm import prepacked as PK
+
+    n_heads = MODEL["n_heads"]
+    params = tf.init_transformer(0, dtype=torch.bfloat16, device=DEVICE, **MODEL)
+    tokens = train_batch(MODEL["vocab"], TRAIN_BATCH, 0)
+    _, grads = loss_and_grads(params, tokens, n_heads, plain=False)
+    del tokens
+    torch.cuda.empty_cache()
+    leaves = optim.tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    print(f"  optimizer tree: {len(leaves)} leaves, {n_params} bf16 parameters "
+          f"({n_params / 1e6:.1f} M)", flush=True)
+    lr = torch.tensor(LR, device=DEVICE)
+    m, v = optim.adamw_init(params)
+    mom = optim.tree_map(torch.zeros_like, params)
+    s0 = _clone_tree((params, m, v))
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(0)
+    u = torch.randn(STENCIL_N, STENCIL_N, generator=g, device=DEVICE)
+    f = torch.zeros_like(u)
+    packed_in = {}
+    for dt in (torch.bfloat16, torch.float32):
+        g.manual_seed(0)
+        b = (torch.randn(PACKED_N, PACKED_N, generator=g, device=DEVICE) * 0.05).to(dt)
+        a_list = [(torch.randn(PACKED_N, PACKED_N, generator=g, device=DEVICE) * 0.05).to(dt)
+                  for _ in range(PACKED_A_COUNT)]
+        packed_in[dt] = (a_list, b)
+
+    # --- the counted run: every entry point through its kernel ---
+    torch.cuda.synchronize()
+    registry.reset_counts()
+    optim.adamw_step(params, grads, m, v, 1, lr=lr, weight_decay=0.0, backend="pallas")
+    s1 = _clone_tree((params, m, v))
+    optim.adamw_step(params, grads, m, v, 3, lr=lr, weight_decay=0.1, backend="pallas")
+    s3 = _clone_tree((params, m, v))
+    t0 = _clone_tree((params, mom))
+    optim.sgd_momentum_step(params, grads, mom, lr=lr, backend="pallas")
+    t1 = _clone_tree((params, mom))
+    optim.sgd_momentum_step(params, grads, mom, lr=lr, nesterov=True, backend="pallas")
+    t2 = (params, mom)
+    red = ST.stencil_solve(u, f, iters=STENCIL_ITERS, method="redblack")
+    jac = ST.stencil_solve(u, f, iters=STENCIL_ITERS, method="jacobi")
+    packed_out = {}
+    for dt, (a_list, b) in packed_in.items():
+        pb = PK.gemm_prepack_b(b, m_hint=PACKED_N)
+        pas = [PK.gemm_prepack_a(a, n_hint=PACKED_N) for a in a_list]
+        packed_out[dt] = (pas, pb, [PK.gemm_packed(PACKED_ALPHA, pa, pb) for pa in pas])
+    torch.cuda.synchronize()
+    counts = registry.counts()
+
+    # --- checks and timings ---
+    tree_bytes = {"adamw": 14 * n_params, "sgd": 10 * n_params}  # bf16: 7 and 5 streams
+    adamw_run = (lambda: optim.adamw_step(params, grads, m, v, 3, lr=lr, weight_decay=0.1,
+                                          backend="pallas"))
+    adamw_plain = (lambda: _plain_adamw(params, grads, m, v, 3, lr, 0.1))
+    adamw_default = (lambda: optim.adamw_step(params, grads, m, v, 3, lr=lr, weight_decay=0.1))
+    sgd_run = (lambda: optim.sgd_momentum_step(params, grads, mom, lr=lr, backend="pallas"))
+    sgd_plain = (lambda: _plain_sgd(params, grads, mom, lr, False))
+    sgd_default = (lambda: optim.sgd_momentum_step(params, grads, mom, lr=lr))
+
+    def check_adamw(state_in, step, wd):
+        def check(got):
+            p_, m_, v_ = _clone_tree(state_in)
+            return _tree_bits(f"adamw_update step {step} wd {wd}", got,
+                              _plain_adamw(p_, grads, m_, v_, step, lr, wd))
+        return check
+
+    def check_sgd(state_in, nesterov):
+        def check(got):
+            p_, mm = _clone_tree(state_in)
+            return _tree_bits(f"sgdm_update nesterov={nesterov}", got,
+                              _plain_sgd(p_, grads, mm, lr, nesterov))
+        return check
+
+    def check_stencil(method):
+        def check(got):
+            return _bits_equal(f"stencil_solve {method}")(
+                got, ST.stencil_sweeps_plain(u, f, STENCIL_ITERS, method))
+        return check
+
+    def check_packed(dt):
+        pas, pb, outs_ = packed_out[dt]
+        a_list, b = packed_in[dt]
+
+        def check(got):
+            worst = 0.0
+            cpu_b = PK._pack(b.cpu(), pb.block[0], pb.block[1], "B")
+            same = torch.equal(cpu_b.data.view(torch.uint8), pb.data.cpu().view(torch.uint8))
+            print(f"  gemm_packed {DTYPE_TAGS[dt]}: packed B equals the CPU pack byte for byte: "
+                  f"{same}", flush=True)
+            if not same:
+                fail("gemm_packed: the card's packed bytes differ from the CPU pack")
+            for i, (pa, out) in enumerate(zip(pas, outs_, strict=True)):
+                plain = PK.gemm_packed_plain(PACKED_ALPHA, pa, pb, 0.0, None, dt, torch.float32,
+                                             dt)
+                # fp32 product of the unpacked operands, one rounding to dt
+                lib = (torch.matmul(a_list[i].float(), b.float()) * PACKED_ALPHA).to(dt)
+                for tag, want in (("plain", plain), ("torch.matmul", lib)):
+                    err, rel = rel_error(out, want)
+                    print(f"  gemm_packed {DTYPE_TAGS[dt]} A{i} vs {tag}: max_abs_err {err:.3e} "
+                          f"rel {rel:.3e} (bound {PACKED_REL[dt]:.1e})", flush=True)
+                    if not (rel <= PACKED_REL[dt] and torch.isfinite(out.float()).all()):
+                        fail(f"gemm_packed {DTYPE_TAGS[dt]}: rel error {rel:.3e}")
+                    if tag == "plain":
+                        worst = max(worst, err)
+            return worst
+        return check
+
+    a_opt, a_call = _torch_optimizer(params, grads, "adamw")
+    s_opt, s_call = _torch_optimizer(params, grads, "sgd")
+    cells = STENCIL_N * STENCIL_N
+    interior = (STENCIL_N - 2) ** 2
+    cases = [
+        Table("adamw_update", "",
+              f"{len(leaves)} leaves, {n_params} bf16 params, step 3, wd 0.1",
+              run=adamw_run, plain=adamw_plain, check=check_adamw(s1, 3, 0.1),
+              nbytes=tree_bytes["adamw"], flops=ADAMW_FLOPS * n_params, peak=spec.f32_tflops,
+              library=a_opt, library_call=a_call, dtype=torch.bfloat16),
+        Table("adamw_update", "step1", "the same tree, step 1, wd 0.0", run=adamw_run,
+              plain=adamw_plain, check=check_adamw(s0, 1, 0.0), nbytes=tree_bytes["adamw"],
+              flops=ADAMW_FLOPS * n_params, peak=spec.f32_tflops, dtype=torch.bfloat16),
+        Table("sgdm_update", "", f"{len(leaves)} leaves, {n_params} bf16 params, mu 0.9",
+              run=sgd_run, plain=sgd_plain, check=check_sgd(t0, False),
+              nbytes=tree_bytes["sgd"], flops=SGD_FLOPS * n_params, peak=spec.f32_tflops,
+              library=s_opt, library_call=s_call, dtype=torch.bfloat16),
+        Table("sgdm_update", "nesterov", "the same tree, Nesterov", run=sgd_run, plain=sgd_plain,
+              check=check_sgd(t1, True), nbytes=tree_bytes["sgd"], flops=SGD_FLOPS * n_params,
+              peak=spec.f32_tflops, dtype=torch.bfloat16),
+    ]
+    for method, slot in (("redblack", ""), ("jacobi", "jacobi")):
+        cases.append(Table(
+            "stencil_sweep", slot,
+            f"{STENCIL_N}^2 f32, f = 0, {STENCIL_ITERS} {method} iterations",
+            run=(lambda mt=method: ST.stencil_solve(u, f, iters=STENCIL_ITERS, method=mt)),
+            plain=(lambda mt=method: ST.stencil_sweeps_plain(u, f, STENCIL_ITERS, mt)),
+            check=check_stencil(method), nbytes=3 * cells * 4,
+            flops=STENCIL_FLOPS * interior * STENCIL_ITERS, peak=spec.f32_tflops))
+    for dt, slot in ((torch.bfloat16, ""), (torch.float32, "f32")):
+        pas, pb, _ = packed_out[dt]
+        n3 = PACKED_N ** 3
+        cases.append(Table(
+            "gemm_packed", slot, f"{PACKED_N}^3 {DTYPE_TAGS[dt]}, alpha 0.05, B packed once, "
+            f"{PACKED_A_COUNT} A (tiles {pas[0].block[0]} x {pb.block[1]} x {pb.block[0]})",
+            run=(lambda pa=pas[0], pb=pb: PK.gemm_packed(PACKED_ALPHA, pa, pb)),
+            plain=(lambda pa=pas[0], pb=pb, dt=dt: PK.gemm_packed_plain(
+                PACKED_ALPHA, pa, pb, 0.0, None, dt, torch.float32, dt)),
+            check=check_packed(dt), nbytes=3 * PACKED_N * PACKED_N * dt.itemsize,
+            flops=2 * n3, peak=spec.bf16_tflops if dt == torch.bfloat16 else spec.f32_tflops,
+            library=(lambda a=packed_in[dt][0][0], b=packed_in[dt][1]: torch.matmul(a, b)),
+            library_call="torch.matmul on the unpacked operands (cuBLAS, TF32 off)", dtype=dt))
+    outs = [s3, s1, t1, t2, red, jac, packed_out[torch.bfloat16][2][0],
+            packed_out[torch.float32][2][0]]
+    extra = dict(adamw_default=adamw_default, sgd_default=sgd_default, packed_in=packed_in,
+                 leaves=leaves,
+                 packed_tiles={dt: (po[0][0].block, po[1].block)
+                               for dt, po in packed_out.items()})
+    return counts, cases, outs, extra
+
+
+def phase_library(spec):
+    from laser_tpu_torch.ops import stencil as ST
+    from laser_tpu_torch.ops.gemm import prepacked as PK
+
+    print("phase 16: the library surface at full size (adamw_step / sgd_momentum_step "
+          "backend='pallas', stencil_solve, the prepacked GEMM)", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"  card: {smi.stdout.strip()}", flush=True)
+    counts, cases, outs, extra = library_cases(spec)
+    print(f"  counts {json.dumps({k: v for k, v in counts.items() if any(v.values())})}",
+          flush=True)
+    for k in LIBRARY_KERNELS:
+        if counts[k]["launches"] == 0:
+            fail(f"library: {k} never launched")
+    if any(c["plain_calls"] for c in counts.values()):
+        fail(f"library: a plain version ran: {counts}")
+    # every check first: the timings below run the updates in place again
+    errors = {id(case): case.check(got) for case, got in zip(cases, outs, strict=True)}
+    entries = check_and_time(spec, cases, outs, lambda case, got: errors[id(case)])
+
+    # the default backends, and what the stencil and the packed GEMM need beside
+    for name, key in (("adamw_update", "adamw_default"), ("sgdm_update", "sgd_default")):
+        dms = cuda_ms(extra[key], reps=5)
+        entries[name]["default_backend_ms"] = dms
+        print(f"  {name}: the default backend (laser_tpu's XLA expression in torch) "
+              f"{dms:.4f} ms a step", flush=True)
+    for slot, method in (("", "redblack"), ("jacobi", "jacobi")):
+        e = entries["stencil_sweep"][slot] if slot else entries["stencil_sweep"]
+        ms = e["ms"]
+        stream = (2 if method == "redblack" else 1) * STENCIL_ITERS * (
+            (2.5 if method == "redblack" else 3) * STENCIL_N * STENCIL_N * 4)
+        e["streaming_bound_ms"] = stream / (spec.hbm_gbps * 1e9) * 1e3
+        e["sweeps_per_s"] = STENCIL_ITERS / (ms / 1e3)
+        e["effective_gbps"] = STENCIL_ITERS * 2 * STENCIL_N * STENCIL_N * 4 / ms / 1e6
+        print(f"  stencil {method}: {e['sweeps_per_s']:.1f} sweeps/s, {e['effective_gbps']:.1f} "
+              f"GB/s effective (bench.py's iters * 2 * size * 4 / t); bound {e['bound_ms']:.4f} "
+              f"ms ({e['bound_by']}: u, f read once and u written once, "
+              f"{STENCIL_FLOPS} flops a cell update), streaming bound of a design that is "
+              f"not resident {e['streaming_bound_ms']:.4f} ms", flush=True)
+    # one call of each host-bound case under the profiler: its device time
+    for case, kernel, launches in ((cases[0], "adamw_kernel", len(extra["leaves"])),
+                                   (cases[2], "sgdm_kernel", len(extra["leaves"])),
+                                   (cases[4], "stencil_kernel", 2 * STENCIL_ITERS)):
+        prof = profile_step(case.run, f"one {case.name} call")
+        kept = sum(r["calls"] for r in prof["top"] if kernel in r["kernel"])
+        print(f"  {kept} of its {launches} kernel launches kept in the trace", flush=True)
+        e = entries[case.name]
+        e["device_ms"], e["profile_kept"] = prof["busy_ms"], [kept, launches]
+    u = torch.zeros(16, 16, device=DEVICE)
+    u[1:-1, 1:-1] = torch.randn(14, 14, generator=torch.Generator(device=DEVICE).manual_seed(0),
+                                device=DEVICE)
+    conv = ST.stencil_solve(u, iters=500, method="redblack")[1:-1, 1:-1].abs().max().item()
+    print(f"  stencil 16^2, zero edges, f = 0, 500 red-black iterations: interior max "
+          f"{conv:.3e} (bound 1e-4)", flush=True)
+    if not conv < 1e-4:
+        fail(f"stencil did not converge: {conv}")
+    for dt, slot in ((torch.bfloat16, ""), (torch.float32, "f32")):
+        e = entries["gemm_packed"][slot] if slot else entries["gemm_packed"]
+        a_list, b = extra["packed_in"][dt]
+        (bm, bk), (_, bn) = extra["packed_tiles"][dt]
+        tiles = PK.GemmTiles(bm, bn, bk, 0)
+        e["pack_a_ms"] = cuda_ms(lambda: PK.gemm_prepack_a(a_list[0], tiles=tiles), reps=10)
+        e["pack_b_ms"] = cuda_ms(lambda: PK.gemm_prepack_b(b, tiles=tiles), reps=10)
+        e["blocks_route"] = PK.blocks_route(dt, bm, bn, bk)
+        tflops = 2 * PACKED_N ** 3 / e["ms"] / 1e9
+        print(f"  gemm_packed {DTYPE_TAGS[dt]}: pack A {e['pack_a_ms']:.4f} ms, pack B "
+              f"{e['pack_b_ms']:.4f} ms, multiply {e['ms']:.4f} ms ({tflops:.1f} TFLOP/s), "
+              f"blocks route {e['blocks_route']}", flush=True)
+    return {"library": counts}, entries
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2257,7 +2676,8 @@ def main():
     from laser_tpu_torch import device_info, registry
     # importing the paths' modules registers every kernel
     from laser_tpu_torch.models import cnn, mlp, transformer  # noqa: F401
-    from laser_tpu_torch.ops import foreach, quant, reductions, strided, transpose  # noqa: F401
+    from laser_tpu_torch.ops import (foreach, optim, quant, reductions, stencil,  # noqa: F401
+                                     strided, transpose)
     from laser_tpu_torch.serving import engine  # noqa: F401
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2302,6 +2722,9 @@ def main():
     table_counts, table_record = timed(phase_gemm_table, spec)
     for k, v in table_record.items():
         record.setdefault(k, {}).update(v)
+    library_counts, library_record = timed(phase_library, spec)
+    for k, v in library_record.items():
+        record.setdefault(k, {}).update(v)
 
     kernels = []
     for name, k in registry.KERNELS.items():
@@ -2314,7 +2737,8 @@ def main():
                    **{tag: c[name]["launches"] for tag, c in cnn_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in prim_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in layout_counts.items()},
-                   **{tag: c[name]["launches"] for tag, c in table_counts.items()}}
+                   **{tag: c[name]["launches"] for tag, c in table_counts.items()},
+                   **{tag: c[name]["launches"] for tag, c in library_counts.items()}}
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **r})

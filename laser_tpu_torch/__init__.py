@@ -27,7 +27,12 @@ views through ``ops.strided``, ``ops.transpose``, ``map_reduce_staged`` and
 laser_tpu's whole dtype table (int8 -> int32 on ``csrc/gemm.cu``; exact
 int32, int64 and f64 GEMMs over ``csrc/limb_gemm.cu``), ``gemm_strided``
 and ``gemm_batched``; ``ops.quant`` int8 quantization
-(``csrc/quantize.cu``) and ``gemm_quantized``.
+(``csrc/quantize.cu``) and ``gemm_quantized``. The rest of laser_tpu's
+library surface: the prepacked GEMM (``ops.gemm.prepacked`` with
+``tiling.plan_tiles``, ``csrc/packed_gemm.cu``), ``ops.stencil``'s
+``stencil_solve`` (``csrc/stencil.cu``), and the fused AdamW and
+SGD-momentum updates of ``ops.optim`` (``backend="pallas"``,
+``csrc/optim.cu``).
 
 Import the submodule you need: this package imports nothing eagerly. The
 names laser_tpu exports for those primitives (laser_tpu/__init__.py) are
@@ -49,6 +54,9 @@ _EXPORTS = {
     "gemm_strided": "ops.gemm", "linear": "ops.gemm",
     "quantize_int8": "ops.quant", "dequantize_int8": "ops.quant",
     "gemm_quantized": "ops.quant",
+    "gemm_packed": "ops.gemm", "gemm_prepack_a": "ops.gemm", "gemm_prepack_b": "ops.gemm",
+    "PackedMatrix": "ops.gemm", "GemmTiles": "ops.gemm", "plan_tiles": "ops.gemm",
+    "stencil_solve": "ops.stencil", "sgd_momentum_step": "ops.optim",
 }
 
 

@@ -15,6 +15,10 @@ data makes the choice.
 exp/log/tanh/sigmoid: "accurate" (laser_tpu's polynomial cores, within
 1e-6 of float64) or "fast" (CUDA's own functions; see csrc/vector_math.cuh).
 
+``gemm_bm``, ``gemm_bn`` and ``gemm_bk`` override the block sizes that
+``ops.gemm.tiling.plan_tiles`` chooses for the packed GEMM (None: planned),
+as laser_tpu's fields override its planner.
+
 ``elementwise_grain`` and ``reduction_grain`` are laser_tpu's names for
 the VMEM block sizes of a v5e. The port accepts them, so a laser_tpu
 configuration carries over, and does not read them: the elementwise and
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -44,6 +49,9 @@ class LaserConfig:
     vector_math_algorithm: str = "accurate"
     elementwise_grain: int = 16384  # accepted, unused (see above)
     reduction_grain: int = 65536    # accepted, unused
+    gemm_bm: Optional[int] = None
+    gemm_bn: Optional[int] = None
+    gemm_bk: Optional[int] = None
 
 
 _config = LaserConfig()
@@ -63,6 +71,9 @@ def set_config(**kwargs) -> LaserConfig:
             raise ValueError(f"vector_math_algorithm must be one of {ALGORITHMS}, got {v!r}")
         if k in ("elementwise_grain", "reduction_grain") and not (isinstance(v, int) and v > 0):
             raise ValueError(f"{k} must be a positive int, got {v!r}")
+        if k in ("gemm_bm", "gemm_bn", "gemm_bk") and not (
+                v is None or isinstance(v, int) and v > 0):
+            raise ValueError(f"{k} must be None or a positive int, got {v!r}")
         setattr(_config, k, v)
     return _config
 

@@ -6,7 +6,9 @@ either model family (llama's rope tables and quantized ``{"q", "s"}`` /
 ``{"q4", "s4"}`` weights included), or an AdamW ``(m, v)`` state, since
 tuples map like lists. It returns the same tree of torch tensors, so
 laser_tpu and laser_tpu_torch compute the same function on the same
-numbers. ``params_to_numpy`` goes the other way.
+numbers. ``params_to_numpy`` goes the other way. ``packed_from_numpy``
+turns laser_tpu's ``PackedMatrix`` (its ``.data`` as NumPy) into the
+port's.
 """
 
 from __future__ import annotations
@@ -51,3 +53,17 @@ def params_to_numpy(tree):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def packed_from_numpy(data, rows: int, cols: int, block, operand: str, device="cuda"):
+    """The port's ``PackedMatrix`` of laser_tpu's packed operand: ``data`` is
+    its 4-D blocked array (``np.asarray(packed.data)``), the other fields
+    its own; the bytes stay as they are."""
+    from .ops.gemm.prepacked import PackedMatrix
+
+    if operand not in ("A", "B"):
+        raise ValueError(f"operand must be 'A' or 'B', got {operand!r}")
+    t = params_from_numpy(data, device)
+    if t.ndim != 4 or tuple(t.shape[2:]) != tuple(block):
+        raise ValueError(f"packed data of shape {tuple(t.shape)} does not hold blocks {block}")
+    return PackedMatrix(t, int(rows), int(cols), tuple(int(b) for b in block), operand)

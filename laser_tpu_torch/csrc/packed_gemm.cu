@@ -1,0 +1,458 @@
+// GEMM over pre-blocked, zero-padded operands: out = alpha * A B + beta * C.
+//
+// Replaces laser_tpu/ops/gemm/prepacked.py:80 _build_packed_gemm.
+//
+// The packed layout is laser_tpu's, byte for byte: A is (gm, gk, bm, bk),
+// B is (gk, gn, bk, bn), each block row-major, the padding zero
+// (ops/gemm/prepacked.py). C is the (M, N) accumulator-typed matrix or null;
+// out is (M, N), written by a masked epilogue (no padded output).
+//
+// What bounds it on the H100: at bench.py's 4096^3, operations: the bf16 and
+// f16 products on the tensor cores (989 TFLOP/s dense), f32 as full-fp32
+// FFMA (67 TFLOP/s; never TF32, config.matmul_precision "highest"), int8 on
+// the int8 tensor cores (int32 accumulators that wrap mod 2^32, as
+// laser_tpu's int32 accumulator does).
+//
+// Design. Packing exists so that the multiply reads each block as one
+// contiguous run and needs no edge masks; the "blocks" route (fast = 1)
+// exploits both. A CTA owns a CM x CN output tile inside one (bm, bn)
+// block (bm % CM == 0, bn % CN == 0). Its rows of an A block are one
+// contiguous run of CM * bk elements, and with bn == CN the B block is one
+// run of bk * CN; each k-block is staged whole (D = bk deep) into shared
+// memory by 16-byte cp.async copies, consecutive threads on consecutive
+// addresses, into rows padded against bank conflicts, two stages deep so
+// the next block loads while this one multiplies. The zero padding makes
+// tail blocks inert, so the main loop has no masks at all. Float types:
+// CTA 128 x 128, 256 threads; bf16/f16 through WMMA 16x16x16 (each warp 64
+// x 32, fp32 accumulators), f32 as FFMA (each thread 8 x 8). int8: CTA 64
+// x 64, 128 threads, WMMA s8 on the 64-deep staged tiles of
+// csrc/int8_tile.cuh, one slab at a time.
+// Any other block plan laser_tpu accepts (e.g. bm 48, bn 80, bk 40) takes
+// the "gather" route (fast = 0): the same kernels, each slab 32 (16-bit),
+// 16 (f32) or 64 (int8) deep gathered element by element from the blocked
+// layout with its index arithmetic, zero past the padded extent, loaded
+// synchronously.
+// Simple first: no TMA or wgmma yet.
+#include <mma.h>
+
+#include "common.cuh"
+#include "int8_tile.cuh"
+
+namespace {
+
+using namespace nvcuda;
+using ltt::from_f32;
+using ltt::to_f32;
+
+struct PackedArgs {
+  const void* a;  // (gm, gk, bm, bk)
+  const void* b;  // (gk, gn, bk, bn)
+  const void* c;  // (M, N) fp32 (int32 for int8 inputs) or null
+  void* out;      // (M, N) in out_dtype
+  int M, N, gm, gn, gk, bm, bn, bk;
+  float alpha, beta;
+  int alpha_i, beta_i;  // the int8 path's int32 alpha and beta
+  int out_dtype;
+};
+
+// Element (m, k) of packed A, or (k, n) of packed B; 0 past the padded extent.
+template <typename T>
+__device__ __forceinline__ T packed_a_at(const PackedArgs& p, int m, int k) {
+  const int i = m / p.bm, kb = k / p.bk;
+  if (i >= p.gm || kb >= p.gk) return from_f32<T>(0.f);
+  const size_t idx = (((size_t)i * p.gk + kb) * p.bm + (m - i * p.bm)) * p.bk + (k - kb * p.bk);
+  return static_cast<const T*>(p.a)[idx];
+}
+
+template <typename T>
+__device__ __forceinline__ T packed_b_at(const PackedArgs& p, int k, int n) {
+  const int kb = k / p.bk, j = n / p.bn;
+  if (kb >= p.gk || j >= p.gn) return from_f32<T>(0.f);
+  const size_t idx = (((size_t)kb * p.gn + j) * p.bk + (k - kb * p.bk)) * p.bn + (n - j * p.bn);
+  return static_cast<const T*>(p.b)[idx];
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void store_out(void* out, size_t i, float v, int dt) {
+  if (dt == ltt::kF32)
+    static_cast<float*>(out)[i] = v;
+  else if (dt == ltt::kBF16)
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
+  else
+    static_cast<__half*>(out)[i] = __float2half(v);
+}
+
+// laser_tpu's epilogue (prepacked.py:112-116) in the fp32 accumulator type:
+// alpha * acc, then + beta * C, each product and sum rounded on its own
+__device__ __forceinline__ void epilogue(const PackedArgs& p, float acc, int m, int n) {
+  if (m >= p.M || n >= p.N) return;
+  const size_t i = (size_t)m * p.N + n;
+  float r = __fmul_rn(acc, p.alpha);
+  if (p.c) r = __fadd_rn(r, __fmul_rn(p.beta, static_cast<const float*>(p.c)[i]));
+  store_out(p.out, i, r, p.out_dtype);
+}
+
+// ---------------------------------------------------------------------------
+// Float types: a CTA of 128 x 128 outputs, 256 threads, a two-stage ring of
+// (CM x D) A and (D x CN) B slabs in dynamic shared memory
+// ---------------------------------------------------------------------------
+constexpr int CM = 128, CN = 128, F_THREADS = 256;
+
+template <typename T>
+__host__ __device__ constexpr int pad_of() { return 16 / (int)sizeof(T); }
+// the gather route's slab depth: two WMMA steps, or 16 FFMA steps
+template <typename T>
+__host__ __device__ constexpr int gather_depth() { return sizeof(T) == 2 ? 32 : 16; }
+
+template <typename T>
+__host__ __device__ constexpr long long stage_elems(int D) {
+  return (long long)CM * (D + pad_of<T>()) + (long long)D * (CN + pad_of<T>());
+}
+
+// Stage slab s (k-block s on the blocks route, K rows [s D, s D + D) on the
+// gather route) of the CTA's A rows m0.. and B columns n0.. into As / Bs.
+template <typename T, bool FAST>
+__device__ __forceinline__ void load_stage(const PackedArgs& p, T* As, T* Bs, int D, int s,
+                                           int m0, int n0) {
+  constexpr int PAD = pad_of<T>(), V = 16 / (int)sizeof(T);
+  const int lda = D + PAD, ldb = CN + PAD;
+  if (FAST) {
+    // the CTA's rows of A block (m0 / bm, s): one run of CM * bk elements
+    const int i = m0 / p.bm;
+    const T* ga =
+        static_cast<const T*>(p.a) + (((size_t)i * p.gk + s) * p.bm + (m0 - i * p.bm)) * p.bk;
+    const int per_row = D / V;
+    for (int c = threadIdx.x; c < CM * per_row; c += F_THREADS) {
+      const int r = c / per_row;
+      cp_async16(As + r * lda + (c - r * per_row) * V, ga + (size_t)c * V);
+    }
+    // B block (s, n0 / bn), columns n0 % bn ..: bk rows of CN (one run when bn == CN)
+    const int j = n0 / p.bn;
+    const T* gb = static_cast<const T*>(p.b) + ((size_t)s * p.gn + j) * p.bk * p.bn +
+                  (n0 - j * p.bn);
+    constexpr int per_brow = CN / V;
+    for (int c = threadIdx.x; c < D * per_brow; c += F_THREADS) {
+      const int k = c / per_brow, nn = (c - k * per_brow) * V;
+      cp_async16(Bs + k * ldb + nn, gb + (size_t)k * p.bn + nn);
+    }
+  } else {
+    const int k0 = s * D;
+    for (int e = threadIdx.x; e < CM * D; e += F_THREADS) {
+      const int r = e / D, kk = e - r * D;
+      As[r * lda + kk] = packed_a_at<T>(p, m0 + r, k0 + kk);
+    }
+    for (int e = threadIdx.x; e < D * CN; e += F_THREADS) {
+      const int k = e / CN, nn = e - k * CN;
+      Bs[k * ldb + nn] = packed_b_at<T>(p, k0 + k, n0 + nn);
+    }
+  }
+}
+
+// The two-stage ring over the slabs: begin() stages slab 0; at(s) stages
+// slab s + 1 into the other buffer, waits for slab s and returns its A slab
+// (its B slab follows at + a_elems). The caller multiplies, then syncs the
+// block before the next at() overwrites the buffer it read.
+template <typename T, bool FAST>
+struct Ring {
+  int D, slabs;
+  long long stage, a_elems;
+  T* smem;
+  int m0, n0;
+
+  __device__ __forceinline__ Ring(const PackedArgs& p, T* smem_, int m0_, int n0_)
+      : D(FAST ? p.bk : gather_depth<T>()),
+        slabs(FAST ? p.gk : (p.gk * p.bk + D - 1) / D),
+        stage(stage_elems<T>(D)),
+        a_elems((long long)CM * (D + pad_of<T>())),
+        smem(smem_),
+        m0(m0_),
+        n0(n0_) {}
+
+  __device__ __forceinline__ void begin(const PackedArgs& p) {
+    if (slabs == 0) return;  // K = 0: no blocks
+    load_stage<T, FAST>(p, smem, smem + a_elems, D, 0, m0, n0);
+    cp_async_commit();
+  }
+
+  __device__ __forceinline__ const T* at(const PackedArgs& p, int s) {
+    if (s + 1 < slabs) {
+      T* nxt = smem + ((s + 1) & 1) * stage;
+      load_stage<T, FAST>(p, nxt, nxt + a_elems, D, s + 1, m0, n0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    return smem + (s & 1) * stage;
+  }
+};
+
+// bf16 / f16 on the tensor cores: 8 warps as 2 x 4, each 64 x 32 outputs
+template <typename T, bool FAST>
+__global__ void __launch_bounds__(F_THREADS) packed_tc_kernel(PackedArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int m0 = blockIdx.y * CM, n0 = blockIdx.x * CN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  constexpr int PAD = pad_of<T>(), ldb = CN + PAD;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  Ring<T, FAST> ring(p, smem, m0, n0);
+  const int lda = ring.D + PAD;
+  ring.begin(p);
+  for (int s = 0; s < ring.slabs; ++s) {
+    const T* As = ring.at(p, s);
+    const T* Bs = As + ring.a_elems;
+    for (int kk = 0; kk < ring.D; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm + i * 16) * lda + kk, lda);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + kk * ldb + wn + j * 16, ldb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // each warp stages one 16 x 16 fragment at a time through its own scratch
+  constexpr int LDS = 20;
+  float* scratch = reinterpret_cast<float*>(smem_raw) + warp * 16 * LDS;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(scratch, acc[i][j], LDS, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int r = e >> 4, cc = e & 15;
+        epilogue(p, scratch[r * LDS + cc], m0 + wm + i * 16 + r, n0 + wn + j * 16 + cc);
+      }
+      __syncwarp();
+    }
+}
+
+// f32 as FFMA: thread (ty, tx) owns rows ty + 16 i and columns tx * 4 + j,
+// 64 + tx * 4 + j (conflict-free float4 reads of B; A rows of the warp's two
+// ty values fall in different banks)
+template <bool FAST>
+__global__ void __launch_bounds__(F_THREADS) packed_f32_kernel(PackedArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int m0 = blockIdx.y * CM, n0 = blockIdx.x * CN;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  constexpr int ldb = CN + 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  Ring<float, FAST> ring(p, smem, m0, n0);
+  const int lda = ring.D + 4;
+  ring.begin(p);
+  for (int s = 0; s < ring.slabs; ++s) {
+    const float* As = ring.at(p, s);
+    const float* Bs = As + ring.a_elems;
+    for (int kk = 0; kk < ring.D; ++kk) {
+      float a[8], b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = As[(ty + 16 * i) * lda + kk];
+      const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * ldb + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(Bs + kk * ldb + 64 + tx * 4);
+      b[0] = b0.x, b[1] = b0.y, b[2] = b0.z, b[3] = b0.w;
+      b[4] = b1.x, b[5] = b1.y, b[6] = b1.z, b[7] = b1.w;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      epilogue(p, acc[i][j], m0 + ty + 16 * i, n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4));
+}
+
+// ---------------------------------------------------------------------------
+// int8: a CTA of 64 x 64 outputs, 4 warps of 32 x 32, WMMA s8 with int32
+// accumulators, one 64-deep slab of each operand staged at a time
+// ---------------------------------------------------------------------------
+constexpr int I8_THREADS = 128;
+constexpr int I8_LDC = 64 + 4;
+
+// Gather a 64 x 64 slab into the staged layout of csrc/int8_tile.cuh: A
+// K-contiguous (chunk (row, k part)), B not (chunk (k, column part)); byte
+// idx of the tile is chunk idx / 16, element idx % 16.
+template <bool A_OPERAND>
+__device__ __forceinline__ void gather_i8(int8_t* S, const PackedArgs& p, int r0, int k0) {
+  namespace i8 = ltt::i8;
+  for (int idx = threadIdx.x; idx < i8::kTileBytes; idx += I8_THREADS) {
+    const int chunk = idx >> 4, e = idx & 15;
+    const int part = chunk / i8::kTile, line = chunk - part * i8::kTile;
+    S[idx] = A_OPERAND ? packed_a_at<int8_t>(p, r0 + line, k0 + 16 * part + e)
+                       : packed_b_at<int8_t>(p, k0 + line, r0 + 16 * part + e);
+  }
+}
+
+template <bool FAST>
+__global__ void __launch_bounds__(I8_THREADS) packed_i8_kernel(PackedArgs p) {
+  namespace i8 = ltt::i8;
+  __shared__ __align__(128) int8_t As[i8::kTileBytes];
+  __shared__ __align__(128) int8_t Bs[i8::kTileBytes];
+  __shared__ __align__(128) int Cs[i8::kTile * I8_LDC];
+  const int m0 = blockIdx.y * i8::kTile, n0 = blockIdx.x * i8::kTile;
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int8_t* A = static_cast<const int8_t*>(p.a);
+  const int8_t* B = static_cast<const int8_t*>(p.b);
+  const int i = m0 / p.bm, j = n0 / p.bn;
+
+  i8::FragAcc acc[2][2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) wmma::fill_fragment(acc[a][b], 0);
+
+  const int slabs = (p.gk * p.bk + i8::kTile - 1) / i8::kTile;
+  for (int s = 0; s < slabs; ++s) {
+    const int k0 = s * i8::kTile;
+    if (FAST) {  // bk % 64 == 0: the slab lies in k-block kb, from row kin of it
+      const int kb = k0 / p.bk, kin = k0 - kb * p.bk;
+      i8::stage_tile<true>(As, A + ((size_t)i * p.gk + kb) * p.bm * p.bk, p.bk, m0 - i * p.bm,
+                           p.bm, kin, p.bk, true);
+      i8::stage_tile<false>(Bs, B + ((size_t)kb * p.gn + j) * p.bk * p.bn, p.bn, n0 - j * p.bn,
+                            p.bn, kin, p.bk, true);
+    } else {
+      gather_i8<true>(As, p, m0, k0);
+      gather_i8<false>(Bs, p, n0, k0);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < i8::kTile / 16; ++ks) {
+      i8::FragA<true> fa[2];
+      i8::FragB<false> fb[2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+        wmma::load_matrix_sync(fa[a], i8::frag_ptr<true>(As, wm + a * 16, ks), 16);
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        wmma::load_matrix_sync(fb[b], i8::frag_ptr<false>(Bs, wn + b * 16, ks), 16);
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) wmma::mma_sync(acc[a][b], fa[a], fb[b], acc[a][b]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      wmma::store_matrix_sync(Cs + (wm + a * 16) * I8_LDC + wn + b * 16, acc[a][b], I8_LDC,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int e = threadIdx.x; e < i8::kTile * i8::kTile; e += I8_THREADS) {
+    const int r = e / i8::kTile, cc = e % i8::kTile;
+    const int gm = m0 + r, gn = n0 + cc;
+    if (gm >= p.M || gn >= p.N) continue;
+    const size_t o = (size_t)gm * p.N + gn;
+    // alpha * acc + beta * C mod 2^32 (uint32: signed overflow is undefined)
+    uint32_t v = (uint32_t)Cs[r * I8_LDC + cc] * (uint32_t)p.alpha_i;
+    if (p.c) v += (uint32_t)p.beta_i * (uint32_t)static_cast<const int*>(p.c)[o];
+    static_cast<int*>(p.out)[o] = (int)v;
+  }
+}
+
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can opt into
+
+template <typename T>
+size_t smem_bytes(int D) {
+  return (size_t)(2 * stage_elems<T>(D)) * sizeof(T);
+}
+
+template <typename T, typename K>
+int launch_float(K kernel, const PackedArgs& p, int fast, cudaStream_t s) {
+  const size_t bytes = smem_bytes<T>(fast ? p.bk : gather_depth<T>());
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int st = ltt::allow_smem(kernel, bytes);
+  if (st) return st;
+  dim3 grid((p.N + CN - 1) / CN, (p.M + CM - 1) / CM);
+  kernel<<<grid, F_THREADS, bytes, s>>>(p);
+  return ltt::launch_status();
+}
+
+bool blocks_route_ok(const PackedArgs& p, int cm, int cn, int kalign) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p.a), b = reinterpret_cast<uintptr_t>(p.b);
+  return p.bm % cm == 0 && p.bn % cn == 0 && p.bk % kalign == 0 && a % 16 == 0 && b % 16 == 0;
+}
+
+}  // namespace
+
+// a: (gm, gk, bm, bk) and b: (gk, gn, bk, bn), contiguous, of in_dtype (f32,
+// bf16, f16 or int8); c: (M, N) fp32 (int32 for int8) or null; out: (M, N)
+// in out_dtype (f32/bf16/f16 for float inputs, int32 for int8). alpha and
+// beta: the int32 values for int8 inputs. fast: the blocks route (bm and bn
+// multiples of the CTA tile, bk of the k alignment, both pointers 16-byte
+// aligned, two stages of bk-deep slabs within 227 KB), else the gather route.
+LTT_API int ltt_gemm_packed(const void* a, const void* b, const void* c, void* out, int M, int N,
+                            int gm, int gn, int gk, int bm, int bn, int bk, double alpha,
+                            double beta, int in_dtype, int out_dtype, int fast, void* stream) {
+  PackedArgs p = {a, b, c, out, M, N, gm, gn, gk, bm, bn, bk,
+                  static_cast<float>(alpha), static_cast<float>(beta), 0, 0, out_dtype};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == ltt::kI8) {
+    if (out_dtype != ltt::kI32) return static_cast<int>(cudaErrorInvalidValue);
+    p.alpha_i = static_cast<int>(alpha);  // int32 values, exact in a double
+    p.beta_i = static_cast<int>(beta);
+    if (fast && !blocks_route_ok(p, ltt::i8::kTile, ltt::i8::kTile, ltt::i8::kTile))
+      return static_cast<int>(cudaErrorInvalidValue);
+    dim3 grid((N + ltt::i8::kTile - 1) / ltt::i8::kTile, (M + ltt::i8::kTile - 1) / ltt::i8::kTile);
+    if (fast)
+      packed_i8_kernel<true><<<grid, I8_THREADS, 0, s>>>(p);
+    else
+      packed_i8_kernel<false><<<grid, I8_THREADS, 0, s>>>(p);
+    return ltt::launch_status();
+  }
+  if (out_dtype != ltt::kF32 && out_dtype != ltt::kBF16 && out_dtype != ltt::kF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // k alignment of the blocks route: a 16-byte copy per row chunk, and 16
+  // deep WMMA steps for the 16-bit types
+  if (fast && !blocks_route_ok(p, CM, CN, in_dtype == ltt::kF32 ? 4 : 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (in_dtype == ltt::kF32)
+    return fast ? launch_float<float>(packed_f32_kernel<true>, p, 1, s)
+                : launch_float<float>(packed_f32_kernel<false>, p, 0, s);
+  if (in_dtype == ltt::kBF16)
+    return fast ? launch_float<__nv_bfloat16>(packed_tc_kernel<__nv_bfloat16, true>, p, 1, s)
+                : launch_float<__nv_bfloat16>(packed_tc_kernel<__nv_bfloat16, false>, p, 0, s);
+  if (in_dtype == ltt::kF16)
+    return fast ? launch_float<__half>(packed_tc_kernel<__half, true>, p, 1, s)
+                : launch_float<__half>(packed_tc_kernel<__half, false>, p, 0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

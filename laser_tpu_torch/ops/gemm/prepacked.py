@@ -1,0 +1,196 @@
+"""Prepacked GEMM: pack once, multiply many times (port of
+laser_tpu/ops/gemm/prepacked.py).
+
+``gemm_prepack_a``/``_b`` reorder a matrix into laser_tpu's pre-blocked,
+zero-padded 4-D layout, the same bytes as laser_tpu's for the same plan:
+
+    packed A: (ceil(M/bm), ceil(K/bk), bm, bk)
+    packed B: (ceil(K/bk), ceil(N/bn), bk, bn)
+
+``gemm_packed`` multiplies two packed operands: ``alpha * A @ B + beta * C``
+at (M, N). On CUDA tensors it runs the kernel of csrc/packed_gemm.cu
+(replaces laser_tpu/ops/gemm/prepacked.py:80 ``_build_packed_gemm``); on CPU
+tensors its plain version ``gemm_packed_plain``. With a plan from
+``plan_tiles`` (or any plan whose bm and bn are multiples of the kernel's
+CTA tile, see ``tiling.py``) the kernel reads every block as one contiguous
+run and masks nothing in its main loop (the "blocks" route); any other plan
+laser_tpu accepts runs the kernel's "gather" route, correct and slower.
+Kernel dtypes: f32 (full fp32), bf16 and f16 (fp32 accumulators), int8
+(int32 accumulators that wrap). The packing itself is a reshape in
+PyTorch, as laser_tpu's is XLA's. Like laser_tpu's, a packed operand bakes
+in its plan and dtype: never serialize it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ... import registry
+from ...config import check_f32_precision, pin_fp32_matmul
+from ...utils import round_step_up
+from .api import _acc_dtype, is_integer
+from .kernel import int32_scalar, int_epilogue
+from .tiling import CTA, GemmTiles, plan_tiles, smem_per_block, stage_bytes
+
+GEMM_PACKED = registry.kernel("gemm_packed", "laser_tpu_torch/csrc/packed_gemm.cu",
+                              "laser_tpu/ops/gemm/prepacked.py:80 _build_packed_gemm")
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
+_FLOAT_OUT = (torch.float32, torch.bfloat16, torch.float16)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedMatrix:
+    """Opaque packed operand (do not serialize; see the module docstring)."""
+
+    data: torch.Tensor  # 4-D blocked layout
+    rows: int  # logical (unpadded) rows
+    cols: int  # logical cols
+    block: tuple  # (block_rows, block_cols)
+    operand: str  # "A" or "B"
+
+    @property
+    def grid_shape(self):
+        return tuple(self.data.shape[:2])
+
+
+def _pack(x: torch.Tensor, br: int, bc: int, operand: str) -> PackedMatrix:
+    r, c = x.shape
+    rp, cp = round_step_up(r, br), round_step_up(c, bc)
+    if (rp, cp) != (r, c):
+        x = F.pad(x, (0, cp - c, 0, rp - r))
+    blocked = x.reshape(rp // br, br, cp // bc, bc).permute(0, 2, 1, 3).contiguous()
+    return PackedMatrix(blocked, r, c, (br, bc), operand)
+
+
+def _as_matrix(x, dtype) -> torch.Tensor:
+    x = torch.as_tensor(x)
+    return x if dtype is None else x.to(dtype)
+
+
+def gemm_prepack_a(a, *, tiles: Optional[GemmTiles] = None, n_hint: int = 1024,
+                   dtype=None) -> PackedMatrix:
+    """gemm_prepackA analog. ``n_hint`` is the expected N of future
+    multiplies, used only for planning."""
+    a = _as_matrix(a, dtype)
+    M, K = a.shape
+    tiles = tiles or plan_tiles(M, n_hint, K, a.dtype)
+    return _pack(a, tiles.bm, tiles.bk, "A")
+
+
+def gemm_prepack_b(b, *, tiles: Optional[GemmTiles] = None, m_hint: int = 1024,
+                   dtype=None) -> PackedMatrix:
+    """gemm_prepackB analog. ``m_hint``: the expected M, for planning."""
+    b = _as_matrix(b, dtype)
+    K, N = b.shape
+    tiles = tiles or plan_tiles(m_hint, N, K, b.dtype)
+    return _pack(b, tiles.bk, tiles.bn, "B")
+
+
+def gemm_packed_plain(alpha, packed_a: PackedMatrix, packed_b: PackedMatrix, beta, c,
+                      in_dtype, acc_dtype, out_dtype) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: per-block products summed
+    over the k-blocks in the accumulator type (fp32 with TF32 off; int8 in
+    f64, exact below 2^53, then wrapped to int32), alpha and beta * C in
+    that type, one cast."""
+    GEMM_PACKED.plain_calls += 1
+    A, B = packed_a.data.to(in_dtype), packed_b.data.to(in_dtype)
+    gm, gk, bm, bk = A.shape
+    gn, bn = B.shape[1], B.shape[3]
+    M, N = packed_a.rows, packed_b.cols
+    work = torch.float64 if in_dtype == torch.int8 else torch.float32
+    if work == torch.float32:
+        pin_fp32_matmul()
+    acc = torch.zeros((gm * bm, gn * bn), dtype=work, device=A.device)
+    for kb in range(gk):
+        a_kb = A[:, kb].reshape(gm * bm, bk).to(work)
+        b_kb = B[kb].permute(1, 0, 2).reshape(bk, gn * bn).to(work)
+        acc += a_kb @ b_kb
+    acc = acc[:M, :N]
+    if in_dtype == torch.int8:
+        return int_epilogue(acc.to(torch.int64), alpha=alpha, beta=beta, c=c, bias=None,
+                            epilogue=None, out_dtype=torch.int32).to(out_dtype)
+    r = acc * torch.tensor(float(alpha), dtype=torch.float32)
+    if c is not None:
+        r = r + torch.tensor(float(beta), dtype=torch.float32) * c.to(torch.float32)
+    return r.to(out_dtype)
+
+
+def blocks_route(dtype: torch.dtype, bm: int, bn: int, bk: int) -> bool:
+    """Whether the kernel takes its blocks route for this plan (the
+    conditions of csrc/packed_gemm.cu's ``blocks_route_ok`` and its shared
+    memory limit; the caller also needs 16-byte aligned data)."""
+    cm, cn, _ = CTA[dtype]
+    if dtype == torch.int8:
+        return bm % cm == 0 and bn % cn == 0 and bk % 64 == 0
+    kalign = 4 if dtype == torch.float32 else 16
+    return (bm % cm == 0 and bn % cn == 0 and bk % kalign == 0
+            and stage_bytes(dtype, bk) <= smem_per_block())
+
+
+def _packed_cuda(alpha, packed_a, packed_b, beta, c, in_dtype, out_dtype):
+    if in_dtype == torch.float32:
+        check_f32_precision()
+    a, b = packed_a.data, packed_b.data
+    if b.device != a.device or (c is not None and c.device != a.device):
+        raise ValueError(f"gemm_packed: operands on {a.device}, {b.device}"
+                         f"{'' if c is None else f', {c.device}'}")
+    a, b = a.to(in_dtype).contiguous(), b.to(in_dtype).contiguous()
+    gm, gk, bm, bk = a.shape
+    gn, bn = b.shape[1], b.shape[3]
+    M, N = packed_a.rows, packed_b.cols
+    int8 = in_dtype == torch.int8
+    kernel_out = torch.int32 if int8 else out_dtype if out_dtype in _FLOAT_OUT else torch.float32
+    out = torch.empty((M, N), dtype=kernel_out, device=a.device)
+    if M == 0 or N == 0:
+        return out.to(out_dtype)
+    c_acc = None if c is None else c.to(torch.int32 if int8 else torch.float32).contiguous()
+    if int8:
+        alpha, beta = int32_scalar(alpha), int32_scalar(beta)
+    fast = (blocks_route(in_dtype, bm, bn, bk) and a.data_ptr() % 16 == 0
+            and b.data_ptr() % 16 == 0)
+    lib = registry.load_library()
+    status = lib.ltt_gemm_packed(
+        a.data_ptr(), b.data_ptr(), None if c_acc is None else c_acc.data_ptr(), out.data_ptr(),
+        M, N, gm, gn, gk, bm, bn, bk, float(alpha), float(beta),
+        registry.GEMM_DTYPE_CODES[in_dtype], registry.GEMM_DTYPE_CODES[kernel_out], int(fast),
+        registry.stream_handle(a))
+    registry.check_launch(status, "gemm_packed")
+    GEMM_PACKED.launches += 1
+    return out if kernel_out == out_dtype else out.to(out_dtype)
+
+
+def gemm_packed(alpha, packed_a: PackedMatrix, packed_b: PackedMatrix, beta=0.0,
+                c: Optional[torch.Tensor] = None, *, out_dtype=None,
+                acc_dtype=None) -> torch.Tensor:
+    """gemm_packed analog: multiply two packed operands, returning the (M, N)
+    result ``alpha * A @ B + beta * C``. alpha and beta are cast to the
+    accumulator type (an int8 product with alpha 0.5 is 0, as in
+    laser_tpu)."""
+    if packed_a.operand != "A" or packed_b.operand != "B":
+        raise ValueError("need (packed A, packed B)")
+    if packed_a.cols != packed_b.rows:
+        raise ValueError(f"K mismatch: {packed_a.cols} vs {packed_b.rows}")
+    if packed_a.block[1] != packed_b.block[0]:
+        raise ValueError("pack tile plans disagree on bk; pack with the same GemmTiles")
+    in_dtype = torch.promote_types(packed_a.data.dtype, packed_b.data.dtype)
+    if in_dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(
+            f"gemm_packed: {in_dtype} operands (the packed kernel takes f32, bf16, f16 and "
+            "int8; the other dtypes are ROADMAP.md queue 1, item 4)")
+    acc = acc_dtype or _acc_dtype(in_dtype)
+    if acc != _acc_dtype(in_dtype):
+        raise NotImplementedError(
+            f"gemm_packed: {in_dtype} inputs accumulate in {_acc_dtype(in_dtype)}, not {acc} "
+            "(ROADMAP.md queue 1, item 4)")
+    out_dtype = out_dtype or (acc if is_integer(in_dtype) else in_dtype)
+    M, N = packed_a.rows, packed_b.cols
+    if c is not None and tuple(c.shape) != (M, N):
+        raise ValueError(f"gemm_packed: c shape {tuple(c.shape)} != {(M, N)}")
+    if registry.on_cuda(packed_a.data):
+        return _packed_cuda(alpha, packed_a, packed_b, beta, c, in_dtype, out_dtype)
+    return gemm_packed_plain(alpha, packed_a, packed_b, beta, c, in_dtype, acc, out_dtype)

@@ -117,6 +117,16 @@ SIGNATURES = {
     "ltt_transpose": (_P, _P, _I64, _I64, _I64, _I, _P),
     # x, N, element size, stream
     "ltt_transpose_inplace": (_P, _I64, _I, _P),
+    # p, g, m, v, n, lr (device) or null, lr, b1, b2, 1 - b1, 1 - b2, eps, wd,
+    # (bc1, bc2) (device) or null, bc1, bc2, has_wd, dtype, stream
+    "ltt_adamw": (_P, _P, _P, _P, _I64, _P, _F, _F, _F, _F, _F, _F, _F, _P, _F, _F, _I, _I, _P),
+    # p, g, m, n, lr (device) or null, lr, mu, nesterov, dtype, stream
+    "ltt_sgdm": (_P, _P, _P, _I64, _P, _F, _F, _I, _I, _P),
+    # src, f, dst, rows, cols, colour (0 red, 1 black, 2 Jacobi), dtype, stream
+    "ltt_stencil_sweep": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # a, b, c (or null), out, M, N, gm, gn, gk, bm, bn, bk, alpha, beta,
+    # in_dtype, out_dtype, fast (the blocks route), stream
+    "ltt_gemm_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P),
 }
 
 

@@ -29,7 +29,14 @@ f32/bf16/f16/int8 and past the grid's 65535 entries; the limb kernel at
 1-8 planes, buckets 1-8, K 1-8192 and all-(-128) digits; the int32 kernel
 at INT_MIN/MAX with alpha, beta, C and uint32; int64 across its K chunk
 and f64 against the CPU route; int8 quantization (per row, global,
-stochastic, f32/bf16/f16, 1 x 1 to 4096 x 3) and gemm_quantized.
+stochastic, f32/bf16/f16, 1 x 1 to 4096 x 3) and gemm_quantized; the
+library surface bit for bit: the AdamW and SGD-momentum updates in
+f32/bf16/f16 from 1 to 1000003 elements, unaligned (the scalar path), lr on
+the card, whole trees against the CPU route; the stencil sweeps in
+f32/bf16/f16 on grids from 2 x 5 to 257 x 130; the packed GEMM in
+f32/bf16/f16 (within the bounds below) and int8 (bit for bit) on planned,
+odd (48 x 80 x 40: the gather route) and wide plans, with beta * C, other
+output dtypes and the int8 alpha cast.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine that has none. Run it there with
@@ -45,6 +52,8 @@ zero up to rounding are held against max(max |plain|, 1) instead: at V = 1
 the cross-entropy loss and unit gradient, and at S = 1 the attention
 gradients dq and dk (the one probability is 1, so ds is zero).
 """
+
+import math
 
 import pytest
 import torch
@@ -1285,3 +1294,166 @@ def test_quantize_int8_zero_row_and_gemm_quantized(dev):
     got = gemm_quantized(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), gemm_quantized(a.cpu(), b.cpu()))
+
+
+# ---------------------------------------------------------------------------
+# The library surface: the fused optimizer updates (csrc/optim.cu), the
+# stencil sweeps (csrc/stencil.cu) and the packed GEMM (csrc/packed_gemm.cu)
+# ---------------------------------------------------------------------------
+
+def _hyper(lr, wd):
+    from laser_tpu_torch.ops.optim import _bias_corrections
+
+    bc1, bc2 = _bias_corrections(3, 0.9, 0.999)
+    return dict(lr=lr, b1=0.9, b2=0.999, omb1=float(1.0 - 0.9), omb2=float(1.0 - 0.999),
+                eps=1e-8, wd=wd, bc1=bc1, bc2=bc2, has_wd=wd != 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(1,), (37,), (3, 5, 7), (1000003,)])
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+@pytest.mark.parametrize("offset", [0, 1])  # 1: unaligned operands, the scalar path
+def test_adamw_update_bit_identical(dev, dtype, shape, wd, offset):
+    from laser_tpu_torch.ops.optim import ADAMW, adamw_update, adamw_update_plain
+
+    g = _gen(dev, 80)
+    n = math.prod(shape)
+
+    def leaf(std=1.0, positive=False):
+        x = torch.randn(n + offset, generator=g, device=dev) * std
+        x = x.abs() if positive else x
+        return x.to(dtype)[offset:].reshape(shape)
+
+    p, gr, m, v = leaf(), leaf(), leaf(0.1), leaf(0.01, positive=True)
+    want = [t.clone() for t in (p, gr, m, v)]
+    lr = torch.tensor(3e-4, device=dev) if offset else 3e-4
+    before = ADAMW.launches
+    adamw_update(p, gr, m, v, **_hyper(lr, wd))
+    assert ADAMW.launches == before + 1
+    adamw_update_plain(*want, **_hyper(lr, wd))
+    for got, ref in zip((p, m, v), (want[0], want[2], want[3])):
+        _equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(1,), (37,), (3, 5, 7), (1000003,)])
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_sgdm_update_bit_identical(dev, dtype, shape, nesterov):
+    from laser_tpu_torch.ops.optim import SGDM, sgdm_update, sgdm_update_plain
+
+    g = _gen(dev, 81)
+    p, gr, m = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3))
+    want = [t.clone() for t in (p, gr, m)]
+    before = SGDM.launches
+    sgdm_update(p, gr, m, lr=0.05, mu=0.9, nesterov=nesterov)
+    assert SGDM.launches == before + 1
+    sgdm_update_plain(*want, lr=0.05, mu=0.9, nesterov=nesterov)
+    _equal(p, want[0])
+    _equal(m, want[2])
+
+
+def test_optimizer_steps_on_the_card_match_the_cpu_route(dev):
+    """A tree of f32 and bf16 leaves, a schedule's lr on the card and a
+    tensor step: adamw_step and sgd_momentum_step (backend="pallas") on the
+    card give the CPU route's bits; a moment of another dtype comes back in
+    the parameter's."""
+    from laser_tpu_torch.ops import optim
+
+    g = torch.Generator().manual_seed(82)
+    tree = lambda: {"a": torch.randn(37, generator=g),  # noqa: E731
+                    "b": torch.randn(3, 5, 7, generator=g).bfloat16()}
+    p, grads = tree(), tree()
+    to = lambda t, d: optim.tree_map(lambda x: x.to(d), t)  # noqa: E731
+    m, v = optim.adamw_init(p)
+    m["b"] = m["b"].float()
+    cp, cm, cv = to(p, dev), to(m, dev), to(v, dev)
+    for step in (1, 2, 3):
+        p, m, v = optim.adamw_step(p, grads, m, v, step, lr=torch.tensor(1e-2),
+                                   weight_decay=0.1, backend="pallas")
+        cp, cm, cv = optim.adamw_step(cp, to(grads, dev), cm, cv,
+                                      torch.tensor(step, device=dev),
+                                      lr=torch.tensor(1e-2, device=dev), weight_decay=0.1,
+                                      backend="pallas")
+    assert cm["b"].dtype == torch.bfloat16
+    # the bias corrections differ by at most an ulp between the card's pow and the host's
+    for a, b in zip(optim.tree_leaves((cp, cm, cv)), optim.tree_leaves((p, m, v))):
+        torch.cuda.synchronize()
+        assert a.dtype == b.dtype
+        assert (a.cpu().float() - b.float()).abs().max().item() <= 1e-5 * b.float().abs().max()
+    mp, mm = to(p, dev), to(m, dev)
+    for nesterov in (False, True):
+        optim.sgd_momentum_step(p, grads, m, lr=0.05, nesterov=nesterov, backend="pallas")
+        optim.sgd_momentum_step(mp, to(grads, dev), mm, lr=0.05, nesterov=nesterov,
+                                backend="pallas")
+    for a, b in zip(optim.tree_leaves((mp, mm)), optim.tree_leaves((p, m))):
+        _equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(3, 3), (2, 5), (12, 16), (33, 65), (257, 130)])
+@pytest.mark.parametrize("method", ["redblack", "jacobi"])
+@pytest.mark.parametrize("iters", [1, 2, 5])
+def test_stencil_bit_identical(dev, dtype, shape, method, iters):
+    from laser_tpu_torch.ops.stencil import STENCIL, stencil_solve, stencil_sweeps_plain
+
+    g = _gen(dev, 83)
+    u, f = _rnd(g, shape, dtype, dev), _rnd(g, shape, dtype, dev, std=0.5)
+    u0 = u.clone()
+    before = STENCIL.launches
+    got = stencil_solve(u, f, iters=iters, method=method)
+    interior = min(shape) >= 3
+    assert STENCIL.launches == before + (iters * (2 if method == "redblack" else 1)
+                                         if interior else 0)
+    _equal(got, stencil_sweeps_plain(u, f, iters, method))
+    _equal(u, u0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int8])
+@pytest.mark.parametrize("plan", ["planned", (48, 80, 40), (256, 128, 64), (128, 256, 32)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (100, 120, 90), (130, 257, 200)])
+def test_gemm_packed(dev, dtype, plan, shape):
+    from laser_tpu_torch.ops.gemm import GemmTiles, gemm_packed, gemm_prepack_a, gemm_prepack_b
+    from laser_tpu_torch.ops.gemm.prepacked import GEMM_PACKED, gemm_packed_plain
+
+    M, N, K = shape
+    g = _gen(dev, 84)
+    if dtype == torch.int8:
+        a = torch.randint(-128, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+        b = torch.randint(-128, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+        c = torch.randint(-2**31, 2**31 - 1, (M, N), generator=g, device=dev, dtype=torch.int32)
+        alpha, beta = 3, -2
+    else:
+        a, b = _rnd(g, (M, K), dtype, dev), _rnd(g, (K, N), dtype, dev, std=K ** -0.5)
+        c, alpha, beta = _rnd(g, (M, N), torch.float32, dev), 0.5, -1.5
+    tiles = None if plan == "planned" else GemmTiles(*plan, vmem_limit_bytes=0)
+    pa, pb = gemm_prepack_a(a, tiles=tiles), gemm_prepack_b(b, tiles=tiles)
+    cpu_pa = gemm_prepack_a(a.cpu(), tiles=tiles)
+    _equal(pa.data, cpu_pa.data)  # the packed bytes do not depend on the device
+    for cc in (None, c):
+        before = GEMM_PACKED.launches
+        got = gemm_packed(alpha, pa, pb, beta, cc)
+        assert GEMM_PACKED.launches == before + 1
+        acc = torch.int32 if dtype == torch.int8 else torch.float32
+        want = gemm_packed_plain(alpha, pa, pb, beta, cc, dtype, acc, got.dtype)
+        if dtype == torch.int8:
+            _equal(got, want)
+        else:
+            _check(got, want, dtype)
+
+
+def test_gemm_packed_out_dtypes_and_int8_alpha(dev):
+    """bf16 inputs to an f32 output; int8 to f32 (a cast after the int32
+    kernel); an int8 alpha of 0.5 is 0, as laser_tpu casts it."""
+    from laser_tpu_torch.ops.gemm import gemm_packed, gemm_prepack_a, gemm_prepack_b
+
+    g = _gen(dev, 85)
+    a, b = _rnd(g, (70, 64), torch.bfloat16, dev), _rnd(g, (64, 50), torch.bfloat16, dev)
+    got = gemm_packed(1.0, gemm_prepack_a(a), gemm_prepack_b(b), out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    _check(got, a.float() @ b.float(), torch.float32)
+    ai = torch.randint(-128, 128, (70, 64), generator=g, device=dev, dtype=torch.int8)
+    bi = torch.randint(-128, 128, (64, 50), generator=g, device=dev, dtype=torch.int8)
+    pa, pb = gemm_prepack_a(ai), gemm_prepack_b(bi)
+    _equal(gemm_packed(1, pa, pb, out_dtype=torch.float32),
+           (ai.double() @ bi.double()).float())
+    assert not bool(gemm_packed(0.5, pa, pb).any())

@@ -72,14 +72,18 @@ def test_schedules_vs_laser_tpu(step):
 
 
 def test_schedule_feeds_adamw_and_pallas_backend_raises():
-    p = {"w": torch.ones(3)}
-    m, v = optim.adamw_init(p)
-    optim.adamw_step(p, {"w": torch.ones(3)}, m, v, 1,
-                     lr=optim.warmup_cosine_lr(1, peak_lr=0.1, warmup_steps=1,
-                                               total_steps=10))
-    torch.testing.assert_close(p["w"], torch.full((3,), 0.9))
-    with pytest.raises(NotImplementedError, match="_build_adamw"):
-        optim.adamw_step(p, p, m, v, 1, lr=0.1, backend="pallas")
+    """A schedule's 0-d lr feeds both backends; since the fused kernel is
+    ported, backend="pallas" runs it (here its plain version) and only an
+    unknown backend raises."""
+    for backend in (None, "pallas"):
+        p = {"w": torch.ones(3)}
+        m, v = optim.adamw_init(p)
+        optim.adamw_step(p, {"w": torch.ones(3)}, m, v, 1,
+                         lr=optim.warmup_cosine_lr(1, peak_lr=0.1, warmup_steps=1,
+                                                   total_steps=10), backend=backend)
+        torch.testing.assert_close(p["w"], torch.full((3,), 0.9))
+    with pytest.raises(ValueError, match="unknown adamw backend"):
+        optim.adamw_step(p, p, m, v, 1, lr=0.1, backend="mosaic")
 
 
 def test_accumulation_equals_full_batch():

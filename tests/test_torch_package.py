@@ -92,6 +92,7 @@ def test_every_slice_kernel_registered():
     import laser_tpu_torch.models.transformer  # noqa: F401
     import laser_tpu_torch.ops.quant  # noqa: F401
     import laser_tpu_torch.ops.reductions  # noqa: F401
+    import laser_tpu_torch.ops.stencil  # noqa: F401
     import laser_tpu_torch.ops.strided  # noqa: F401
     import laser_tpu_torch.ops.transpose  # noqa: F401
     import laser_tpu_torch.serving  # noqa: F401
@@ -104,14 +105,16 @@ def test_every_slice_kernel_registered():
         "for_each", "for_each_multi", "row_reduce", "map_reduce",  # generated bodies
         "for_each_strided", "map_reduce_staged",  # generated, layout slice
         "transpose", "transpose_inplace",  # layout slice
-        "gemm_batched", "gemm_int32", "gemm_limbs", "quantize_int8"}  # GEMM dtype table
+        "gemm_batched", "gemm_int32", "gemm_limbs", "quantize_int8",  # GEMM dtype table
+        "gemm_packed", "stencil_sweep", "adamw_update", "sgdm_update"}  # the library surface
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
         "ltt_flash_bwd_dq", "ltt_flash_bwd_dkv", "ltt_ce_fwd", "ltt_ce_fused_grad",
         "ltt_conv_planewise", "ltt_conv_direct", "ltt_softmax_rows", "ltt_softmax_online",
         "ltt_transpose", "ltt_transpose_inplace",
-        "ltt_gemm_batched", "ltt_gemm_limbs", "ltt_gemm_int32", "ltt_quantize_int8"}
+        "ltt_gemm_batched", "ltt_gemm_limbs", "ltt_gemm_int32", "ltt_quantize_int8",
+        "ltt_gemm_packed", "ltt_stencil_sweep", "ltt_adamw", "ltt_sgdm"}
     # alpha and beta are doubles: an int8 GEMM's int32 alpha passes exactly
     assert registry.SIGNATURES["ltt_gemm"][10:12] == (ctypes.c_double, ctypes.c_double)
     assert registry.SIGNATURES["ltt_quantize_int8"][8] is ctypes.c_int64  # the seed's 64 bits
@@ -121,6 +124,10 @@ def test_every_slice_kernel_registered():
     assert replaced["gemm_limbs"] == "laser_tpu/ops/gemm/limb_kernel.py:75 build_gemm_limbs"
     assert replaced["quantize_int8"] == "laser_tpu/ops/quant.py:29 _build_quantize"
     assert replaced["transpose"] == "laser_tpu/ops/transpose.py:42 _build_transpose"
+    assert replaced["gemm_packed"] == "laser_tpu/ops/gemm/prepacked.py:80 _build_packed_gemm"
+    assert replaced["stencil_sweep"] == "laser_tpu/ops/stencil.py:56 _build_sweeps"
+    assert replaced["adamw_update"] == "laser_tpu/ops/optim.py:38 _build_adamw"
+    assert replaced["sgdm_update"] == "laser_tpu/ops/optim.py:80 _build_sgdm"
     assert replaced["transpose_inplace"].startswith(
         "laser_tpu/ops/transpose.py:151 _build_inplace_transpose_pipelined")
     assert replaced["for_each_strided"] == "laser_tpu/ops/strided.py:222 build_strided_foreach"
@@ -218,6 +225,11 @@ def test_package_exports_laser_tpus_names():
         quant.quantize_int8, quant.dequantize_int8, quant.gemm_quantized)
     with pytest.raises(AttributeError):
         ltt.not_a_name  # noqa: B018
-    for name in ("gemm_packed", "gemm_prepack_a", "gemm_prepack_b"):  # row 32, not ported
-        with pytest.raises(AttributeError):
-            getattr(ltt, name)
+    from laser_tpu_torch.ops import optim, stencil
+
+    assert (ltt.gemm_packed, ltt.gemm_prepack_a, ltt.gemm_prepack_b) == (
+        gemm.gemm_packed, gemm.gemm_prepack_a, gemm.gemm_prepack_b)
+    assert (ltt.PackedMatrix, ltt.GemmTiles, ltt.plan_tiles) == (
+        gemm.PackedMatrix, gemm.GemmTiles, gemm.plan_tiles)
+    assert ltt.stencil_solve is stencil.stencil_solve
+    assert ltt.sgd_momentum_step is optim.sgd_momentum_step
