@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive laser_tpu_torch's serving, training, CNN, primitives, layout, GEMM
-dtype table and library paths on one CUDA card.
+dtype table, library and Llama training paths on one CUDA card.
 
 Run from the repository root, with no arguments:
 
@@ -171,6 +171,36 @@ printed:
    calls, the stencil's sweeps/s, effective GB/s and streaming bound, and
    the packing times.
 
+17. Llama training at phase 7's widths (Llama-3-8B: d_model 4096, 32
+   query heads over 8 kv heads of 128, d_ff 14336, vocab 128256, rope base
+   500000), depth cut to 8 of 32 layers, bf16, random weights from a seed;
+   one batch of 4 x 1024 tokens from RandomState(0): 4092 target rows, so
+   ``lm_cross_entropy`` takes its chunked branch (2 x 4092 x 128256 x 2 B
+   past the 1 GiB budget). First the step-1 loss and every gradient leaf
+   against the ``plain=True`` route (phase 5's bounds). Then the path,
+   counted (path "llama_train"): a value-only eval loss, 6
+   ``llama_train_step``s (median of steps 2-6 timed), the eval loss again;
+   every kernel of the path launched (``ce_bwd`` through the vocabulary
+   chunks), no plain version ran, the eval loss fell. One ``remat=True``
+   step at lr 0 (the weights stay), then one step without remat from the
+   same weights under torch.profiler: equal losses within phase 5's loss
+   bound, one more flash forward and two more norms a block with remat;
+   device time by kernel and the idle share. Last, ``llama_train_step_mp``
+   (a bf16 compute tree, fp32 masters and moments) at the same widths cut
+   to 4 layers: its loss finite and equal to the value-only loss of the
+   same bf16 weights within the bound, the weights moved. Prints training
+   tokens/s, step ms and peak memory.
+
+Phase 2 also holds ``ce_bwd`` (row 9) against ``ce_bwd_plain`` (bf16 within
+2^-7 of max, f32 1e-6) at T 2048 x V 256000 (``google/gemma-7b``'s
+vocabulary: the loss alone, no model) in bf16 and f32 with eps 0 and 0.1,
+and on two f32 chunks of phase 17's loss (T 4092 at column 3 x 8192 of
+the Llama-3 vocabulary, and its ragged last 5376 columns), its library
+call the backward alone of ``F.cross_entropy``. Phase 6 has a llama
+companion: 2 layers, d512, 8 query heads over 2 kv heads, vocab 8192,
+``memory_budget_bytes=None`` (the chunked branch), f32, TF32 off, its loss
+and gradients through the kernels against ``plain=True``.
+
 Phase 2 also runs each kernel of phases 15 and 16 once at a small odd
 shape against its plain version (bit for bit but for the packed float
 products), and holds the paged window (verify)
@@ -245,6 +275,15 @@ DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=2, d_ff=512, vocab=8192)
 LLAMA_DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab=8192)
 TRAINING_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
                     "flash_attention_bwd_dkv", "ce_fused_grad", "ce_fwd")
+# Llama training (phase 17): phase 7's widths and rope, batch 4 x 1024; the
+# loss's chunked branch runs ce_bwd and no other CE kernel
+LLAMA_TRAIN_BATCH = (4, 1024)
+LLAMA_MP_LAYERS = 4
+LLAMA_TRAIN_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
+                       "flash_attention_bwd_dkv", "ce_bwd")
+# ce_bwd against its plain version: f32 exp and the same fp32 arithmetic;
+# bf16 dx one rounding of the largest element apart
+CE_BWD_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-6}
 # run (b)'s block linears are all int4 and its logits torch.matmul: no gemm
 LLAMA_KERNELS = {"llama": ("gemm", "norm", "flash_attention", "paged_attention"),
                  "llama_int4": ("w4_gemm", "norm", "flash_attention", "paged_attention")}
@@ -323,16 +362,16 @@ def rel_error(got, want, per_row: bool = False):
     return d.max().item(), rel
 
 
-def compare(name, got, want, per_row: bool = False):
+def compare(name, got, want, per_row: bool = False, rel_bound: Optional[float] = None):
     """Max abs error of each output against the plain version, its relative
-    error (``rel_error``) held to the bound of its dtype; returns the
-    largest abs error."""
+    error (``rel_error``) held to ``rel_bound`` or the bound of its dtype;
+    returns the largest abs error."""
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want, strict=True)):
-        bound = REL_BOUND[g.dtype if g.dtype != torch.float16 else torch.bfloat16]
+        bound = rel_bound or REL_BOUND[g.dtype if g.dtype != torch.float16 else torch.bfloat16]
         if g.shape != w.shape or not torch.isfinite(g.float()).all():
             fail(f"{name}[{i}]: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite")
         err, rel = rel_error(g, w, per_row)
@@ -357,6 +396,7 @@ class Case:
     slot: str = ""            # "" for the kernel's main shape, else a sub-record
     per_row: bool = False     # rel_error per output row
     dtype: torch.dtype = torch.bfloat16  # the input type: the bound's peak rate
+    rel: Optional[float] = None  # the comparison's bound, if not REL_BOUND's
 
 
 def bound(case: Case, spec):
@@ -537,7 +577,48 @@ def kernel_cases(dtype, full: bool):
         library=lambda: torch.autograd.grad(
             F.cross_entropy(xg, tl, reduction="sum", label_smoothing=eps), xg),
         library_call="F.cross_entropy forward + backward"))
-    return cases
+    return cases + ce_bwd_cases(g, full)
+
+
+def ce_bwd_cases(g, full: bool):
+    """Row 9 at T 2048 x V 256000 (gemma-7b's vocabulary) in bf16 and f32
+    with eps 0 and 0.1, and on phase 17's f32 chunk logits: T 4092 at column
+    3 x 8192 of the Llama-3 vocabulary and its ragged last chunk (``full``);
+    one f32 case at a column offset otherwise."""
+    from laser_tpu_torch.ops import loss
+
+    def case(T, W, c0, V, dtype, eps, slot, library=True):
+        x = (torch.randn((T, W), generator=g, device=DEVICE) * 2).to(dtype)
+        t = torch.randint(0, V, (T,), generator=g, device=DEVICE)
+        t[::2] = torch.randint(c0, c0 + W, (len(t[::2]),), generator=g, device=DEVICE)
+        # the full row's lse is at least the tile's: p stays below 1
+        lse = torch.logsumexp(x.float(), dim=-1) + (0.0 if W == V else 1.0)
+        gr = torch.rand(T, generator=g, device=DEVICE) / T
+        lib, call = None, None
+        if library:  # the backward alone: the forward is taken outside the timer
+            xg = x.detach().requires_grad_(True)
+            out = F.cross_entropy(xg, t, reduction="none", label_smoothing=eps)
+            lib = lambda: torch.autograd.grad(out, xg, gr, retain_graph=True)  # noqa: E731
+            call = "torch.autograd.grad of F.cross_entropy(reduction='none') (backward alone)"
+        isz = x.element_size()
+        return Case("ce_bwd", f"T{T} V{V} columns [{c0}, {c0 + W}) eps{eps}",
+                    lambda: loss.ce_bwd(x, t, lse, gr, eps, c0=c0, V=V),
+                    lambda: loss.ce_bwd_plain(x, t, lse, gr, eps, c0=c0, V=V),
+                    flops=6 * T * W, nbytes=2 * T * W * isz + 3 * T * 4, library=lib,
+                    library_call=call, slot=slot, dtype=dtype, rel=CE_BWD_REL[dtype])
+
+    if not full:
+        return [case(300, 1000, 5000, 8192, torch.float32, 0.1, "", library=False)]
+    bf, f32 = torch.bfloat16, torch.float32
+    Vl, bv = LLAMA["vocab"], 8192
+    Tl = LLAMA_TRAIN_BATCH[0] * (LLAMA_TRAIN_BATCH[1] - 1)
+    return [case(2048, 256000, 0, 256000, bf, 0.0, ""),
+            case(2048, 256000, 0, 256000, bf, 0.1, "eps0.1"),
+            case(2048, 256000, 0, 256000, f32, 0.0, "f32"),
+            case(2048, 256000, 0, 256000, f32, 0.1, "f32_eps0.1"),
+            case(Tl, bv, 3 * bv, Vl, f32, 0.0, "llama_chunk", library=False),
+            case(Tl, Vl - Vl // bv * bv, Vl // bv * bv, Vl, f32, 0.0, "llama_last_chunk",
+                 library=False)]
 
 
 def w4_case(g, dtype, M, K, N, group, slot=""):
@@ -723,13 +804,13 @@ def phase_kernels(spec):
         decode_gemm_case(), w4_case(g, torch.bfloat16, 4096, 4096, 14336, 64, slot="prefill")
     ] + cnn_cases()
     for case in f32:
-        compare(f"{case.name} {case.shape} [f32]", case.kern(), case.plain(), case.per_row)
+        compare(f"{case.name} {case.shape} [f32]", case.kern(), case.plain(), case.per_row,
+                case.rel)
     table_small_checks()
     library_small_checks()
     for case in timed:
         err = compare(f"{case.name} {case.shape} [{DTYPE_TAGS[case.dtype]}]", case.kern(),
-                      case.plain(),
-                      case.per_row)
+                      case.plain(), case.per_row, case.rel)
         ms, pms = cuda_ms(case.kern), cuda_ms(case.plain, reps=5)
         lms = cuda_ms(case.library) if case.library else None
         bms, by = bound(case, spec)
@@ -856,12 +937,25 @@ def train_batch(vocab, shape, seed):
     return torch.as_tensor(toks, device=DEVICE).long()
 
 
-def loss_and_grads(params, tokens, n_heads, plain):
+def transformer_loss(n_heads):
+    """``loss(params, tokens, plain)`` of the transformer."""
     from laser_tpu_torch.models.transformer import transformer_lm_loss
+
+    return lambda p, t, plain: transformer_lm_loss(p, t, n_heads=n_heads, plain=plain)
+
+
+def llama_loss(cfg, **kw):
+    """``loss(params, tokens, plain)`` of the llama model ``cfg``."""
+    from laser_tpu_torch.models.llama import llama_lm_loss
+
+    return lambda p, t, plain: llama_lm_loss(p, t, n_heads=cfg["n_heads"],
+                                             n_kv_heads=cfg["n_kv_heads"], plain=plain, **kw)
+
+
+def loss_and_grads(params, tokens, loss_fn, plain):
     from laser_tpu_torch.ops.optim import value_and_grad
 
-    return value_and_grad(lambda p, t: transformer_lm_loss(p, t, n_heads=n_heads,
-                                                           plain=plain))(params, tokens)
+    return value_and_grad(lambda p, t: loss_fn(p, t, plain))(params, tokens)
 
 
 def leaf_names(tree, prefix=""):
@@ -872,13 +966,17 @@ def leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def check_routes(params, tokens, n_heads, loss_rel, grad_rel, norm: str):
+def check_routes(params, tokens, loss_fn, loss_rel, grad_rel, norm: str):
     """Loss and every gradient leaf, kernel route vs plain route. ``norm``:
-    "fro" compares ||a - b|| / ||b||, "max" max |a - b| / max |b|."""
+    "fro" compares ||a - b|| / ||b||, "max" max |a - b| / max |b|. The
+    rope tables (llama) are not trained: their leaves are left out."""
     from laser_tpu_torch.ops.optim import tree_leaves
 
-    lk, gk = loss_and_grads(params, tokens, n_heads, plain=False)
-    lp, gp = loss_and_grads(params, tokens, n_heads, plain=True)
+    static = {k: params[k] for k in ("rope_cos", "rope_sin") if k in params}
+    params = {k: v for k, v in params.items() if k not in static}
+    fn = (lambda p, t, plain: loss_fn({**p, **static}, t, plain)) if static else loss_fn
+    lk, gk = loss_and_grads(params, tokens, fn, plain=False)
+    lp, gp = loss_and_grads(params, tokens, fn, plain=True)
     rel = abs(lk.item() - lp.item()) / abs(lp.item())
     print(f"  loss kernel {lk.item():.6f} plain {lp.item():.6f} rel {rel:.3e} "
           f"(bound {loss_rel:.0e})", flush=True)
@@ -937,7 +1035,8 @@ def phase_train():
     n_heads = MODEL["n_heads"]
     params = tf.init_transformer(0, dtype=torch.bfloat16, device=DEVICE, **MODEL)
     tokens = train_batch(MODEL["vocab"], TRAIN_BATCH, 0)
-    check_routes(params, tokens, n_heads, TRAIN_LOSS_REL, TRAIN_GRAD_REL, "fro")
+    check_routes(params, tokens, transformer_loss(n_heads), TRAIN_LOSS_REL, TRAIN_GRAD_REL,
+                 "fro")
     torch.cuda.empty_cache()
 
     opt = tf.transformer_train_init(params)
@@ -986,7 +1085,7 @@ def phase_train_f32():
     n_heads = MODEL_F32["n_heads"]
     params = tf.init_transformer(1, dtype=torch.float32, device=DEVICE, **MODEL_F32)
     tokens = train_batch(MODEL_F32["vocab"], TRAIN_F32_BATCH, 1)
-    check_routes(params, tokens, n_heads, F32_LOSS_REL, F32_GRAD_REL, "max")
+    check_routes(params, tokens, transformer_loss(n_heads), F32_LOSS_REL, F32_GRAD_REL, "max")
     # Adam's first step moves each element by about lr whatever the size of
     # its gradient, so an element whose gradient lies within the summation
     # error of zero may step the other way: max |delta| <= 2 lr, mean
@@ -1007,6 +1106,22 @@ def phase_train_f32():
           f"differ by more than lr/2", flush=True)
     if not (dmax <= 2 * LR and dmean <= 1e-3 * LR):
         fail("f32 updated params outside the Adam-aware bound")
+
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models.llama import init_llama
+
+    print("  llama: 2L d512, 8 q heads over 2 kv heads, vocab 8192, the chunked loss "
+          "(memory_budget_bytes=None)", flush=True)
+    params = init_llama(1, dtype=torch.float32, device=DEVICE, max_len=TRAIN_F32_BATCH[1],
+                        **LLAMA_F32)
+    tokens = train_batch(LLAMA_F32["vocab"], TRAIN_F32_BATCH, 2)
+    registry.reset_counts()
+    check_routes(params, tokens, llama_loss(LLAMA_F32, memory_budget_bytes=None),
+                 F32_LOSS_REL, F32_GRAD_REL, "max")
+    counts = registry.counts()
+    for name in LLAMA_TRAIN_KERNELS:
+        if counts[name]["launches"] == 0:
+            fail(f"f32 llama loss: {name} never launched")
 
 
 def tree_bytes(tree) -> int:
@@ -2438,10 +2553,9 @@ def library_cases(spec):
     from laser_tpu_torch.ops import stencil as ST
     from laser_tpu_torch.ops.gemm import prepacked as PK
 
-    n_heads = MODEL["n_heads"]
     params = tf.init_transformer(0, dtype=torch.bfloat16, device=DEVICE, **MODEL)
     tokens = train_batch(MODEL["vocab"], TRAIN_BATCH, 0)
-    _, grads = loss_and_grads(params, tokens, n_heads, plain=False)
+    _, grads = loss_and_grads(params, tokens, transformer_loss(MODEL["n_heads"]), plain=False)
     del tokens
     torch.cuda.empty_cache()
     leaves = optim.tree_leaves(params)
@@ -2668,6 +2782,137 @@ def phase_library(spec):
     return {"library": counts}, entries
 
 
+
+def llama_train_params(n_layers: int, seed: int):
+    """Phase 7's model at ``n_layers``, bf16, with its rope tables."""
+    from laser_tpu_torch.models.llama import init_llama
+    from laser_tpu_torch.ops.rope import rope_tables
+
+    cfg = dict(LLAMA, n_layers=n_layers)
+    params = init_llama(seed, dtype=torch.bfloat16, device=DEVICE,
+                        max_len=LLAMA_ROPE["max_len"], **cfg)
+    params["rope_cos"], params["rope_sin"] = rope_tables(
+        LLAMA_ROPE["max_len"], LLAMA["d_model"] // LLAMA["n_heads"], base=LLAMA_ROPE["base"],
+        device=DEVICE)
+    return params
+
+
+def phase_llama_train():
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models import llama
+    from laser_tpu_torch.ops.optim import tree_leaves
+
+    print("phase 17: llama training, Llama-3-8B widths, 8 layers bf16, batch 4x1024",
+          flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"  card: {smi.stdout.strip()}", flush=True)
+    kw = dict(n_heads=LLAMA["n_heads"], n_kv_heads=LLAMA["n_kv_heads"])
+    params = llama_train_params(LLAMA["n_layers"], 0)
+    n_params = sum(t.numel() for k, v in params.items() if not k.startswith("rope_")
+                   for t in tree_leaves(v))
+    tokens = train_batch(LLAMA["vocab"], LLAMA_TRAIN_BATCH, 0)
+    rows = LLAMA_TRAIN_BATCH[0] * (LLAMA_TRAIN_BATCH[1] - 1)
+    logit_bytes = 2 * rows * 128 * math.ceil(LLAMA["vocab"] / 128) * 2
+    print(f"  {n_params / 1e9:.3f} B trained params; {rows} target rows; logits + residual "
+          f"{logit_bytes / 1e9:.3f} GB past the 1 GiB budget: the chunked branch", flush=True)
+    if logit_bytes <= 1024 ** 3:
+        fail("phase 17's loss would take the materialized branch")
+    check_routes(params, tokens, llama_loss(LLAMA), TRAIN_LOSS_REL, TRAIN_GRAD_REL, "fro")
+    torch.cuda.empty_cache()
+
+    opt = llama.llama_train_init(params)
+
+    def step(i, **extra):
+        return llama.llama_train_step(params, opt, tokens, i, **kw, **{
+            "lr": LR, "weight_decay": WD, **extra})[2]
+
+    def eval_loss():
+        with torch.no_grad():
+            return llama.llama_lm_loss(params, tokens, **kw).item()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_counts()
+    eval0 = eval_loss()
+    losses, times = [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(i).item())  # synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    eval6 = eval_loss()
+    counts = registry.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  counts {json.dumps({k: v for k, v in counts.items() if any(v.values())})}",
+          flush=True)
+    check_counts(counts, LLAMA_TRAIN_KERNELS, "llama_train")
+    print(f"  step losses {[round(x, 5) for x in losses]}", flush=True)
+    print(f"  eval loss before step 1 {eval0:.6f}, after step {TRAIN_STEPS} {eval6:.6f}",
+          flush=True)
+    if not (math.isfinite(eval0) and math.isfinite(eval6) and eval6 < eval0):
+        fail(f"llama eval loss did not fall: {eval0} -> {eval6}")
+    step_ms = statistics.median(times[1:])
+    print(f"  step ms (median of steps 2-{TRAIN_STEPS}) {step_ms:.2f} "
+          f"(all {[round(t, 2) for t in times]}); {rows / step_ms * 1e3:.1f} training "
+          f"tokens/s ({rows} target tokens per step); peak memory {peak_gb:.3f} GB",
+          flush=True)
+
+    # remat at lr 0 and no decay leaves the weights as they are, so the next
+    # step (profiled, no remat) starts from the same weights
+    registry.reset_counts()
+    rloss = step(TRAIN_STEPS + 1, lr=0.0, weight_decay=0.0, remat=True).item()
+    rcounts = registry.counts()
+    registry.reset_counts()
+    out = {}
+    prof = profile_step(lambda: out.setdefault("loss", step(TRAIN_STEPS + 2)))
+    pcounts = registry.counts()
+    nloss = out["loss"].item()
+    rel = abs(rloss - nloss) / abs(nloss)
+    extra = {k: rcounts[k]["launches"] - pcounts[k]["launches"] for k in ("flash_attention",
+                                                                         "norm")}
+    print(f"  remat step loss {rloss:.6f}, the same weights without remat {nloss:.6f}: rel "
+          f"{rel:.3e} (bound {TRAIN_LOSS_REL:.0e}); launches with remat minus without "
+          f"{extra} (a block's flash forward and its two norms again)", flush=True)
+    if not rel <= TRAIN_LOSS_REL:
+        fail(f"remat step loss {rloss} vs {nloss}")
+    check_counts(rcounts, LLAMA_TRAIN_KERNELS, "llama_train remat")
+    if extra != {"flash_attention": LLAMA["n_layers"], "norm": 2 * LLAMA["n_layers"]}:
+        fail(f"remat relaunched {extra}")
+    del params, opt, out
+    torch.cuda.empty_cache()
+
+    # mixed precision: fp32 masters and moments at 4 layers
+    print(f"  llama_train_step_mp at {LLAMA_MP_LAYERS} layers: bf16 compute tree, fp32 "
+          "masters and moments", flush=True)
+    params = llama_train_params(LLAMA_MP_LAYERS, 1)
+    with torch.no_grad():
+        bf16_loss = llama.llama_lm_loss(params, tokens, **kw).item()
+    torch.cuda.reset_peak_memory_stats()
+    state = llama.llama_train_init_mp(params)
+    before = params["unembed"].clone()
+    registry.reset_counts()
+    _, state, mp_loss = llama.llama_train_step_mp(params, state, tokens, 1, lr=LR,
+                                                  weight_decay=WD, **kw)
+    mp_loss = mp_loss.item()
+    mp_peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts(registry.counts(), LLAMA_TRAIN_KERNELS, "llama_train mp")
+    rel = abs(mp_loss - bf16_loss) / abs(bf16_loss)
+    moved = not torch.equal(params["unembed"], before)
+    print(f"  mp step loss {mp_loss:.6f}, value-only loss of the same bf16 weights "
+          f"{bf16_loss:.6f}: rel {rel:.3e} (bound {TRAIN_LOSS_REL:.0e}); weights moved "
+          f"{moved}; peak memory {mp_peak:.3f} GB", flush=True)
+    if not (math.isfinite(mp_loss) and rel <= TRAIN_LOSS_REL and moved):
+        fail(f"mixed-precision step: loss {mp_loss} vs {bf16_loss}, moved {moved}")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"llama_train": counts}, {
+        "step_ms": step_ms, "step_ms_all": times, "tokens_per_step": rows,
+        "tokens_per_s": rows / step_ms * 1e3, "peak_gb": peak_gb, "trained_params": n_params,
+        "eval_loss": [eval0, eval6], "losses": losses, "remat_loss": [rloss, nloss],
+        "remat_extra_launches": extra, "profile": prof, "mp_loss": [mp_loss, bf16_loss],
+        "mp_peak_gb": mp_peak}
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2725,6 +2970,7 @@ def main():
     library_counts, library_record = timed(phase_library, spec)
     for k, v in library_record.items():
         record.setdefault(k, {}).update(v)
+    llama_train_counts, llama_train = timed(phase_llama_train)
 
     kernels = []
     for name, k in registry.KERNELS.items():
@@ -2738,13 +2984,15 @@ def main():
                    **{tag: c[name]["launches"] for tag, c in prim_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in layout_counts.items()},
                    **{tag: c[name]["launches"] for tag, c in table_counts.items()},
-                   **{tag: c[name]["launches"] for tag, c in library_counts.items()}}
+                   **{tag: c[name]["launches"] for tag, c in library_counts.items()},
+                   **{tag: c[name]["launches"] for tag, c in llama_train_counts.items()}}
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **r})
     print(json.dumps({"card": card, "engine": engine, "train": train, "llama": llama,
                       "spec_s1": s1, "spec_s2": s2, "cnn": cnn_result,
-                      "primitives": prim_result, "layout": layout_result}), flush=True)
+                      "primitives": prim_result, "layout": layout_result,
+                      "llama_train": llama_train}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,10 +3,13 @@
 ``params_from_numpy`` takes a laser_tpu tree whose leaves are NumPy arrays
 (``jax.tree.map(np.asarray, tree)`` on the JAX side): a params pytree of
 either model family (llama's rope tables and quantized ``{"q", "s"}`` /
-``{"q4", "s4"}`` weights included), or an AdamW ``(m, v)`` state, since
-tuples map like lists. It returns the same tree of torch tensors, so
-laser_tpu and laser_tpu_torch compute the same function on the same
-numbers. ``params_to_numpy`` goes the other way. ``packed_from_numpy``
+``{"q4", "s4"}`` weights included), or an optimizer state, since tuples
+map like lists: AdamW's ``(m, v)`` (``llama_train_init``,
+``transformer_train_init``) or the mixed-precision ``(m, v, master)``
+(``llama_train_init_mp``), so that a laser_tpu state taken across
+continues laser_tpu's training in the port. It returns the same tree of
+torch tensors, so laser_tpu and laser_tpu_torch compute the same function
+on the same numbers. ``params_to_numpy`` goes the other way. ``packed_from_numpy``
 turns laser_tpu's ``PackedMatrix`` (its ``.data`` as NumPy) into the
 port's.
 """

@@ -13,9 +13,13 @@ laser_tpu's custom VJP does; without grad it is ``attention``.
 ``attention_reference`` is the kernel's plain PyTorch version, differentiable
 by autograd. ``attention_gqa`` is grouped-query attention over q
 (B, Hq, S, D) and k, v (B, Hkv, S, D): the same kernel maps each query head
-to its kv head, so K and V are read at Hkv heads and never repeated. The
-GQA backward, sliding windows, ``k_valid`` and ring offsets are not ported
-yet and raise.
+to its kv head, so K and V are read at Hkv heads and never repeated.
+``attention_gqa_trainable`` is its differentiable form: the same GQA
+forward saving only q, k and v; its backward expands K/V across each group
+(``repeat_interleave``, ``jnp.repeat``'s head order), re-runs the flash
+forward with stats and the two backward kernels on the expanded tensors,
+and sums dk/dv over each group, as laser_tpu's ``_gqa_bwd``. Sliding
+windows, ``k_valid`` and ring offsets are not ported yet and raise.
 
 Replaces laser_tpu/ops/attention.py:60 _build_flash (value output, the
 ``return_stats=True`` variant and the GQA ``kv_heads`` map). Bound on the
@@ -159,7 +163,20 @@ def attention_reference(q, k, v, *, causal: bool = False,
     return _attention(q, k, v, causal, scale, window, plain=True)
 
 
-def _attention_gqa(q, k, v, causal, scale, window, plain):
+def _prepare_gqa(q, k, v, scale, window):
+    """Checks a GQA call (Hq != Hkv); (q3, k3, v3, scale) as flat heads."""
+    if window is not None:
+        raise NotImplementedError("attention_gqa: sliding window is not ported")
+    B, Hq, S, D = q.shape
+    if D > MAX_HEAD_DIM:
+        raise NotImplementedError(f"attention_gqa: head dim {D} > {MAX_HEAD_DIM}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    q3 = q.reshape(B * Hq, S, D).contiguous()
+    k3, v3 = (t.reshape(B * k.shape[1], S, D).contiguous() for t in (k, v))
+    return q3, k3, v3, scale
+
+
+def _check_gqa(q, k, v):
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError("attention_gqa expects (B, H, S, D) tensors")
     B, Hq, S, D = q.shape
@@ -169,15 +186,14 @@ def _attention_gqa(q, k, v, causal, scale, window, plain):
                          f"vs q {tuple(q.shape)}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+
+
+def _attention_gqa(q, k, v, causal, scale, window, plain):
+    _check_gqa(q, k, v)
+    Hq, Hkv = q.shape[1], k.shape[1]
     if Hq == Hkv:
         return _attention(q, k, v, causal, scale, window, plain)
-    if window is not None:
-        raise NotImplementedError("attention_gqa: sliding window is not ported")
-    if D > MAX_HEAD_DIM:
-        raise NotImplementedError(f"attention_gqa: head dim {D} > {MAX_HEAD_DIM}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    q3 = q.reshape(B * Hq, S, D).contiguous()
-    k3, v3 = (t.reshape(B * Hkv, S, D).contiguous() for t in (k, v))
+    q3, k3, v3, scale = _prepare_gqa(q, k, v, scale, window)
     o = flash_forward(q3, k3, v3, causal, scale, plain=plain, kv_heads=(Hq, Hkv))
     return o.reshape(q.shape)
 
@@ -245,6 +261,50 @@ def attention_trainable(q, k, v, *, causal: bool = False,
         return attention(q, k, v, causal=causal, scale=scale, window=window)
     q3, k3, v3, scale, lead = _prepare(q, k, v, scale, window)
     return _FlashAttention.apply(q3, k3, v3, causal, scale).reshape(q.shape)
+
+
+class _GQAFlash(torch.autograd.Function):
+    """The GQA flash forward; backward by K/V expansion
+    (laser_tpu/ops/attention.py:652-682, _gqa_fwd/_gqa_bwd)."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, causal, scale, kv_heads):
+        ctx.save_for_backward(q3, k3, v3)
+        ctx.cfg = (causal, scale, kv_heads)
+        return flash_forward(q3, k3, v3, causal, scale, kv_heads=kv_heads)
+
+    @staticmethod
+    def backward(ctx, do):
+        q3, k3, v3 = ctx.saved_tensors
+        causal, scale, (Hq, Hkv) = ctx.cfg
+        grp = Hq // Hkv
+        _, S, D = k3.shape
+        ke, ve = (t.reshape(-1, Hkv, S, D).repeat_interleave(grp, dim=1).reshape(q3.shape)
+                  for t in (k3, v3))
+        o, m, l = flash_forward(q3, ke, ve, causal, scale, stats=True)
+        dq, dke, dve = attention_bwd.flash_attention_bwd(
+            q3, ke, ve, o, m, l, do.contiguous(), causal=causal, scale=scale)
+        dk, dv = (t.reshape(-1, Hkv, grp, S, D).float().sum(2).to(k3.dtype).reshape(k3.shape)
+                  for t in (dke, dve))
+        return dq, dk, dv, None, None, None
+
+
+def attention_gqa_trainable(q, k, v, *, causal: bool = False,
+                            scale: Optional[float] = None,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """Differentiable GQA: the native grouped flash forward; the backward
+    expands K/V across each group, runs the flash backward kernels and
+    group-sums dk/dv. ``attention_trainable`` when Hq == Hkv; the
+    value-only ``attention_gqa`` when no gradient is needed."""
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if not needs_grad:
+        return attention_gqa(q, k, v, causal=causal, scale=scale, window=window)
+    _check_gqa(q, k, v)
+    if q.shape[1] == k.shape[1]:
+        return attention_trainable(q, k, v, causal=causal, scale=scale, window=window)
+    q3, k3, v3, scale = _prepare_gqa(q, k, v, scale, window)
+    return _GQAFlash.apply(q3, k3, v3, causal, scale,
+                           (q.shape[1], k.shape[1])).reshape(q.shape)
 
 
 # last, as a module: attention_bwd imports this module's helpers. Importing

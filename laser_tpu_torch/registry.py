@@ -95,6 +95,8 @@ SIGNATURES = {
     "ltt_ce_fwd": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     # x, targets, loss, dxu, T, V, eps, dtype, stream
     "ltt_ce_fused_grad": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # x, targets, lse, g, dx, T, W (columns of x), c0, V, eps, dtype, stream
+    "ltt_ce_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _I, _P),
     # q, k_pool, v_pool, k_scale (or null), v_scale (or null), tables,
     # lengths, out, S, Hq, Hkv, ps, hd, max_pages, scale, dtype, pool_dtype,
     # stream

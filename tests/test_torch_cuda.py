@@ -2,7 +2,11 @@
 card, at odd shapes the serving and training slices do not reach:
 transposes, f16, ragged tails, unaligned operands, narrow rows, other head
 dims, GQA; the flash stats and backward kernels at S 1-300 and D 32-256; the
-cross-entropy kernels at V 1, 127 and 8193 with label smoothing; the int4
+cross-entropy kernels at V 1, 127 and 8193 with label smoothing; ``ce_bwd``
+at ragged widths past its 8192-column tile, at a column offset (Llama-3's
+ragged last chunk), unaligned, g = 0 rows exact zeros; the chunked
+``lm_cross_entropy`` in both layouts and a small llama train step (with
+``remat``) through the kernels against the plain route; the int4
 weight GEMM at M 1-300, K 64-4096 and groups 16 and 64; the flash kernel's
 GQA map at groups 1-8; the paged kernel over int8 pages at groups 1-8; the
 paged window (verify) kernel at W 1-8, groups 1-8, float and int8 pages;
@@ -265,6 +269,121 @@ def test_train_step_through_the_kernels(dev):
     # autograd of the plain forward): 1e-4 of each leaf's largest element
     for a, b in zip(tree_leaves(grads), tree_leaves(pgrads)):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+# ce_bwd against its plain version: f32 exp and the same fp32 arithmetic,
+# 1e-6; 16-bit outputs one rounding of the largest element apart
+CE_BWD_REL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+def _ce_bwd_inputs(g, T, W, c0, V, dtype, dev):
+    x = _rnd(g, (T, W), dtype, dev, std=4.0)
+    t = torch.randint(c0, c0 + W, (T,), generator=g, device=dev)
+    t[::3] = torch.randint(0, V, (len(t[::3]),), generator=g, device=dev)
+    # a chunk's lse is at most the whole row's: p stays below 1
+    lse = torch.logsumexp(x.float(), dim=-1) + torch.rand(T, generator=g, device=dev)
+    gr = torch.randn(T, generator=g, device=dev)
+    gr[T // 2] = 0.0  # an ignore_index row
+    return x, t, lse, gr
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,W,c0,V", [(1, 1, 0, 1), (37, 127, 0, 127), (129, 8193, 0, 8193),
+                                      (64, 300, 1000, 1300), (3, 20000, 0, 20000),
+                                      (9, 5376, 122880, 128256)])
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_ce_bwd(dev, dtype, T, W, c0, V, eps):
+    from laser_tpu_torch.ops import loss
+
+    x, t, lse, gr = _ce_bwd_inputs(_gen(dev, 12), T, W, c0, V, dtype, dev)
+    before = loss.CE_BWD.launches
+    got = loss.ce_bwd(x, t, lse, gr, eps, c0=c0, V=V)
+    want = loss.ce_bwd_plain(x, t, lse, gr, eps, c0=c0, V=V)
+    torch.cuda.synchronize()
+    assert loss.CE_BWD.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= CE_BWD_REL[dtype] * max(want.float().abs().max().item(), 1e-30), err
+    assert torch.count_nonzero(got[T // 2]) == 0
+
+
+def test_ce_bwd_unaligned_rows(dev):
+    """Rows off a 16-byte boundary, or a width that is not a multiple of the
+    vector, take the element-wise path."""
+    from laser_tpu_torch.ops import loss
+
+    g = _gen(dev, 14)
+    x = _rnd(g, (7 * 64 + 1,), torch.bfloat16, dev)[1:].view(7, 64)
+    assert x.data_ptr() % 16
+    _, t, lse, gr = _ce_bwd_inputs(g, 7, 64, 0, 64, torch.bfloat16, dev)
+    for eps in (0.0, 0.1):
+        _check(loss.ce_bwd(x, t, lse, gr, eps), loss.ce_bwd_plain(x, t, lse, gr, eps),
+               torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("transb", [True, False])
+def test_lm_cross_entropy_chunked(dev, dtype, transb):
+    """The chunked branch through ce_bwd (and, for bf16, the GEMM kernel)
+    against its plain route: V 1000 in chunks of 256, the last 232 wide."""
+    from laser_tpu_torch.ops import loss
+    from laser_tpu_torch.ops.gemm.kernel import GEMM
+
+    g = _gen(dev, 13)
+    T, D, V = 77, 96, 1000
+    h = _rnd(g, (T, D), dtype, dev).requires_grad_(True)
+    emb = _rnd(g, (V, D) if transb else (D, V), dtype, dev, std=0.3).requires_grad_(True)
+    t = torch.randint(0, V, (T,), generator=g, device=dev)
+    t[:5] = 3
+    kw = dict(transb=transb, label_smoothing=0.1, ignore_index=3, memory_budget_bytes=None,
+              block_v=256)
+    before = (loss.CE_BWD.launches, GEMM.launches)
+    lk = loss.lm_cross_entropy(h, emb, t, **kw)
+    dk = torch.autograd.grad(lk, (h, emb))
+    torch.cuda.synchronize()
+    gemms = 4 * 4 if dtype == torch.bfloat16 else 0  # 4 chunks: 1 forward, 3 backward
+    assert (loss.CE_BWD.launches, GEMM.launches) == (before[0] + 4, before[1] + gemms)
+    lp = loss.lm_cross_entropy(h, emb, t, plain=True, **kw)
+    dp = torch.autograd.grad(lp, (h, emb))
+    assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
+    for a, b in zip(dk, dp):
+        _check(a, b, dtype)
+
+
+def test_llama_train_step_through_the_kernels(dev):
+    """A small f32 llama loss and gradients on the card, the loss through
+    the chunked branch: every kernel of the path launches, no plain version
+    runs, the loss and gradients equal the plain route's; with remat the
+    same gradients, one more flash forward and two more norms a block."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.models import llama
+    from laser_tpu_torch.ops.optim import tree_leaves, value_and_grad
+
+    params = llama.init_llama(6, n_layers=2, d_model=128, n_heads=8, n_kv_heads=2, d_ff=256,
+                              vocab=300, max_len=64, device=dev)
+    tokens = torch.randint(0, 300, (2, 33), generator=_gen(dev, 15), device=dev)
+
+    def run(**kw):
+        registry.reset_counts()
+        out = value_and_grad(lambda p, t: llama.llama_lm_loss(
+            p, t, n_heads=8, n_kv_heads=2, memory_budget_bytes=None, **kw))(params, tokens)
+        torch.cuda.synchronize()
+        return out, registry.counts()
+
+    (loss, grads), counts = run()
+    for name in ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "ce_bwd"):
+        assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
+    (ploss, pgrads), _ = run(plain=True)
+    assert abs(loss.item() - ploss.item()) <= 1e-5 * abs(ploss.item())
+    for a, b in zip(tree_leaves(grads), tree_leaves(pgrads)):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    (rloss, rgrads), rcounts = run(remat=True)
+    assert rloss.item() == loss.item()
+    for a, b in zip(tree_leaves(rgrads), tree_leaves(grads)):
+        assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item()
+    assert rcounts["flash_attention"]["launches"] == counts["flash_attention"]["launches"] + 2
+    assert rcounts["norm"]["launches"] == counts["norm"]["launches"] + 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -134,4 +134,8 @@ def test_unported_options_raise(models):
     with pytest.raises(NotImplementedError):
         llama.llama_forward(params, toks, n_heads=N_HEADS, n_kv_heads=N_KV_HEADS, window=2)
     with pytest.raises(NotImplementedError):
-        llama.llama_hidden(params, toks, n_heads=N_HEADS, n_kv_heads=N_KV_HEADS, remat=True)
+        llama.llama_hidden(params, toks, n_heads=N_HEADS, n_kv_heads=N_KV_HEADS, window=2)
+    # remat is ported (tests/test_torch_llama_train.py): the same hidden states
+    kw = dict(n_heads=N_HEADS, n_kv_heads=N_KV_HEADS)
+    torch.testing.assert_close(llama.llama_hidden(params, toks, remat=True, **kw),
+                               llama.llama_hidden(params, toks, **kw), rtol=0, atol=0)

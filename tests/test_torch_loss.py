@@ -98,18 +98,10 @@ def test_lm_cross_entropy_vs_laser_tpu(transb):
     assert _rel_err(et.grad, ge) <= REL
 
 
-def test_unported_routes_raise():
-    # laser_tpu's routing threshold: padded V past 131072 has no fused grad
+def test_routing_threshold():
+    # laser_tpu's routing threshold: padded V past 131072 has no fused grad;
+    # the two-kernel VJP (tests/test_torch_loss_ce_bwd.py) and the chunked
+    # lm_cross_entropy branch (tests/test_torch_lm_chunked.py) take those cases
     assert fused_grad_bt(8184, 8192) == 128
     assert fused_grad_bt(8, 131072) == 8
     assert fused_grad_bt(8, 131073) is None
-    x = torch.zeros(1, 131073, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="_build_ce_bwd"):
-        cross_entropy(x, torch.zeros(1, dtype=torch.long))
-    h, e = torch.zeros(4, 8), torch.zeros(16, 8)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        lm_cross_entropy(h, e, torch.zeros(4, dtype=torch.long), memory_budget_bytes=None)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        lm_cross_entropy(h, e, torch.zeros(4, dtype=torch.long), memory_budget_bytes=100)
-    with pytest.raises(TypeError):  # block_v sizes the chunked branch only
-        lm_cross_entropy(h, e, torch.zeros(4, dtype=torch.long), block_v=4096)

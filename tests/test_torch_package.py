@@ -101,6 +101,7 @@ def test_every_slice_kernel_registered():
         "gemm", "norm", "flash_attention", "paged_attention", "w4_gemm",  # serving
         "paged_window_attention",  # speculative verify
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "ce_fwd", "ce_fused_grad",
+        "ce_bwd",  # the two-kernel CE gradient and the chunked LM loss
         "conv_planewise", "conv_direct", "softmax", "softmax_online",  # CNN
         "for_each", "for_each_multi", "row_reduce", "map_reduce",  # generated bodies
         "for_each_strided", "map_reduce_staged",  # generated, layout slice
@@ -111,6 +112,7 @@ def test_every_slice_kernel_registered():
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
         "ltt_flash_bwd_dq", "ltt_flash_bwd_dkv", "ltt_ce_fwd", "ltt_ce_fused_grad",
+        "ltt_ce_bwd",
         "ltt_conv_planewise", "ltt_conv_direct", "ltt_softmax_rows", "ltt_softmax_online",
         "ltt_transpose", "ltt_transpose_inplace",
         "ltt_gemm_batched", "ltt_gemm_limbs", "ltt_gemm_int32", "ltt_quantize_int8",
@@ -128,6 +130,8 @@ def test_every_slice_kernel_registered():
     assert replaced["stencil_sweep"] == "laser_tpu/ops/stencil.py:56 _build_sweeps"
     assert replaced["adamw_update"] == "laser_tpu/ops/optim.py:38 _build_adamw"
     assert replaced["sgdm_update"] == "laser_tpu/ops/optim.py:80 _build_sgdm"
+    assert replaced["ce_bwd"] == "laser_tpu/ops/loss.py:130 _build_ce_bwd"
+    assert registry.SIGNATURES["ltt_ce_bwd"][9] is ctypes.c_double  # eps, q formed in double
     assert replaced["transpose_inplace"].startswith(
         "laser_tpu/ops/transpose.py:151 _build_inplace_transpose_pipelined")
     assert replaced["for_each_strided"] == "laser_tpu/ops/strided.py:222 build_strided_foreach"
