@@ -16,13 +16,22 @@ printed:
    small f32 shape: compare it with its plain PyTorch version on the card
    against a stated bound, and time the kernel, the plain version and,
    where one PyTorch call computes the same function, that call
-   (``library_ms``; the port never calls it), with CUDA events. Each timed
+   (``library_ms``; the port never calls it), with CUDA events (the kernel
+   also as 20 calls in a row, ``batched_ms``: its device time where the
+   host enqueues faster than the kernel runs). Each timed
    case also gets ``bound_ms``, the least time the card could take for the
    same work, from its bytes and operations at the peak rate of its input
    type. The serving and training kernels run in bf16; beside the
    transformer shapes: the int4 weight GEMM at the Llama-3-8B decode and
    prefill shapes, the flash kernel's GQA map and the paged kernel over
-   int8 pages at those widths. The CNN path's kernels run in f32 at C1's
+   int8 pages at those widths. The 16-bit GEMM and the bf16 flash forward
+   run on their Hopper routes (``gemm_wgmma``: wgmma fed by a TMA ring;
+   ``flash_attention_mma``: mma.sync on the tensor cores), and the kernels
+   they replace at the same shapes, asked for by ``route=`` (``gemm``:
+   WMMA; ``flash_attention``: FFMA), each case asserting that its route's
+   counter moved; the decode GEMM (M 8) on the WMMA route it picks, and
+   both routes timed at M 8 to 128 of the decode product (the crossover
+   behind the wgmma route's M threshold). The CNN path's kernels run in f32 at C1's
    shapes (the planewise conv at conv 1, the direct conv at convs 2 and 3,
    the (16, 1000) softmax), with conv 3 also in bf16 and at stride 2, the
    row softmax at 8192 x 4096 and the online softmax at 64 x 128256; the
@@ -139,11 +148,13 @@ printed:
    on pre-split limbs; the limb kernel on the 8 digit planes of full-range
    int64 2048^3 and ``gemm`` int64 end to end; ``gemm_f64`` 2048^3 (randn *
    2^[-30, 30)) at 8 and 4 slices and the limb kernel on its digits;
-   ``gemm_batched`` bf16 B4 4096^3; ``quantize_int8`` of 4096^2 f32 per
-   row, global and stochastic; ``gemm_quantized`` 4096^3 f32. The path
-   runs once with the counts at 0 (launches by path "gemm_table"; gemm,
-   gemm_batched, gemm_int32, gemm_limbs and quantize_int8 must launch, no
-   plain version run). Integer results and quantization are held to their
+   ``gemm_batched`` bf16 B4 4096^3 (the wgmma route); ``quantize_int8`` of
+   4096^2 f32 per row, global and stochastic; ``gemm_quantized`` 4096^3
+   f32. The path runs once with the counts at 0 (launches by path
+   "gemm_table"; gemm, gemm_batched_wgmma, gemm_int32, gemm_limbs and
+   quantize_int8 must launch, no plain version run). Outside that count
+   the batched product runs once more on the WMMA kernel it replaces
+   (``route="classic"``), checked and timed beside it. Integer results and quantization are held to their
    plain versions bit for bit, each integer plain version's 64 x 64 corner
    to an exact integer oracle on the host and int8 also to
    ``torch._int_mm``; f64 within 1e-15 of plain and 2^-50 (8 slices) or
@@ -259,7 +270,9 @@ SERVE_CFG = dict(page_size=64, max_seqs=8, max_pages_per_seq=16, n_pages=129,
                  prefill_buckets=(128, 256, 512))
 TRAIN_BATCH, TRAIN_F32_BATCH = (8, 1024), (4, 256)
 TRAIN_STEPS, LR, WD = 6, 3e-4, 0.01
-SERVING_KERNELS = ("gemm", "norm", "flash_attention", "paged_attention")
+# bf16 products with M >= 64 (prefill) take the wgmma GEMM, the decode
+# products (M <= 40) the WMMA one; bf16 flash at D 128 the tensor cores
+SERVING_KERNELS = ("gemm", "gemm_wgmma", "norm", "flash_attention_mma", "paged_attention")
 # runs S1 and S2: the plain burst engine, then the quantized self-draft
 SPEC_GAMMA = 4
 S1_CFG = dict(page_size=64, n_pages=8 * 7 + 2, max_seqs=8, max_pages_per_seq=7,
@@ -273,20 +286,24 @@ SPEC_KERNELS = {"s1_plain": SERVING_KERNELS,
 SPEC_F32_CFG = dict(SERVE_CFG, decode_burst=20, pipeline_bursts=True)
 DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=2, d_ff=512, vocab=8192)
 LLAMA_DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab=8192)
-TRAINING_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
+TRAINING_KERNELS = ("gemm_wgmma", "norm", "flash_attention_mma", "flash_attention_bwd_dq",
                     "flash_attention_bwd_dkv", "ce_fused_grad", "ce_fwd")
 # Llama training (phase 17): phase 7's widths and rope, batch 4 x 1024; the
 # loss's chunked branch runs ce_bwd and no other CE kernel
 LLAMA_TRAIN_BATCH = (4, 1024)
 LLAMA_MP_LAYERS = 4
-LLAMA_TRAIN_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
+LLAMA_TRAIN_KERNELS = ("gemm_wgmma", "norm", "flash_attention_mma", "flash_attention_bwd_dq",
                        "flash_attention_bwd_dkv", "ce_bwd")
+# phase 6's f32 llama loss: the FFMA GEMM and flash kernels
+LLAMA_TRAIN_F32_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "ce_bwd")
 # ce_bwd against its plain version: f32 exp and the same fp32 arithmetic;
 # bf16 dx one rounding of the largest element apart
 CE_BWD_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-6}
 # run (b)'s block linears are all int4 and its logits torch.matmul: no gemm
-LLAMA_KERNELS = {"llama": ("gemm", "norm", "flash_attention", "paged_attention"),
-                 "llama_int4": ("w4_gemm", "norm", "flash_attention", "paged_attention")}
+LLAMA_KERNELS = {"llama": ("gemm", "gemm_wgmma", "norm", "flash_attention_mma",
+                           "paged_attention"),
+                 "llama_int4": ("w4_gemm", "norm", "flash_attention_mma", "paged_attention")}
 # the CNN slice, C1: laser_tpu's init_cnn with convs at the conv benchmark's
 # shapes (bench.py:1061-1108: N16 C3->20 224^2, and 64->64 at 56^2 after two
 # pools) and ImageNet-1k's 1000 classes; batch 16, f32
@@ -418,6 +435,7 @@ def kernel_cases(dtype, full: bool):
     from laser_tpu_torch.ops.attention_bwd import (bwd_dkv_cuda, bwd_dq_cuda,
                                                    flash_attention_bwd_reference)
     from laser_tpu_torch.ops.gemm import linear, linear_reference
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused
     from laser_tpu_torch.ops.norm import layer_norm, layer_norm_reference
     from laser_tpu_torch.ops.paged_attention import (paged_attention,
                                                      paged_attention_reference, quantize_kv)
@@ -449,14 +467,23 @@ def kernel_cases(dtype, full: bool):
         Mq, Kq, Nq, group = 17, 256, 200, 64
         Bg, Hq, Hkv = 2, 8, 2
     cases = []
+    # the route each kernel takes by itself: 16-bit inputs the Hopper ones
+    f32 = dtype == torch.float32
+    gemm_name = "gemm" if f32 else "gemm_wgmma"
+    flash_name = "flash_attention" if f32 else "flash_attention_mma"
 
     x, w, bias = rnd(M, K), rnd(K, N, std=K ** -0.5), rnd(N, std=0.1)
+    gemm_case = dict(flops=2 * M * K * N, nbytes=(M * K + K * N + M * N + N) * isz,
+                     library=lambda: F.gelu(torch.addmm(bias, x, w), approximate="tanh"),
+                     library_call="torch.addmm + F.gelu (two calls)")
     cases.append(Case(
-        "gemm", f"M{M} K{K} N{N} bias+gelu", lambda: linear(x, w, bias, "gelu"),
-        lambda: linear_reference(x, w, bias, "gelu"), flops=2 * M * K * N,
-        nbytes=(M * K + K * N + M * N + N) * isz,
-        library=lambda: F.gelu(torch.addmm(bias, x, w), approximate="tanh"),
-        library_call="torch.addmm + F.gelu (two calls)"))
+        gemm_name, f"M{M} K{K} N{N} bias+gelu", lambda: linear(x, w, bias, "gelu"),
+        lambda: linear_reference(x, w, bias, "gelu"), **gemm_case))
+    if full:  # the WMMA kernel the wgmma route replaces, at the same shape
+        cases.append(Case(
+            "gemm", f"M{M} K{K} N{N} bias+gelu, the WMMA kernel asked for",
+            lambda: gemm_fused(x, w, bias=bias, epilogue="gelu", route="classic"),
+            lambda: linear_reference(x, w, bias, "gelu"), **gemm_case))
 
     xn, gam, bet = rnd(rows, cols), rnd(cols), rnd(cols, std=0.1)
     cases.append(Case(
@@ -470,27 +497,39 @@ def kernel_cases(dtype, full: bool):
         return bh * s * (s + 1) // 2
 
     q, k, v = rnd(BH, S, D), rnd(BH, S, D), rnd(BH, S, D)
-    cases.append(Case(
-        "flash_attention", f"BH{BH} S{S} D{D} causal",
-        lambda: attention(q, k, v, causal=True),
-        lambda: attention_reference(q, k, v, causal=True),
+    flash_case = dict(
         flops=4 * D * causal_pairs(BH, S), nbytes=4 * BH * S * D * isz,
         library=lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                        is_causal=True),
-        library_call="F.scaled_dot_product_attention(is_causal=True)"))
+        library_call="F.scaled_dot_product_attention(is_causal=True)")
+    cases.append(Case(
+        flash_name, f"BH{BH} S{S} D{D} causal",
+        lambda: attention(q, k, v, causal=True),
+        lambda: attention_reference(q, k, v, causal=True), **flash_case))
+    sc = D ** -0.5
+    if full:  # the FFMA kernel the tensor-core route replaces
+        cases.append(Case(
+            "flash_attention", f"BH{BH} S{S} D{D} causal, the FFMA kernel asked for",
+            lambda: flash_forward(q, k, v, True, sc, route="ffma"),
+            lambda: attention_reference(q, k, v, causal=True), **flash_case))
 
     # the training shapes: the stats forward and both backward kernels
     qt, kt, vt, dot = (rnd(BHt, St, D) for _ in range(4))
-    sc = D ** -0.5
-    cases.append(Case(
-        "flash_attention", f"BH{BHt} S{St} D{D} causal, with (m, l)",
-        lambda: flash_forward(qt, kt, vt, True, sc, stats=True),
-        lambda: flash_forward(qt, kt, vt, True, sc, stats=True, plain=True),
+    train_case = dict(
         flops=4 * D * causal_pairs(BHt, St),
         nbytes=4 * BHt * St * D * isz + 2 * BHt * St * 4,
         library=_sdpa_train_forward(qt, kt, vt),
         library_call="F.scaled_dot_product_attention(is_causal=True) on inputs that "
-                     "require grad (saves its logsumexp)", slot="training"))
+                     "require grad (saves its logsumexp)", slot="training")
+    cases.append(Case(
+        flash_name, f"BH{BHt} S{St} D{D} causal, with (m, l)",
+        lambda: flash_forward(qt, kt, vt, True, sc, stats=True),
+        lambda: flash_forward(qt, kt, vt, True, sc, stats=True, plain=True), **train_case))
+    if full:
+        cases.append(Case(
+            "flash_attention", f"BH{BHt} S{St} D{D} causal, with (m, l), the FFMA kernel "
+            "asked for", lambda: flash_forward(qt, kt, vt, True, sc, stats=True, route="ffma"),
+            lambda: flash_forward(qt, kt, vt, True, sc, stats=True, plain=True), **train_case))
     ot, mt, lt = flash_forward(qt, kt, vt, True, sc, stats=True)
     dvec = (dot.float() * ot.float()).sum(-1)
     plain_bwd = lambda: flash_attention_bwd_reference(qt, kt, vt, ot, mt, lt, dot,  # noqa: E731
@@ -527,14 +566,22 @@ def kernel_cases(dtype, full: bool):
 
     # GQA prefill: 8 prompts x 32 query heads over 8 kv heads
     qg, kg, vg = rnd(Bg, Hq, S, D), rnd(Bg, Hkv, S, D), rnd(Bg, Hkv, S, D)
-    cases.append(Case(
-        "flash_attention", f"B{Bg} Hq{Hq} Hkv{Hkv} S{S} D{D} causal, GQA",
-        lambda: attention_gqa(qg, kg, vg, causal=True),
-        lambda: attention_gqa_reference(qg, kg, vg, causal=True),
+    gqa_case = dict(
         flops=4 * D * causal_pairs(Bg * Hq, S), nbytes=2 * Bg * (Hq + Hkv) * S * D * isz,
         library=_sdpa_gqa(qg, kg, vg),
         library_call="F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-        slot="gqa"))
+        slot="gqa")
+    cases.append(Case(
+        flash_name, f"B{Bg} Hq{Hq} Hkv{Hkv} S{S} D{D} causal, GQA",
+        lambda: attention_gqa(qg, kg, vg, causal=True),
+        lambda: attention_gqa_reference(qg, kg, vg, causal=True), **gqa_case))
+    if full:
+        qg3, kg3, vg3 = (t.reshape(-1, S, D) for t in (qg, kg, vg))
+        cases.append(Case(
+            "flash_attention", f"B{Bg} Hq{Hq} Hkv{Hkv} S{S} D{D} causal, GQA, the FFMA kernel "
+            "asked for", lambda: flash_forward(qg3, kg3, vg3, True, sc, kv_heads=(Hq, Hkv),
+                                               route="ffma").reshape(qg.shape),
+            lambda: attention_gqa_reference(qg, kg, vg, causal=True), **gqa_case))
 
     # int8 pages at the llama widths: q in the model dtype, K/V rows int8
     qi = rnd(slots, Hq, hd)
@@ -794,6 +841,45 @@ def cnn_cases():
     ]
 
 
+# the decode product's rows at which both GEMM routes are timed: the
+# crossover behind the wgmma route's M threshold (csrc/gemm.cu WG_MIN_M)
+CROSSOVER_M = (8, 16, 32, 40, 64, 128)
+
+
+def gemm_crossover():
+    """Both GEMM routes at M rows of the decode product (K 2048, N 6144,
+    bf16, bias), asked for by ``route=``: {M: (wgmma ms, WMMA ms)}."""
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    w = (torch.randn((2048, 6144), generator=g, device=DEVICE) * 2048 ** -0.5).bfloat16()
+    b = torch.zeros((6144,), device=DEVICE, dtype=torch.bfloat16)
+    out = {}
+    for M in CROSSOVER_M:
+        x = torch.randn((M, 2048), generator=g, device=DEVICE).bfloat16()
+        out[M] = tuple(cuda_ms(lambda r=r: gemm_fused(x, w, bias=b, route=r))
+                       for r in ("wgmma", "classic"))
+        print(f"  decode product M{M} K2048 N6144: wgmma {out[M][0]:.4f} ms, WMMA "
+              f"{out[M][1]:.4f} ms", flush=True)
+    return out
+
+
+def check_route(case: Case):
+    """Run the case once with the counts at 0: its kernel record (the route)
+    must have launched. Returns the output."""
+    from laser_tpu_torch import registry
+
+    torch.cuda.synchronize()
+    registry.reset_counts()
+    got = case.kern()
+    torch.cuda.synchronize()
+    if registry.KERNELS[case.name].launches == 0:
+        fail(f"{case.name} {case.shape}: its route never launched "
+             f"({ {k: v for k, v in registry.counts().items() if v['launches']} })")
+    return got
+
+
 def phase_kernels(spec):
     print("phase 2: kernels vs plain versions", flush=True)
     record = {}
@@ -804,26 +890,29 @@ def phase_kernels(spec):
         decode_gemm_case(), w4_case(g, torch.bfloat16, 4096, 4096, 14336, 64, slot="prefill")
     ] + cnn_cases()
     for case in f32:
-        compare(f"{case.name} {case.shape} [f32]", case.kern(), case.plain(), case.per_row,
-                case.rel)
+        compare(f"{case.name} {case.shape} [f32]", check_route(case), case.plain(),
+                case.per_row, case.rel)
     table_small_checks()
     library_small_checks()
     for case in timed:
-        err = compare(f"{case.name} {case.shape} [{DTYPE_TAGS[case.dtype]}]", case.kern(),
+        err = compare(f"{case.name} {case.shape} [{DTYPE_TAGS[case.dtype]}]", check_route(case),
                       case.plain(), case.per_row, case.rel)
         ms, pms = cuda_ms(case.kern), cuda_ms(case.plain, reps=5)
+        batched = cuda_batched_ms(case.kern)
         lms = cuda_ms(case.library) if case.library else None
         bms, by = bound(case, spec)
-        print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
-              f"{'none' if lms is None else f'{lms:.4f} ms'}, bound {bms:.4f} ms ({by})",
-              flush=True)
-        entry = {"shape": case.shape, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                 "bound_ms": bms, "bound_by": by, "library_ms": lms,
+        print(f"    time: kernel {ms:.4f} ms ({batched:.4f} ms per call of 20 in a row), plain "
+              f"{pms:.4f} ms, library {'none' if lms is None else f'{lms:.4f} ms'}, bound "
+              f"{bms:.4f} ms ({by})", flush=True)
+        entry = {"shape": case.shape, "max_abs_err": err, "ms": ms, "batched_ms": batched,
+                 "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms,
                  "library_call": case.library_call}
         if case.slot:
-            record[case.name][case.slot] = entry
+            record.setdefault(case.name, {})[case.slot] = entry
         else:
-            record[case.name] = entry
+            record[case.name] = {**entry, **record.get(case.name, {})}
+    record["gemm_wgmma"]["decode_crossover"] = {
+        f"M{M}": {"wgmma_ms": a, "wmma_ms": b} for M, (a, b) in gemm_crossover().items()}
     return record
 
 
@@ -1119,7 +1208,7 @@ def phase_train_f32():
     check_routes(params, tokens, llama_loss(LLAMA_F32, memory_budget_bytes=None),
                  F32_LOSS_REL, F32_GRAD_REL, "max")
     counts = registry.counts()
-    for name in LLAMA_TRAIN_KERNELS:
+    for name in LLAMA_TRAIN_F32_KERNELS:
         if counts[name]["launches"] == 0:
             fail(f"f32 llama loss: {name} never launched")
 
@@ -2078,7 +2167,7 @@ def phase_layout(spec):
 # int32 / int64 / f64, the batched GEMM, int8 quantization)
 # ---------------------------------------------------------------------------
 
-TABLE_KERNELS = ("gemm", "gemm_batched", "gemm_int32", "gemm_limbs", "quantize_int8")
+TABLE_KERNELS = ("gemm", "gemm_batched_wgmma", "gemm_int32", "gemm_limbs", "quantize_int8")
 # f64 through digit slices, relative to K * rowmax|a| * colmax|b|: against
 # the plain route (the same digits and bucket sums) and against cuBLAS
 # DGEMM (8 slices: the classical f64 bound; 4 slices: the fast tier)
@@ -2105,6 +2194,7 @@ class Table:
     library_call: Optional[str] = None
     repeat: bool = False
     dtype: torch.dtype = torch.float32
+    counted: bool = True  # part of the path's counted run (else a yardstick beside it)
 
 
 def _wrap_np(w, bits):
@@ -2270,13 +2360,18 @@ def table_cases(spec, n: int = 4096, m: int = 2048):
     B = 4
     ab = torch.randn(B, n, n, generator=g, device=DEVICE).bfloat16()
     bb = (torch.randn(B, n, n, generator=g, device=DEVICE) * n ** -0.5).bfloat16()
-    cases.append(Table(
-        "gemm_batched", "", f"B{B} {n}^3 bf16", run=lambda: BT.gemm_batched(ab, bb),
-        plain=lambda: BT.gemm_batched_plain(ab, bb, torch.bfloat16),
-        check=_rel_check("gemm_batched bf16", BATCHED_BF16_REL),
-        nbytes=3 * B * n * n * 2, flops=2 * B * n ** 3, peak=spec.bf16_tflops,
-        library=lambda: torch.bmm(ab, bb), library_call="torch.bmm (cuBLAS)",
-        dtype=torch.bfloat16))
+    batched = dict(plain=lambda: BT.gemm_batched_plain(ab, bb, torch.bfloat16),
+                   check=_rel_check("gemm_batched bf16", BATCHED_BF16_REL),
+                   nbytes=3 * B * n * n * 2, flops=2 * B * n ** 3, peak=spec.bf16_tflops,
+                   library=lambda: torch.bmm(ab, bb), library_call="torch.bmm (cuBLAS)",
+                   dtype=torch.bfloat16)
+    cases.append(Table("gemm_batched_wgmma", "", f"B{B} {n}^3 bf16",
+                       run=lambda: BT.gemm_batched(ab, bb), **batched))
+    # the WMMA kernel the wgmma route replaces, outside the path's count
+    cases.append(Table("gemm_batched", "", f"B{B} {n}^3 bf16, the WMMA kernel asked for",
+                       run=lambda: BT._gemm_batched_cuda(ab, bb, torch.bfloat16,
+                                                         route="classic"),
+                       counted=False, **batched))
 
     # quantize_int8 of a 4096^2 f32 activation: per row, global, stochastic
     xq = torch.randn(n, n, generator=g, device=DEVICE) * 3.0
@@ -2447,9 +2542,11 @@ def phase_gemm_table(spec):
     cases = table_cases(spec)
     torch.cuda.synchronize()
     registry.reset_counts()
-    outs = [case.run() for case in cases]
+    outs = {i: case.run() for i, case in enumerate(cases) if case.counted}
     torch.cuda.synchronize()
     counts = registry.counts()
+    outs.update({i: case.run() for i, case in enumerate(cases) if not case.counted})
+    outs = [outs[i] for i in range(len(cases))]
     print(f"  counts {json.dumps({k: v for k, v in counts.items() if any(v.values())})}",
           flush=True)
     for k in TABLE_KERNELS:
@@ -2869,15 +2966,15 @@ def phase_llama_train():
     pcounts = registry.counts()
     nloss = out["loss"].item()
     rel = abs(rloss - nloss) / abs(nloss)
-    extra = {k: rcounts[k]["launches"] - pcounts[k]["launches"] for k in ("flash_attention",
-                                                                         "norm")}
+    extra = {k: rcounts[k]["launches"] - pcounts[k]["launches"]
+             for k in ("flash_attention_mma", "norm")}
     print(f"  remat step loss {rloss:.6f}, the same weights without remat {nloss:.6f}: rel "
           f"{rel:.3e} (bound {TRAIN_LOSS_REL:.0e}); launches with remat minus without "
           f"{extra} (a block's flash forward and its two norms again)", flush=True)
     if not rel <= TRAIN_LOSS_REL:
         fail(f"remat step loss {rloss} vs {nloss}")
     check_counts(rcounts, LLAMA_TRAIN_KERNELS, "llama_train remat")
-    if extra != {"flash_attention": LLAMA["n_layers"], "norm": 2 * LLAMA["n_layers"]}:
+    if extra != {"flash_attention_mma": LLAMA["n_layers"], "norm": 2 * LLAMA["n_layers"]}:
         fail(f"remat relaunched {extra}")
     del params, opt, out
     torch.cuda.empty_cache()

@@ -34,9 +34,13 @@ library surface: the prepacked GEMM (``ops.gemm.prepacked`` with
 SGD-momentum updates of ``ops.optim`` (``backend="pallas"``,
 ``csrc/optim.cu``).
 
-Import the submodule you need: this package imports nothing eagerly. The
-names laser_tpu exports for those primitives (laser_tpu/__init__.py) are
-here too, resolved from their submodule at first use.
+Import the submodule you need: this package imports nothing eagerly. Every
+name laser_tpu/__init__.py binds at its root that has a port is here too,
+resolved from the port submodule that defines it at first use (its
+submodules ``config``, ``device_info``, ``registry``, ``tensor`` and
+``utils`` as well); ``conv2d_trainable``, ``sample_logits``,
+``sample_multinomial``, ``sample_multinomial_batch``, ``ChipSpec``,
+``min_tile`` and ``num_devices`` have none yet (ROADMAP.md).
 """
 
 import importlib
@@ -57,10 +61,33 @@ _EXPORTS = {
     "gemm_packed": "ops.gemm", "gemm_prepack_a": "ops.gemm", "gemm_prepack_b": "ops.gemm",
     "PackedMatrix": "ops.gemm", "GemmTiles": "ops.gemm", "plan_tiles": "ops.gemm",
     "stencil_solve": "ops.stencil", "sgd_momentum_step": "ops.optim",
+    "LaserConfig": "config", "config_override": "config", "get_config": "config",
+    "set_config": "config", "detect": "device_info",
+    "for_each": "ops.foreach", "for_each_staged": "ops.foreach", "map_reduce": "ops.foreach",
+    "reduce_max": "ops.reductions", "reduce_mean": "ops.reductions",
+    "reduce_min": "ops.reductions", "reduce_sum": "ops.reductions",
+    "attention": "ops.attention", "attention_gqa": "ops.attention",
+    "attention_gqa_trainable": "ops.attention", "attention_reference": "ops.attention",
+    "attention_trainable": "ops.attention", "attention_with_stats": "ops.attention",
+    "paged_attention": "ops.paged_attention",
+    "paged_attention_reference": "ops.paged_attention",
+    "layer_norm": "ops.norm", "rms_norm": "ops.norm",
+    "adamw_init": "ops.optim", "adamw_step": "ops.optim",
+    "accumulated_value_and_grad": "ops.optim", "clip_by_global_norm": "ops.optim",
+    "global_norm": "ops.optim", "inverse_sqrt_lr": "ops.optim", "warmup_cosine_lr": "ops.optim",
+    "exp": "ops.vector_math", "log": "ops.vector_math", "sigmoid": "ops.vector_math",
+    "softmax": "ops.vector_math", "tanh": "ops.vector_math",
+    "conv2d_direct": "ops.conv", "conv2d_im2col": "ops.conv",
+    "sample_logits_batch": "ops.sampling",
+    "cross_entropy": "ops.loss", "lm_cross_entropy": "ops.loss",
 }
+# laser_tpu's root also binds these submodules
+_SUBMODULES = ("config", "device_info", "registry", "tensor", "utils")
 
 
 def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
     module = _EXPORTS.get(name)
     if module is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

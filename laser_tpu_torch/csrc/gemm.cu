@@ -27,8 +27,16 @@
 // arithmetic (kernel.py:122-131), alpha and beta already cast to int32 by
 // the caller, a float activation on the int32 value. The batch index is
 // blockIdx.z over contiguous (B, M, K) x (B, K, N) -> (B, M, N) operands.
-// Simple first: no cp.async, TMA or wgmma yet.
+//
+// The bf16/f16 WMMA kernel (gemm_tc_kernel: synchronous loads, two
+// __syncthreads per 32-deep slab, a 64x64 tile per block) stays for the
+// decode products (M < WG_MIN_M), for K or an operand's contiguous dimension
+// not a multiple of 8 and for unaligned bases. Every other bf16/f16 product
+// takes gemm_wgmma_kernel (wgmma fed by a TMA ring; see its note).
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through cudart
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "int8_tile.cuh"
@@ -401,7 +409,472 @@ __global__ void __launch_bounds__(I8_THREADS) gemm_i8_kernel(GemmArgs p) {
   }
 }
 
-int launch(GemmArgs& p, int in_dtype, int batch, cudaStream_t s) {
+
+// ---------------------------------------------------------------------------
+// bf16 / f16 on Hopper: wgmma fed by a TMA ring
+// ---------------------------------------------------------------------------
+// Replaces the same TPU kernels (kernel.py:62 build_gemm, batched.py:28
+// _build_batched) on the compute-bound shapes. What bounds it on the H100:
+// at the prefill and training shapes (M 1024..8192, K and N 2048..14336, the
+// LM loss's 4092 x 4096 x 8192 chunks) 2MNK operations over (MK + KN + MN)
+// 2-byte elements is far above the 295 operations a byte where the tensor
+// cores, not HBM, are the limit: 989 TFLOP/s is the bound. Only wgmma reaches
+// that rate, and only if the operands arrive in shared memory while earlier
+// products run. So:
+// - one producer warp issues TMA tile loads (cp.async.bulk.tensor, 3-D:
+//   column, row, batch entry) into a ring of WG_STAGES stages, each stage an
+//   A tile (128 x 64) and a B tile (64 x 128), 128-byte swizzled, with a
+//   full/empty mbarrier pair a stage. TMA fills out-of-range boxes with zeros,
+//   so ragged M, N and K read 0 on both operands (the rule of the kernels
+//   above) with no masks in the loop;
+// - two consumer warpgroups, each 64 rows of the 128 x 128 output tile, run
+//   wgmma.mma_async m64n128k16 (fp32 accumulators in registers) on each
+//   stage as it lands, keep one group of products in flight and free a stage
+//   as soon as its products are done;
+// - transposed operands stay in place: a K-contiguous operand (A, or B
+//   transposed) is read K-major, an M- or N-contiguous one MN-major (the
+//   instruction's transpose bits), each with its own box and descriptor;
+// - the epilogue goes through shared memory: each half of the tile's
+//   columns is written from the accumulators as fp32 into the tile's last
+//   ring stage, then all 256 consumer threads run alpha, beta * C (fp32 C),
+//   bias and the activation on 4 neighbouring outputs at a time, one cast,
+//   one vector store. Run from the registers, with the activation picked
+//   per element, the unrolled epilogue carried 64 copies of every
+//   activation and took longer than the main loop on an H100 (instruction
+//   fetch); this one is a short loop, and its stores are coalesced;
+// - a persistent grid of two blocks an SM (288 threads, 97 KB of shared
+//   memory each) walks the output tiles 8 tile rows at a time: the ring runs
+//   on across a block's tiles, so the producer loads the next tile's first
+//   stages during the epilogue.
+// What holds it on an H100 (chip_smoke.py phases 2 and 15): at a 128 x 128
+// tile each 64-deep k step reads 32 KB from L2 for 2.1 MFLOP. Wider tiles
+// (256 x 128, 128 x 256, one block an SM) ran slower in trials made while
+// the epilogue still ran from the registers, and have not been tried with
+// this one; they, and thread-block clusters that share a tile's loads by
+// TMA multicast, are the next steps.
+// The route needs 16-byte-aligned bases and each operand's contiguous
+// dimension a multiple of 8 (TMA's 16-byte strides) and M >= WG_MIN_M.
+constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64;
+constexpr int WG_STAGES = 3;
+constexpr int WG_BLOCKS_PER_SM = 2;
+constexpr int WG_CONSUMERS = 2;                            // warpgroups, 64 rows each
+constexpr int WG_THREADS = WG_CONSUMERS * 128 + 32;        // + the producer warp
+constexpr int WG_TILE_BYTES = WG_BM * WG_BK * 2;           // A's tile in a stage; B's the same
+constexpr int WG_STAGE_BYTES = 2 * WG_TILE_BYTES;
+constexpr int WG_SMEM_BYTES = WG_STAGES * WG_STAGE_BYTES + 1024;  // + 1024-byte alignment
+constexpr int WG_HALF_BYTES = 64 * 128;   // one 64-wide MN-major box: 64 K-rows of 128 bytes
+// tile rows walked together before the next column of tiles (L2 reuse)
+constexpr int WG_GROUP_M = 8;
+// The decode products (M <= 40) stay on the WMMA kernel until their own
+// redesign (split-K or a GEMV). Measured on an H100 at M 8..128 of the
+// decode product (chip_smoke.py phase 2), wgmma is the faster of the two at
+// every M, so the threshold is a choice, not a crossover.
+constexpr int WG_MIN_M = 64;
+
+enum Route { kRouteAuto = 0, kRouteClassic = 1, kRouteWgmma = 2 };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; the bytes complete on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, each >> 4 (PTX ISA, "matrix descriptor")
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+
+// K-major (K contiguous, 128-byte rows): rows at 128 B, 8-row groups at 1024
+// B (SBO); the k16 step is +32 B within the swizzled row. MN-major (64
+// M or N values a 128-byte row, one row a k): 8-k groups at 1024 B (SBO),
+// 64-wide MN blocks at WG_HALF_BYTES (LBO); the k16 step is +2048 B.
+template <bool KMAJOR>
+__device__ __forceinline__ uint64_t operand_desc(uint32_t tile, int kk) {
+  return KMAJOR ? wg_desc(tile + kk * 32, 16, 1024)
+                : wg_desc(tile + kk * 2048, WG_HALF_BYTES, 1024);
+}
+
+__device__ __forceinline__ void acc_fence(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define LTT_WGMMA_M64N128K16(TY)                                                                    \
+  asm volatile(                                                                                     \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                  \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                                            \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                                      \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                                    \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                                                    \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                                                    \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                                                    \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                                                    \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                                                      \
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"                                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),     \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),  \
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),  \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),  \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),  \
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),  \
+        "+f"(d[63])                                                                                 \
+      : "l"(da), "l"(db), "r"(1), "n"(TA ? 1 : 0), "n"(TB ? 0 : 1))
+
+// d += A (64 x 16) B (16 x 128). The transpose bits: 0 reads an operand
+// K-major, 1 MN-major; A is K-major unless TA, B is K-major only if TB.
+template <typename T, bool TA, bool TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    LTT_WGMMA_M64N128K16("f16");
+  } else {
+    LTT_WGMMA_M64N128K16("bf16");
+  }
+}
+#undef LTT_WGMMA_M64N128K16
+
+__device__ __forceinline__ void store_out2(void* out, size_t i, float v0, float v1, int dt) {
+  if (dt == ltt::kF32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) = make_float2(v0, v1);
+  } else if (dt == ltt::kBF16) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + i) =
+        __floats2bfloat162_rn(v0, v1);
+  } else {
+    *reinterpret_cast<__half2*>(static_cast<__half*>(out) + i) = __floats2half2_rn(v0, v1);
+  }
+}
+
+// Output tile t of the grid's walk: (row, column, batch entry) origin.
+// Tiles go WG_GROUP_M rows at a time down each column of tiles, so a wave
+// of blocks shares its B columns and A rows in L2.
+struct TileCoord {
+  int m0, n0, z;
+};
+
+__device__ __forceinline__ TileCoord tile_coord(int t, int M, int N) {
+  const int tiles_m = (M + WG_BM - 1) / WG_BM, tiles_n = (N + WG_BN - 1) / WG_BN;
+  const int per_z = tiles_m * tiles_n;
+  const int z = t / per_z, r = t % per_z;
+  const int group = r / (WG_GROUP_M * tiles_n);
+  const int first_m = group * WG_GROUP_M;
+  const int rows = min(tiles_m - first_m, WG_GROUP_M);
+  const int in_group = r % (WG_GROUP_M * tiles_n);
+  return {(first_m + in_group % rows) * WG_BM, (in_group / rows) * WG_BN, z};
+}
+
+// The consumer warpgroups' named barrier (the producer warp never joins it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(WG_CONSUMERS * 128) : "memory");
+}
+
+// Element (r, c) of a 128 x 64 fp32 staging tile: rows of 64 floats, 8-float
+// groups XORed with the row's low two bits, so the accumulator layout's
+// stores (8 rows x 8 floats a warp) hit 2 rows a bank, not 8.
+__device__ __forceinline__ int staged(int r, int c) { return r * 64 + (c ^ ((r & 3) << 3)); }
+
+// Four outputs from column col of row row (values v, col a multiple of 4):
+// the float epilogue on each, one cast, one vector store where the row holds
+// all four and they are aligned, else one store each.
+__device__ __forceinline__ void epilogue_store4(const GemmArgs& p, void* out, int row, int col,
+                                                float4 v) {
+  const size_t i = (size_t)row * p.N + col;
+  float r[4] = {v.x, v.y, v.z, v.w};
+  const int n = min(4, p.N - col);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < n) r[e] = epilogue_value(p, r[e], row, col + e);
+  if (n == 4 && (p.N & 3) == 0) {
+    if (p.out_dtype == ltt::kF32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + i) = make_float4(r[0], r[1], r[2], r[3]);
+    } else {
+      store_out2(out, i, r[0], r[1], p.out_dtype);
+      store_out2(out, i + 2, r[2], r[3], p.out_dtype);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) store_out(out, i + e, r[e], p.out_dtype);
+  }
+}
+
+// TA: A stored (K, M), read MN-major; TB: B stored (N, K), read K-major.
+// A persistent grid: block b takes output tiles b, b + gridDim.x, ... The
+// ring runs on across tiles, so the producer loads the next tile's first
+// stages while the consumers run the last one's epilogue.
+template <typename T, bool TA, bool TB>
+__global__ void __launch_bounds__(WG_THREADS, WG_BLOCKS_PER_SM)
+    gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b, const GemmArgs p, int ntiles) {
+  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
+  extern __shared__ uint8_t wg_smem_raw[];
+  // the swizzle atoms are 1024 bytes: align the ring to them
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ktiles = (p.K + WG_BK - 1) / WG_BK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);                    // the producer's expect_tx
+      mbar_init(&empty[s], WG_CONSUMERS * 4);    // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  int s = 0;
+  uint32_t phase = 0;
+  if (warp == WG_CONSUMERS * 4) {  // the producer warp: lane 0 issues every load
+    if (lane == 0) {
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const TileCoord c = tile_coord(t, p.M, p.N);
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(&empty[s], phase ^ 1);  // the first pass over the ring never waits
+          uint8_t* a_tile = ring + s * WG_STAGE_BYTES;
+          uint8_t* b_tile = a_tile + WG_TILE_BYTES;
+          mbar_expect_tx(&full[s], WG_STAGE_BYTES);
+          const int k0 = kt * WG_BK;
+          if (TA) {
+            tma_load_3d(a_tile, &map_a, &full[s], c.m0, k0, c.z);
+            tma_load_3d(a_tile + WG_HALF_BYTES, &map_a, &full[s], c.m0 + 64, k0, c.z);
+          } else {
+            tma_load_3d(a_tile, &map_a, &full[s], k0, c.m0, c.z);
+          }
+          if (TB) {
+            tma_load_3d(b_tile, &map_b, &full[s], k0, c.n0, c.z);
+          } else {
+            tma_load_3d(b_tile, &map_b, &full[s], c.n0, k0, c.z);
+            tma_load_3d(b_tile + WG_HALF_BYTES, &map_b, &full[s], c.n0 + 64, k0, c.z);
+          }
+          if (++s == WG_STAGES) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows [64 wg, 64 wg + 64) of a tile;
+  // its A rows are 8 KB into the tile in either layout
+  const int wg = warp >> 2;
+  float acc[64];
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const TileCoord c = tile_coord(t, p.M, p.N);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(&full[s], phase);
+      const uint32_t a_tile = smem_u32(ring + s * WG_STAGE_BYTES) + wg * WG_HALF_BYTES;
+      const uint32_t b_tile = smem_u32(ring + s * WG_STAGE_BYTES + WG_TILE_BYTES);
+      acc_fence(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wgmma_m64n128k16<T, TA, TB>(acc, operand_desc<!TA>(a_tile, kk),
+                                    operand_desc<TB>(b_tile, kk));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      // the previous stage's products are done once at most this group runs
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      acc_fence(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == WG_STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    acc_fence(acc);
+
+    // The epilogue, through the tile's last stage (32 KB, still held from
+    // the producer): each half of the tile's columns goes from the
+    // accumulators into it as fp32, then every consumer thread runs the
+    // float epilogue on 4 neighbouring outputs at a time and stores them.
+    // The accumulator layout (m64nNk16): acc[4 j + 2 h + e] is row 16 w +
+    // lane / 4 + 8 h of the warpgroup's 64, column 8 j + 2 (lane % 4) + e.
+    float* stage = reinterpret_cast<float*>(ring + prev * WG_STAGE_BYTES);
+    const int lrow = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+    void* out = static_cast<char*>(p.out) + (size_t)c.z * p.batch_o * dtype_size(p.out_dtype);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      consumers_sync();  // the stage's products (or the last half's reads) are done
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 8 * half + jj;
+          *reinterpret_cast<float2*>(stage + staged(lrow + 8 * h, 8 * jj + 2 * (lane & 3))) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+      consumers_sync();
+      for (int idx = threadIdx.x; idx < WG_BM * 16; idx += WG_CONSUMERS * 128) {
+        const int r = idx >> 4, cl = (idx & 15) * 4;
+        const int row = c.m0 + r, col = c.n0 + 64 * half + cl;
+        if (row < p.M && col < p.N)
+          epilogue_store4(p, out, row, col,
+                          *reinterpret_cast<const float4*>(stage + staged(r, cl)));
+      }
+    }
+    consumers_sync();  // every read of the stage is done: hand it back to the producer
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (lane == 0) mbar_arrive(&empty[prev]);
+  }
+}
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: fetch it through
+// the runtime's entry-point lookup (no -lcuda on the link line)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(sym);
+  }
+  return fn;
+}
+
+// A (batch, outer, inner) row-major 16-bit matrix as a 3-D tensor map with
+// (box_inner, box_outer, 1) boxes, 128-byte swizzle, zero fill out of range.
+bool encode_map(CUtensorMap* map, const void* base, int dtype, uint64_t inner, uint64_t outer,
+                uint64_t batch, uint32_t box_inner, uint32_t box_outer) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {inner, outer, batch};
+  const cuuint64_t strides[2] = {inner * 2, inner * outer * 2};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map,
+                dtype == ltt::kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                3, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wgmma route takes bf16/f16 inputs with 16-byte-aligned bases, K > 0,
+// each operand's contiguous dimension a multiple of 8 (TMA strides are
+// multiples of 16 bytes) and M >= min_m.
+bool wgmma_fits(const GemmArgs& p, int in_dtype, int min_m) {
+  if ((in_dtype != ltt::kBF16 && in_dtype != ltt::kF16) || p.M < min_m || p.K <= 0) return false;
+  if (reinterpret_cast<uintptr_t>(p.a) % 16 || reinterpret_cast<uintptr_t>(p.b) % 16) return false;
+  const int a_inner = p.trans_a ? p.M : p.K;
+  const int b_inner = p.trans_b ? p.K : p.N;
+  return a_inner % 8 == 0 && b_inner % 8 == 0;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+template <typename T, bool TA, bool TB>
+int launch_wgmma_tt(const GemmArgs& p, int batch, cudaStream_t s) {
+  CUtensorMap ma, mb;
+  const int dt = std::is_same<T, __half>::value ? ltt::kF16 : ltt::kBF16;
+  const bool ok = (TA ? encode_map(&ma, p.a, dt, p.M, p.K, batch, 64, 64)
+                      : encode_map(&ma, p.a, dt, p.K, p.M, batch, 64, WG_BM)) &&
+                  (TB ? encode_map(&mb, p.b, dt, p.K, p.N, batch, 64, WG_BN)
+                      : encode_map(&mb, p.b, dt, p.N, p.K, batch, 64, 64));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = gemm_wgmma_kernel<T, TA, TB>;
+  const int err = ltt::allow_smem(kernel, WG_SMEM_BYTES);
+  if (err) return err;
+  const long long tiles =
+      (long long)((p.M + WG_BM - 1) / WG_BM) * ((p.N + WG_BN - 1) / WG_BN) * batch;
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int ntiles = static_cast<int>(tiles);
+  const int slots = sm_count() * WG_BLOCKS_PER_SM;
+  kernel<<<ntiles > slots ? slots : ntiles, WG_THREADS, WG_SMEM_BYTES, s>>>(ma, mb, p, ntiles);
+  return ltt::launch_status();
+}
+
+template <typename T>
+int launch_wgmma_t(const GemmArgs& p, int batch, cudaStream_t s) {
+  if (p.trans_a && p.trans_b) return launch_wgmma_tt<T, true, true>(p, batch, s);
+  if (p.trans_a) return launch_wgmma_tt<T, true, false>(p, batch, s);
+  if (p.trans_b) return launch_wgmma_tt<T, false, true>(p, batch, s);
+  return launch_wgmma_tt<T, false, false>(p, batch, s);
+}
+
+int launch_wgmma(const GemmArgs& p, int in_dtype, int batch, cudaStream_t s) {
+  if (in_dtype == ltt::kBF16) return launch_wgmma_t<__nv_bfloat16>(p, batch, s);
+  return launch_wgmma_t<__half>(p, batch, s);
+}
+
+// route: kRouteAuto picks wgmma where it fits (wgmma_fits with WG_MIN_M),
+// kRouteClassic the kernels above, kRouteWgmma wgmma at any M (an error
+// where it does not fit). *taken gets the route that launched.
+int launch(GemmArgs& p, int in_dtype, int batch, int route, int* taken, cudaStream_t s) {
+  *taken = kRouteClassic;
+  if (route == kRouteWgmma && !wgmma_fits(p, in_dtype, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteWgmma || (route == kRouteAuto && wgmma_fits(p, in_dtype, WG_MIN_M))) {
+    *taken = kRouteWgmma;
+    return launch_wgmma(p, in_dtype, batch, s);
+  }
   const uintptr_t pa = reinterpret_cast<uintptr_t>(p.a), pb = reinterpret_cast<uintptr_t>(p.b);
   if (in_dtype == ltt::kI8) {
     // a 16-byte chunk along the contiguous index: K (A) or M (A transposed),
@@ -454,9 +927,12 @@ GemmArgs make_args(const void* a, const void* b, void* out, int M, int N, int K,
 // or null and bias: (N,) or null, fp32 for float inputs and int32 for int8
 // inputs; out: (M,N) in out_dtype (kI32 only for int8 inputs). All
 // contiguous row-major. alpha and beta are the int32 values for int8 inputs.
+// route: 0 picks, 1 the WMMA/FFMA/int8 kernels, 2 wgmma; *taken gets the
+// route that launched (1 or 2).
 LTT_API int ltt_gemm(const void* a, const void* b, const void* c, const void* bias, void* out,
                      int M, int N, int K, int trans_a, int trans_b, double alpha, double beta,
-                     int epilogue, int in_dtype, int out_dtype, void* stream) {
+                     int epilogue, int in_dtype, int out_dtype, int route, int* taken,
+                     void* stream) {
   GemmArgs p = make_args(a, b, out, M, N, K, out_dtype);
   p.c = c;
   p.bias = bias;
@@ -469,15 +945,15 @@ LTT_API int ltt_gemm(const void* a, const void* b, const void* c, const void* bi
     p.beta_i = static_cast<int>(beta);
   }
   p.epilogue = epilogue;
-  return launch(p, in_dtype, 1, static_cast<cudaStream_t>(stream));
+  return launch(p, in_dtype, 1, route, taken, static_cast<cudaStream_t>(stream));
 }
 
 // a: (B, M, K), b: (B, K, N), out: (B, M, N), contiguous; no epilogue.
 LTT_API int ltt_gemm_batched(const void* a, const void* b, void* out, int B, int M, int N, int K,
-                             int in_dtype, int out_dtype, void* stream) {
+                             int in_dtype, int out_dtype, int route, int* taken, void* stream) {
   GemmArgs p = make_args(a, b, out, M, N, K, out_dtype);
   p.batch_a = (long long)M * K;
   p.batch_b = (long long)K * N;
   p.batch_o = (long long)M * N;
-  return launch(p, in_dtype, B, static_cast<cudaStream_t>(stream));
+  return launch(p, in_dtype, B, route, taken, static_cast<cudaStream_t>(stream));
 }

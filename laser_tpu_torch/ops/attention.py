@@ -18,19 +18,28 @@ to its kv head, so K and V are read at Hkv heads and never repeated.
 forward saving only q, k and v; its backward expands K/V across each group
 (``repeat_interleave``, ``jnp.repeat``'s head order), re-runs the flash
 forward with stats and the two backward kernels on the expanded tensors,
-and sums dk/dv over each group, as laser_tpu's ``_gqa_bwd``. Sliding
-windows, ``k_valid`` and ring offsets are not ported yet and raise.
+and sums dk/dv over each group, as laser_tpu's ``_gqa_bwd``.
+``attention_with_stats`` also takes keys of their own length Sk and
+``k_valid`` (key j visible to query i when j < k_valid and, if causal,
+j <= i), as laser_tpu does, through the plain version; on a CUDA tensor
+that case raises ``NotImplementedError`` until the kernel has a variant
+for it. Sliding windows and ring offsets are not ported yet and raise.
 
 Replaces laser_tpu/ops/attention.py:60 _build_flash (value output, the
 ``return_stats=True`` variant and the GQA ``kv_heads`` map). Bound on the
 H100: arithmetic at the serving prefill (S up to 512, D 128) and the
-training shape (S 1024). Design: 16 query rows per block, 32-key tiles
-staged in shared memory, fp32 FFMA products (exact for bf16 inputs);
-tensor cores are later work (csrc/flash_attention.cu).
+training shape (S 1024). Two routes, each with its own launch counter:
+``flash_attention_mma`` (bf16/f16 at D 64 and 128, 16-byte-aligned
+tensors: the tensor cores through mma.sync, 64 query rows a block, 64-key
+K/V tiles double-buffered by cp.async in the input dtype) and
+``flash_attention`` (f32 and other head dims: fp32 FFMA, 16 query rows a
+block); see csrc/flash_attention.cu. ``route="ffma"`` or ``"mma"`` asks
+for one, to time the two against each other.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -41,6 +50,12 @@ from ..config import pin_fp32_matmul
 
 FLASH = registry.kernel("flash_attention", "laser_tpu_torch/csrc/flash_attention.cu",
                         "laser_tpu/ops/attention.py:60 _build_flash")
+FLASH_MMA = registry.kernel("flash_attention_mma", "laser_tpu_torch/csrc/flash_attention.cu",
+                            "laser_tpu/ops/attention.py:60 _build_flash")
+# route codes shared with csrc/flash_attention.cu (enum Route), and the
+# counter of each
+ROUTES = {None: 0, "ffma": 1, "mma": 2}
+ROUTE_KERNELS = {1: FLASH, 2: FLASH_MMA}
 
 NEG_INF = -1e30  # finite sentinel, as laser_tpu/ops/attention.py:37
 MAX_HEAD_DIM = 256
@@ -65,22 +80,29 @@ def masked_softmax_pv(s: torch.Tensor, valid: torch.Tensor, v: torch.Tensor,
     return o
 
 
-def causal_mask(S: int, causal: bool, device) -> torch.Tensor:
-    """(S, S) bool: key j visible to query i."""
-    if not causal:
-        return torch.ones((S, S), dtype=torch.bool, device=device)
-    idx = torch.arange(S, device=device)
-    return idx[None, :] <= idx[:, None]
+def causal_mask(S: int, causal: bool, device, Sk: Optional[int] = None,
+                k_valid: Optional[int] = None) -> torch.Tensor:
+    """(S, Sk) bool, Sk defaulting to S: key j visible to query i, that is
+    j < k_valid (default Sk) and, if causal, j <= i."""
+    Sk = S if Sk is None else Sk
+    kv = Sk if k_valid is None else min(int(k_valid), Sk)
+    kj = torch.arange(Sk, device=device)
+    valid = (kj < kv)[None, :].expand(S, Sk)
+    if causal:
+        valid = valid & (kj[None, :] <= torch.arange(S, device=device)[:, None])
+    return valid
 
 
-def _flash_plain(q3, k3, v3, causal: bool, scale: float, stats: bool, kv_heads):
+def _flash_plain(q3, k3, v3, causal: bool, scale: float, stats: bool, kv_heads,
+                 k_valid=None):
     FLASH.plain_calls += 1
     pin_fp32_matmul()
     BH, S, D = q3.shape
+    Sk = k3.shape[1]
     # consecutive query heads share a kv head: (B*Hkv, group, S, D)
     qg = q3.reshape(k3.shape[0], kv_heads[0] // kv_heads[1], S, D)
     s = torch.matmul(qg.float(), k3.float()[:, None].transpose(-1, -2)) * scale
-    valid = causal_mask(S, causal, q3.device)
+    valid = causal_mask(S, causal, q3.device, Sk, k_valid)
     if not stats:
         o = masked_softmax_pv(s, valid, v3[:, None], q3.dtype)
         return o.reshape(BH, S, D).to(q3.dtype)
@@ -88,7 +110,7 @@ def _flash_plain(q3, k3, v3, causal: bool, scale: float, stats: bool, kv_heads):
     return o.reshape(BH, S, D).to(q3.dtype), m.reshape(BH, S), l.reshape(BH, S)
 
 
-def _flash_cuda(q3, k3, v3, causal: bool, scale: float, stats: bool, kv_heads):
+def _flash_cuda(q3, k3, v3, causal: bool, scale: float, stats: bool, kv_heads, route=None):
     if q3.dtype not in registry.DTYPE_CODES:
         raise TypeError(f"flash kernel: unsupported dtype {q3.dtype}")
     for t in (q3, k3, v3):
@@ -103,34 +125,52 @@ def _flash_cuda(q3, k3, v3, causal: bool, scale: float, stats: bool, kv_heads):
         m = torch.empty((BH, S), dtype=torch.float32, device=q3.device)
         l = torch.empty((BH, S), dtype=torch.float32, device=q3.device)
     if BH and S:
+        taken = ctypes.c_int(0)
         status = registry.load_library().ltt_flash_fwd(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
             None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
             BH, S, D, Hq, Hkv, int(causal), float(scale), registry.DTYPE_CODES[q3.dtype],
-            registry.stream_handle(q3))
+            registry.route_code(ROUTES, route), ctypes.byref(taken), registry.stream_handle(q3))
         registry.check_launch(status, "flash_attention")
-        FLASH.launches += 1
+        ROUTE_KERNELS[taken.value].launches += 1
     return (o, m, l) if stats else o
 
 
 def flash_forward(q3, k3, v3, causal: bool, scale: float, *, stats: bool = False,
-                  plain: bool = False, kv_heads=None):
+                  plain: bool = False, kv_heads=None, k_valid=None, route=None):
     """The kernel for CUDA tensors, its plain version for CPU tensors (or
-    ``plain``): o, or (o, m, l) with ``stats``. q3: (BH, S, D); k3, v3 the
-    same, or with ``kv_heads=(Hq, Hkv)`` (BH / Hq * Hkv, S, D), query head h
-    of each batch row reading kv head h // (Hq / Hkv)."""
+    ``plain``): o, or (o, m, l) with ``stats``. q3: (BH, S, D); k3, v3
+    (BH, Sk, D), or with ``kv_heads=(Hq, Hkv)`` (BH / Hq * Hkv, Sk, D), query
+    head h of each batch row reading kv head h // (Hq / Hkv). Key j is
+    visible to query i when j < ``k_valid`` (default Sk) and, if causal,
+    j <= i. The kernel takes Sk == S without ``k_valid``; anything else
+    raises ``NotImplementedError`` on a CUDA tensor. ``route`` (a CUDA
+    tensor's): None lets the library pick, "ffma" or "mma" asks for one."""
     Hq, Hkv = kv_heads or (1, 1)
-    if Hq % Hkv or q3.shape[0] % Hq or k3.shape != (q3.shape[0] // Hq * Hkv, *q3.shape[1:]) \
-            or v3.shape != k3.shape:
+    BH, S, D = q3.shape
+    Sk = k3.shape[1] if k3.ndim == 3 else -1
+    if Hq % Hkv or BH % Hq or k3.shape != (BH // Hq * Hkv, Sk, D) or v3.shape != k3.shape:
         raise ValueError(f"flash: q {tuple(q3.shape)}, k {tuple(k3.shape)}, "
                          f"v {tuple(v3.shape)} do not fit kv_heads {(Hq, Hkv)}")
+    if k_valid is not None and int(k_valid) <= 0:
+        raise ValueError(f"k_valid must be positive, got {k_valid}")
     if plain or not registry.on_cuda(q3):
-        return _flash_plain(q3, k3, v3, causal, scale, stats, (Hq, Hkv))
-    return _flash_cuda(q3, k3, v3, causal, scale, stats, (Hq, Hkv))
+        return _flash_plain(q3, k3, v3, causal, scale, stats, (Hq, Hkv), k_valid)
+    if Sk != S or (k_valid is not None and int(k_valid) < Sk):
+        raise NotImplementedError(
+            f"flash kernel: {S} queries over {Sk} keys, k_valid {k_valid}: the kernel "
+            "takes square attention over every key; the plain version "
+            "(plain=True) takes this case")
+    return _flash_cuda(q3, k3, v3, causal, scale, stats, (Hq, Hkv), route)
 
 
-def _prepare(q, k, v, scale, window):
-    if q.shape != k.shape or q.shape != v.shape:
+def _prepare(q, k, v, scale, window, rect: bool = False):
+    """(q3, k3, v3, scale, lead): flat (BH, S, D) heads. q, k and v share
+    one shape, or with ``rect`` k and v share one whose key length may
+    differ from q's."""
+    same = k.shape == q.shape if not rect else (
+        k.shape[:-2] == q.shape[:-2] and k.shape[-1] == q.shape[-1])
+    if not same or k.shape != v.shape:
         raise ValueError(f"attention shapes must match: {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     if window is not None:
@@ -139,7 +179,9 @@ def _prepare(q, k, v, scale, window):
     if D > MAX_HEAD_DIM:
         raise NotImplementedError(f"attention: head dim {D} > {MAX_HEAD_DIM}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    q3, k3, v3 = (t.reshape(-1, S, D).contiguous() for t in (q, k, v))
+    Sk = k.shape[-2]
+    q3 = q.reshape(-1, S, D).contiguous()
+    k3, v3 = (t.reshape(-1, Sk, D).contiguous() for t in (k, v))
     return q3, k3, v3, scale, lead
 
 
@@ -219,14 +261,19 @@ def attention_with_stats(q, k, v, *, causal: bool = False,
                          q_offset=None, k_offset=None):
     """(out, m, l): out (..., S, D); m, l (..., S) fp32, the row max of the
     scaled scores and the softmax denominator, enough to merge partial
-    attentions or to run the backward. ``k_valid`` and the ring offsets are
-    not ported and raise."""
-    if k_valid is not None or q_offset is not None or k_offset is not None:
+    attentions or to run the backward. k and v are (..., Sk, D): key j is
+    visible to query i when j < ``k_valid`` (default Sk) and, if causal,
+    j <= i; ``k_valid <= 0`` raises ``ValueError``. The kernel takes
+    Sk == S without ``k_valid``: another case runs the plain version on a
+    CPU tensor and raises ``NotImplementedError`` on a CUDA one. The ring
+    offsets are not ported and raise."""
+    if k_valid is not None and int(k_valid) <= 0:
+        raise ValueError(f"k_valid must be positive, got {k_valid}")
+    if q_offset is not None or k_offset is not None:
         raise NotImplementedError(
-            "attention_with_stats: k_valid and q_offset/k_offset (ring "
-            "attention) are not ported")
-    q3, k3, v3, scale, lead = _prepare(q, k, v, scale, window)
-    o, m, l = flash_forward(q3, k3, v3, causal, scale, stats=True)
+            "attention_with_stats: q_offset/k_offset (ring attention) are not ported")
+    q3, k3, v3, scale, lead = _prepare(q, k, v, scale, window, rect=True)
+    o, m, l = flash_forward(q3, k3, v3, causal, scale, stats=True, k_valid=k_valid)
     S = q.shape[-2]
     return o.reshape(q.shape), m.reshape(*lead, S), l.reshape(*lead, S)
 

@@ -10,20 +10,28 @@ them to XLA (batched.py:102-108): through ``gemm``'s int32, int64 and f64
 routes, entry by entry, with the same accumulator and output rule.
 
 Replaces laser_tpu/ops/gemm/batched.py:28 _build_batched. Bound on the
-H100: the tensor-core rate at BASELINE.json's bf16 4096^3 batch.
+H100: the tensor-core rate at BASELINE.json's bf16 4096^3 batch. bf16/f16
+entries that fit the wgmma route (kernel.py) run it with the batch entry as
+the tensor maps' third coordinate (counter ``gemm_batched_wgmma``); every
+other batch runs the 64 x 64 kernels (``gemm_batched``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ... import registry
 from ...config import check_f32_precision, pin_fp32_matmul
 from .api import _acc_dtype, _dispatch, gemm, is_integer
-from .kernel import INT8_OUT_DTYPES, exact_int_product, wrap32
+from .kernel import INT8_OUT_DTYPES, ROUTES, exact_int_product, wrap32
 
 GEMM_BATCHED = registry.kernel("gemm_batched", "laser_tpu_torch/csrc/gemm.cu",
                                "laser_tpu/ops/gemm/batched.py:28 _build_batched")
+GEMM_BATCHED_WGMMA = registry.kernel("gemm_batched_wgmma", "laser_tpu_torch/csrc/gemm.cu",
+                                     "laser_tpu/ops/gemm/batched.py:28 _build_batched")
+ROUTE_KERNELS = {1: GEMM_BATCHED, 2: GEMM_BATCHED_WGMMA}
 
 
 def gemm_batched_plain(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -40,7 +48,8 @@ def gemm_batched_plain(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Ten
 MAX_BATCH = 65535
 
 
-def _gemm_batched_cuda(a, b, out_dtype):
+def _gemm_batched_cuda(a, b, out_dtype, route=None):
+    """The kernel; ``route`` as ``gemm_fused``'s."""
     if a.dtype == torch.float32:
         check_f32_precision()
     Bn, M, K = a.shape
@@ -58,12 +67,14 @@ def _gemm_batched_cuda(a, b, out_dtype):
         lib = registry.load_library()
         for z0 in range(0, Bn, MAX_BATCH):
             nz = min(MAX_BATCH, Bn - z0)
+            taken = ctypes.c_int(0)
             status = lib.ltt_gemm_batched(
                 a[z0].data_ptr(), b[z0].data_ptr(), out[z0].data_ptr(), nz, M, N, K,
                 registry.GEMM_DTYPE_CODES[a.dtype], registry.GEMM_DTYPE_CODES[kdt],
+                registry.route_code(ROUTES, route), ctypes.byref(taken),
                 registry.stream_handle(a))
             registry.check_launch(status, "gemm_batched")
-            GEMM_BATCHED.launches += 1
+            ROUTE_KERNELS[taken.value].launches += 1
     return out if kdt == out_dtype else out.to(out_dtype)
 
 

@@ -12,9 +12,16 @@ place; M/N/K tails are masked.
 
 Replaces laser_tpu/ops/gemm/kernel.py:62 build_gemm. Bound on the H100:
 tensor-core throughput at prefill (M up to 4096), weight bytes from HBM at
-decode (M = 8); int8 at 4096^3, the int8 tensor-core rate. Design: one
-64x64 output tile per block, K walked through shared memory, the epilogue
-in the accumulator type before one cast (details in csrc/gemm.cu).
+decode (M = 8); int8 at 4096^3, the int8 tensor-core rate. Two routes,
+each with its own launch counter, the kernel library picking one from the
+shape and alignment: ``gemm_wgmma`` (bf16/f16 with M >= 64, K and each
+operand's contiguous dimension multiples of 8, 16-byte-aligned bases:
+wgmma fed by a TMA ring, a 128 x 128 tile, transposed operands read in
+place) and ``gemm`` (every other product: WMMA bf16/f16 and s8 on a 64 x 64
+tile, f32 FFMA). Both apply the epilogue in the accumulator type before one
+cast (details in csrc/gemm.cu). ``route="classic"`` or ``"wgmma"`` on a
+CUDA tensor asks for one (wgmma at any M; an error where it does not fit),
+to time the two against each other.
 
 ``gemm_fused`` launches the kernel for CUDA tensors and runs
 ``gemm_plain`` for CPU tensors; there is no other fallback. torch has no
@@ -25,6 +32,7 @@ exact for every integer sum below 2^53 (|a b| <= 2^14, so any K below
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -35,6 +43,11 @@ from ...config import check_f32_precision, pin_fp32_matmul
 
 GEMM = registry.kernel("gemm", "laser_tpu_torch/csrc/gemm.cu",
                        "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
+GEMM_WGMMA = registry.kernel("gemm_wgmma", "laser_tpu_torch/csrc/gemm.cu",
+                             "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
+# route codes shared with csrc/gemm.cu (enum Route), and the counter of each
+ROUTES = {None: 0, "classic": 1, "wgmma": 2}
+ROUTE_KERNELS = {1: GEMM, 2: GEMM_WGMMA}
 
 # epilogue codes shared with csrc/gemm.cu (enum Epilogue)
 EPILOGUES = {None: 0, "none": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "gelu": 4}
@@ -125,7 +138,7 @@ def gemm_plain(a, b, *, alpha=1.0, beta=0.0, c=None, bias=None,
 
 
 def _gemm_cuda(a, b, *, alpha, beta, c, bias, epilogue, out_dtype,
-               transpose_a, transpose_b):
+               transpose_a, transpose_b, route=None):
     if a.dtype == torch.float32:
         check_f32_precision()
     M = a.shape[1] if transpose_a else a.shape[0]
@@ -158,6 +171,7 @@ def _gemm_cuda(a, b, *, alpha, beta, c, bias, epilogue, out_dtype,
     if int8:
         alpha, beta = int32_scalar(alpha), int32_scalar(beta)
     lib = registry.load_library()
+    taken = ctypes.c_int(0)
     status = lib.ltt_gemm(
         a.data_ptr(), b.data_ptr(),
         None if c_acc is None else c_acc.data_ptr(),
@@ -165,21 +179,23 @@ def _gemm_cuda(a, b, *, alpha, beta, c, bias, epilogue, out_dtype,
         out.data_ptr(), M, N, K, int(transpose_a), int(transpose_b),
         float(alpha), float(beta), _epilogue_code(epilogue),
         registry.GEMM_DTYPE_CODES[a.dtype], registry.GEMM_DTYPE_CODES[out_dtype],
-        registry.stream_handle(a))
+        registry.route_code(ROUTES, route), ctypes.byref(taken), registry.stream_handle(a))
     registry.check_launch(status, "gemm")
-    GEMM.launches += 1
+    ROUTE_KERNELS[taken.value].launches += 1
     return out
 
 
 def gemm_fused(a, b, *, alpha=1.0, beta=0.0, c=None, bias=None,
                epilogue=None, out_dtype=None, transpose_a=False,
-               transpose_b=False):
+               transpose_b=False, route=None):
     """The hand kernel for a CUDA tensor, its plain version for a CPU one.
-    a, b share one float dtype or int8; c is (M, N); bias is (N,)."""
+    a, b share one float dtype or int8; c is (M, N); bias is (N,). ``route``
+    (a CUDA tensor's): None lets the library pick, "classic" or "wgmma"
+    asks for one."""
     default_out = torch.int32 if a.dtype == torch.int8 else a.dtype
     kw = dict(alpha=alpha, beta=beta, c=c, bias=bias, epilogue=epilogue,
               out_dtype=out_dtype or default_out, transpose_a=transpose_a,
               transpose_b=transpose_b)
     if registry.on_cuda(a):
-        return _gemm_cuda(a, b, **kw)
+        return _gemm_cuda(a, b, **kw, route=route)
     return gemm_plain(a, b, **kw)

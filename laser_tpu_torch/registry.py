@@ -65,14 +65,16 @@ GEMM_DTYPE_CODES = {**POOL_DTYPE_CODES, torch.int32: 4}
 
 _P, _I, _F, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _D = ctypes.c_double
+_IP = ctypes.POINTER(ctypes.c_int)  # an out-parameter: the route a launcher took
 # every pointer and the stream are c_void_p: undeclared, ctypes would pass
 # them as 32-bit ints and cut the address
 SIGNATURES = {
     # a, b, c, bias, out, M, N, K, trans_a, trans_b, alpha, beta (the int32
-    # values for int8 inputs), epilogue, in_dtype, out_dtype, stream
-    "ltt_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P),
-    # a, b, out, B, M, N, K, in_dtype, out_dtype, stream
-    "ltt_gemm_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # values for int8 inputs), epilogue, in_dtype, out_dtype, route (0 picks,
+    # 1 WMMA/FFMA/int8, 2 wgmma), route taken (out), stream
+    "ltt_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _IP, _P),
+    # a, b, out, B, M, N, K, in_dtype, out_dtype, route, route taken, stream
+    "ltt_gemm_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _IP, _P),
     # a digits, b digits, out, nA, nB, n_buckets, M, N, K, stream
     "ltt_gemm_limbs": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a limbs, b limbs, c (or null), out, M, N, K, alpha, beta, stream
@@ -83,8 +85,8 @@ SIGNATURES = {
     # x, gamma, beta, y, rows, cols, kind, eps, dtype, stream
     "ltt_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, o, m (or null), l (or null), BH, S, D, Hq, Hkv, causal, scale,
-    # dtype, stream
-    "ltt_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # dtype, route (0 picks, 1 FFMA, 2 tensor cores), route taken (out), stream
+    "ltt_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _IP, _P),
     # q, k, v, dout, m, l, dvec, dq, BH, S, D, causal, scale, dtype, stream
     "ltt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                          _I, _P),
@@ -203,6 +205,13 @@ def on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise NotImplementedError(f"no kernel or plain path for device {t.device}")
+
+
+def route_code(routes: Dict[Optional[str], int], route: Optional[str]) -> int:
+    """The launcher's code of a route name (None: the launcher picks)."""
+    if route not in routes:
+        raise ValueError(f"unknown route {route!r}; have {[r for r in routes if r]}")
+    return routes[route]
 
 
 def check_launch(status: int, name: str) -> None:

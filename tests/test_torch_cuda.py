@@ -111,7 +111,7 @@ def _check_rows(got, want, dtype):
 @pytest.mark.parametrize("shape,epilogue", [((37, 45, 29), "gelu"), ((130, 200, 72), "relu"),
                                             ((70, 64, 40), "sigmoid"), ((1, 9, 3), "tanh")])
 def test_gemm(dev, dtype, ta, tb, shape, epilogue):
-    from laser_tpu_torch.ops.gemm.kernel import GEMM, gemm_fused, gemm_plain
+    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_WGMMA, gemm_fused, gemm_plain
 
     M, K, N = shape
     g = _gen(dev, 1)
@@ -119,9 +119,9 @@ def test_gemm(dev, dtype, ta, tb, shape, epilogue):
     b = _rnd(g, (N, K) if tb else (K, N), dtype, dev, std=K ** -0.5)
     bias = _rnd(g, (N,), dtype, dev)
     kw = dict(bias=bias, epilogue=epilogue, transpose_a=ta, transpose_b=tb)
-    before = GEMM.launches
+    before = GEMM.launches + GEMM_WGMMA.launches
     _check(gemm_fused(a, b, **kw), gemm_plain(a, b, **kw), dtype)
-    assert GEMM.launches == before + 1
+    assert GEMM.launches + GEMM_WGMMA.launches == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -187,7 +187,7 @@ DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 @pytest.mark.parametrize("S", [1, 45, 300])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_stats_and_backward(dev, dtype, D, S, causal):
-    from laser_tpu_torch.ops.attention import FLASH, flash_forward
+    from laser_tpu_torch.ops.attention import FLASH, FLASH_MMA, flash_forward
     from laser_tpu_torch.ops.attention_bwd import (FLASH_BWD_DKV, FLASH_BWD_DQ,
                                                    flash_attention_bwd,
                                                    flash_attention_bwd_reference)
@@ -195,7 +195,8 @@ def test_flash_stats_and_backward(dev, dtype, D, S, causal):
     g = _gen(dev, 8)
     q, k, v, do = (_rnd(g, (3, S, D), dtype, dev) for _ in range(4))
     scale = D ** -0.5
-    before = (FLASH.launches, FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches)
+    before = (FLASH.launches + FLASH_MMA.launches, FLASH_BWD_DQ.launches,
+              FLASH_BWD_DKV.launches)
     o, m, l = flash_forward(q, k, v, causal, scale, stats=True)
     po, pm, pl = flash_forward(q, k, v, causal, scale, stats=True, plain=True)
     _check(o, po, dtype)
@@ -205,8 +206,8 @@ def test_flash_stats_and_backward(dev, dtype, D, S, causal):
     want = flash_attention_bwd_reference(q, k, v, o, m, l, do, causal=causal, scale=scale)
     for name, a, b in zip("qkv", got, want):
         _check(a, b, dtype, floor=1.0 if S == 1 and name in "qk" else 1e-30)
-    assert (FLASH.launches, FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == \
-        tuple(n + 1 for n in before)
+    assert (FLASH.launches + FLASH_MMA.launches, FLASH_BWD_DQ.launches,
+            FLASH_BWD_DKV.launches) == tuple(n + 1 for n in before)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -327,7 +328,7 @@ def test_lm_cross_entropy_chunked(dev, dtype, transb):
     """The chunked branch through ce_bwd (and, for bf16, the GEMM kernel)
     against its plain route: V 1000 in chunks of 256, the last 232 wide."""
     from laser_tpu_torch.ops import loss
-    from laser_tpu_torch.ops.gemm.kernel import GEMM
+    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_WGMMA
 
     g = _gen(dev, 13)
     T, D, V = 77, 96, 1000
@@ -337,12 +338,13 @@ def test_lm_cross_entropy_chunked(dev, dtype, transb):
     t[:5] = 3
     kw = dict(transb=transb, label_smoothing=0.1, ignore_index=3, memory_budget_bytes=None,
               block_v=256)
-    before = (loss.CE_BWD.launches, GEMM.launches)
+    before = (loss.CE_BWD.launches, GEMM.launches + GEMM_WGMMA.launches)
     lk = loss.lm_cross_entropy(h, emb, t, **kw)
     dk = torch.autograd.grad(lk, (h, emb))
     torch.cuda.synchronize()
     gemms = 4 * 4 if dtype == torch.bfloat16 else 0  # 4 chunks: 1 forward, 3 backward
-    assert (loss.CE_BWD.launches, GEMM.launches) == (before[0] + 4, before[1] + gemms)
+    assert (loss.CE_BWD.launches, GEMM.launches + GEMM_WGMMA.launches) == (
+        before[0] + 4, before[1] + gemms)
     lp = loss.lm_cross_entropy(h, emb, t, plain=True, **kw)
     dp = torch.autograd.grad(lp, (h, emb))
     assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
@@ -479,15 +481,16 @@ def test_w4_gemm_scalar_loads(dev, dtype):
 @pytest.mark.parametrize("S", [1, 45, 131])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_gqa(dev, dtype, Hkv, S, causal):
-    from laser_tpu_torch.ops.attention import FLASH, attention_gqa, attention_gqa_reference
+    from laser_tpu_torch.ops.attention import (FLASH, FLASH_MMA, attention_gqa,
+                                               attention_gqa_reference)
 
     g = _gen(dev, 14)
     q = _rnd(g, (2, 8, S, 128), dtype, dev)
     k, v = _rnd(g, (2, Hkv, S, 128), dtype, dev), _rnd(g, (2, Hkv, S, 128), dtype, dev)
-    before = FLASH.launches
+    before = FLASH.launches + FLASH_MMA.launches
     _check(attention_gqa(q, k, v, causal=causal),
            attention_gqa_reference(q, k, v, causal=causal), dtype)
-    assert FLASH.launches == before + 1
+    assert FLASH.launches + FLASH_MMA.launches == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1271,7 +1274,8 @@ def test_gemm_int8_unaligned_operands(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int8])
 @pytest.mark.parametrize("shape", [(1, 1, 1, 1), (3, 20, 37, 19), (2, 130, 64, 70)])
 def test_gemm_batched(dev, dtype, shape):
-    from laser_tpu_torch.ops.gemm.batched import GEMM_BATCHED, gemm_batched, gemm_batched_plain
+    from laser_tpu_torch.ops.gemm.batched import (GEMM_BATCHED, GEMM_BATCHED_WGMMA,
+                                                  gemm_batched, gemm_batched_plain)
 
     B, M, K, N = shape
     g = _gen(dev, 73)
@@ -1279,9 +1283,9 @@ def test_gemm_batched(dev, dtype, shape):
         a, b = _int8(g, (B, M, K), dev), _int8(g, (B, K, N), dev)
     else:
         a, b = _rnd(g, (B, M, K), dtype, dev), _rnd(g, (B, K, N), dtype, dev, std=K ** -0.5)
-    before = GEMM_BATCHED.launches
+    before = GEMM_BATCHED.launches + GEMM_BATCHED_WGMMA.launches
     got = gemm_batched(a, b)
-    assert GEMM_BATCHED.launches == before + 1
+    assert GEMM_BATCHED.launches + GEMM_BATCHED_WGMMA.launches == before + 1
     want = gemm_batched_plain(a, b, got.dtype)
     if dtype == torch.int8:
         _equal(got, want)
@@ -1576,3 +1580,186 @@ def test_gemm_packed_out_dtypes_and_int8_alpha(dev):
     _equal(gemm_packed(1, pa, pb, out_dtype=torch.float32),
            (ai.double() @ bi.double()).float())
     assert not bool(gemm_packed(0.5, pa, pb).any())
+
+
+# ---------------------------------------------------------------------------
+# The Hopper routes: the wgmma GEMM (csrc/gemm.cu gemm_wgmma_kernel) and the
+# tensor-core flash forward (csrc/flash_attention.cu flash_fwd_mma_kernel),
+# each against its plain version, each asserting which route's counter moved
+# ---------------------------------------------------------------------------
+
+def _gemm_route(M, K, N, ta, tb):
+    """The route the library should pick for 16-bit operands: wgmma where M
+    >= 64 and both operands' contiguous dimensions are multiples of 8."""
+    a_inner, b_inner = (M if ta else K), (K if tb else N)
+    return "wgmma" if M >= 64 and a_inner % 8 == 0 and b_inner % 8 == 0 else "classic"
+
+
+def _gemm_counters(route):
+    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_WGMMA
+
+    return (GEMM_WGMMA, GEMM) if route == "wgmma" else (GEMM, GEMM_WGMMA)
+
+
+# (M, K, N, epilogue): every M of {65, 128, 4092}, K of {8, 72, 2048}, N of
+# {8, 200, 8192} and every epilogue, ragged in each dimension
+WGMMA_SHAPES = [(65, 72, 200, "gelu"), (128, 8, 8, "relu"), (4092, 2048, 8192, "tanh"),
+                (128, 72, 8192, "sigmoid"), (4092, 8, 200, None), (65, 2048, 8, "gelu")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=lambda s: "x".join(map(str, s[:3])))
+def test_gemm_wgmma(dev, dtype, ta, tb, shape):
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused, gemm_plain
+
+    M, K, N, epilogue = shape
+    g = _gen(dev, 80)
+    a = _rnd(g, (K, M) if ta else (M, K), dtype, dev)
+    b = _rnd(g, (N, K) if tb else (K, N), dtype, dev, std=K ** -0.5)
+    bias = _rnd(g, (N,), dtype, dev)
+    kw = dict(bias=bias, epilogue=epilogue, transpose_a=ta, transpose_b=tb)
+    route = _gemm_route(M, K, N, ta, tb)
+    moved, other = _gemm_counters(route)
+    before = (moved.launches, other.launches)
+    _check(gemm_fused(a, b, **kw), gemm_plain(a, b, **kw), dtype)
+    assert (moved.launches, other.launches) == (before[0] + 1, before[1]), route
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float16),
+    (torch.bfloat16, torch.float32), (torch.float16, torch.float32)])
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True), (True, False), (True, True)])
+def test_gemm_wgmma_alpha_beta_c_out_dtypes(dev, in_dtype, out_dtype, ta, tb):
+    """alpha * op(A) op(B) + beta * C + bias, one cast to each output type,
+    as the LM loss calls it (fp32 out, c = the running sum, beta 1)."""
+    from laser_tpu_torch.ops.gemm.kernel import GEMM_WGMMA, gemm_fused, gemm_plain
+
+    M, K, N = 200, 136, 264
+    g = _gen(dev, 81)
+    a = _rnd(g, (K, M) if ta else (M, K), in_dtype, dev)
+    b = _rnd(g, (N, K) if tb else (K, N), in_dtype, dev, std=K ** -0.5)
+    c = _rnd(g, (M, N), torch.float32, dev)
+    bias = _rnd(g, (N,), torch.float32, dev)
+    kw = dict(alpha=0.75, beta=-1.5, c=c, bias=bias, epilogue="relu", out_dtype=out_dtype,
+              transpose_a=ta, transpose_b=tb)
+    before = GEMM_WGMMA.launches
+    got, want = gemm_fused(a, b, **kw), gemm_plain(a, b, **kw)
+    assert GEMM_WGMMA.launches == before + 1
+    _check(got, want, out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gemm_batched_wgmma(dev, dtype):
+    """B = 3 at a ragged size: the batch entry is the tensor maps' third
+    coordinate; no tile reads across two entries."""
+    from laser_tpu_torch.ops.gemm.batched import (GEMM_BATCHED, GEMM_BATCHED_WGMMA,
+                                                  gemm_batched, gemm_batched_plain)
+
+    g = _gen(dev, 82)
+    a, b = _rnd(g, (3, 130, 72), dtype, dev), _rnd(g, (3, 72, 200), dtype, dev, std=72 ** -0.5)
+    before = (GEMM_BATCHED_WGMMA.launches, GEMM_BATCHED.launches)
+    got = gemm_batched(a, b)
+    assert (GEMM_BATCHED_WGMMA.launches, GEMM_BATCHED.launches) == (before[0] + 1, before[1])
+    want = gemm_batched_plain(a, b, got.dtype)
+    _check(got, want, dtype)
+    for i in range(3):  # each entry against its own product
+        _check(got[i], gemm_batched_plain(a[i:i + 1], b[i:i + 1], dtype)[0], dtype)
+
+
+def test_gemm_k_not_a_multiple_of_8_takes_wmma(dev):
+    """K % 8 != 0 cannot be a TMA stride: the WMMA kernel runs, right."""
+    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_WGMMA, gemm_fused, gemm_plain
+
+    g = _gen(dev, 83)
+    a, b = _rnd(g, (300, 70), torch.bfloat16, dev), _rnd(g, (70, 136), torch.bfloat16, dev)
+    before = (GEMM.launches, GEMM_WGMMA.launches)
+    _check(gemm_fused(a, b), gemm_plain(a, b), torch.bfloat16)
+    assert (GEMM.launches, GEMM_WGMMA.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("M", [1, 8, 40])
+def test_gemm_wgmma_asked_for_at_decode_rows(dev, M):
+    """route="wgmma" runs the wgmma kernel below its M threshold (the
+    decode products' crossover is timed that way); route="classic" the
+    WMMA kernel above it. Both right."""
+    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_WGMMA, gemm_fused, gemm_plain
+
+    g = _gen(dev, 84)
+    x, w = _rnd(g, (M, 2048), torch.bfloat16, dev), _rnd(g, (2048, 640), torch.bfloat16, dev,
+                                                          std=2048 ** -0.5)
+    bias = _rnd(g, (640,), torch.bfloat16, dev)
+    want = gemm_plain(x, w, bias=bias)
+    before = (GEMM.launches, GEMM_WGMMA.launches)
+    _check(gemm_fused(x, w, bias=bias, route="wgmma"), want, torch.bfloat16)
+    _check(gemm_fused(x, w, bias=bias), want, torch.bfloat16)
+    assert (GEMM.launches, GEMM_WGMMA.launches) == (before[0] + 1, before[1] + 1)
+    xb = _rnd(g, (256, 2048), torch.bfloat16, dev)
+    _check(gemm_fused(xb, w, bias=bias, route="classic"), gemm_plain(xb, w, bias=bias),
+           torch.bfloat16)
+    assert GEMM.launches == before[0] + 2
+    with pytest.raises(Exception):  # not a TMA stride: the route refuses
+        gemm_fused(_rnd(g, (M, 70), torch.bfloat16, dev), _rnd(g, (70, 64), torch.bfloat16, dev),
+                   route="wgmma")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 63, 64, 200, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_mma(dev, dtype, D, S, causal):
+    """The tensor-core forward: with (m, l) over MHA heads, and value-only
+    over GQA groups of 4, against the plain version."""
+    from laser_tpu_torch.ops.attention import FLASH, FLASH_MMA, flash_forward
+
+    g = _gen(dev, 85)
+    scale = D ** -0.5
+    q, k, v = (_rnd(g, (6, S, D), dtype, dev) for _ in range(3))
+    before = (FLASH_MMA.launches, FLASH.launches)
+    o, m, l = flash_forward(q, k, v, causal, scale, stats=True)
+    assert (FLASH_MMA.launches, FLASH.launches) == (before[0] + 1, before[1])
+    po, pm, pl = flash_forward(q, k, v, causal, scale, stats=True, plain=True)
+    _check_rows(o, po, dtype)
+    _check(m, pm, torch.float32)
+    _check(l, pl, torch.float32)
+    # GQA: 2 batch rows x 8 query heads over 2 kv heads each
+    qg = _rnd(g, (16, S, D), dtype, dev)
+    kg, vg = _rnd(g, (4, S, D), dtype, dev), _rnd(g, (4, S, D), dtype, dev)
+    got = flash_forward(qg, kg, vg, causal, scale, kv_heads=(8, 2))
+    assert FLASH_MMA.launches == before[0] + 2
+    _check_rows(got, flash_forward(qg, kg, vg, causal, scale, kv_heads=(8, 2), plain=True),
+                dtype)
+
+
+def test_flash_routes_asked_for(dev):
+    """route="ffma" runs the FFMA kernel on bf16 at D 128; f32 and D 96 take
+    it by themselves; route="mma" refuses f32."""
+    from laser_tpu_torch.ops.attention import FLASH, FLASH_MMA, flash_forward
+
+    g = _gen(dev, 86)
+    q, k, v = (_rnd(g, (4, 100, 128), torch.bfloat16, dev) for _ in range(3))
+    before = (FLASH.launches, FLASH_MMA.launches)
+    _check(flash_forward(q, k, v, True, 0.1, route="ffma"),
+           flash_forward(q, k, v, True, 0.1, plain=True), torch.bfloat16)
+    for dt, D in ((torch.float32, 128), (torch.bfloat16, 96)):
+        x = _rnd(g, (4, 100, D), dt, dev)
+        _check(flash_forward(x, x, x, False, 0.1), flash_forward(x, x, x, False, 0.1, plain=True),
+               dt)
+    assert (FLASH.launches, FLASH_MMA.launches) == (before[0] + 3, before[1])
+    with pytest.raises(Exception):
+        flash_forward(q.float(), k.float(), v.float(), True, 0.1, route="mma")
+
+
+@pytest.mark.parametrize("Sq,Sk,k_valid", [(16, 40, None), (40, 16, None), (16, 40, 23)])
+def test_attention_with_stats_rectangular_raises_on_the_kernel(dev, Sq, Sk, k_valid):
+    """Keys of their own length or k_valid: the plain version takes them
+    (tests/test_torch_attention_rect.py); the kernel route raises."""
+    from laser_tpu_torch.ops.attention import attention_with_stats
+
+    g = _gen(dev, 87)
+    q = _rnd(g, (2, Sq, 64), torch.bfloat16, dev)
+    k, v = _rnd(g, (2, Sk, 64), torch.bfloat16, dev), _rnd(g, (2, Sk, 64), torch.bfloat16, dev)
+    with pytest.raises(NotImplementedError):
+        attention_with_stats(q, k, v, causal=True, k_valid=k_valid)
+    with pytest.raises(ValueError):
+        attention_with_stats(q, k, v, k_valid=0)

@@ -107,7 +107,8 @@ def test_every_slice_kernel_registered():
         "for_each_strided", "map_reduce_staged",  # generated, layout slice
         "transpose", "transpose_inplace",  # layout slice
         "gemm_batched", "gemm_int32", "gemm_limbs", "quantize_int8",  # GEMM dtype table
-        "gemm_packed", "stencil_sweep", "adamw_update", "sgdm_update"}  # the library surface
+        "gemm_packed", "stencil_sweep", "adamw_update", "sgdm_update",  # the library surface
+        "gemm_wgmma", "gemm_batched_wgmma", "flash_attention_mma"}  # the Hopper routes
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
@@ -131,6 +132,13 @@ def test_every_slice_kernel_registered():
     assert replaced["adamw_update"] == "laser_tpu/ops/optim.py:38 _build_adamw"
     assert replaced["sgdm_update"] == "laser_tpu/ops/optim.py:80 _build_sgdm"
     assert replaced["ce_bwd"] == "laser_tpu/ops/loss.py:130 _build_ce_bwd"
+    # each route of one TPU kernel counts its own launches
+    assert replaced["gemm_wgmma"] == replaced["gemm"] == \
+        "laser_tpu/ops/gemm/kernel.py:62 build_gemm"
+    assert replaced["gemm_batched_wgmma"] == replaced["gemm_batched"]
+    assert replaced["flash_attention_mma"] == replaced["flash_attention"]
+    for fname in ("ltt_gemm", "ltt_gemm_batched", "ltt_flash_fwd"):  # route, route taken
+        assert registry.SIGNATURES[fname][-3:-1] == (ctypes.c_int, ctypes.POINTER(ctypes.c_int))
     assert registry.SIGNATURES["ltt_ce_bwd"][9] is ctypes.c_double  # eps, q formed in double
     assert replaced["transpose_inplace"].startswith(
         "laser_tpu/ops/transpose.py:151 _build_inplace_transpose_pipelined")
@@ -205,10 +213,64 @@ def test_entry_points_default_to_the_card(make):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
+# laser_tpu's root names with no port yet, each with its ROADMAP.md item
+UNPORTED_ROOT_NAMES = {
+    "conv2d_trainable": "queue 1, item 11",
+    "sample_logits": "queue 1, item 10",
+    "sample_multinomial": "queue 1, item 10",
+    "sample_multinomial_batch": "queue 1, item 10",
+    "ChipSpec": "TPU-only (device_info.detect gives the card's spec)",
+    "min_tile": "TPU-only (the (8, 128) tiling)",
+    "num_devices": "queue 1, item 14 (the mesh)",
+}
+
+
+def _laser_tpu_root_names():
+    """(name, laser_tpu module it comes from, or None) for every name
+    laser_tpu/__init__.py binds at its root, read from the source: importing
+    laser_tpu here would pull JAX into this process."""
+    import ast
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "laser_tpu" / "__init__.py"
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names += [(a.asname or a.name, node.module) for a in node.names]
+        elif isinstance(node, ast.Assign):
+            names += [(t.id, None) for t in node.targets if isinstance(t, ast.Name)]
+    return names
+
+
 def test_package_exports_laser_tpus_names():
-    """The names laser_tpu/__init__.py exports for these primitives resolve
-    lazily to the port's functions."""
+    """Every name laser_tpu/__init__.py binds at its root resolves lazily on
+    laser_tpu_torch to the port's object (its submodules to the port's
+    submodules), but for the explicit list of names with no port yet."""
+    import importlib
+    import importlib.util
+
     import laser_tpu_torch as ltt
+
+    names = _laser_tpu_root_names()
+    assert len(names) == 78 and set(UNPORTED_ROOT_NAMES) <= {n for n, _ in names}
+    for name, module in names:
+        if name in UNPORTED_ROOT_NAMES:
+            with pytest.raises(AttributeError):
+                getattr(ltt, name)
+        elif name == "__version__":
+            assert ltt.__version__ == "0.1.0"
+        elif module is None:  # from . import config, device_info, ...
+            assert getattr(ltt, name) is importlib.import_module(f"laser_tpu_torch.{name}")
+        else:
+            got = getattr(ltt, name)
+            home = importlib.import_module(f"laser_tpu_torch.{ltt._EXPORTS[name]}")
+            assert got is getattr(home, name), name
+            assert getattr(got, "__module__", "").startswith("laser_tpu_torch."), name
+            # where the port mirrors laser_tpu's module, the name is that one's
+            mirror = f"laser_tpu_torch.{module}"
+            if importlib.util.find_spec(mirror) and hasattr(importlib.import_module(mirror),
+                                                             name):
+                assert got is getattr(importlib.import_module(mirror), name), name
     from laser_tpu_torch import tensor
     from laser_tpu_torch.ops import foreach, reductions, transpose
 
