@@ -21,17 +21,33 @@ printed:
    host enqueues faster than the kernel runs). Each timed
    case also gets ``bound_ms``, the least time the card could take for the
    same work, from its bytes and operations at the peak rate of its input
-   type. The serving and training kernels run in bf16; beside the
-   transformer shapes: the int4 weight GEMM at the Llama-3-8B decode and
-   prefill shapes, the flash kernel's GQA map and the paged kernel over
-   int8 pages at those widths. The 16-bit GEMM and the bf16 flash forward
-   run on their Hopper routes (``gemm_wgmma``: wgmma fed by a TMA ring;
-   ``flash_attention_mma``: mma.sync on the tensor cores), and the kernels
-   they replace at the same shapes, asked for by ``route=`` (``gemm``:
-   WMMA; ``flash_attention``: FFMA), each case asserting that its route's
-   counter moved; the decode GEMM (M 8) on the WMMA route it picks, and
-   both routes timed at M 8 to 128 of the decode product (the crossover
-   behind the wgmma route's M threshold). The CNN path's kernels run in f32 at C1's
+   type; the library call is also timed 20 in a row (once for all the
+   cases that race it: the two flash backward kernels share one). The serving and
+   training kernels run in bf16; beside the transformer shapes: the flash
+   kernel's GQA map and the paged kernel over int8 pages at the Llama-3-8B
+   widths. The 16-bit GEMM and the bf16 flash forward run on their Hopper
+   routes (``gemm_wgmma``: wgmma fed by a TMA ring; ``flash_attention_mma``:
+   mma.sync on the tensor cores), and the kernels they replace at the same
+   shapes, asked for by ``route=`` (``gemm``: WMMA; ``flash_attention``:
+   FFMA), each case asserting that its route's counter moved. The
+   weight-streaming products run on the routes the library picks: the
+   decode GEMM (M 8) and the verify's (M 40) on split-K (``gemm_splitk``),
+   the Llama-3-8B decode products (K4096 N14336, K14336 N4096) bf16 on
+   split-K and int4 on the stream route (``w4_gemm_stream``), the int4
+   prefill (M4096 K4096 N14336) on the mma route (``w4_gemm_mma``), C1's
+   head (f32 M16 K50176 N128) on split-K; the decode GEMM, C1's head and
+   both int4 shapes also on the classic kernels asked for. These are also
+   timed as 20 calls captured in a CUDA graph (``graph_ms``, and the
+   library call's ``library_graph_ms``): the device's time for calls
+   shorter than the wrapper's host work, with the weight warm in L2; the
+   decode products also over copies of their weight that exceed L2 (100
+   MB), each call on the next (``cold_graph_ms``, ``library_cold_graph_ms``),
+   as a decode step finds them. Then every route asked for at M 1
+   to 128 of the decode product, Llama's w_down and the transformer's w2
+   (bf16: split-K up to 64 rows, wgmma, WMMA), of the decode product in f32 (split-K, FFMA) and
+   of Llama's int4 w_gate (stream up to 64 rows, mma, WMMA), 20 calls in a
+   CUDA graph each: the crossovers behind the launchers' M thresholds. The
+   CNN path's kernels run in f32 at C1's
    shapes (the planewise conv at conv 1, the direct conv at convs 2 and 3,
    the (16, 1000) softmax), with conv 3 also in bf16 and at stride 2, the
    row softmax at 8192 x 4096 and the online softmax at 64 x 128256; the
@@ -226,6 +242,7 @@ per-kernel JSON record, and the line before that the card.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -270,9 +287,10 @@ SERVE_CFG = dict(page_size=64, max_seqs=8, max_pages_per_seq=16, n_pages=129,
                  prefill_buckets=(128, 256, 512))
 TRAIN_BATCH, TRAIN_F32_BATCH = (8, 1024), (4, 256)
 TRAIN_STEPS, LR, WD = 6, 3e-4, 0.01
-# bf16 products with M >= 64 (prefill) take the wgmma GEMM, the decode
-# products (M <= 40) the WMMA one; bf16 flash at D 128 the tensor cores
-SERVING_KERNELS = ("gemm", "gemm_wgmma", "norm", "flash_attention_mma", "paged_attention")
+# bf16 products with M > 40 (prefill) take the wgmma GEMM, the decode
+# products (M <= 40) the split-K route; bf16 flash at D 128 the tensor cores
+SERVING_KERNELS = ("gemm_splitk", "gemm_wgmma", "norm", "flash_attention_mma",
+                   "paged_attention")
 # runs S1 and S2: the plain burst engine, then the quantized self-draft
 SPEC_GAMMA = 4
 S1_CFG = dict(page_size=64, n_pages=8 * 7 + 2, max_seqs=8, max_pages_per_seq=7,
@@ -282,7 +300,7 @@ S2_CFG = dict(SERVE_CFG, kv_quant=True, decode_burst=20, pipeline_bursts=True)
 SPEC_KERNELS = {"s1_plain": SERVING_KERNELS,
                 "s1_spec": SERVING_KERNELS + ("paged_window_attention",),
                 "s2_plain": SERVING_KERNELS,
-                "s2_spec": SERVING_KERNELS + ("w4_gemm", "paged_window_attention")}
+                "s2_spec": SERVING_KERNELS + ("w4_gemm_stream", "paged_window_attention")}
 SPEC_F32_CFG = dict(SERVE_CFG, decode_burst=20, pipeline_bursts=True)
 DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=2, d_ff=512, vocab=8192)
 LLAMA_DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab=8192)
@@ -300,10 +318,12 @@ LLAMA_TRAIN_F32_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_b
 # ce_bwd against its plain version: f32 exp and the same fp32 arithmetic;
 # bf16 dx one rounding of the largest element apart
 CE_BWD_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-6}
-# run (b)'s block linears are all int4 and its logits torch.matmul: no gemm
-LLAMA_KERNELS = {"llama": ("gemm", "gemm_wgmma", "norm", "flash_attention_mma",
+# run (b)'s block linears are all int4 (decode on the stream route, prefill
+# on the mma route) and its logits torch.matmul: no gemm
+LLAMA_KERNELS = {"llama": ("gemm_splitk", "gemm_wgmma", "norm", "flash_attention_mma",
                            "paged_attention"),
-                 "llama_int4": ("w4_gemm", "norm", "flash_attention_mma", "paged_attention")}
+                 "llama_int4": ("w4_gemm_stream", "w4_gemm_mma", "norm", "flash_attention_mma",
+                                "paged_attention")}
 # the CNN slice, C1: laser_tpu's init_cnn with convs at the conv benchmark's
 # shapes (bench.py:1061-1108: N16 C3->20 224^2, and 64->64 at 56^2 after two
 # pools) and ImageNet-1k's 1000 classes; batch 16, f32
@@ -311,10 +331,10 @@ CNN = dict(in_channels=3, conv_channels=(20, 64, 64), hidden=128, num_classes=10
            image_hw=224)
 CNN_BATCH, CNN_FORWARDS = 16, 20
 # launches of each kernel per cnn_predict (every other kernel: none), and
-# the device kernels of one forward: these 6 and PyTorch's bias add, ReLU
-# and mean pool after each conv
-CNN_LAUNCHES = {"conv_planewise": 1, "conv_direct": 2, "gemm": 2, "softmax": 1}
-CNN_DEVICE_KERNELS = 15
+# the device kernels of one forward: these 6, the split-K reduce of each
+# head product, and PyTorch's bias add, ReLU and mean pool after each conv
+CNN_LAUNCHES = {"conv_planewise": 1, "conv_direct": 2, "gemm_splitk": 2, "softmax": 1}
+CNN_DEVICE_KERNELS = 17
 # forwards in the profiled window: a trace late in the script once kept 1
 # of one forward's 15 kernels; over 10 a dropped record shows as coverage
 CNN_PROFILE_FORWARDS = 10
@@ -362,6 +382,45 @@ def cuda_batched_ms(fn, n: int = 20, reps: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+# bytes of weight copies a cold-cache timing cycles through: twice the
+# H100's 50 MB L2
+COLD_BYTES = 100e6
+
+
+def rotating(fn, items):
+    """A call of fn(*item) on the next of ``items`` each time."""
+    cycle = itertools.cycle(items)
+    return lambda: fn(*next(cycle))
+
+
+def cuda_graph_ms(fn, n: int = 20, reps: int = 3) -> float:
+    """Milliseconds per call of ``n`` calls captured in one CUDA graph and
+    replayed (median of ``reps``): no host work between the calls, so the
+    device's time for calls too short to outrun the host's enqueue."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
     return statistics.median(times)
 
 
@@ -414,6 +473,11 @@ class Case:
     per_row: bool = False     # rel_error per output row
     dtype: torch.dtype = torch.bfloat16  # the input type: the bound's peak rate
     rel: Optional[float] = None  # the comparison's bound, if not REL_BOUND's
+    graph: bool = False       # also time it (and the library call) as a CUDA graph
+    # (kernel, library) over copies of the weight that together exceed the
+    # L2 cache, each call on the next: timed as a CUDA graph, the cold cache
+    # a decode step finds
+    cold: Optional[tuple] = None
 
 
 def bound(case: Case, spec):
@@ -606,7 +670,8 @@ def kernel_cases(dtype, full: bool):
     cases.append(window_case(rnd(slots, Wv, Hq, hd), kpi, vpi, tables, lengths_w, ksi, vsi,
                              slot="int8"))
 
-    cases.append(w4_case(g, dtype, Mq, Kq, Nq, group))
+    if f32 or not full:
+        cases.append(w4_case(g, dtype, Mq, Kq, Nq, group))
 
     xl = rnd(T, V, std=2.0)
     tl = torch.randint(0, V, (T,), generator=g, device=DEVICE)
@@ -668,22 +733,34 @@ def ce_bwd_cases(g, full: bool):
                  library=False)]
 
 
-def w4_case(g, dtype, M, K, N, group, slot=""):
-    """The int4 weight GEMM on a (K, N) weight quantized from N(0, 1/K)."""
+def w4_case(g, dtype, M, K, N, group, slot="", name="w4_gemm", route=None, note="",
+            cold=False):
+    """The int4 weight GEMM on a (K, N) weight quantized from N(0, 1/K), on
+    the route the library picks or ``route``; ``name`` the counter that
+    must move. ``cold``: also over copies of the weight that exceed L2."""
     from laser_tpu_torch.ops.gemm.int4_kernel import dequantize_int4, gemm_w4, gemm_w4_plain
     from laser_tpu_torch.ops.gemm.int4_kernel import quantize_int4
 
     isz = torch.tensor([], dtype=dtype).element_size()
     h = torch.randn((M, K), generator=g, device=DEVICE).to(dtype)
-    wq = quantize_int4(torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5, group=group)
+    packed = K * N // 2 + (K // group) * N * 4
+    copies = [quantize_int4(torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5,
+                            group=group)
+              for _ in range(max(2, math.ceil(COLD_BYTES / packed)) if cold else 1)]
+    wq = copies[0]
     wd = dequantize_int4(wq).to(dtype)
-    return Case("w4_gemm", f"M{M} K{K} N{N} group{group}", lambda: gemm_w4(h, wq),
+    cold_runs = None
+    if cold:  # the library call's copies are the dequantized weights, 4x the bytes
+        cold_runs = (rotating(lambda c: gemm_w4(h, c, route=route), [(c,) for c in copies]),
+                     rotating(lambda c: torch.matmul(h, c),
+                              [(dequantize_int4(c).to(dtype),) for c in copies]))
+    return Case(name, f"M{M} K{K} N{N} group{group}{note}", lambda: gemm_w4(h, wq, route=route),
                 lambda: gemm_w4_plain(h, wq), flops=2 * M * K * N,
                 nbytes=M * K * isz + K * N // 2 + (K // group) * N * 4 + M * N * isz,
                 library=lambda: torch.matmul(h, wd),
                 library_call="torch.matmul on the dequantized weight in the activation "
                              "dtype: the same product from 4x the weight bytes (bf16)",
-                slot=slot)
+                slot=slot, cold=cold_runs)
 
 
 def window_case(q, kp, vp, tables, lengths, ks=None, vs=None, slot=""):
@@ -764,20 +841,55 @@ def _sdpa_backward(q, k, v, do):
     return lambda: torch.autograd.grad(out, (qg, kg, vg), do[None], retain_graph=True)
 
 
-def decode_gemm_case():
-    """The decode-regime GEMM (8 rows against the wqkv weight), bf16."""
+def decode_cases():
+    """The weight-streaming products (bf16 unless stated), each on the
+    route the library picks and, at its main shape, on the kernel that route
+    replaces (asked for by ``route="classic"``): the decode product (8 rows
+    against the wqkv weight) and the speculative verify's 40 rows; the
+    Llama-3-8B decode products (w_gate / w_up and w_down) bf16 and int4;
+    the int4 prefill; C1's head in f32."""
     from laser_tpu_torch.ops.gemm import linear, linear_reference
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(1)
-    x = torch.randn((8, 2048), generator=g, device=DEVICE).bfloat16()
-    w = (torch.randn((2048, 6144), generator=g, device=DEVICE) * 2048 ** -0.5).bfloat16()
-    b = torch.zeros((6144,), device=DEVICE, dtype=torch.bfloat16)
-    return Case("gemm", "M8 K2048 N6144 bias", lambda: linear(x, w, b),
-                lambda: linear_reference(x, w, b), flops=2 * 8 * 2048 * 6144,
-                nbytes=(8 * 2048 + 2048 * 6144 + 8 * 6144 + 6144) * 2,
-                library=lambda: torch.addmm(b, x, w), library_call="torch.addmm",
-                slot="decode")
+
+    def dense(M, K, N, slot, dtype=torch.bfloat16, name="gemm_splitk", route=None, note=""):
+        x = torch.randn((M, K), generator=g, device=DEVICE).to(dtype)
+        ws = [(torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5).to(dtype)
+              for _ in range(max(2, math.ceil(COLD_BYTES / (K * N * x.element_size()))))]
+        w = ws[0]
+        b = (torch.randn((N,), generator=g, device=DEVICE) * 0.1).to(dtype)
+
+        def run(w=w):
+            return linear(x, w, b) if route is None else gemm_fused(x, w, bias=b, route=route)
+        return Case(name, f"M{M} K{K} N{N} bias{note}", run, lambda: linear_reference(x, w, b),
+                    flops=2 * M * K * N, nbytes=(M * K + K * N + M * N + N) * x.element_size(),
+                    library=lambda: torch.addmm(b, x, w), library_call="torch.addmm", slot=slot,
+                    dtype=dtype, cold=(rotating(run, [(c,) for c in ws]),
+                                       rotating(lambda c: torch.addmm(b, x, c), [(c,) for c in ws])))
+
+    classic = ", the WMMA kernel asked for"
+    cases = [
+        dense(8, 2048, 6144, ""),
+        dense(8, 2048, 6144, "decode", name="gemm", route="classic", note=classic),
+        dense(40, 2048, 6144, "verify_m40"),
+        dense(8, 4096, 14336, "llama_w_gate"),
+        dense(8, 14336, 4096, "llama_w_down"),
+        dense(16, 50176, 128, "c1_head", dtype=torch.float32),
+        dense(16, 50176, 128, "c1_head", dtype=torch.float32, name="gemm", route="classic",
+              note=", the FFMA kernel asked for"),
+        w4_case(g, torch.bfloat16, 8, 4096, 14336, 64, name="w4_gemm_stream", cold=True),
+        w4_case(g, torch.bfloat16, 8, 14336, 4096, 64, slot="llama_w_down",
+                name="w4_gemm_stream", cold=True),
+        w4_case(g, torch.bfloat16, 8, 4096, 14336, 64, route="classic", note=classic, cold=True),
+        w4_case(g, torch.bfloat16, 4096, 4096, 14336, 64, name="w4_gemm_mma"),
+        w4_case(g, torch.bfloat16, 4096, 4096, 14336, 64, slot="prefill", route="classic",
+                note=classic),
+    ]
+    for c in cases:
+        c.graph = True
+    return cases
 
 
 def cnn_cases():
@@ -841,27 +953,58 @@ def cnn_cases():
     ]
 
 
-# the decode product's rows at which both GEMM routes are timed: the
-# crossover behind the wgmma route's M threshold (csrc/gemm.cu WG_MIN_M)
-CROSSOVER_M = (8, 16, 32, 40, 64, 128)
+# the rows at which the GEMM routes are timed against each other: the
+# crossovers behind csrc/gemm.cu's SPLITK_MAX_M and WG_MIN_M and
+# csrc/w4_gemm.cu's W4_STREAM_MAX_M
+CROSSOVER_M = (1, 8, 16, 32, 40, 64, 128)
+CROSSOVER_F32_M = (1, 8, 16, 32, 64)
+
+
+def _crossover_row(label, runs):
+    """Device ms per call (20 calls in a CUDA graph) of each route in
+    ``runs`` ({route: fn}), printed on one line."""
+    row = {r: cuda_graph_ms(fn) for r, fn in runs.items()}
+    print(f"  {label}: " + ", ".join(f"{r} {t:.4f}" for r, t in row.items()) + " ms", flush=True)
+    return row
 
 
 def gemm_crossover():
-    """Both GEMM routes at M rows of the decode product (K 2048, N 6144,
-    bf16, bias), asked for by ``route=``: {M: (wgmma ms, WMMA ms)}."""
+    """Every GEMM route asked for by ``route=`` at M rows of the decode
+    product (K 2048, N 6144), of Llama-3-8B's w_down (K 14336, N 4096) and
+    of the transformer's w2 (K 8192, N 2048),
+    bf16 with a bias (split-K up to 64 rows); f32 split-K against the FFMA
+    kernel on the decode product; the int4 routes at M rows of the Llama
+    w_gate product (K 4096, N 14336, group 64; stream up to 64 rows).
+    Device ms a call, 20 in a CUDA graph: {product: {M: {route: ms}}}."""
+    from laser_tpu_torch.ops.gemm.int4_kernel import gemm_w4, quantize_int4
     from laser_tpu_torch.ops.gemm.kernel import gemm_fused
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(3)
-    w = (torch.randn((2048, 6144), generator=g, device=DEVICE) * 2048 ** -0.5).bfloat16()
-    b = torch.zeros((6144,), device=DEVICE, dtype=torch.bfloat16)
     out = {}
+    for dtype, (K, N), ms, routes in (
+            (torch.bfloat16, (2048, 6144), CROSSOVER_M, ("splitk", "wgmma", "classic")),
+            (torch.bfloat16, (14336, 4096), CROSSOVER_M, ("splitk", "wgmma", "classic")),
+            (torch.bfloat16, (8192, 2048), CROSSOVER_M, ("splitk", "wgmma", "classic")),
+            (torch.float32, (2048, 6144), CROSSOVER_F32_M, ("splitk", "classic"))):
+        key = f"{DTYPE_TAGS[dtype]} K{K} N{N}"
+        w = (torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5).to(dtype)
+        b = torch.zeros((N,), device=DEVICE, dtype=dtype)
+        out[key] = {}
+        for M in ms:
+            x = torch.randn((M, K), generator=g, device=DEVICE).to(dtype)
+            out[key][f"M{M}"] = _crossover_row(f"{key} M{M}", {
+                r: (lambda r=r, x=x: gemm_fused(x, w, bias=b, route=r)) for r in routes
+                if r != "splitk" or M <= 64})
+    K, N = 4096, 14336
+    wq = quantize_int4(torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5, group=64)
+    key = f"int4 K{K} N{N} group64"
+    out[key] = {}
     for M in CROSSOVER_M:
-        x = torch.randn((M, 2048), generator=g, device=DEVICE).bfloat16()
-        out[M] = tuple(cuda_ms(lambda r=r: gemm_fused(x, w, bias=b, route=r))
-                       for r in ("wgmma", "classic"))
-        print(f"  decode product M{M} K2048 N6144: wgmma {out[M][0]:.4f} ms, WMMA "
-              f"{out[M][1]:.4f} ms", flush=True)
+        x = torch.randn((M, K), generator=g, device=DEVICE).bfloat16()
+        out[key][f"M{M}"] = _crossover_row(f"{key} M{M}", {
+            r: (lambda r=r, x=x: gemm_w4(x, wq, route=r)) for r in ("stream", "mma", "classic")
+            if r != "stream" or M <= 64})
     return out
 
 
@@ -884,35 +1027,43 @@ def phase_kernels(spec):
     print("phase 2: kernels vs plain versions", flush=True)
     record = {}
     f32 = kernel_cases(torch.float32, full=False)
-    g = torch.Generator(device=DEVICE)
-    g.manual_seed(2)
-    timed = kernel_cases(torch.bfloat16, full=True) + [
-        decode_gemm_case(), w4_case(g, torch.bfloat16, 4096, 4096, 14336, 64, slot="prefill")
-    ] + cnn_cases()
+    timed = kernel_cases(torch.bfloat16, full=True) + decode_cases() + cnn_cases()
     for case in f32:
         compare(f"{case.name} {case.shape} [f32]", check_route(case), case.plain(),
                 case.per_row, case.rel)
     table_small_checks()
     library_small_checks()
+    library_times = {}  # one timing of each library call, shared by the cases that race it
     for case in timed:
         err = compare(f"{case.name} {case.shape} [{DTYPE_TAGS[case.dtype]}]", check_route(case),
                       case.plain(), case.per_row, case.rel)
         ms, pms = cuda_ms(case.kern), cuda_ms(case.plain, reps=5)
         batched = cuda_batched_ms(case.kern)
-        lms = cuda_ms(case.library) if case.library else None
+        if case.library and id(case.library) not in library_times:
+            library_times[id(case.library)] = (cuda_ms(case.library),
+                                               cuda_batched_ms(case.library))
+        lms, lbatched = library_times.get(id(case.library), (None, None))
+        gms = cuda_graph_ms(case.kern) if case.graph else None
+        lgms = cuda_graph_ms(case.library) if case.graph and case.library else None
+        cgms, clgms = (cuda_graph_ms(f) for f in case.cold) if case.cold else (None, None)
         bms, by = bound(case, spec)
+        lib = "none" if lms is None else f"{lms:.4f} ms ({lbatched:.4f} ms 20 in a row)"
+        graph = "" if gms is None else (f"; in a CUDA graph: kernel {gms:.4f} ms, library "
+                                        f"{'none' if lgms is None else f'{lgms:.4f} ms'}")
+        if cgms is not None:
+            graph += f"; cold L2: kernel {cgms:.4f} ms, library {clgms:.4f} ms"
         print(f"    time: kernel {ms:.4f} ms ({batched:.4f} ms per call of 20 in a row), plain "
-              f"{pms:.4f} ms, library {'none' if lms is None else f'{lms:.4f} ms'}, bound "
-              f"{bms:.4f} ms ({by})", flush=True)
+              f"{pms:.4f} ms, library {lib}, bound {bms:.4f} ms ({by}){graph}", flush=True)
         entry = {"shape": case.shape, "max_abs_err": err, "ms": ms, "batched_ms": batched,
                  "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms,
+                 "library_batched_ms": lbatched, "graph_ms": gms, "library_graph_ms": lgms,
+                 "cold_graph_ms": cgms, "library_cold_graph_ms": clgms,
                  "library_call": case.library_call}
         if case.slot:
             record.setdefault(case.name, {})[case.slot] = entry
         else:
             record[case.name] = {**entry, **record.get(case.name, {})}
-    record["gemm_wgmma"]["decode_crossover"] = {
-        f"M{M}": {"wgmma_ms": a, "wmma_ms": b} for M, (a, b) in gemm_crossover().items()}
+    record["gemm_splitk"]["crossover"] = gemm_crossover()
     return record
 
 
@@ -946,6 +1097,13 @@ def check_tokens(outs, vocab, n=NEW_TOKENS):
         if len(toks) != n or not all(0 <= t < vocab for t in toks):
             fail(f"request {i}: {len(toks)} tokens, range "
                  f"[{min(toks, default=-1)}, {max(toks, default=-1)}]")
+
+
+def gemm_launches(counts):
+    """Launches of the GEMM kernel over its three routes."""
+    from laser_tpu_torch.ops.gemm.kernel import ROUTE_KERNELS
+
+    return sum(counts[k.name]["launches"] for k in ROUTE_KERNELS.values())
 
 
 def check_counts(counts, names, path):
@@ -1551,7 +1709,7 @@ def phase_cnn():
         print(f"  mlp_predict {dims}: rows sum to 1 within {msum:.3e}; counts "
               f"{json.dumps({k: v for k, v in mlp_counts.items() if v['launches']})}",
               flush=True)
-        if (mlp_counts["gemm"]["launches"] != 2 or mlp_counts["softmax"]["launches"] != 1
+        if (gemm_launches(mlp_counts) != 2 or mlp_counts["softmax"]["launches"] != 1
                 or any(c["plain_calls"] for c in mlp_counts.values())
                 or not msum <= PROB_SUM_TOL):
             fail(f"mlp: counts {mlp_counts}, row sums within {msum:.3e}")

@@ -4,22 +4,35 @@
 // Replaces laser_tpu/ops/gemm/kernel.py:62 build_gemm (the Pallas MXU matmul)
 // and, with a batch index, laser_tpu/ops/gemm/batched.py:28 _build_batched.
 //
-// What bounds it on the H100: the serving slice calls it at two regimes.
-// Prefill (M = prompts x bucket, up to 4096; K, N in {2048, 6144, 8192}) is
-// compute-bound, and the bf16/f16 path runs on the tensor cores through WMMA
-// (mma.sync 16x16x16, fp32 accumulators). Decode (M = 8) reads every weight
-// once for 8 rows: it is bound by the weight bytes streamed from HBM, and a
-// 64-wide column tile per block gives N/64 blocks (32..128) to stream them.
-// f32 runs as full-fp32 FFMA, never TF32 (config.matmul_precision "highest",
-// laser_tpu/ops/gemm/kernel.py:87-89). int8 inputs (bench.py's int8 4096^3
-// row, gemm_quantized) run on the int8 tensor cores (WMMA s8, int32
-// accumulators: 1979 TOP/s dense is the bound at 4096^3); the accumulator
-// wraps mod 2^32 (no .satfinite), as laser_tpu's int32 accumulator does.
+// What bounds it on the H100: the slices call it at two regimes. Prefill and
+// training (M up to 8192; K, N 2048..14336) are compute-bound: 989 TFLOP/s
+// of bf16 tensor cores. The decode products (M = 1..40: a batch of slots, a
+// speculative verify's windows) read every weight once for a few rows: 8
+// operations a byte at M 8 against the ridge of 295, bound by the weight
+// bytes streamed from HBM. f32 runs as full-fp32 FFMA, never TF32
+// (config.matmul_precision "highest", laser_tpu/ops/gemm/kernel.py:87-89).
+// int8 inputs (bench.py's int8 4096^3 row, gemm_quantized) run on the int8
+// tensor cores (WMMA s8, int32 accumulators: 1979 TOP/s dense is the bound
+// at 4096^3); the accumulator wraps mod 2^32 (no .satfinite), as
+// laser_tpu's int32 accumulator does.
 //
-// Design: one 64x64 output tile per block, K walked in 32 (16-bit tensor
-// core), 64 (int8) or 16 (FFMA) deep slabs staged through shared memory.
-// Transposed operands are read in place by the tile loader (int8: staged
-// K-contiguous and read by column-major fragments, csrc/int8_tile.cuh).
+// Three routes; the launcher picks one from the shape and alignment, or is
+// asked for one (enum Route), and reports it:
+// - split-K (small M): bf16/f16/f32 products with M <= SPLITK_MAX_M
+//   (SPLITK_F32_MAX_M for f32), B not transposed, A not transposed, N % 8 ==
+//   0 (f32: N % 4), 16-byte-aligned bases, one batch entry. The skeleton of
+//   csrc/splitk.cuh streams B through a 4-stage cp.async ring over
+//   (column tile, K split) blocks, A's K-slice in shared memory, mma.sync
+//   for 16-bit inputs; f32 runs gemm_splitk_f32_kernel below (FFMA, a
+//   column a thread, the same ring and plan). Partials reduce in a second
+//   kernel in a fixed order; the epilogue runs once, after the sum.
+// - wgmma (compute-bound 16-bit products, M >= WG_MIN_M): see its note.
+// - classic, every other product: one 64x64 output tile per block, K walked
+//   in 32 (16-bit WMMA: gemm_tc_kernel), 64 (int8) or 16 (FFMA) deep slabs
+//   staged through shared memory. Transposed operands are read in place by
+//   the tile loader (int8: staged K-contiguous and read by column-major
+//   fragments, csrc/int8_tile.cuh). It takes the products the other routes
+//   cannot: transposed, ragged (N % 8, K % 8) or unaligned operands, int8.
 // Out-of-range M/N/K reads load as 0 on BOTH operands (0 * garbage can be
 // NaN: kernel.py:107-115); stores are masked. The float epilogue (alpha,
 // beta*C, bias, activation) runs in fp32 before the single cast to the
@@ -27,23 +40,20 @@
 // arithmetic (kernel.py:122-131), alpha and beta already cast to int32 by
 // the caller, a float activation on the int32 value. The batch index is
 // blockIdx.z over contiguous (B, M, K) x (B, K, N) -> (B, M, N) operands.
-//
-// The bf16/f16 WMMA kernel (gemm_tc_kernel: synchronous loads, two
-// __syncthreads per 32-deep slab, a 64x64 tile per block) stays for the
-// decode products (M < WG_MIN_M), for K or an operand's contiguous dimension
-// not a multiple of 8 and for unaligned bases. Every other bf16/f16 product
-// takes gemm_wgmma_kernel (wgmma fed by a TMA ring; see its note).
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through cudart
 #include <mma.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "int8_tile.cuh"
+#include "splitk.cuh"
 
 namespace {
 
 using namespace nvcuda;
+using namespace ltt::hp;
+namespace sk = ltt::sk;
 using ltt::from_f32;
 using ltt::to_f32;
 
@@ -454,128 +464,28 @@ __global__ void __launch_bounds__(I8_THREADS) gemm_i8_kernel(GemmArgs p) {
 // TMA multicast, are the next steps.
 // The route needs 16-byte-aligned bases and each operand's contiguous
 // dimension a multiple of 8 (TMA's 16-byte strides) and M >= WG_MIN_M.
-constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64;
 constexpr int WG_STAGES = 3;
 constexpr int WG_BLOCKS_PER_SM = 2;
-constexpr int WG_CONSUMERS = 2;                            // warpgroups, 64 rows each
 constexpr int WG_THREADS = WG_CONSUMERS * 128 + 32;        // + the producer warp
 constexpr int WG_TILE_BYTES = WG_BM * WG_BK * 2;           // A's tile in a stage; B's the same
 constexpr int WG_STAGE_BYTES = 2 * WG_TILE_BYTES;
 constexpr int WG_SMEM_BYTES = WG_STAGES * WG_STAGE_BYTES + 1024;  // + 1024-byte alignment
-constexpr int WG_HALF_BYTES = 64 * 128;   // one 64-wide MN-major box: 64 K-rows of 128 bytes
-// tile rows walked together before the next column of tiles (L2 reuse)
-constexpr int WG_GROUP_M = 8;
-// The decode products (M <= 40) stay on the WMMA kernel until their own
-// redesign (split-K or a GEMV). Measured on an H100 at M 8..128 of the
-// decode product (chip_smoke.py phase 2), wgmma is the faster of the two at
-// every M, so the threshold is a choice, not a crossover.
-constexpr int WG_MIN_M = 64;
+// The routes' M thresholds, from chip_smoke.py phase 2's crossover (every
+// route asked for at M 1..128, 20 calls in a CUDA graph; NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md §6). bf16 split-K against wgmma: on the decode
+// product (K 2048, N 6144, 48 column tiles) split-K is ahead to M 16 and
+// behind from M 32 (0.0240 against 0.0209 ms at M 40); on Llama-3-8B's
+// w_down (K 14336, N 4096) it is ahead at every M to 64 (0.0840 against
+// 0.1221 at M 40), as on every product whose few column tiles leave
+// wgmma's grid a fraction of the SMs. 40 keeps the speculative verify's
+// rows (W 5 x 8 slots) on split-K. wgmma is ahead of the WMMA kernel at
+// every M measured, so it takes every other 16-bit product it fits. f32
+// split-K is ahead of the FFMA kernel at every M to 64.
+constexpr int SPLITK_MAX_M = 40;
+constexpr int SPLITK_F32_MAX_M = 64;
+constexpr int WG_MIN_M = SPLITK_MAX_M + 1;
 
-enum Route { kRouteAuto = 0, kRouteClassic = 1, kRouteWgmma = 2 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 3-D tensor map (coordinates innermost first) into shared
-// memory; the bytes complete on `bar`
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, each >> 4 (PTX ISA, "matrix descriptor")
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
-         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
-}
-
-// K-major (K contiguous, 128-byte rows): rows at 128 B, 8-row groups at 1024
-// B (SBO); the k16 step is +32 B within the swizzled row. MN-major (64
-// M or N values a 128-byte row, one row a k): 8-k groups at 1024 B (SBO),
-// 64-wide MN blocks at WG_HALF_BYTES (LBO); the k16 step is +2048 B.
-template <bool KMAJOR>
-__device__ __forceinline__ uint64_t operand_desc(uint32_t tile, int kk) {
-  return KMAJOR ? wg_desc(tile + kk * 32, 16, 1024)
-                : wg_desc(tile + kk * 2048, WG_HALF_BYTES, 1024);
-}
-
-__device__ __forceinline__ void acc_fence(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define LTT_WGMMA_M64N128K16(TY)                                                                    \
-  asm volatile(                                                                                     \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                  \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                 \
-      "%0, %1, %2, %3, %4, %5, %6, %7, "                                                            \
-      "%8, %9, %10, %11, %12, %13, %14, %15, "                                                      \
-      "%16, %17, %18, %19, %20, %21, %22, %23, "                                                    \
-      "%24, %25, %26, %27, %28, %29, %30, %31, "                                                    \
-      "%32, %33, %34, %35, %36, %37, %38, %39, "                                                    \
-      "%40, %41, %42, %43, %44, %45, %46, %47, "                                                    \
-      "%48, %49, %50, %51, %52, %53, %54, %55, "                                                    \
-      "%56, %57, %58, %59, %60, %61, %62, %63"                                                      \
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"                                                        \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),     \
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),  \
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),  \
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),  \
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),  \
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),  \
-        "+f"(d[63])                                                                                 \
-      : "l"(da), "l"(db), "r"(1), "n"(TA ? 1 : 0), "n"(TB ? 0 : 1))
-
-// d += A (64 x 16) B (16 x 128). The transpose bits: 0 reads an operand
-// K-major, 1 MN-major; A is K-major unless TA, B is K-major only if TB.
-template <typename T, bool TA, bool TB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  if constexpr (std::is_same<T, __half>::value) {
-    LTT_WGMMA_M64N128K16("f16");
-  } else {
-    LTT_WGMMA_M64N128K16("bf16");
-  }
-}
-#undef LTT_WGMMA_M64N128K16
+enum Route { kRouteAuto = 0, kRouteClassic = 1, kRouteWgmma = 2, kRouteSplitK = 3 };
 
 __device__ __forceinline__ void store_out2(void* out, size_t i, float v0, float v1, int dt) {
   if (dt == ltt::kF32) {
@@ -587,34 +497,6 @@ __device__ __forceinline__ void store_out2(void* out, size_t i, float v0, float 
     *reinterpret_cast<__half2*>(static_cast<__half*>(out) + i) = __floats2half2_rn(v0, v1);
   }
 }
-
-// Output tile t of the grid's walk: (row, column, batch entry) origin.
-// Tiles go WG_GROUP_M rows at a time down each column of tiles, so a wave
-// of blocks shares its B columns and A rows in L2.
-struct TileCoord {
-  int m0, n0, z;
-};
-
-__device__ __forceinline__ TileCoord tile_coord(int t, int M, int N) {
-  const int tiles_m = (M + WG_BM - 1) / WG_BM, tiles_n = (N + WG_BN - 1) / WG_BN;
-  const int per_z = tiles_m * tiles_n;
-  const int z = t / per_z, r = t % per_z;
-  const int group = r / (WG_GROUP_M * tiles_n);
-  const int first_m = group * WG_GROUP_M;
-  const int rows = min(tiles_m - first_m, WG_GROUP_M);
-  const int in_group = r % (WG_GROUP_M * tiles_n);
-  return {(first_m + in_group % rows) * WG_BM, (in_group / rows) * WG_BN, z};
-}
-
-// The consumer warpgroups' named barrier (the producer warp never joins it).
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(WG_CONSUMERS * 128) : "memory");
-}
-
-// Element (r, c) of a 128 x 64 fp32 staging tile: rows of 64 floats, 8-float
-// groups XORed with the row's low two bits, so the accumulator layout's
-// stores (8 rows x 8 floats a warp) hit 2 rows a bank, not 8.
-__device__ __forceinline__ int staged(int r, int c) { return r * 64 + (c ^ ((r & 3) << 3)); }
 
 // Four outputs from column col of row row (values v, col a multiple of 4):
 // the float epilogue on each, one cast, one vector store where the row holds
@@ -765,51 +647,9 @@ __global__ void __launch_bounds__(WG_THREADS, WG_BLOCKS_PER_SM)
       }
     }
     consumers_sync();  // every read of the stage is done: hand it back to the producer
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    fence_proxy_async();
     if (lane == 0) mbar_arrive(&empty[prev]);
   }
-}
-
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: fetch it through
-// the runtime's entry-point lookup (no -lcuda on the link line)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(sym);
-  }
-  return fn;
-}
-
-// A (batch, outer, inner) row-major 16-bit matrix as a 3-D tensor map with
-// (box_inner, box_outer, 1) boxes, 128-byte swizzle, zero fill out of range.
-bool encode_map(CUtensorMap* map, const void* base, int dtype, uint64_t inner, uint64_t outer,
-                uint64_t batch, uint32_t box_inner, uint32_t box_outer) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {inner, outer, batch};
-  const cuuint64_t strides[2] = {inner * 2, inner * outer * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {box_inner, box_outer, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map,
-                dtype == ltt::kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                3, const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The wgmma route takes bf16/f16 inputs with 16-byte-aligned bases, K > 0,
@@ -821,13 +661,6 @@ bool wgmma_fits(const GemmArgs& p, int in_dtype, int min_m) {
   const int a_inner = p.trans_a ? p.M : p.K;
   const int b_inner = p.trans_b ? p.K : p.N;
   return a_inner % 8 == 0 && b_inner % 8 == 0;
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
 }
 
 template <typename T, bool TA, bool TB>
@@ -864,17 +697,201 @@ int launch_wgmma(const GemmArgs& p, int in_dtype, int batch, cudaStream_t s) {
   return launch_wgmma_t<__half>(p, batch, s);
 }
 
-// route: kRouteAuto picks wgmma where it fits (wgmma_fits with WG_MIN_M),
-// kRouteClassic the kernels above, kRouteWgmma wgmma at any M (an error
-// where it does not fit). *taken gets the route that launched.
-int launch(GemmArgs& p, int in_dtype, int batch, int route, int* taken, cudaStream_t s) {
-  *taken = kRouteClassic;
-  if (route == kRouteWgmma && !wgmma_fits(p, in_dtype, 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kRouteWgmma || (route == kRouteAuto && wgmma_fits(p, in_dtype, WG_MIN_M))) {
-    *taken = kRouteWgmma;
-    return launch_wgmma(p, in_dtype, batch, s);
+// ---------------------------------------------------------------------------
+// Split-K for few rows (the decode products): csrc/splitk.cuh
+// ---------------------------------------------------------------------------
+
+// The GEMM's epilogue on the split-K route's sums: alpha, beta * C, bias,
+// the activation in fp32, one cast.
+struct GemmEpi {
+  GemmArgs p;
+  __device__ __forceinline__ void store2(int row, int col, float v0, float v1) const {
+    store_out2(p.out, (size_t)row * p.N + col, epilogue_value(p, v0, row, col),
+               epilogue_value(p, v1, row, col + 1), p.out_dtype);
   }
+  __device__ __forceinline__ void store1(int row, int col, float v) const {
+    store_out(p.out, (size_t)row * p.N + col, epilogue_value(p, v, row, col), p.out_dtype);
+  }
+};
+
+// f32 split-K: the same ring and plan as the 16-bit skeleton, FFMA in full
+// fp32, 128 threads. Thread t owns block column t (B rows read 128 floats a warp, no
+// bank conflicts) and all MP (>= M) rows; A's slice is stored k-major, so a
+// k step reads its rows as MP / 4 broadcast float4s.
+constexpr int SF_BK = 32, SF_STAGES = 4, SF_THREADS = sk::kBN;
+constexpr int SF_STAGE_BYTES = SF_BK * sk::kBN * 4;
+
+template <int MP>
+__global__ void __launch_bounds__(SF_THREADS, 2)
+    gemm_splitk_f32_kernel(GemmArgs p, sk::Plan pl, float* __restrict__ ws) {
+  extern __shared__ __align__(128) uint8_t sf_smem[];
+  const float* A = static_cast<const float*>(p.a);
+  const float* B = static_cast<const float*>(p.b);
+  const int M = p.M, N = p.N, K = p.K;
+  const int n0 = blockIdx.x * sk::kBN, split = blockIdx.y;
+  const int k_begin = split * pl.kchunk, k_end = min(K, k_begin + pl.kchunk);
+  const int ktiles = (k_end - k_begin + SF_BK - 1) / SF_BK;
+  float* As = reinterpret_cast<float*>(sf_smem + SF_STAGES * SF_STAGE_BYTES);  // [k][MP]
+  const int tid = threadIdx.x;
+
+  // rows [k0, k0 + SF_BK) x block columns, 4-float chunks, zeros past the split and N
+  auto load = [&](int kt) {
+    const uint32_t base = smem_u32(sf_smem + (kt % SF_STAGES) * SF_STAGE_BYTES);
+    const int k0 = k_begin + kt * SF_BK;
+#pragma unroll
+    for (int it = 0; it < SF_BK * (sk::kBN / 4) / SF_THREADS; ++it) {
+      const int i = tid + it * SF_THREADS;
+      const int r = i / (sk::kBN / 4), c = (i % (sk::kBN / 4)) * 4;
+      const int gk = k0 + r, gn = n0 + c;
+      const bool ok = gk < k_end && gn < N;
+      cp_async16(base + (r * sk::kBN + c) * 4, ok ? B + (size_t)gk * N + gn : B, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < SF_STAGES - 1; ++s) {
+    if (s < ktiles) load(s);
+    cp_async_commit();
+  }
+  const int kw = ktiles * SF_BK;
+  for (int i = tid; i < MP * kw; i += SF_THREADS) {
+    const int m = i / kw, k = i % kw;
+    const int gk = k_begin + k;
+    As[k * MP + m] = (m < M && gk < k_end) ? A[(size_t)m * K + gk] : 0.f;
+  }
+
+  float acc[MP];
+#pragma unroll
+  for (int m = 0; m < MP; ++m) acc[m] = 0.f;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<SF_STAGES - 2>();
+    __syncthreads();
+    if (kt + SF_STAGES - 1 < ktiles) load(kt + SF_STAGES - 1);
+    cp_async_commit();
+    const float* st = reinterpret_cast<const float*>(sf_smem + (kt % SF_STAGES) * SF_STAGE_BYTES);
+    const float* ak = As + kt * SF_BK * MP;
+#pragma unroll 4
+    for (int kk = 0; kk < SF_BK; ++kk) {
+      const float bv = st[kk * sk::kBN + tid];
+#pragma unroll
+      for (int m4 = 0; m4 < MP / 4; ++m4) {
+        const float4 av = *reinterpret_cast<const float4*>(ak + kk * MP + 4 * m4);
+        acc[4 * m4] = fmaf(av.x, bv, acc[4 * m4]);
+        acc[4 * m4 + 1] = fmaf(av.y, bv, acc[4 * m4 + 1]);
+        acc[4 * m4 + 2] = fmaf(av.z, bv, acc[4 * m4 + 2]);
+        acc[4 * m4 + 3] = fmaf(av.w, bv, acc[4 * m4 + 3]);
+      }
+    }
+  }
+
+  const int cn = n0 + tid;
+  if (cn >= N) return;
+  const GemmEpi epi{p};
+#pragma unroll
+  for (int m = 0; m < MP; ++m) {
+    if (m >= M) break;
+    if (pl.splits == 1)
+      epi.store1(m, cn, acc[m]);
+    else
+      ws[((size_t)split * M + m) * N + cn] = acc[m];
+  }
+}
+
+// the f32 kernel's padded rows: 8, 16, 32 or 64 (instantiated)
+int f32_rows(int M) { return M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : 64; }
+
+sk::Plan splitk_f32_plan(const GemmArgs& p) {
+  const int mp = f32_rows(p.M);
+  const int room = sk::kBlockSmem - SF_STAGES * SF_STAGE_BYTES;
+  const int kmax = room / (4 * mp) / SF_BK * SF_BK;
+  return sk::plan(p.N, p.K, SF_BK, kmax, sm_count());
+}
+
+template <int MP>
+int launch_splitk_f32_mp(const GemmArgs& p, const sk::Plan& pl, float* ws, cudaStream_t s) {
+  auto kernel = gemm_splitk_f32_kernel<MP>;
+  const int smem = SF_STAGES * SF_STAGE_BYTES + MP * pl.kchunk * 4;
+  const int err = ltt::allow_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<dim3((p.N + sk::kBN - 1) / sk::kBN, pl.splits), SF_THREADS, smem, s>>>(p, pl, ws);
+  if (pl.splits > 1) {
+    const int st = ltt::launch_status();
+    if (st) return st;
+    sk::launch_reduce(ws, pl.splits, p.M, p.N, GemmEpi{p}, s);
+  }
+  return ltt::launch_status();
+}
+
+int launch_splitk_f32(const GemmArgs& p, float* ws, cudaStream_t s) {
+  const sk::Plan pl = splitk_f32_plan(p);
+  switch (f32_rows(p.M)) {
+    case 8: return launch_splitk_f32_mp<8>(p, pl, ws, s);
+    case 16: return launch_splitk_f32_mp<16>(p, pl, ws, s);
+    case 32: return launch_splitk_f32_mp<32>(p, pl, ws, s);
+    default: return launch_splitk_f32_mp<64>(p, pl, ws, s);
+  }
+}
+
+// The split-K route takes one batch entry of bf16/f16/f32 (M <= 64) with neither operand transposed, K > 0, N % 8 == 0 (f32: N % 4)
+// and 16-byte-aligned bases, and M <= max_m.
+bool splitk_fits(const GemmArgs& p, int in_dtype, int batch, int max_m) {
+  if (batch != 1 || p.trans_a || p.trans_b || p.M < 1 || p.M > max_m || p.K <= 0) return false;
+  if (!aligned16(p.a) || !aligned16(p.b)) return false;
+  if (in_dtype == ltt::kF32) return p.M <= 64 && p.N % 4 == 0;
+  return (in_dtype == ltt::kBF16 || in_dtype == ltt::kF16) && p.M <= 16 * sk::kMaxMT &&
+         p.N % 8 == 0;
+}
+
+long long splitk_workspace(const GemmArgs& p, int in_dtype) {
+  if (in_dtype == ltt::kF32) {
+    const sk::Plan pl = splitk_f32_plan(p);
+    return pl.splits > 1 ? (long long)pl.splits * p.M * p.N * 4 : 0;
+  }
+  if (in_dtype == ltt::kBF16)
+    return sk::workspace_bytes(sk::dense_weights<__nv_bfloat16>(p.b, p.N), p.M, p.N, p.K);
+  return sk::workspace_bytes(sk::dense_weights<__half>(p.b, p.N), p.M, p.N, p.K);
+}
+
+int launch_splitk(const GemmArgs& p, int in_dtype, float* ws, cudaStream_t s) {
+  if (splitk_workspace(p, in_dtype) > 0 && ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (in_dtype == ltt::kF32) return launch_splitk_f32(p, ws, s);
+  const int vec_a = p.K % 8 == 0;  // A is 16-byte aligned (splitk_fits)
+  if (in_dtype == ltt::kBF16)
+    return sk::launch(static_cast<const __nv_bfloat16*>(p.a), p.M, p.N, p.K, vec_a,
+                      sk::dense_weights<__nv_bfloat16>(p.b, p.N), ws, GemmEpi{p}, s);
+  return sk::launch(static_cast<const __half*>(p.a), p.M, p.N, p.K, vec_a,
+                    sk::dense_weights<__half>(p.b, p.N), ws, GemmEpi{p}, s);
+}
+
+// The route a product takes, or -1 where the route asked for does not fit.
+// kRouteAuto: split-K up to SPLITK_MAX_M (SPLITK_F32_MAX_M) rows where it
+// fits (and split_ok: ltt_gemm only), then wgmma from WG_MIN_M rows where it
+// fits, else the classic kernels. An asked-for route runs at any M it can
+// take.
+int pick_route(const GemmArgs& p, int in_dtype, int batch, int route, bool split_ok) {
+  const int split_max = in_dtype == ltt::kF32 ? SPLITK_F32_MAX_M : SPLITK_MAX_M;
+  switch (route) {
+    case kRouteAuto:
+      if (split_ok && splitk_fits(p, in_dtype, batch, split_max)) return kRouteSplitK;
+      return wgmma_fits(p, in_dtype, WG_MIN_M) ? kRouteWgmma : kRouteClassic;
+    case kRouteClassic:
+      return kRouteClassic;
+    case kRouteWgmma:
+      return wgmma_fits(p, in_dtype, 1) ? kRouteWgmma : -1;
+    case kRouteSplitK:
+      return split_ok && splitk_fits(p, in_dtype, batch, 16 * sk::kMaxMT) ? kRouteSplitK : -1;
+    default:
+      return -1;
+  }
+}
+
+// *taken gets the route that launched (pick_route's).
+int launch(GemmArgs& p, int in_dtype, int batch, int route, bool split_ok, float* ws, int* taken,
+           cudaStream_t s) {
+  *taken = pick_route(p, in_dtype, batch, route, split_ok);
+  if (*taken < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (*taken == kRouteSplitK) return launch_splitk(p, in_dtype, ws, s);
+  if (*taken == kRouteWgmma) return launch_wgmma(p, in_dtype, batch, s);
   const uintptr_t pa = reinterpret_cast<uintptr_t>(p.a), pb = reinterpret_cast<uintptr_t>(p.b);
   if (in_dtype == ltt::kI8) {
     // a 16-byte chunk along the contiguous index: K (A) or M (A transposed),
@@ -927,12 +944,13 @@ GemmArgs make_args(const void* a, const void* b, void* out, int M, int N, int K,
 // or null and bias: (N,) or null, fp32 for float inputs and int32 for int8
 // inputs; out: (M,N) in out_dtype (kI32 only for int8 inputs). All
 // contiguous row-major. alpha and beta are the int32 values for int8 inputs.
-// route: 0 picks, 1 the WMMA/FFMA/int8 kernels, 2 wgmma; *taken gets the
-// route that launched (1 or 2).
+// route: 0 picks, 1 the WMMA/FFMA/int8 kernels, 2 wgmma, 3 split-K; *taken
+// gets the route that launched. workspace: ltt_gemm_workspace's bytes of
+// fp32 scratch (null where it says 0).
 LTT_API int ltt_gemm(const void* a, const void* b, const void* c, const void* bias, void* out,
-                     int M, int N, int K, int trans_a, int trans_b, double alpha, double beta,
-                     int epilogue, int in_dtype, int out_dtype, int route, int* taken,
-                     void* stream) {
+                     void* workspace, int M, int N, int K, int trans_a, int trans_b, double alpha,
+                     double beta, int epilogue, int in_dtype, int out_dtype, int route,
+                     int* taken, void* stream) {
   GemmArgs p = make_args(a, b, out, M, N, K, out_dtype);
   p.c = c;
   p.bias = bias;
@@ -945,7 +963,21 @@ LTT_API int ltt_gemm(const void* a, const void* b, const void* c, const void* bi
     p.beta_i = static_cast<int>(beta);
   }
   p.epilogue = epilogue;
-  return launch(p, in_dtype, 1, route, taken, static_cast<cudaStream_t>(stream));
+  return launch(p, in_dtype, 1, route, true, static_cast<float*>(workspace), taken,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The bytes of workspace ltt_gemm needs for these operands and route (the
+// split-K route's fp32 partials past one split; else 0), in *bytes; returns
+// an error where the route asked for does not fit.
+LTT_API int ltt_gemm_workspace(const void* a, const void* b, int M, int N, int K, int trans_a,
+                               int trans_b, int in_dtype, int route, long long* bytes) {
+  GemmArgs p = make_args(a, b, nullptr, M, N, K, in_dtype);
+  p.trans_a = trans_a;
+  p.trans_b = trans_b;
+  const int r = pick_route(p, in_dtype, 1, route, true);
+  *bytes = r == kRouteSplitK ? splitk_workspace(p, in_dtype) : 0;
+  return r < 0 ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }
 
 // a: (B, M, K), b: (B, K, N), out: (B, M, N), contiguous; no epilogue.
@@ -955,5 +987,5 @@ LTT_API int ltt_gemm_batched(const void* a, const void* b, void* out, int B, int
   p.batch_a = (long long)M * K;
   p.batch_b = (long long)K * N;
   p.batch_o = (long long)M * N;
-  return launch(p, in_dtype, B, route, taken, static_cast<cudaStream_t>(stream));
+  return launch(p, in_dtype, B, route, false, nullptr, taken, static_cast<cudaStream_t>(stream));
 }

@@ -3,39 +3,48 @@
 //
 // Replaces laser_tpu/ops/gemm/int4_kernel.py:87 build_w4_gemm.
 //
-// Layout (int4_kernel.py:37-73): q4 (K/2, N) int8, one byte holds rows 2i
-// (low nibble) and 2i+1 (high nibble) of column n, symmetric values in
-// [-7, 7]; s4 (K/group, N) f32, one scale per (row group, column); the group
-// is even and divides K, so a byte never straddles two groups. A weight is
-// dequantized as the TPU kernel does it (int4_kernel.py:106-109): the nibble
-// sign-extends (((p & 15) ^ 8) - 8 and an arithmetic p >> 4 of the
-// sign-extended byte), multiplies its group's f32 scale, and rounds to the
-// activation dtype BEFORE the product.
+// Layout (int4_kernel.py:37-73), unchanged: q4 (K/2, N) int8, one byte holds
+// rows 2i (low nibble) and 2i+1 (high nibble) of column n, symmetric values
+// in [-7, 7]; s4 (K/group, N) f32, one scale per (row group, column); the
+// group is even and divides K, so a byte never straddles two groups. A
+// weight is dequantized as the TPU kernel does it (int4_kernel.py:106-109):
+// the nibble sign-extends, multiplies its group's f32 scale, and rounds to
+// the activation dtype BEFORE the product.
 //
-// What bounds it on the H100: at decode (M = 8) every weight byte is read
-// once for 8 rows, so the packed weight streams from HBM: K/2 x N bytes plus
-// the scales, about a quarter of the bf16 weight. At prefill (M up to 4096)
-// it is the tensor-core product. The point of the kernel is that the bf16
-// weight never exists in HBM: each K step brings the packed (BK/2, BN) tile
-// and its scales into registers and unpacks them into shared memory.
-//
-// Design: bf16/f16 activations use the tensor cores through WMMA (16x16x16,
-// fp32 accumulators), one 64x64 output tile per block of 4 warps, K walked
-// in 64-deep steps. The global loads of step k+1 (activation chunks, packed
-// words and their scales) are issued into registers before the products of
-// step k, so one step's load latency hides behind the previous step's work.
-// Warps whose 32 rows lie wholly past M skip their products (decode fills 8
-// of 64 rows). f32 activations run full-fp32 FFMA on the f32 dequantized
-// weight (64x64 tile, 16-deep steps), which is JAX's HIGHEST product. Out of
-// range rows and columns load as 0 on both operands and are never stored.
-// Simple first: no split-K for decode, no wgmma or TMA yet.
+// What bounds it on the H100: at decode (M = 1..40) every weight byte is
+// read once for a few rows, so the packed weight streams from HBM: K/2 x N
+// bytes plus the scales, a quarter of the bf16 weight's bytes. At prefill (M
+// up to 4096) it is the tensor-core product (989 TFLOP/s bf16). The bf16
+// weight never exists in HBM: each kernel dequantizes a tile at a time on
+// the chip. Three routes, the launcher picking one from the shape and
+// alignment (or asked for one, enum W4Route) and reporting it:
+// - stream (bf16/f16, M <= W4_STREAM_MAX_M): the split-K skeleton of
+//   csrc/splitk.cuh with the packed bytes and their scales as the streamed
+//   operand (PackedInt4Weights): a 4-stage cp.async ring of 128-deep packed
+//   tiles and their scale rows; each lane builds its mma.sync B fragment
+//   from two packed bytes straight from the staged tile (column t/4, rows
+//   2(t%4), 2(t%4)+1 and 8 below are one byte each), each byte with the
+//   scale of its own group, so any even group is right;
+// - mma (bf16/f16, more rows): w4_gemm_wgmma_kernel below, the wgmma
+//   kernel of csrc/gemm.cu with a dequantizing warpgroup in B's place;
+// - classic: w4_gemm_tc_kernel (WMMA on a 64x64 tile, the first port; the
+//   launcher sends it what the others cannot take: N % 16 != 0, unaligned
+//   bases) and, for f32 activations, w4_gemm_f32_kernel (full-fp32 FFMA on
+//   the f32 dequantized weight, JAX's HIGHEST product).
+// Out of range rows and columns load as 0 on both operands and are never
+// stored.
 #include <mma.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+#include "hopper.cuh"
+#include "splitk.cuh"
 
 namespace {
 
 using namespace nvcuda;
+using namespace ltt::hp;
 using ltt::from_f32;
 using ltt::to_f32;
 
@@ -278,12 +287,322 @@ __global__ void __launch_bounds__(F_THREADS) w4_gemm_f32_kernel(W4Args p) {
   }
 }
 
-}  // namespace
 
-// h (M, K) in dtype; q4 (K/2, N) int8; s4 (K/group, N) f32; out (M, N) in
-// dtype. All contiguous row-major; group even, K a multiple of group.
-LTT_API int ltt_w4_gemm(const void* h, const void* q4, const void* s4, void* out, int M, int N,
-                        int K, int group, int dtype, void* stream) {
+// ---------------------------------------------------------------------------
+// The stream route: csrc/splitk.cuh with the packed weight
+// ---------------------------------------------------------------------------
+
+// Two outputs rounded to T.
+template <typename T>
+struct CastEpi {
+  T* out;
+  int N;
+  __device__ __forceinline__ void store2(int row, int col, float v0, float v1) const {
+    *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) = pack2<T>(v0, v1);
+  }
+};
+
+template <typename T>
+int launch_stream(const W4Args& p, float* ws, cudaStream_t s) {
+  const auto w = ltt::sk::int4_weights<T>(p.q4, p.s4, p.N, p.group);
+  if (ltt::sk::workspace_bytes(w, p.M, p.N, p.K) > 0 && ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return ltt::sk::launch(static_cast<const T*>(p.h), p.M, p.N, p.K, p.vec_h, w, ws,
+                         CastEpi<T>{static_cast<T*>(p.out), p.N}, s);
+}
+
+// ---------------------------------------------------------------------------
+// The mma route: wgmma on a dequantized B tile
+// ---------------------------------------------------------------------------
+// What bounds it: 2 M N K operations at the bf16 tensor-core rate (M4096
+// K4096 N14336: 481 GFLOP, 0.486 ms at 989 TFLOP/s). The design is the
+// 16-bit wgmma kernel's (csrc/gemm.cu: a 128 x 128 output tile, two
+// consumer warpgroups on wgmma m64n128k16, a persistent grid walking the
+// tiles 8 tile rows at a time, the epilogue staged through the tile's last
+// ring stage) with B made on the chip:
+// - one producer warp issues, for each 64-deep k step, three TMA boxes into
+//   a ring stage: h's 128 x 64 tile (128-byte swizzle, as A in csrc/gemm.cu),
+//   the 32 x 128 packed bytes and the scale rows the step's k range covers
+//   (srows x 128 f32), and arms the stage's `full` barrier with their bytes;
+// - two dequantizing warpgroups wait on `full`, turn each packed byte into
+//   its two weights (hp::nibbles8: the nibble built in a float's bits, times
+//   the scale, rounded to T), write them as 16-byte chunks into the stage's
+//   B tile in the MN-major 128-byte-swizzled layout that TMA writes for an
+//   untransposed B (mn_major_chunk), fence the writes for the async proxy
+//   and arrive on the stage's `bfull` barrier. A weight costs ~6
+//   instructions, 1.4 of them on the half-rate integer pipe; one warpgroup
+//   took longer a stage than the tensor cores (PERF.md §6);
+// - the consumers wait on both, run wgmma on h's tile and the B tile, and
+//   free the stage (`empty`) once its products are done.
+// One block an SM (544 threads, up to 6 stages of 38 KB at group 64): a
+// stage carries h, B, the packed bytes and the scales. TMA zero-fills past
+// M, K, N and the last scale row, so ragged tiles need no masks.
+constexpr int W4M_STAGES_MAX = 6;
+constexpr int W4M_DEQ_THREADS = 256;
+constexpr int W4M_THREADS = WG_CONSUMERS * 128 + W4M_DEQ_THREADS + 32;
+constexpr int W4M_A_BYTES = WG_BM * WG_BK * 2;
+constexpr int W4M_B_BYTES = WG_BK * WG_BN * 2;
+constexpr int W4M_Q_BYTES = WG_BK / 2 * WG_BN;
+
+struct W4MmaArgs {
+  W4Args p;
+  int srows;        // scale rows a stage: those k rows [k0, k0 + 64) cover, at most
+  int stage_bytes;  // A | B | Q | scales, rounded up to 1024 (the swizzle atoms)
+  int stages;
+  int ntiles;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(W4M_THREADS, 1)
+    w4_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
+                         const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_s, const W4MmaArgs w) {
+  __shared__ __align__(8) uint64_t full[W4M_STAGES_MAX], bfull[W4M_STAGES_MAX],
+      empty[W4M_STAGES_MAX];
+  extern __shared__ uint8_t w4_smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(w4_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const W4Args& p = w.p;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ktiles = (p.K + WG_BK - 1) / WG_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < w.stages; ++s) {
+      mbar_init(&full[s], 1);                       // the producer's expect_tx
+      mbar_init(&bfull[s], W4M_DEQ_THREADS / 32);   // lane 0 of every dequantizing warp
+      mbar_init(&empty[s], WG_CONSUMERS * 4);       // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  int s = 0;
+  uint32_t phase = 0;
+  auto advance = [&]() {
+    if (++s == w.stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  };
+  constexpr int DEQ_WARP0 = WG_CONSUMERS * 4;
+  if (warp == DEQ_WARP0 + W4M_DEQ_THREADS / 32) {  // the producer warp: lane 0 issues every load
+    if (lane == 0) {
+      const uint32_t tx = W4M_A_BYTES + W4M_Q_BYTES + w.srows * WG_BN * 4;
+      for (int t = blockIdx.x; t < w.ntiles; t += gridDim.x) {
+        const TileCoord c = tile_coord(t, p.M, p.N);
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(&empty[s], phase ^ 1);  // the first pass over the ring never waits
+          uint8_t* st = ring + s * w.stage_bytes;
+          mbar_expect_tx(&full[s], tx);
+          const int k0 = kt * WG_BK;
+          tma_load_3d(st, &map_h, &full[s], k0, c.m0, 0);
+          tma_load_3d(st + W4M_A_BYTES + W4M_B_BYTES, &map_q, &full[s], c.n0, k0 / 2, 0);
+          tma_load_3d(st + W4M_A_BYTES + W4M_B_BYTES + W4M_Q_BYTES, &map_s, &full[s], c.n0,
+                      k0 / p.group, 0);
+          advance();
+        }
+      }
+    }
+    return;
+  }
+
+  if (warp >= DEQ_WARP0) {
+    // the dequantizing warpgroups: thread d takes 8-column group d % 16 of
+    // packed rows d / 16 + 16 i (i < 2); each packed row gives k rows 2 pr
+    // (low nibbles) and 2 pr + 1 (high), one 16-byte chunk each
+    constexpr int ROWS = W4M_DEQ_THREADS / 16;
+    const int d = threadIdx.x - DEQ_WARP0 * 32;
+    const int cg = d & 15, half = cg >> 3, chunk = cg & 7;
+    for (int t = blockIdx.x; t < w.ntiles; t += gridDim.x) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(&full[s], phase);
+        uint8_t* st = ring + s * w.stage_bytes;
+        uint8_t* B = st + W4M_A_BYTES;
+        const uint8_t* Q = B + W4M_B_BYTES;
+        const float* S = reinterpret_cast<const float*>(Q + W4M_Q_BYTES);
+        const int k0 = kt * WG_BK, g0 = k0 / p.group;
+#pragma unroll
+        for (int i = 0; i < WG_BK / 2 / ROWS; ++i) {
+          const int pr = (d >> 4) + ROWS * i;
+          const uint2 qv = *reinterpret_cast<const uint2*>(Q + pr * WG_BN + cg * 8);
+          const float* srow = S + ((k0 + 2 * pr) / p.group - g0) * WG_BN + cg * 8;
+          const float4 sa = *reinterpret_cast<const float4*>(srow);
+          const float4 sb = *reinterpret_cast<const float4*>(srow + 4);
+          const float sc[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+          // the weight times its f32 scale, rounded to T (the plain version's order)
+          uint32_t lo[4], hi[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // bytes 4h .. 4h + 3
+            float l[4], u[4];
+            nibbles8(h ? qv.y : qv.x, l, u);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int b = 4 * h + 2 * e;
+              lo[2 * h + e] = pack2<T>(l[2 * e] * sc[b], l[2 * e + 1] * sc[b + 1]);
+              hi[2 * h + e] = pack2<T>(u[2 * e] * sc[b], u[2 * e + 1] * sc[b + 1]);
+            }
+          }
+          *reinterpret_cast<uint4*>(B + mn_major_chunk(half, 2 * pr, chunk)) =
+              make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          *reinterpret_cast<uint4*>(B + mn_major_chunk(half, 2 * pr + 1, chunk)) =
+              make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        }
+        fence_proxy_async();  // the B tile's writes, before wgmma reads them
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bfull[s]);
+        advance();
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows [64 wg, 64 wg + 64) of a tile
+  const int wg = warp >> 2;
+  T* out = static_cast<T*>(p.out);
+  float acc[64];
+  for (int t = blockIdx.x; t < w.ntiles; t += gridDim.x) {
+    const TileCoord c = tile_coord(t, p.M, p.N);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(&full[s], phase);
+      mbar_wait(&bfull[s], phase);
+      const uint32_t a_tile = smem_u32(ring + s * w.stage_bytes) + wg * WG_HALF_BYTES;
+      const uint32_t b_tile = smem_u32(ring + s * w.stage_bytes + W4M_A_BYTES);
+      acc_fence(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wgmma_m64n128k16<T, false, false>(acc, operand_desc<true>(a_tile, kk),
+                                          operand_desc<false>(b_tile, kk));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      // the previous stage's products are done once at most this group runs
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      acc_fence(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+      advance();
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    acc_fence(acc);
+
+    // The epilogue through the tile's last stage (its h and B tiles, 32 KB):
+    // each half of the columns as fp32 (acc[4 j + 2 h + e] is row 16 w +
+    // lane / 4 + 8 h of the warpgroup's 64, column 8 j + 2 (lane % 4) + e),
+    // then 4 neighbouring outputs a thread, rounded to T, one 8-byte store.
+    float* stage = reinterpret_cast<float*>(ring + prev * w.stage_bytes);
+    const int lrow = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      consumers_sync();  // the stage's products (or the last half's reads) are done
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 8 * half + jj;
+          *reinterpret_cast<float2*>(stage + staged(lrow + 8 * h, 8 * jj + 2 * (lane & 3))) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+      consumers_sync();
+      for (int idx = threadIdx.x; idx < WG_BM * 16; idx += WG_CONSUMERS * 128) {
+        const int r = idx >> 4, cl = (idx & 15) * 4;
+        const int row = c.m0 + r, col = c.n0 + 64 * half + cl;
+        if (row < p.M && col < p.N) {  // N % 16 == 0: all four are in
+          const float4 v = *reinterpret_cast<const float4*>(stage + staged(r, cl));
+          *reinterpret_cast<uint2*>(out + (size_t)row * p.N + col) =
+              make_uint2(pack2<T>(v.x, v.y), pack2<T>(v.z, v.w));
+        }
+      }
+    }
+    consumers_sync();  // every read of the stage is done: hand it back to the producer
+    fence_proxy_async();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+  }
+}
+
+// scale rows the k rows [k0, k0 + 64) of a stage cover, at most (k0 a
+// multiple of 64)
+int mma_scale_rows(int group) {
+  if (WG_BK % group == 0) return WG_BK / group;
+  if (group % WG_BK == 0) return 1;
+  return (WG_BK - 1) / group + 2;
+}
+
+template <typename T>
+int launch_mma(const W4Args& p, cudaStream_t s) {
+  const int dt = std::is_same<T, __half>::value ? ltt::kF16 : ltt::kBF16;
+  W4MmaArgs w;
+  w.p = p;
+  w.srows = mma_scale_rows(p.group);
+  w.stage_bytes = (W4M_A_BYTES + W4M_B_BYTES + W4M_Q_BYTES + w.srows * WG_BN * 4 + 1023) / 1024 * 1024;
+  const int room = ltt::sk::kMaxSmem - 1024 - 3 * W4M_STAGES_MAX * 8;
+  w.stages = std::min(W4M_STAGES_MAX, room / w.stage_bytes);
+  if (w.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mh, mq, ms;
+  const bool ok =
+      encode_map(&mh, p.h, dt, p.K, p.M, 1, WG_BK, WG_BM) &&
+      encode_tiled(&mq, p.q4, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.N, p.K / 2, 1, WG_BN,
+                   WG_BK / 2, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      encode_tiled(&ms, p.s4, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.N, p.K / p.group, 1, WG_BN,
+                   w.srows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = w4_gemm_wgmma_kernel<T>;
+  const int smem = w.stages * w.stage_bytes + 1024;
+  const int err = ltt::allow_smem(kernel, smem);
+  if (err) return err;
+  const long long tiles = (long long)((p.M + WG_BM - 1) / WG_BM) * ((p.N + WG_BN - 1) / WG_BN);
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  w.ntiles = static_cast<int>(tiles);
+  const int blocks = std::min(w.ntiles, sm_count());
+  kernel<<<blocks, W4M_THREADS, smem, s>>>(mh, mq, ms, w);
+  return ltt::launch_status();
+}
+
+// ---------------------------------------------------------------------------
+// Routes
+// ---------------------------------------------------------------------------
+// The most rows the launcher sends to the stream route by itself, from
+// chip_smoke.py phase 2's crossover on Llama-3-8B's w_gate (K 4096, N 14336,
+// group 64; 20 calls in a CUDA graph; NVIDIA H100 80GB HBM3, 700 W; PERF.md
+// §6): stream ahead of mma to M 16 (0.0380 against 0.0546 ms), behind
+// from M 32 (0.0645 against 0.0547).
+constexpr int W4_STREAM_MAX_M = 16;
+
+enum W4Route { kW4Auto = 0, kW4Classic = 1, kW4Stream = 2, kW4Mma = 3 };
+
+// Both fast routes: 16-bit activations, N % 16 == 0 (16-byte rows of q4),
+// 16-byte-aligned h, q4 and s4; the mma route also K % 8 == 0 (h's rows by
+// TMA), the stream route M <= 64.
+bool w4_fast_fits(const W4Args& p, int dtype) {
+  return (dtype == ltt::kBF16 || dtype == ltt::kF16) && p.M >= 1 && p.N % 16 == 0 &&
+         aligned16(p.h) && aligned16(p.q4) && aligned16(p.s4);
+}
+
+bool stream_fits(const W4Args& p, int dtype, int max_m) {
+  return w4_fast_fits(p, dtype) && p.M <= max_m && p.M <= 16 * ltt::sk::kMaxMT;
+}
+
+bool mma_fits(const W4Args& p, int dtype) { return w4_fast_fits(p, dtype) && p.K % 8 == 0; }
+
+int pick_w4_route(const W4Args& p, int dtype, int route) {
+  switch (route) {
+    case kW4Auto:
+      if (stream_fits(p, dtype, W4_STREAM_MAX_M)) return kW4Stream;
+      return mma_fits(p, dtype) ? kW4Mma : kW4Classic;
+    case kW4Classic:
+      return kW4Classic;
+    case kW4Stream:
+      return stream_fits(p, dtype, 16 * ltt::sk::kMaxMT) ? kW4Stream : -1;
+    case kW4Mma:
+      return mma_fits(p, dtype) ? kW4Mma : -1;
+    default:
+      return -1;
+  }
+}
+
+W4Args make_w4_args(const void* h, const void* q4, const void* s4, void* out, int M, int N, int K,
+                    int group) {
   W4Args p;
   p.h = h;
   p.q4 = static_cast<const int8_t*>(q4);
@@ -295,7 +614,37 @@ LTT_API int ltt_w4_gemm(const void* h, const void* q4, const void* s4, void* out
   p.group = group;
   p.vec_h = K % 8 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
   p.vec_q = N % 4 == 0 && reinterpret_cast<uintptr_t>(q4) % 4 == 0;
+  return p;
+}
+
+long long stream_workspace(const W4Args& p, int dtype) {
+  if (dtype == ltt::kBF16)
+    return ltt::sk::workspace_bytes(ltt::sk::int4_weights<__nv_bfloat16>(p.q4, p.s4, p.N, p.group),
+                                    p.M, p.N, p.K);
+  return ltt::sk::workspace_bytes(ltt::sk::int4_weights<__half>(p.q4, p.s4, p.N, p.group), p.M,
+                                  p.N, p.K);
+}
+
+}  // namespace
+
+// h (M, K) in dtype; q4 (K/2, N) int8; s4 (K/group, N) f32; out (M, N) in
+// dtype. All contiguous row-major; group even, K a multiple of group.
+// route: 0 picks, 1 classic (WMMA / f32 FFMA), 2 stream, 3 mma; *taken gets
+// the route that launched. workspace: ltt_w4_gemm_workspace's bytes of fp32
+// scratch (null where it says 0).
+LTT_API int ltt_w4_gemm(const void* h, const void* q4, const void* s4, void* out, void* workspace,
+                        int M, int N, int K, int group, int dtype, int route, int* taken,
+                        void* stream) {
+  const W4Args p = make_w4_args(h, q4, s4, out, M, N, K, group);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *taken = pick_w4_route(p, dtype, route);
+  if (*taken < 0) return static_cast<int>(cudaErrorInvalidValue);
+  float* ws = static_cast<float*>(workspace);
+  if (*taken == kW4Stream)
+    return dtype == ltt::kBF16 ? launch_stream<__nv_bfloat16>(p, ws, s)
+                               : launch_stream<__half>(p, ws, s);
+  if (*taken == kW4Mma)
+    return dtype == ltt::kBF16 ? launch_mma<__nv_bfloat16>(p, s) : launch_mma<__half>(p, s);
   if (dtype == ltt::kF32) {
     dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM);
     w4_gemm_f32_kernel<<<grid, F_THREADS, 0, s>>>(p);
@@ -307,4 +656,15 @@ LTT_API int ltt_w4_gemm(const void* h, const void* q4, const void* s4, void* out
       w4_gemm_tc_kernel<__half><<<grid, TB_THREADS, 0, s>>>(p);
   }
   return ltt::launch_status();
+}
+
+// The bytes of workspace ltt_w4_gemm needs (the stream route's fp32
+// partials past one split; else 0), in *bytes; an error where the route
+// asked for does not fit.
+LTT_API int ltt_w4_gemm_workspace(const void* h, const void* q4, const void* s4, int M, int N,
+                                  int K, int group, int dtype, int route, long long* bytes) {
+  const W4Args p = make_w4_args(h, q4, s4, nullptr, M, N, K, group);
+  const int r = pick_w4_route(p, dtype, route);
+  *bytes = r == kW4Stream ? stream_workspace(p, dtype) : 0;
+  return r < 0 ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }

@@ -7,29 +7,45 @@ one f32 scale per (row group, output column), the group even and dividing
 K; one byte packs rows 2i (low nibble) and 2i+1 (high nibble) of a column.
 Rounding is half to even (``torch.round``, as ``jnp.round``).
 
-``gemm_w4(h, wq)`` computes ``h @ dequant(wq)`` in ``h.dtype``. For a CUDA
-tensor it launches the hand-written kernel (csrc/w4_gemm.cu), which streams
-the packed bytes and their scales and unpacks them in shared memory, so the
-full-precision weight never exists in device memory; for a CPU tensor it
-runs the plain version, laser_tpu's XLA path: dequantize, cast to
-``h.dtype``, one product (fp32 accumulation, TF32 off).
+``gemm_w4(h, wq)`` computes ``h @ dequant(wq)`` in ``h.dtype``: each weight
+is its nibble times its group's f32 scale, rounded to ``h.dtype`` before
+the product (fp32 accumulation). For a CPU tensor it runs the plain
+version, laser_tpu's XLA path: dequantize, cast to ``h.dtype``, one product
+(TF32 off). For a CUDA tensor it launches one of three hand-written routes
+(csrc/w4_gemm.cu), none of which puts the full-precision weight in device
+memory, each with its own launch counter:
+``w4_gemm_stream`` (bf16/f16 with M <= 16: the split-K skeleton of
+csrc/splitk.cuh streaming the packed bytes and scales through a cp.async
+ring, mma.sync B fragments built from two packed bytes a lane, a fixed-order
+reduce of the splits in a workspace allocated here), ``w4_gemm_mma``
+(bf16/f16 with more rows: wgmma on 128 x 128 tiles, TMA loads of the
+activations, packed bytes and scales, two warpgroups dequantizing each
+stage's B tile in shared memory) and ``w4_gemm`` (the first port's WMMA kernel for
+what the others cannot take, N % 16 != 0 or unaligned bases, and the
+full-fp32 FFMA kernel for f32 activations). ``route="classic"``,
+``"stream"`` or ``"mma"`` asks for one (an error where it does not fit).
 
 Replaces laser_tpu/ops/gemm/int4_kernel.py:87 build_w4_gemm. Bound on the
-H100: the packed weight bytes at decode (M = 8), tensor-core throughput at
-prefill. Design: 64x64 output tiles, 64-deep K steps with the next step's
-loads in flight, WMMA for bf16/f16 and full-fp32 FFMA for f32 (details in
-csrc/w4_gemm.cu).
+H100: the packed weight bytes at decode (a quarter of bf16's), tensor-core
+throughput at prefill (details in csrc/w4_gemm.cu).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ... import registry
 from ...config import check_f32_precision, pin_fp32_matmul
 
-W4_GEMM = registry.kernel("w4_gemm", "laser_tpu_torch/csrc/w4_gemm.cu",
-                          "laser_tpu/ops/gemm/int4_kernel.py:87 build_w4_gemm")
+_REPLACES = "laser_tpu/ops/gemm/int4_kernel.py:87 build_w4_gemm"
+W4_GEMM = registry.kernel("w4_gemm", "laser_tpu_torch/csrc/w4_gemm.cu", _REPLACES)
+W4_GEMM_STREAM = registry.kernel("w4_gemm_stream", "laser_tpu_torch/csrc/w4_gemm.cu", _REPLACES)
+W4_GEMM_MMA = registry.kernel("w4_gemm_mma", "laser_tpu_torch/csrc/w4_gemm.cu", _REPLACES)
+# route codes shared with csrc/w4_gemm.cu (enum W4Route), and the counter of each
+ROUTES = {None: 0, "classic": 1, "stream": 2, "mma": 3}
+ROUTE_KERNELS = {1: W4_GEMM, 2: W4_GEMM_STREAM, 3: W4_GEMM_MMA}
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -97,7 +113,7 @@ def gemm_w4_plain(h: torch.Tensor, wq: dict) -> torch.Tensor:
     return torch.matmul(h.float(), w.float()).to(h.dtype)
 
 
-def _gemm_w4_cuda(h, wq):
+def _gemm_w4_cuda(h, wq, route=None):
     M, N, K, group = _check(h, wq)
     if h.dtype not in registry.DTYPE_CODES:
         raise TypeError(f"w4 gemm kernel: unsupported dtype {h.dtype}")
@@ -107,23 +123,32 @@ def _gemm_w4_cuda(h, wq):
     for name, t in (("h", h), ("q4", q4), ("s4", s4)):
         if t.device != h.device or not t.is_contiguous():
             raise ValueError(f"gemm_w4: {name} must be contiguous on {h.device}")
+    code, dt = registry.route_code(ROUTES, route), registry.DTYPE_CODES[h.dtype]
     out = torch.empty((M, N), dtype=h.dtype, device=h.device)
     if M == 0 or N == 0:
         return out
     if K == 0:
         return out.zero_()
+    ptrs = (h.data_ptr(), q4.data_ptr(), s4.data_ptr())
+    ws = registry.scratch(registry.workspace(
+        "ltt_w4_gemm_workspace",
+        ("w4", M, N, K, group, dt, code, *(p % 16 == 0 for p in ptrs), h.device.index),
+        *ptrs, M, N, K, group, dt, code), h.device)
+    taken = ctypes.c_int(0)
     status = registry.load_library().ltt_w4_gemm(
-        h.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), M, N, K, group,
-        registry.DTYPE_CODES[h.dtype], registry.stream_handle(h))
+        *ptrs, out.data_ptr(), None if ws is None else ws.data_ptr(), M, N, K, group, dt, code,
+        ctypes.byref(taken), registry.stream_handle(h))
     registry.check_launch(status, "w4_gemm")
-    W4_GEMM.launches += 1
+    ROUTE_KERNELS[taken.value].launches += 1
     return out
 
 
-def gemm_w4(h: torch.Tensor, wq: dict) -> torch.Tensor:
+def gemm_w4(h: torch.Tensor, wq: dict, route=None) -> torch.Tensor:
     """h (M, K) @ dequant(wq) -> (M, N) in h.dtype; ``wq`` a
-    ``quantize_int4`` dict. The kernel for a CUDA tensor, the plain version
-    for a CPU one."""
+    ``quantize_int4`` dict. The kernel for a CUDA tensor (``route``: None
+    lets the library pick, "classic", "stream" or "mma" asks for one), the
+    plain version for a CPU one (an unknown route name raises on both)."""
     if registry.on_cuda(h):
-        return _gemm_w4_cuda(h, wq)
+        return _gemm_w4_cuda(h, wq, route)
+    registry.route_code(ROUTES, route)
     return gemm_w4_plain(h, wq)

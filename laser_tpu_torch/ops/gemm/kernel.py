@@ -11,17 +11,23 @@ the output dtype (int32 by default). Transposed operands are read in
 place; M/N/K tails are masked.
 
 Replaces laser_tpu/ops/gemm/kernel.py:62 build_gemm. Bound on the H100:
-tensor-core throughput at prefill (M up to 4096), weight bytes from HBM at
-decode (M = 8); int8 at 4096^3, the int8 tensor-core rate. Two routes,
-each with its own launch counter, the kernel library picking one from the
-shape and alignment: ``gemm_wgmma`` (bf16/f16 with M >= 64, K and each
+tensor-core throughput at prefill and training (M up to 8192), the weight
+bytes from HBM at decode (M = 1..40); int8 at 4096^3, the int8 tensor-core
+rate. Three routes, each with its own launch counter, the kernel library
+picking one from the shape and alignment: ``gemm_splitk`` (bf16/f16 with M
+<= 40, f32 with M <= 64, neither operand transposed, N % 8 == 0 (f32: N %
+4), 16-byte-aligned bases: the weight streamed through a cp.async ring over
+(column tile, K split) blocks, mma.sync (FFMA for f32), partials summed in
+a fixed order by a second kernel, so two calls give the same bits; its fp32
+workspace allocated here), ``gemm_wgmma`` (bf16/f16 with M > 40, K and each
 operand's contiguous dimension multiples of 8, 16-byte-aligned bases:
 wgmma fed by a TMA ring, a 128 x 128 tile, transposed operands read in
 place) and ``gemm`` (every other product: WMMA bf16/f16 and s8 on a 64 x 64
-tile, f32 FFMA). Both apply the epilogue in the accumulator type before one
-cast (details in csrc/gemm.cu). ``route="classic"`` or ``"wgmma"`` on a
-CUDA tensor asks for one (wgmma at any M; an error where it does not fit),
-to time the two against each other.
+tile, f32 FFMA). The M thresholds come from chip_smoke.py's crossover
+(csrc/gemm.cu). Each applies the epilogue in the accumulator type before
+one cast. ``route="classic"``, ``"wgmma"`` or ``"splitk"`` on a CUDA tensor
+asks for one (wgmma at any M, split-K up to 64 rows; an error where it does
+not fit), to time them against each other.
 
 ``gemm_fused`` launches the kernel for CUDA tensors and runs
 ``gemm_plain`` for CPU tensors; there is no other fallback. torch has no
@@ -45,9 +51,11 @@ GEMM = registry.kernel("gemm", "laser_tpu_torch/csrc/gemm.cu",
                        "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
 GEMM_WGMMA = registry.kernel("gemm_wgmma", "laser_tpu_torch/csrc/gemm.cu",
                              "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
+GEMM_SPLITK = registry.kernel("gemm_splitk", "laser_tpu_torch/csrc/gemm.cu",
+                              "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
 # route codes shared with csrc/gemm.cu (enum Route), and the counter of each
-ROUTES = {None: 0, "classic": 1, "wgmma": 2}
-ROUTE_KERNELS = {1: GEMM, 2: GEMM_WGMMA}
+ROUTES = {None: 0, "classic": 1, "wgmma": 2, "splitk": 3}
+ROUTE_KERNELS = {1: GEMM, 2: GEMM_WGMMA, 3: GEMM_SPLITK}
 
 # epilogue codes shared with csrc/gemm.cu (enum Epilogue)
 EPILOGUES = {None: 0, "none": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "gelu": 4}
@@ -170,16 +178,22 @@ def _gemm_cuda(a, b, *, alpha, beta, c, bias, epilogue, out_dtype,
     bias_acc = bias.to(acc_t).reshape(-1).contiguous() if bias is not None else None
     if int8:
         alpha, beta = int32_scalar(alpha), int32_scalar(beta)
-    lib = registry.load_library()
+    code, in_code = registry.route_code(ROUTES, route), registry.GEMM_DTYPE_CODES[a.dtype]
+    ws = registry.scratch(registry.workspace(
+        "ltt_gemm_workspace",
+        ("gemm", M, N, K, transpose_a, transpose_b, in_code, code, a.data_ptr() % 16 == 0,
+         b.data_ptr() % 16 == 0, a.device.index),
+        a.data_ptr(), b.data_ptr(), M, N, K, int(transpose_a), int(transpose_b), in_code, code),
+        a.device)
     taken = ctypes.c_int(0)
-    status = lib.ltt_gemm(
+    status = registry.load_library().ltt_gemm(
         a.data_ptr(), b.data_ptr(),
         None if c_acc is None else c_acc.data_ptr(),
         None if bias_acc is None else bias_acc.data_ptr(),
-        out.data_ptr(), M, N, K, int(transpose_a), int(transpose_b),
-        float(alpha), float(beta), _epilogue_code(epilogue),
-        registry.GEMM_DTYPE_CODES[a.dtype], registry.GEMM_DTYPE_CODES[out_dtype],
-        registry.route_code(ROUTES, route), ctypes.byref(taken), registry.stream_handle(a))
+        out.data_ptr(), None if ws is None else ws.data_ptr(), M, N, K, int(transpose_a),
+        int(transpose_b), float(alpha), float(beta), _epilogue_code(epilogue), in_code,
+        registry.GEMM_DTYPE_CODES[out_dtype], code, ctypes.byref(taken),
+        registry.stream_handle(a))
     registry.check_launch(status, "gemm")
     ROUTE_KERNELS[taken.value].launches += 1
     return out
@@ -189,13 +203,15 @@ def gemm_fused(a, b, *, alpha=1.0, beta=0.0, c=None, bias=None,
                epilogue=None, out_dtype=None, transpose_a=False,
                transpose_b=False, route=None):
     """The hand kernel for a CUDA tensor, its plain version for a CPU one.
-    a, b share one float dtype or int8; c is (M, N); bias is (N,). ``route``
-    (a CUDA tensor's): None lets the library pick, "classic" or "wgmma"
-    asks for one."""
+    a, b share one float dtype or int8; c is (M, N); bias is (N,). ``route``:
+    None lets the library pick, "classic", "wgmma" or "splitk" asks for one
+    (a CUDA tensor's; a CPU tensor runs the plain version whatever the
+    route, but an unknown name raises on both)."""
     default_out = torch.int32 if a.dtype == torch.int8 else a.dtype
     kw = dict(alpha=alpha, beta=beta, c=c, bias=bias, epilogue=epilogue,
               out_dtype=out_dtype or default_out, transpose_a=transpose_a,
               transpose_b=transpose_b)
     if registry.on_cuda(a):
         return _gemm_cuda(a, b, **kw, route=route)
+    registry.route_code(ROUTES, route)
     return gemm_plain(a, b, **kw)

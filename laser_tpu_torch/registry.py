@@ -66,13 +66,17 @@ GEMM_DTYPE_CODES = {**POOL_DTYPE_CODES, torch.int32: 4}
 _P, _I, _F, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _D = ctypes.c_double
 _IP = ctypes.POINTER(ctypes.c_int)  # an out-parameter: the route a launcher took
+_LLP = ctypes.POINTER(ctypes.c_longlong)  # an out-parameter: workspace bytes
 # every pointer and the stream are c_void_p: undeclared, ctypes would pass
 # them as 32-bit ints and cut the address
 SIGNATURES = {
-    # a, b, c, bias, out, M, N, K, trans_a, trans_b, alpha, beta (the int32
-    # values for int8 inputs), epilogue, in_dtype, out_dtype, route (0 picks,
-    # 1 WMMA/FFMA/int8, 2 wgmma), route taken (out), stream
-    "ltt_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _IP, _P),
+    # a, b, c, bias, out, workspace (or null), M, N, K, trans_a, trans_b,
+    # alpha, beta (the int32 values for int8 inputs), epilogue, in_dtype,
+    # out_dtype, route (0 picks, 1 WMMA/FFMA/int8, 2 wgmma, 3 split-K), route
+    # taken (out), stream
+    "ltt_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _IP, _P),
+    # a, b, M, N, K, trans_a, trans_b, in_dtype, route, workspace bytes (out)
+    "ltt_gemm_workspace": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _LLP),
     # a, b, out, B, M, N, K, in_dtype, out_dtype, route, route taken, stream
     "ltt_gemm_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _IP, _P),
     # a digits, b digits, out, nA, nB, n_buckets, M, N, K, stream
@@ -104,8 +108,11 @@ SIGNATURES = {
     # stream
     "ltt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _F, _I, _I, _P),
-    # h, q4, s4, out, M, N, K, group, dtype, stream
-    "ltt_w4_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # h, q4, s4, out, workspace (or null), M, N, K, group, dtype, route (0
+    # picks, 1 classic, 2 stream, 3 mma), route taken (out), stream
+    "ltt_w4_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _P),
+    # h, q4, s4, M, N, K, group, dtype, route, workspace bytes (out)
+    "ltt_w4_gemm_workspace": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _LLP),
     # q, k_pool, v_pool, k_scale (or null), v_scale (or null), tables,
     # lengths, out, S, W, Hq, Hkv, ps, hd, max_pages, scale, dtype,
     # pool_dtype, stream
@@ -212,6 +219,29 @@ def route_code(routes: Dict[Optional[str], int], route: Optional[str]) -> int:
     if route not in routes:
         raise ValueError(f"unknown route {route!r}; have {[r for r in routes if r]}")
     return routes[route]
+
+
+# workspace bytes by (entry point, shape, dtype, route, alignment, device):
+# the answer depends on nothing else, so each shape asks the library once
+_WORKSPACE: Dict[tuple, int] = {}
+
+
+def workspace(query: str, key: tuple, *args) -> int:
+    """Bytes of fp32 scratch a launch needs: the library's ``query`` entry
+    point on ``args`` (its last parameter the answer), asked once per
+    ``key`` (which must determine it). Raises where the route asked for does
+    not fit."""
+    got = _WORKSPACE.get(key)
+    if got is None:
+        out = ctypes.c_longlong(0)
+        check_launch(getattr(load_library(), query)(*args, ctypes.byref(out)), query)
+        got = _WORKSPACE[key] = out.value
+    return got
+
+
+def scratch(nbytes: int, device) -> Optional[torch.Tensor]:
+    """An fp32 scratch tensor of ``nbytes`` (None for 0)."""
+    return torch.empty(nbytes // 4, dtype=torch.float32, device=device) if nbytes else None
 
 
 def check_launch(status: int, name: str) -> None:

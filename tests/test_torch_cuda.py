@@ -7,7 +7,10 @@ at ragged widths past its 8192-column tile, at a column offset (Llama-3's
 ragged last chunk), unaligned, g = 0 rows exact zeros; the chunked
 ``lm_cross_entropy`` in both layouts and a small llama train step (with
 ``remat``) through the kernels against the plain route; the int4
-weight GEMM at M 1-300, K 64-4096 and groups 16 and 64; the flash kernel's
+weight GEMM at M 1-300, K 64-4096 and groups 16 and 64; the weight-streaming
+routes: split-K at M 1-63 in bf16/f16/f32 with ragged K and N, bias, gelu
+and beta * C, the same bits twice, the old kernels taken by shape; the int4
+stream and mma routes at M 1-257 and groups 2-128; the flash kernel's
 GQA map at groups 1-8; the paged kernel over int8 pages at groups 1-8; the
 paged window (verify) kernel at W 1-8, groups 1-8, float and int8 pages;
 bursts and speculative decoding in the engine on the card; the planewise
@@ -85,6 +88,13 @@ def _gen(dev, seed):
     return g
 
 
+def _gemm_launches():
+    """Launches of the GEMM kernel over its three routes."""
+    from laser_tpu_torch.ops.gemm.kernel import ROUTE_KERNELS
+
+    return sum(k.launches for k in ROUTE_KERNELS.values())
+
+
 def _check(got, want, dtype, floor=1e-30):
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == want.dtype
@@ -92,6 +102,17 @@ def _check(got, want, dtype, floor=1e-30):
     assert torch.isfinite(got).all()
     err = (got - want).abs().max().item() / max(want.abs().max().item(), floor)
     assert err <= REL[dtype], err
+
+
+def _route_launches(counts, family):
+    """Launches in ``counts`` of every route of the GEMM (``"gemm"``) or of
+    the int4 GEMM (``"w4_gemm"``), none of them a plain call."""
+    from laser_tpu_torch.ops.gemm import int4_kernel, kernel
+
+    routes = {"gemm": kernel.ROUTE_KERNELS, "w4_gemm": int4_kernel.ROUTE_KERNELS}[family]
+    names = [k.name for k in routes.values()]
+    assert all(counts[n]["plain_calls"] == 0 for n in names)
+    return sum(counts[n]["launches"] for n in names)
 
 
 def _check_rows(got, want, dtype):
@@ -111,7 +132,7 @@ def _check_rows(got, want, dtype):
 @pytest.mark.parametrize("shape,epilogue", [((37, 45, 29), "gelu"), ((130, 200, 72), "relu"),
                                             ((70, 64, 40), "sigmoid"), ((1, 9, 3), "tanh")])
 def test_gemm(dev, dtype, ta, tb, shape, epilogue):
-    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_WGMMA, gemm_fused, gemm_plain
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused, gemm_plain
 
     M, K, N = shape
     g = _gen(dev, 1)
@@ -119,9 +140,9 @@ def test_gemm(dev, dtype, ta, tb, shape, epilogue):
     b = _rnd(g, (N, K) if tb else (K, N), dtype, dev, std=K ** -0.5)
     bias = _rnd(g, (N,), dtype, dev)
     kw = dict(bias=bias, epilogue=epilogue, transpose_a=ta, transpose_b=tb)
-    before = GEMM.launches + GEMM_WGMMA.launches
+    before = _gemm_launches()
     _check(gemm_fused(a, b, **kw), gemm_plain(a, b, **kw), dtype)
-    assert GEMM.launches + GEMM_WGMMA.launches == before + 1
+    assert _gemm_launches() == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -260,9 +281,10 @@ def test_train_step_through_the_kernels(dev):
     loss, grads = value_and_grad(lambda p, t: tf.transformer_lm_loss(p, t, n_heads=2))(
         params, tokens)
     counts = registry.counts()
-    for name in ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
+    for name in ("norm", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "ce_fused_grad"):
         assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
+    assert _route_launches(counts, "gemm") > 0
     ploss, pgrads = value_and_grad(lambda p, t: tf.transformer_lm_loss(
         p, t, n_heads=2, plain=True))(params, tokens)
     assert abs(loss.item() - ploss.item()) <= 1e-5 * abs(ploss.item())
@@ -328,8 +350,6 @@ def test_lm_cross_entropy_chunked(dev, dtype, transb):
     """The chunked branch through ce_bwd (and, for bf16, the GEMM kernel)
     against its plain route: V 1000 in chunks of 256, the last 232 wide."""
     from laser_tpu_torch.ops import loss
-    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_WGMMA
-
     g = _gen(dev, 13)
     T, D, V = 77, 96, 1000
     h = _rnd(g, (T, D), dtype, dev).requires_grad_(True)
@@ -338,12 +358,12 @@ def test_lm_cross_entropy_chunked(dev, dtype, transb):
     t[:5] = 3
     kw = dict(transb=transb, label_smoothing=0.1, ignore_index=3, memory_budget_bytes=None,
               block_v=256)
-    before = (loss.CE_BWD.launches, GEMM.launches + GEMM_WGMMA.launches)
+    before = (loss.CE_BWD.launches, _gemm_launches())
     lk = loss.lm_cross_entropy(h, emb, t, **kw)
     dk = torch.autograd.grad(lk, (h, emb))
     torch.cuda.synchronize()
     gemms = 4 * 4 if dtype == torch.bfloat16 else 0  # 4 chunks: 1 forward, 3 backward
-    assert (loss.CE_BWD.launches, GEMM.launches + GEMM_WGMMA.launches) == (
+    assert (loss.CE_BWD.launches, _gemm_launches()) == (
         before[0] + 4, before[1] + gemms)
     lp = loss.lm_cross_entropy(h, emb, t, plain=True, **kw)
     dp = torch.autograd.grad(lp, (h, emb))
@@ -373,9 +393,10 @@ def test_llama_train_step_through_the_kernels(dev):
         return out, registry.counts()
 
     (loss, grads), counts = run()
-    for name in ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
+    for name in ("norm", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "ce_bwd"):
         assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
+    assert _route_launches(counts, "gemm") > 0
     (ploss, pgrads), _ = run(plain=True)
     assert abs(loss.item() - ploss.item()) <= 1e-5 * abs(ploss.item())
     for a, b in zip(tree_leaves(grads), tree_leaves(pgrads)):
@@ -438,7 +459,8 @@ def test_engine_matches_plain_greedy_with_preemption(dev):
     out = eng.run()
     counts = registry.counts()
     assert all(counts[n]["plain_calls"] == 0 and counts[n]["launches"] > 0
-               for n in ("gemm", "norm", "flash_attention", "paged_attention"))
+               for n in ("norm", "flash_attention", "paged_attention"))
+    assert _route_launches(counts, "gemm") > 0
     assert eng.stats.get("preemptions", 0) >= 1
     for p, rid in zip(prompts, ids):
         want = greedy_decode(params, torch.as_tensor(p[None], device=dev).long(), n_heads=2,
@@ -451,15 +473,16 @@ def test_engine_matches_plain_greedy_with_preemption(dev):
 @pytest.mark.parametrize("K", [64, 192, 4096])
 @pytest.mark.parametrize("group", [16, 64])
 def test_w4_gemm(dev, dtype, M, K, group):
-    from laser_tpu_torch.ops.gemm.int4_kernel import W4_GEMM, gemm_w4, gemm_w4_plain, quantize_int4
+    from laser_tpu_torch.ops.gemm.int4_kernel import (ROUTE_KERNELS, gemm_w4, gemm_w4_plain,
+                                                      quantize_int4)
 
     g = _gen(dev, 12)
     N = 200  # not a multiple of the 64-column tile
     h = _rnd(g, (M, K), dtype, dev)
     wq = quantize_int4(_rnd(g, (K, N), torch.float32, dev, std=K ** -0.5), group=group)
-    before = W4_GEMM.launches
+    before = sum(k.launches for k in ROUTE_KERNELS.values())
     _check(gemm_w4(h, wq), gemm_w4_plain(h, wq), dtype)
-    assert W4_GEMM.launches == before + 1
+    assert sum(k.launches for k in ROUTE_KERNELS.values()) == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
@@ -763,7 +786,7 @@ def test_cnn_and_mlp_through_the_kernels(dev):
         c = registry.counts()
         _check(cnn_forward(params, x), want, torch.float32)
         assert (c["conv_planewise"]["launches"], c["conv_direct"]["launches"],
-                c["gemm"]["launches"], c["softmax"]["launches"]) == (1, 2, 2, 1)
+                _route_launches(c, "gemm"), c["softmax"]["launches"]) == (1, 2, 2, 1)
         assert all(v["plain_calls"] == 0 for v in c.values())
         assert (probs.sum(-1) - 1).abs().max().item() <= 1e-5
         mp = init_mlp(4, [50, 64, 9], device=dev)
@@ -982,8 +1005,8 @@ def test_lux_on_the_kernels(dev):
     gm = lux.generate(lambda p, q, r: lux.lux_relu(p @ q + r))
     _check(gm(a, w, bias), torch.relu(a @ w + bias), torch.float32)
     c_ = registry.counts()
-    assert [c_[k]["launches"] for k in ("for_each", "row_reduce", "map_reduce", "gemm")] == \
-        [1, 1, 1, 1]
+    assert [c_[k]["launches"] for k in ("for_each", "row_reduce", "map_reduce")] + \
+        [_route_launches(c_, "gemm")] == [1, 1, 1, 1]
     assert all(v["plain_calls"] == 0 for v in c_.values())
 
 
@@ -1589,10 +1612,11 @@ def test_gemm_packed_out_dtypes_and_int8_alpha(dev):
 # ---------------------------------------------------------------------------
 
 def _gemm_route(M, K, N, ta, tb):
-    """The route the library should pick for 16-bit operands: wgmma where M
-    >= 64 and both operands' contiguous dimensions are multiples of 8."""
+    """The route the library should pick for 16-bit operands with M > 40 (no
+    split-K): wgmma where both operands' contiguous dimensions are
+    multiples of 8."""
     a_inner, b_inner = (M if ta else K), (K if tb else N)
-    return "wgmma" if M >= 64 and a_inner % 8 == 0 and b_inner % 8 == 0 else "classic"
+    return "wgmma" if M > 40 and a_inner % 8 == 0 and b_inner % 8 == 0 else "classic"
 
 
 def _gemm_counters(route):
@@ -1681,23 +1705,25 @@ def test_gemm_k_not_a_multiple_of_8_takes_wmma(dev):
 @pytest.mark.parametrize("M", [1, 8, 40])
 def test_gemm_wgmma_asked_for_at_decode_rows(dev, M):
     """route="wgmma" runs the wgmma kernel below its M threshold (the
-    decode products' crossover is timed that way); route="classic" the
-    WMMA kernel above it. Both right."""
-    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_WGMMA, gemm_fused, gemm_plain
+    decode products' crossover is timed that way), where the library picks
+    split-K; route="classic" the WMMA kernel above it. All right."""
+    from laser_tpu_torch.ops.gemm.kernel import (GEMM, GEMM_SPLITK, GEMM_WGMMA, gemm_fused,
+                                                 gemm_plain)
 
     g = _gen(dev, 84)
     x, w = _rnd(g, (M, 2048), torch.bfloat16, dev), _rnd(g, (2048, 640), torch.bfloat16, dev,
                                                           std=2048 ** -0.5)
     bias = _rnd(g, (640,), torch.bfloat16, dev)
     want = gemm_plain(x, w, bias=bias)
-    before = (GEMM.launches, GEMM_WGMMA.launches)
+    before = (GEMM.launches, GEMM_WGMMA.launches, GEMM_SPLITK.launches)
     _check(gemm_fused(x, w, bias=bias, route="wgmma"), want, torch.bfloat16)
     _check(gemm_fused(x, w, bias=bias), want, torch.bfloat16)
-    assert (GEMM.launches, GEMM_WGMMA.launches) == (before[0] + 1, before[1] + 1)
+    assert (GEMM.launches, GEMM_WGMMA.launches, GEMM_SPLITK.launches) == (
+        before[0], before[1] + 1, before[2] + 1)
     xb = _rnd(g, (256, 2048), torch.bfloat16, dev)
     _check(gemm_fused(xb, w, bias=bias, route="classic"), gemm_plain(xb, w, bias=bias),
            torch.bfloat16)
-    assert GEMM.launches == before[0] + 2
+    assert GEMM.launches == before[0] + 1
     with pytest.raises(Exception):  # not a TMA stride: the route refuses
         gemm_fused(_rnd(g, (M, 70), torch.bfloat16, dev), _rnd(g, (70, 64), torch.bfloat16, dev),
                    route="wgmma")
@@ -1763,3 +1789,167 @@ def test_attention_with_stats_rectangular_raises_on_the_kernel(dev, Sq, Sk, k_va
         attention_with_stats(q, k, v, causal=True, k_valid=k_valid)
     with pytest.raises(ValueError):
         attention_with_stats(q, k, v, k_valid=0)
+
+
+# ---------------------------------------------------------------------------
+# The weight-streaming routes: the GEMM's split-K route for few rows
+# (csrc/gemm.cu over csrc/splitk.cuh) and the int4 GEMM's stream and mma
+# routes (csrc/w4_gemm.cu), each against its plain version, each asserting
+# which route's counter moved
+# ---------------------------------------------------------------------------
+
+# (K, N, epilogue, with beta * C): K ragged against the 64-deep (f32: 32)
+# k tile, the splits and the 8-element vectors; N ragged against the
+# 128-column tile
+SPLITK_SHAPES = [(1000, 200, "gelu", False), (999, 8, None, True), (4096, 392, "relu", True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("M", [1, 8, 16, 40, 63])
+@pytest.mark.parametrize("shape", SPLITK_SHAPES, ids=lambda s: f"K{s[0]}xN{s[1]}")
+def test_gemm_splitk(dev, dtype, M, shape):
+    """route="splitk" at decode rows, bias and an activation, alpha != 1 with
+    beta * C, against the plain version; only its counter moves."""
+    from laser_tpu_torch.ops.gemm.kernel import GEMM_SPLITK, gemm_fused, gemm_plain
+
+    K, N, epilogue, with_c = shape
+    if dtype == torch.float32:
+        N = N - 4 if N > 8 else 4  # f32 asks only N % 4 == 0
+    g = _gen(dev, 90)
+    a = _rnd(g, (M, K), dtype, dev)
+    b = _rnd(g, (K, N), dtype, dev, std=K ** -0.5)
+    kw = dict(bias=_rnd(g, (N,), dtype, dev), epilogue=epilogue)
+    if with_c:
+        kw.update(alpha=0.75, beta=-1.5, c=_rnd(g, (M, N), torch.float32, dev))
+    before = (GEMM_SPLITK.launches, _gemm_launches())
+    got = gemm_fused(a, b, route="splitk", **kw)
+    assert (GEMM_SPLITK.launches, _gemm_launches()) == (before[0] + 1, before[1] + 1)
+    _check(got, gemm_plain(a, b, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 256), (40, 14336, 512), (16, 50176, 128)])
+def test_gemm_splitk_same_bits_twice(dev, dtype, M, K, N):
+    """Many splits (two column tiles over a long K; C1's head shape): the
+    reduce sums them in a fixed order, so two calls give the same bits."""
+    from laser_tpu_torch.ops.gemm.kernel import GEMM_SPLITK, gemm_fused, gemm_plain
+
+    g = _gen(dev, 91)
+    a, b = _rnd(g, (M, K), dtype, dev), _rnd(g, (K, N), dtype, dev, std=K ** -0.5)
+    before = GEMM_SPLITK.launches
+    one, two = gemm_fused(a, b), gemm_fused(a, b)
+    assert GEMM_SPLITK.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    _check(one, gemm_plain(a, b), dtype)
+
+
+def test_gemm_small_m_takes_the_old_kernels_by_shape(dev):
+    """At decode rows the library picks split-K for a plain product, and the
+    WMMA kernel, by shape, for what split-K does not take: B transposed, A
+    transposed, N % 8 != 0, a base off 16 bytes, batched. route="splitk"
+    refuses those, and route="classic" still reaches the WMMA kernel."""
+    from laser_tpu_torch.ops.gemm.batched import gemm_batched
+    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_SPLITK, gemm_fused, gemm_plain
+
+    g = _gen(dev, 92)
+    bf = torch.bfloat16
+    M, K, N = 8, 256, 96
+    x, w = _rnd(g, (M, K), bf, dev), _rnd(g, (K, N), bf, dev, std=K ** -0.5)
+    wt, xt = w.t().contiguous(), x.t().contiguous()
+    xu = _rnd(g, (M * K + 1,), bf, dev)[1:].view(M, K)
+    assert xu.data_ptr() % 16
+    cases = [  # (args, kwargs, want)
+        ((x, wt), dict(transpose_b=True), gemm_plain(x, w)),
+        ((xt, w), dict(transpose_a=True), gemm_plain(x, w)),
+        ((x, w[:, :90].contiguous()), {}, gemm_plain(x, w[:, :90])),
+        ((xu, w), {}, gemm_plain(xu, w)),
+    ]
+    for args, kw, want in cases:
+        before = (GEMM.launches, GEMM_SPLITK.launches)
+        _check(gemm_fused(*args, **kw), want, bf)
+        assert (GEMM.launches, GEMM_SPLITK.launches) == (before[0] + 1, before[1]), kw
+        with pytest.raises(Exception):
+            gemm_fused(*args, route="splitk", **kw)
+    before = (GEMM.launches, GEMM_SPLITK.launches)
+    _check(gemm_fused(x, w), gemm_plain(x, w), bf)
+    _check(gemm_fused(x, w, route="classic"), gemm_plain(x, w), bf)
+    assert (GEMM.launches, GEMM_SPLITK.launches) == (before[0] + 1, before[1] + 1)
+    xb = torch.stack([x, x])
+    _check(gemm_batched(xb, torch.stack([w, w])), torch.stack([gemm_plain(x, w)] * 2), bf)
+    assert GEMM_SPLITK.launches == before[1] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [1, 8, 40, 64, 257])
+@pytest.mark.parametrize("group", [2, 32, 64, 128])
+def test_w4_gemm_routes(dev, dtype, M, group):
+    """Both int4 routes asked for (stream up to 64 rows) and the library's
+    pick, against the plain version: K past several groups and not a
+    multiple of the 128-deep stream tile, N past the 128-column tile."""
+    from laser_tpu_torch.ops.gemm.int4_kernel import (ROUTE_KERNELS, W4_GEMM_MMA,
+                                                      W4_GEMM_STREAM, gemm_w4, gemm_w4_plain,
+                                                      quantize_int4)
+
+    g = _gen(dev, 93)
+    K, N = 384 + 64 * (group <= 64), 272
+    h = _rnd(g, (M, K), dtype, dev)
+    wq = quantize_int4(_rnd(g, (K, N), torch.float32, dev, std=K ** -0.5), group=group)
+    want = gemm_w4_plain(h, wq)
+    routes = [("mma", W4_GEMM_MMA)] + ([("stream", W4_GEMM_STREAM)] if M <= 64 else [])
+    for route, counter in routes:
+        before = (counter.launches, sum(k.launches for k in ROUTE_KERNELS.values()))
+        got = gemm_w4(h, wq, route=route)
+        assert (counter.launches, sum(k.launches for k in ROUTE_KERNELS.values())) == (
+            before[0] + 1, before[1] + 1), route
+        _check(got, want, dtype)
+    if M > 64:
+        with pytest.raises(Exception):
+            gemm_w4(h, wq, route="stream")
+    before = (W4_GEMM_STREAM.launches, W4_GEMM_MMA.launches)
+    _check(gemm_w4(h, wq), want, dtype)
+    moved = (W4_GEMM_STREAM.launches - before[0], W4_GEMM_MMA.launches - before[1])
+    assert moved in ((1, 0), (0, 1)) and (moved == (0, 1) or M <= 64)
+
+
+def test_w4_gemm_stream_same_bits_twice(dev):
+    """Llama-3-8B's w_down at 8 rows: many splits, the same bits twice."""
+    from laser_tpu_torch.ops.gemm.int4_kernel import gemm_w4, gemm_w4_plain, quantize_int4
+
+    g = _gen(dev, 94)
+    h = _rnd(g, (8, 14336), torch.bfloat16, dev)
+    wq = quantize_int4(_rnd(g, (14336, 512), torch.float32, dev, std=14336 ** -0.5))
+    one, two = gemm_w4(h, wq, route="stream"), gemm_w4(h, wq, route="stream")
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    _check(one, gemm_w4_plain(h, wq), torch.bfloat16)
+
+
+def test_w4_gemm_takes_the_classic_kernel_by_shape(dev):
+    """N % 16 != 0, an activation off 16 bytes and f32 take the classic
+    kernels, right; the new routes refuse them; route="classic" reaches the
+    WMMA kernel at any M."""
+    from laser_tpu_torch.ops.gemm.int4_kernel import (W4_GEMM, W4_GEMM_MMA, W4_GEMM_STREAM,
+                                                      gemm_w4, gemm_w4_plain, quantize_int4)
+
+    g = _gen(dev, 95)
+    K = 256
+    wq = quantize_int4(_rnd(g, (K, 200), torch.float32, dev, std=K ** -0.5), group=64)
+    wq16 = quantize_int4(_rnd(g, (K, 208), torch.float32, dev, std=K ** -0.5), group=64)
+    hu = _rnd(g, (8 * K + 1,), torch.bfloat16, dev)[1:].view(8, K)
+    assert hu.data_ptr() % 16
+    cases = [(_rnd(g, (8, K), torch.bfloat16, dev), wq), (_rnd(g, (300, K), torch.bfloat16, dev), wq),
+             (hu, wq16), (_rnd(g, (8, K), torch.float32, dev), wq16)]
+    for h, w in cases:
+        before = (W4_GEMM.launches, W4_GEMM_STREAM.launches + W4_GEMM_MMA.launches)
+        _check(gemm_w4(h, w), gemm_w4_plain(h, w), h.dtype)
+        assert (W4_GEMM.launches, W4_GEMM_STREAM.launches + W4_GEMM_MMA.launches) == (
+            before[0] + 1, before[1])
+        for route in ("stream", "mma"):
+            with pytest.raises(Exception):
+                gemm_w4(h, w, route=route)
+    for M in (8, 300):
+        h = _rnd(g, (M, K), torch.bfloat16, dev)
+        before = W4_GEMM.launches
+        _check(gemm_w4(h, wq16, route="classic"), gemm_w4_plain(h, wq16), torch.bfloat16)
+        assert W4_GEMM.launches == before + 1

@@ -108,7 +108,8 @@ def test_every_slice_kernel_registered():
         "transpose", "transpose_inplace",  # layout slice
         "gemm_batched", "gemm_int32", "gemm_limbs", "quantize_int8",  # GEMM dtype table
         "gemm_packed", "stencil_sweep", "adamw_update", "sgdm_update",  # the library surface
-        "gemm_wgmma", "gemm_batched_wgmma", "flash_attention_mma"}  # the Hopper routes
+        "gemm_wgmma", "gemm_batched_wgmma", "flash_attention_mma",  # the Hopper routes
+        "gemm_splitk", "w4_gemm_stream", "w4_gemm_mma"}  # the weight-streaming routes
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
@@ -117,9 +118,10 @@ def test_every_slice_kernel_registered():
         "ltt_conv_planewise", "ltt_conv_direct", "ltt_softmax_rows", "ltt_softmax_online",
         "ltt_transpose", "ltt_transpose_inplace",
         "ltt_gemm_batched", "ltt_gemm_limbs", "ltt_gemm_int32", "ltt_quantize_int8",
-        "ltt_gemm_packed", "ltt_stencil_sweep", "ltt_adamw", "ltt_sgdm"}
+        "ltt_gemm_packed", "ltt_stencil_sweep", "ltt_adamw", "ltt_sgdm",
+        "ltt_gemm_workspace", "ltt_w4_gemm_workspace"}
     # alpha and beta are doubles: an int8 GEMM's int32 alpha passes exactly
-    assert registry.SIGNATURES["ltt_gemm"][10:12] == (ctypes.c_double, ctypes.c_double)
+    assert registry.SIGNATURES["ltt_gemm"][11:13] == (ctypes.c_double, ctypes.c_double)
     assert registry.SIGNATURES["ltt_quantize_int8"][8] is ctypes.c_int64  # the seed's 64 bits
     replaced = {k.name: k.replaces for k in registry.KERNELS.values()}
     assert replaced["gemm_batched"] == "laser_tpu/ops/gemm/batched.py:28 _build_batched"
@@ -133,11 +135,14 @@ def test_every_slice_kernel_registered():
     assert replaced["sgdm_update"] == "laser_tpu/ops/optim.py:80 _build_sgdm"
     assert replaced["ce_bwd"] == "laser_tpu/ops/loss.py:130 _build_ce_bwd"
     # each route of one TPU kernel counts its own launches
-    assert replaced["gemm_wgmma"] == replaced["gemm"] == \
+    assert replaced["gemm_wgmma"] == replaced["gemm_splitk"] == replaced["gemm"] == \
         "laser_tpu/ops/gemm/kernel.py:62 build_gemm"
+    assert replaced["w4_gemm_stream"] == replaced["w4_gemm_mma"] == replaced["w4_gemm"] == \
+        "laser_tpu/ops/gemm/int4_kernel.py:87 build_w4_gemm"
     assert replaced["gemm_batched_wgmma"] == replaced["gemm_batched"]
     assert replaced["flash_attention_mma"] == replaced["flash_attention"]
-    for fname in ("ltt_gemm", "ltt_gemm_batched", "ltt_flash_fwd"):  # route, route taken
+    for fname in ("ltt_gemm", "ltt_gemm_batched", "ltt_flash_fwd", "ltt_w4_gemm"):
+        # route, route taken
         assert registry.SIGNATURES[fname][-3:-1] == (ctypes.c_int, ctypes.POINTER(ctypes.c_int))
     assert registry.SIGNATURES["ltt_ce_bwd"][9] is ctypes.c_double  # eps, q formed in double
     assert replaced["transpose_inplace"].startswith(
