@@ -25,11 +25,14 @@ printed:
    cases that race it: the two flash backward kernels share one). The serving and
    training kernels run in bf16; beside the transformer shapes: the flash
    kernel's GQA map and the paged kernel over int8 pages at the Llama-3-8B
-   widths. The 16-bit GEMM and the bf16 flash forward run on their Hopper
-   routes (``gemm_wgmma``: wgmma fed by a TMA ring; ``flash_attention_mma``:
-   mma.sync on the tensor cores), and the kernels they replace at the same
-   shapes, asked for by ``route=`` (``gemm``: WMMA; ``flash_attention``:
-   FFMA), each case asserting that its route's counter moved. The
+   widths. The 16-bit GEMM, the bf16 flash forward and the bf16 flash
+   backward run on their Hopper routes (``gemm_wgmma``: wgmma fed by a TMA
+   ring; ``flash_attention_mma``, ``flash_attention_bwd_dq_mma`` and
+   ``flash_attention_bwd_dkv_mma``: mma.sync on the tensor cores), and the
+   kernels they replace at the same shapes, asked for by ``route=``
+   (``gemm``: WMMA; ``flash_attention``, ``flash_attention_bwd_dq``,
+   ``flash_attention_bwd_dkv``: FFMA), each case asserting that its route's
+   counter moved; the backward also at a ragged S 1030, D 64. The
    weight-streaming products run on the routes the library picks: the
    decode GEMM (M 8) and the verify's (M 40) on split-K (``gemm_splitk``),
    the Llama-3-8B decode products (K4096 N14336, K14336 N4096) bf16 on
@@ -304,15 +307,17 @@ SPEC_KERNELS = {"s1_plain": SERVING_KERNELS,
 SPEC_F32_CFG = dict(SERVE_CFG, decode_burst=20, pipeline_bursts=True)
 DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=2, d_ff=512, vocab=8192)
 LLAMA_DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab=8192)
-TRAINING_KERNELS = ("gemm_wgmma", "norm", "flash_attention_mma", "flash_attention_bwd_dq",
-                    "flash_attention_bwd_dkv", "ce_fused_grad", "ce_fwd")
+# bf16 at D 128: the flash forward and backward on the tensor cores
+TRAINING_KERNELS = ("gemm_wgmma", "norm", "flash_attention_mma", "flash_attention_bwd_dq_mma",
+                    "flash_attention_bwd_dkv_mma", "ce_fused_grad", "ce_fwd")
 # Llama training (phase 17): phase 7's widths and rope, batch 4 x 1024; the
 # loss's chunked branch runs ce_bwd and no other CE kernel
 LLAMA_TRAIN_BATCH = (4, 1024)
 LLAMA_MP_LAYERS = 4
-LLAMA_TRAIN_KERNELS = ("gemm_wgmma", "norm", "flash_attention_mma", "flash_attention_bwd_dq",
-                       "flash_attention_bwd_dkv", "ce_bwd")
-# phase 6's f32 llama loss: the FFMA GEMM and flash kernels
+LLAMA_TRAIN_KERNELS = ("gemm_wgmma", "norm", "flash_attention_mma",
+                       "flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma", "ce_bwd")
+# phase 6's f32 llama loss: the FFMA GEMM and flash kernels (forward and
+# backward)
 LLAMA_TRAIN_F32_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv", "ce_bwd")
 # ce_bwd against its plain version: f32 exp and the same fp32 arithmetic;
@@ -496,8 +501,7 @@ def kernel_cases(dtype, full: bool):
     from laser_tpu_torch.ops.attention import (attention, attention_gqa,
                                                attention_gqa_reference, attention_reference,
                                                flash_forward)
-    from laser_tpu_torch.ops.attention_bwd import (bwd_dkv_cuda, bwd_dq_cuda,
-                                                   flash_attention_bwd_reference)
+    from laser_tpu_torch.ops.attention_bwd import flash_attention_bwd_reference
     from laser_tpu_torch.ops.gemm import linear, linear_reference
     from laser_tpu_torch.ops.gemm.kernel import gemm_fused
     from laser_tpu_torch.ops.norm import layer_norm, layer_norm_reference
@@ -535,6 +539,7 @@ def kernel_cases(dtype, full: bool):
     f32 = dtype == torch.float32
     gemm_name = "gemm" if f32 else "gemm_wgmma"
     flash_name = "flash_attention" if f32 else "flash_attention_mma"
+    bwd_route = "" if f32 else "_mma"
 
     x, w, bias = rnd(M, K), rnd(K, N, std=K ** -0.5), rnd(N, std=0.1)
     gemm_case = dict(flops=2 * M * K * N, nbytes=(M * K + K * N + M * N + N) * isz,
@@ -599,21 +604,19 @@ def kernel_cases(dtype, full: bool):
     plain_bwd = lambda: flash_attention_bwd_reference(qt, kt, vt, ot, mt, lt, dot,  # noqa: E731
                                                       causal=True, scale=sc)
     lib_bwd = _sdpa_backward(qt, kt, vt, dot)
-    stats_bytes = 3 * BHt * St * 4
-    cases.append(Case(
-        "flash_attention_bwd_dq", f"BH{BHt} S{St} D{D} causal",
-        lambda: bwd_dq_cuda(qt, kt, vt, dot, mt, lt, dvec, True, sc),
-        lambda: plain_bwd()[0], flops=3 * 2 * D * causal_pairs(BHt, St),
-        nbytes=5 * BHt * St * D * isz + stats_bytes, library=lib_bwd,
-        library_call="autograd of F.scaled_dot_product_attention(is_causal=True): "
-                     "dq, dk, dv in one backward"))
-    cases.append(Case(
-        "flash_attention_bwd_dkv", f"BH{BHt} S{St} D{D} causal",
-        lambda: bwd_dkv_cuda(qt, kt, vt, dot, mt, lt, dvec, True, sc),
-        lambda: plain_bwd()[1:], flops=4 * 2 * D * causal_pairs(BHt, St),
-        nbytes=6 * BHt * St * D * isz + stats_bytes, library=lib_bwd,
-        library_call="autograd of F.scaled_dot_product_attention(is_causal=True): "
-                     "dq, dk, dv in one backward"))
+    cases += bwd_cases(qt, kt, vt, dot, mt, lt, dvec, sc, plain_bwd, lib_bwd, bwd_route)
+    if full:  # the FFMA kernels the tensor-core route replaces, in the same run
+        cases += bwd_cases(qt, kt, vt, dot, mt, lt, dvec, sc, plain_bwd, lib_bwd, "",
+                           route="ffma")
+    if not f32:  # a ragged S at D 64 on the tensor cores
+        rag = [rnd(16, 1030, 64) for _ in range(4)]  # q, k, v, dO
+        rsc = 64 ** -0.5
+        ro, rm, rl = flash_forward(*rag[:3], True, rsc, stats=True)
+        cases += bwd_cases(
+            *rag, rm, rl, (rag[3].float() * ro.float()).sum(-1), rsc,
+            lambda: flash_attention_bwd_reference(*rag[:3], ro, rm, rl, rag[3], causal=True,
+                                                  scale=rsc),
+            _sdpa_backward(*rag), bwd_route, slot="ragged")
 
     P = slots * pages + 1
     qd, kp, vp = rnd(slots, H, hd), rnd(P, H, ps, hd), rnd(P, H, ps, hd)
@@ -832,6 +835,32 @@ def _sdpa_train_forward(q, k, v):
         with torch.enable_grad():
             return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     return run
+
+
+def bwd_cases(q, k, v, do, m, l, dvec, sc, plain_bwd, lib_bwd, suffix, route=None, slot=""):
+    """Rows 6 and 7 (the flash backward's dq and dk/dv kernels) at q's
+    (BH, S, D), causal, on the route the library picks (``suffix`` the
+    record's: "_mma" for 16-bit inputs) or on ``route`` asked for; the
+    library call is SDPA's whole backward (dq, dk, dv in one call) for
+    both."""
+    from laser_tpu_torch.ops.attention_bwd import bwd_dkv_cuda, bwd_dq_cuda
+
+    BH, S, D = q.shape
+    pairs, isz, stats_bytes = BH * S * (S + 1) // 2, q.element_size(), 3 * BH * S * 4
+    note = ", the FFMA kernel asked for" if route == "ffma" else ""
+    call = ("autograd of F.scaled_dot_product_attention(is_causal=True): dq, dk, dv in one "
+            "backward")
+    return [
+        Case(f"flash_attention_bwd_dq{suffix}", f"BH{BH} S{S} D{D} causal{note}",
+             lambda: bwd_dq_cuda(q, k, v, do, m, l, dvec, True, sc, route),
+             lambda: plain_bwd()[0], flops=3 * 2 * D * pairs,
+             nbytes=5 * BH * S * D * isz + stats_bytes, library=lib_bwd, library_call=call,
+             slot=slot),
+        Case(f"flash_attention_bwd_dkv{suffix}", f"BH{BH} S{S} D{D} causal{note}",
+             lambda: bwd_dkv_cuda(q, k, v, do, m, l, dvec, True, sc, route),
+             lambda: plain_bwd()[1:], flops=4 * 2 * D * pairs,
+             nbytes=6 * BH * S * D * isz + stats_bytes, library=lib_bwd, library_call=call,
+             slot=slot)]
 
 
 def _sdpa_backward(q, k, v, do):

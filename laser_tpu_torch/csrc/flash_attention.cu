@@ -39,12 +39,22 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using ltt::from_f32;
 using ltt::kNegInf;
 using ltt::to_f32;
+using ltt::hp::cp_async_commit;
+using ltt::hp::cp_async_tile;
+using ltt::hp::cp_async_wait;
+using ltt::hp::ldsm_x4;
+using ltt::hp::ldsm_x4_trans;
+using ltt::hp::mma16816;
+using ltt::hp::pack2;
+using ltt::hp::smem_u32;
+using ltt::hp::swz;
 
 constexpr int FL_WARPS = 4;
 constexpr int FL_ROWS = 4;                   // query rows per warp
@@ -210,7 +220,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m, float
 //   above; a row that sees no key writes 0;
 // - causal: key tiles past the block's last query are never loaded, and the
 //   q tiles with the most keys are scheduled first (blockIdx.y reversed);
-// - the GQA kv-row map is the FFMA kernel's.
+// - the GQA kv-row map is the FFMA kernel's;
+// - cp.async, the swizzle, ldmatrix and mma are csrc/hopper.cuh's, shared
+//   with the backward's tensor-core kernels (csrc/flash_attention_bwd.cu).
 // The scores are summed in another order than the FFMA kernel's and the
 // backward's, so exp(s - m) in the backward may exceed 1 by a rounding.
 constexpr int FM_WARPS = 4;
@@ -222,76 +234,6 @@ constexpr float FM_LOG2E = 1.4426950408889634f;
 // Q, then two (K, V) buffers, all [rows][D] in the input dtype
 __host__ __device__ constexpr size_t mma_smem_bytes(int D) {
   return (size_t)(FM_BQ + 4 * FM_BK) * D * 2;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// element offset of 16-byte chunk c of row r in a swizzled [rows][D] tile
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
-
-// rows [row0, row0 + 64) of a (S, D) matrix into a swizzled tile; rows at or
-// past S are zero-filled (0 * garbage could be NaN in P.V)
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0, int S) {
-  constexpr int CH = D / 8;
-#pragma unroll
-  for (int it = 0; it < 64 * CH / FM_THREADS; ++it) {
-    const int i = threadIdx.x + it * FM_THREADS;
-    const int r = i / CH, c = i % CH;
-    const int gr = row0 + r;
-    const T* g = src + (size_t)min(gr, S - 1) * D + c * 8;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst + swz<D>(r, c))),
-                 "l"(g), "r"(gr < S ? 16 : 0)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a (16 x 16, row) b (16 x 8, col), fp32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// two floats rounded to T, the first in the low half (the lower k index)
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __half>::value) {
-    const __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  } else {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
 }
 
 template <typename T, int D, bool STATS>
@@ -319,10 +261,10 @@ __global__ void __launch_bounds__(FM_THREADS)
   const int kend = causal ? min(S, q0 + FM_BQ) : S;
   const int ntiles = (kend + FM_BK - 1) / FM_BK;
 
-  load_tile<T, D>(Qs, q + base, q0, S);
-  load_tile<T, D>(KV, kg, 0, S);
-  load_tile<T, D>(KV + FM_BK * D, vg, 0, S);
-  asm volatile("cp.async.commit_group;" ::: "memory");
+  cp_async_tile<T, D, FM_BQ, FM_THREADS>(Qs, q + base, q0, S);
+  cp_async_tile<T, D, FM_BK, FM_THREADS>(KV, kg, 0, S);
+  cp_async_tile<T, D, FM_BK, FM_THREADS>(KV + FM_BK * D, vg, 0, S);
+  cp_async_commit();
 
   uint32_t qf[KC][4];
   float acc[NB][4];
@@ -335,12 +277,12 @@ __global__ void __launch_bounds__(FM_THREADS)
   for (int j = 0; j < ntiles; ++j) {
     if (j + 1 < ntiles) {
       T* nxt = KV + ((j + 1) & 1) * 2 * FM_BK * D;
-      load_tile<T, D>(nxt, kg, (j + 1) * FM_BK, S);
-      load_tile<T, D>(nxt + FM_BK * D, vg, (j + 1) * FM_BK, S);
-      asm volatile("cp.async.commit_group;" ::: "memory");
-      asm volatile("cp.async.wait_group 1;" ::: "memory");
+      cp_async_tile<T, D, FM_BK, FM_THREADS>(nxt, kg, (j + 1) * FM_BK, S);
+      cp_async_tile<T, D, FM_BK, FM_THREADS>(nxt + FM_BK * D, vg, (j + 1) * FM_BK, S);
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      cp_async_wait<0>();
     }
     __syncthreads();
     if (j == 0) {

@@ -1,6 +1,8 @@
 // Hopper building blocks shared by the GEMM kernels (csrc/gemm.cu,
-// csrc/w4_gemm.cu and the split-K skeleton in csrc/splitk.cuh): cp.async,
-// ldmatrix and mma.sync m16n8k16; mbarriers, TMA tensor maps and loads,
+// csrc/w4_gemm.cu and the split-K skeleton in csrc/splitk.cuh) and the
+// flash kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu):
+// cp.async, ldmatrix and mma.sync m16n8k16, swizzled 16-bit tiles;
+// mbarriers, TMA tensor maps and loads,
 // wgmma m64n128k16 with its shared-memory descriptors, and the tile walk of
 // the persistent wgmma kernels. Everything here is inline: each including
 // source gets its own copy of the device code.
@@ -84,6 +86,35 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   } else {
     const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Swizzled [rows][D] tiles of 16-bit elements (the flash kernels)
+// ---------------------------------------------------------------------------
+
+// element offset of 16-byte chunk c of row r: the chunk index XOR the row's
+// low 3 bits, so ldmatrix's eight row reads at one chunk column fall in
+// eight distinct bank groups
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((c ^ (r & 7)) << 3);
+}
+
+// rows [row0, row0 + ROWS) of a (S, D) row-major matrix into a swizzled
+// tile by cp.async over THREADS threads; rows at or past S are zero-filled
+// (0 * garbage could be NaN in a product), their source clamped to row S - 1
+template <typename T, int D, int ROWS, int THREADS>
+__device__ __forceinline__ void cp_async_tile(T* dst, const T* __restrict__ src, int row0,
+                                              int S) {
+  static_assert(sizeof(T) == 2 && ROWS * (D / 8) % THREADS == 0, "16-bit rows, whole chunks");
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    const int r = i / CH, c = i % CH;
+    const int gr = row0 + r;
+    cp_async16(smem_u32(dst + swz<D>(r, c)), src + (size_t)min(gr, S - 1) * D + c * 8, gr < S);
   }
 }
 

@@ -11,10 +11,17 @@ from ``(m, l)`` and streams the gradients, never keeping the S x S matrix:
 
 Two CUDA kernels (csrc/flash_attention_bwd.cu) replace
 laser_tpu/ops/attention_bwd.py:72 _build_bwd_dq and :173 _build_bwd_dkv.
-Bound on the H100: arithmetic (3 and 4 products per visible pair). Design:
-each block owns 16 query rows (dq) or 16 key rows (dk, dv) and loops over the
-other axis, so no output is shared and no atomics are needed; fp32 FFMA from
-shared memory, the causal block skip on both sides.
+Bound on the H100: arithmetic (3 and 4 products per visible pair). Each
+block owns a tile of query rows (dq) or key rows (dk, dv) and loops over the
+other axis, so no output is shared and no atomics are needed; the causal
+block skip holds on both sides. Two routes of each, each with its own launch
+counter: ``flash_attention_bwd_dq_mma`` / ``flash_attention_bwd_dkv_mma``
+(bf16/f16 at D 64 and 128, 16-byte-aligned tensors: the tensor cores
+through mma.sync, 64 owned rows a block, 64-row tiles double-buffered by
+cp.async in the input dtype, P and dS rounded to it before their products)
+and ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv`` (f32 and other
+head dims: fp32 FFMA, 16 owned rows a block). ``route="ffma"`` or ``"mma"``
+asks for one; ``"mma"`` where it does not fit raises.
 
 ``flash_attention_bwd_reference`` is the plain PyTorch version: it recomputes
 P from ``(m, l)`` exactly as the kernels do (it is not autograd of the
@@ -23,6 +30,8 @@ offsets and a ``dvec`` override are not ported and raise.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -36,6 +45,16 @@ FLASH_BWD_DQ = registry.kernel(
 FLASH_BWD_DKV = registry.kernel(
     "flash_attention_bwd_dkv", "laser_tpu_torch/csrc/flash_attention_bwd.cu",
     "laser_tpu/ops/attention_bwd.py:173 _build_bwd_dkv")
+FLASH_BWD_DQ_MMA = registry.kernel(
+    "flash_attention_bwd_dq_mma", "laser_tpu_torch/csrc/flash_attention_bwd.cu",
+    "laser_tpu/ops/attention_bwd.py:72 _build_bwd_dq")
+FLASH_BWD_DKV_MMA = registry.kernel(
+    "flash_attention_bwd_dkv_mma", "laser_tpu_torch/csrc/flash_attention_bwd.cu",
+    "laser_tpu/ops/attention_bwd.py:173 _build_bwd_dkv")
+# route codes shared with csrc/flash_attention_bwd.cu (enum Route), and the
+# (dq, dk/dv) counters of each
+ROUTES = {None: 0, "ffma": 1, "mma": 2}
+ROUTE_KERNELS = {1: (FLASH_BWD_DQ, FLASH_BWD_DKV), 2: (FLASH_BWD_DQ_MMA, FLASH_BWD_DKV_MMA)}
 
 
 def _bwd_plain(q, k, v, do, m, l, dvec, causal: bool, scale: float):
@@ -72,34 +91,40 @@ def _checked_cuda(q, k, v, do, m, l, dvec):
             l.data_ptr(), dvec.data_ptr()), (BH, S, D)
 
 
-def bwd_dq_cuda(q, k, v, do, m, l, dvec, causal: bool, scale: float):
-    """dq through the ``flash_attention_bwd_dq`` kernel (CUDA tensors)."""
+def _launch(which: int, outs, q, k, v, do, m, l, dvec, causal, scale, route):
+    """Kernel ``which`` (0 dq, 1 dk/dv) into ``outs``; counts the launch on
+    the route the library reports."""
     ptrs, (BH, S, D) = _checked_cuda(q, k, v, do, m, l, dvec)
-    dq = torch.empty_like(q)
+    code = registry.route_code(ROUTES, route)
     if BH and S:
-        status = registry.load_library().ltt_flash_bwd_dq(
-            *ptrs, dq.data_ptr(), BH, S, D, int(causal), float(scale),
-            registry.DTYPE_CODES[q.dtype], registry.stream_handle(q))
-        registry.check_launch(status, "flash_attention_bwd_dq")
-        FLASH_BWD_DQ.launches += 1
+        taken = ctypes.c_int(0)
+        fn = getattr(registry.load_library(), ("ltt_flash_bwd_dq", "ltt_flash_bwd_dkv")[which])
+        status = fn(*ptrs, *(t.data_ptr() for t in outs), BH, S, D, int(causal), float(scale),
+                    registry.DTYPE_CODES[q.dtype], code, ctypes.byref(taken),
+                    registry.stream_handle(q))
+        registry.check_launch(status, ROUTE_KERNELS[1][which].name)
+        ROUTE_KERNELS[taken.value][which].launches += 1
+
+
+def bwd_dq_cuda(q, k, v, do, m, l, dvec, causal: bool, scale: float, route=None):
+    """dq through the dq kernel (CUDA tensors): the tensor cores where they
+    fit, else FFMA; ``route`` "ffma" or "mma" asks for one."""
+    dq = torch.empty_like(q)
+    _launch(0, (dq,), q, k, v, do, m, l, dvec, causal, scale, route)
     return dq
 
 
-def bwd_dkv_cuda(q, k, v, do, m, l, dvec, causal: bool, scale: float):
-    """(dk, dv) through the ``flash_attention_bwd_dkv`` kernel (CUDA
-    tensors)."""
-    ptrs, (BH, S, D) = _checked_cuda(q, k, v, do, m, l, dvec)
+def bwd_dkv_cuda(q, k, v, do, m, l, dvec, causal: bool, scale: float, route=None):
+    """(dk, dv) through the dk/dv kernel (CUDA tensors), routed as
+    ``bwd_dq_cuda``."""
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    if BH and S:
-        status = registry.load_library().ltt_flash_bwd_dkv(
-            *ptrs, dk.data_ptr(), dv.data_ptr(), BH, S, D, int(causal), float(scale),
-            registry.DTYPE_CODES[q.dtype], registry.stream_handle(q))
-        registry.check_launch(status, "flash_attention_bwd_dkv")
-        FLASH_BWD_DKV.launches += 1
+    _launch(1, (dk, dv), q, k, v, do, m, l, dvec, causal, scale, route)
     return dk, dv
 
 
-def _bwd(q, k, v, o, m, l, do, causal, scale, window, q_off, k_off, dvec, plain):
+def _bwd(q, k, v, o, m, l, do, causal, scale, window, q_off, k_off, dvec, plain,
+         route=None):
+    registry.route_code(ROUTES, route)  # an unknown route raises on any device
     if window is not None or q_off is not None or k_off is not None or dvec is not None:
         raise NotImplementedError(
             "flash_attention_bwd: window, q_off/k_off (ring attention) and a "
@@ -115,17 +140,19 @@ def _bwd(q, k, v, o, m, l, do, causal, scale, window, q_off, k_off, dvec, plain)
     dvec = (do.float() * o.float()).sum(dim=-1)
     if plain or not registry.on_cuda(q):
         return _bwd_plain(q, k, v, do, m, l, dvec, causal, scale)
-    return (bwd_dq_cuda(q, k, v, do, m, l, dvec, causal, scale),
-            *bwd_dkv_cuda(q, k, v, do, m, l, dvec, causal, scale))
+    return (bwd_dq_cuda(q, k, v, do, m, l, dvec, causal, scale, route),
+            *bwd_dkv_cuda(q, k, v, do, m, l, dvec, causal, scale, route))
 
 
 def flash_attention_bwd(q, k, v, o, m, l, do, *, causal: bool, scale: float,
-                        window=None, q_off=None, k_off=None, dvec=None):
+                        window=None, q_off=None, k_off=None, dvec=None, route=None):
     """(dq, dk, dv) of attention, from the forward's output ``o`` and stats
     ``m``, ``l``. q, k, v, o, do: (BH, S, D) in one dtype; m, l: (BH, S)
-    fp32. The kernels for CUDA tensors, the plain version for CPU tensors."""
+    fp32. The kernels for CUDA tensors, the plain version for CPU tensors.
+    ``route`` (a CUDA tensor's): None lets the library pick, "ffma" or
+    "mma" asks for one; an unknown name raises ``ValueError``."""
     return _bwd(q, k, v, o, m, l, do, causal, scale, window, q_off, k_off, dvec,
-                plain=False)
+                plain=False, route=route)
 
 
 def flash_attention_bwd_reference(q, k, v, o, m, l, do, *, causal: bool,

@@ -91,12 +91,14 @@ SIGNATURES = {
     # q, k, v, o, m (or null), l (or null), BH, S, D, Hq, Hkv, causal, scale,
     # dtype, route (0 picks, 1 FFMA, 2 tensor cores), route taken (out), stream
     "ltt_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _IP, _P),
-    # q, k, v, dout, m, l, dvec, dq, BH, S, D, causal, scale, dtype, stream
+    # q, k, v, dout, m, l, dvec, dq, BH, S, D, causal, scale, dtype, route
+    # (0 picks, 1 FFMA, 2 tensor cores), route taken (out), stream
     "ltt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                         _I, _P),
-    # q, k, v, dout, m, l, dvec, dk, dv, BH, S, D, causal, scale, dtype, stream
+                         _I, _I, _IP, _P),
+    # q, k, v, dout, m, l, dvec, dk, dv, BH, S, D, causal, scale, dtype,
+    # route, route taken (out), stream
     "ltt_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _F, _I, _P),
+                          _F, _I, _I, _IP, _P),
     # x, targets, loss, lse, T, V, eps, dtype, stream
     "ltt_ce_fwd": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     # x, targets, loss, dxu, T, V, eps, dtype, stream

@@ -13,6 +13,12 @@ BENCH is one of:
   as chip_smoke.py phase 2 times it (the wrapper's host work included);
   ``batched_ms``, 50 calls between two events, over 50, median of 5 runs
   (the device's time: the host enqueues faster than the kernel runs).
+- ``flash_backward``: the flash backward's two kernels at chip_smoke.py
+  phase 5's attention shape (batch x heads x sequence x head dim, causal,
+  bf16), each on the route the library picks, from one stats forward:
+  ``dq_ms`` and ``dkv_ms`` one call between two CUDA events (median of
+  20), ``dq_batched_ms`` and ``dkv_batched_ms`` 20 calls between two events
+  (median of 5).
 - ``serving``: the single-step engine (``decode_burst=1``), each engine once
   to warm up and once timed (tokens/s, host clock, synchronised):
   ``transformer``, chip_smoke.py phase 3's model; ``llama_int4``, phase 7's
@@ -89,6 +95,29 @@ def flash_forward(smoke) -> dict:
     return {"shape": shape, "per_call_ms": per_call, "batched_ms": batched}
 
 
+def flash_backward(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops.attention import flash_forward
+    from laser_tpu_torch.ops.attention_bwd import bwd_dkv_cuda, bwd_dq_cuda
+
+    m, (B, S) = smoke.MODEL, smoke.TRAIN_BATCH
+    shape = (B * m["n_heads"], S, m["d_model"] // m["n_heads"])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    sc = shape[2] ** -0.5
+    o, ms, ls = flash_forward(q, k, v, True, sc, stats=True)
+    dvec = (do.float() * o.float()).sum(-1)
+    fns = {"dq": lambda: bwd_dq_cuda(q, k, v, do, ms, ls, dvec, True, sc),
+           "dkv": lambda: bwd_dkv_cuda(q, k, v, do, ms, ls, dvec, True, sc)}
+    res = {"shape": shape}
+    for name, fn in fns.items():
+        res[f"{name}_ms"] = smoke.cuda_ms(fn)
+        res[f"{name}_batched_ms"] = smoke.cuda_batched_ms(fn, reps=5)
+    return res
+
+
 def serving(smoke) -> dict:
     import torch
 
@@ -139,8 +168,8 @@ def primitives(smoke) -> dict:
             for c in smoke.prim_cases()}
 
 
-BENCHES = {"flash_forward": flash_forward, "serving": serving, "cnn": cnn,
-           "primitives": primitives}
+BENCHES = {"flash_forward": flash_forward, "flash_backward": flash_backward,
+           "serving": serving, "cnn": cnn, "primitives": primitives}
 
 
 def _time_tree(bench: str, tree: str) -> dict:

@@ -8,8 +8,13 @@ in f32 (both recompute P from fp32 (m, l); they differ in summation order).
 At S = 1 the one probability is 1, so ds = p (dp - rowsum(dO o)) and with it
 dq and dk are zero up to rounding on both sides: those two are held against
 max(max |laser_tpu|, 1) instead. The same bound holds for
-``attention_with_stats``'s out, m and l.
+``attention_with_stats``'s out, m and l. ``route=`` names a CUDA route of
+the kernels (csrc/flash_attention_bwd.cu ``enum Route``); on CPU tensors
+every route runs the plain version, so its results equal the reference's
+bit for bit, and an unknown name raises.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +26,7 @@ from laser_tpu.ops.attention import attention_trainable as jattention_trainable
 from laser_tpu.ops.attention import attention_with_stats as jattention_with_stats
 from laser_tpu_torch import registry
 from laser_tpu_torch.ops.attention import attention_trainable, attention_with_stats
+from laser_tpu_torch.ops import attention_bwd
 from laser_tpu_torch.ops.attention_bwd import (flash_attention_bwd,
                                                flash_attention_bwd_reference)
 
@@ -86,3 +92,28 @@ def test_unported_options_raise():
         attention_with_stats(z, z, z, causal=True, q_offset=8)
     with pytest.raises(NotImplementedError):
         attention_trainable(z.requires_grad_(True), z, z, causal=True, window=4)
+
+
+def test_route_codes_match_the_launcher():
+    text = (registry.CSRC_DIR / "flash_attention_bwd.cu").read_text()
+    body = re.search(r"enum Route \{([^}]*)\}", text).group(1)
+    codes = {k.strip(): int(v) for k, v in (e.split("=") for e in body.split(","))}
+    assert sorted(codes.values()) == sorted(attention_bwd.ROUTES.values())
+    assert attention_bwd.ROUTES[None] == 0
+    assert sorted(attention_bwd.ROUTE_KERNELS) == sorted(v for v in codes.values() if v)
+    names = [k.name for pair in attention_bwd.ROUTE_KERNELS.values() for k in pair]
+    assert len(set(names)) == 4 and all(n.startswith("flash_attention_bwd_") for n in names)
+
+
+def test_routes_on_the_cpu_run_the_plain_version():
+    rng = np.random.RandomState(32)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 9, 64).astype(np.float32)).bfloat16()
+                   for _ in range(4))
+    o, m, l = attention_with_stats(q, k, v, causal=True)
+    want = flash_attention_bwd_reference(q, k, v, o, m, l, do, causal=True, scale=0.125)
+    for route in attention_bwd.ROUTES:
+        got = flash_attention_bwd(q, k, v, o, m, l, do, causal=True, scale=0.125, route=route)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), route
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, o, m, l, do, causal=True, scale=0.125, route="wgmma")

@@ -1,7 +1,8 @@
 """laser_tpu_torch CUDA kernels against their plain PyTorch versions on the
 card, at odd shapes the serving and training slices do not reach:
 transposes, f16, ragged tails, unaligned operands, narrow rows, other head
-dims, GQA; the flash stats and backward kernels at S 1-300 and D 32-256; the
+dims, GQA; the flash stats and backward kernels at S 1-1030 and D 32-256,
+the backward's tensor-core route asked for against its FFMA route; the
 cross-entropy kernels at V 1, 127 and 8193 with label smoothing; ``ce_bwd``
 at ragged widths past its 8192-column tile, at a column offset (Llama-3's
 ragged last chunk), unaligned, g = 0 rows exact zeros; the chunked
@@ -203,21 +204,26 @@ def test_flash_attention(dev, dtype, D, S, causal):
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
+def _flash_bwd_launches():
+    """(dq, dk/dv) launches of the flash backward over both routes."""
+    from laser_tpu_torch.ops.attention_bwd import ROUTE_KERNELS
+
+    return tuple(sum(pair[i].launches for pair in ROUTE_KERNELS.values()) for i in (0, 1))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [32, 80, 128, 256])
-@pytest.mark.parametrize("S", [1, 45, 300])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("S", [1, 45, 300, 1030])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_stats_and_backward(dev, dtype, D, S, causal):
     from laser_tpu_torch.ops.attention import FLASH, FLASH_MMA, flash_forward
-    from laser_tpu_torch.ops.attention_bwd import (FLASH_BWD_DKV, FLASH_BWD_DQ,
-                                                   flash_attention_bwd,
+    from laser_tpu_torch.ops.attention_bwd import (flash_attention_bwd,
                                                    flash_attention_bwd_reference)
 
     g = _gen(dev, 8)
     q, k, v, do = (_rnd(g, (3, S, D), dtype, dev) for _ in range(4))
     scale = D ** -0.5
-    before = (FLASH.launches + FLASH_MMA.launches, FLASH_BWD_DQ.launches,
-              FLASH_BWD_DKV.launches)
+    before = (FLASH.launches + FLASH_MMA.launches, *_flash_bwd_launches())
     o, m, l = flash_forward(q, k, v, causal, scale, stats=True)
     po, pm, pl = flash_forward(q, k, v, causal, scale, stats=True, plain=True)
     _check(o, po, dtype)
@@ -227,8 +233,8 @@ def test_flash_stats_and_backward(dev, dtype, D, S, causal):
     want = flash_attention_bwd_reference(q, k, v, o, m, l, do, causal=causal, scale=scale)
     for name, a, b in zip("qkv", got, want):
         _check(a, b, dtype, floor=1.0 if S == 1 and name in "qk" else 1e-30)
-    assert (FLASH.launches + FLASH_MMA.launches, FLASH_BWD_DQ.launches,
-            FLASH_BWD_DKV.launches) == tuple(n + 1 for n in before)
+    assert (FLASH.launches + FLASH_MMA.launches, *_flash_bwd_launches()) == \
+        tuple(n + 1 for n in before)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -284,6 +290,9 @@ def test_train_step_through_the_kernels(dev):
     for name in ("norm", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "ce_fused_grad"):
         assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
+    # f32: the tensor-core routes of the backward do not take it
+    for name in ("flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma"):
+        assert counts[name] == {"launches": 0, "plain_calls": 0}, name
     assert _route_launches(counts, "gemm") > 0
     ploss, pgrads = value_and_grad(lambda p, t: tf.transformer_lm_loss(
         p, t, n_heads=2, plain=True))(params, tokens)
@@ -396,6 +405,8 @@ def test_llama_train_step_through_the_kernels(dev):
     for name in ("norm", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "ce_bwd"):
         assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
+    for name in ("flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma"):
+        assert counts[name] == {"launches": 0, "plain_calls": 0}, name
     assert _route_launches(counts, "gemm") > 0
     (ploss, pgrads), _ = run(plain=True)
     assert abs(loss.item() - ploss.item()) <= 1e-5 * abs(ploss.item())
@@ -1774,6 +1785,64 @@ def test_flash_routes_asked_for(dev):
     assert (FLASH.launches, FLASH_MMA.launches) == (before[0] + 3, before[1])
     with pytest.raises(Exception):
         flash_forward(q.float(), k.float(), v.float(), True, 0.1, route="mma")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 45, 300, 1030])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_mma(dev, dtype, D, S, causal):
+    """The tensor-core backward, asked for, against the FFMA kernels asked
+    for and the plain version (P and dS rounded to the input dtype against
+    fp32: within REL of each output's max); both mma counters move, and the
+    library picks the same route by itself."""
+    from laser_tpu_torch.ops.attention import flash_forward
+    from laser_tpu_torch.ops.attention_bwd import (FLASH_BWD_DKV, FLASH_BWD_DKV_MMA,
+                                                   FLASH_BWD_DQ, FLASH_BWD_DQ_MMA,
+                                                   flash_attention_bwd,
+                                                   flash_attention_bwd_reference)
+
+    g = _gen(dev, 88)
+    q, k, v, do = (_rnd(g, (4, S, D), dtype, dev) for _ in range(4))
+    scale = D ** -0.5
+    o, m, l = flash_forward(q, k, v, causal, scale, stats=True)
+
+    def counts():
+        return (FLASH_BWD_DQ_MMA.launches, FLASH_BWD_DKV_MMA.launches, FLASH_BWD_DQ.launches,
+                FLASH_BWD_DKV.launches)
+
+    before = counts()
+    got = flash_attention_bwd(q, k, v, o, m, l, do, causal=causal, scale=scale, route="mma")
+    assert counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
+    ffma = flash_attention_bwd(q, k, v, o, m, l, do, causal=causal, scale=scale, route="ffma")
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
+    auto = flash_attention_bwd(q, k, v, o, m, l, do, causal=causal, scale=scale)
+    assert counts() == (before[0] + 2, before[1] + 2, before[2] + 1, before[3] + 1)
+    want = flash_attention_bwd_reference(q, k, v, o, m, l, do, causal=causal, scale=scale)
+    for name, a, b, c, w in zip("qkv", got, ffma, auto, want):
+        floor = 1.0 if S == 1 and name in "qk" else 1e-30
+        _check(a, w, dtype, floor)
+        _check(a, b, dtype, floor)
+        assert torch.equal(a, c), name  # one route, one summation order
+
+
+def test_flash_bwd_routes_asked_for(dev):
+    """route="mma" refuses f32 and D 80 (the launcher returns an error, the
+    wrapper raises); the library takes FFMA for them by itself."""
+    from laser_tpu_torch.ops.attention import flash_forward
+    from laser_tpu_torch.ops.attention_bwd import (FLASH_BWD_DKV_MMA, FLASH_BWD_DQ_MMA,
+                                                   flash_attention_bwd)
+
+    g = _gen(dev, 89)
+    for dt, D in ((torch.float32, 128), (torch.bfloat16, 80)):
+        q, k, v, do = (_rnd(g, (2, 70, D), dt, dev) for _ in range(4))
+        o, m, l = flash_forward(q, k, v, True, 0.1, stats=True)
+        before = (FLASH_BWD_DQ_MMA.launches, FLASH_BWD_DKV_MMA.launches)
+        with pytest.raises(Exception):
+            flash_attention_bwd(q, k, v, o, m, l, do, causal=True, scale=0.1, route="mma")
+        flash_attention_bwd(q, k, v, o, m, l, do, causal=True, scale=0.1)
+        torch.cuda.synchronize()
+        assert (FLASH_BWD_DQ_MMA.launches, FLASH_BWD_DKV_MMA.launches) == before
 
 
 @pytest.mark.parametrize("Sq,Sk,k_valid", [(16, 40, None), (40, 16, None), (16, 40, 23)])

@@ -109,7 +109,8 @@ def test_every_slice_kernel_registered():
         "gemm_batched", "gemm_int32", "gemm_limbs", "quantize_int8",  # GEMM dtype table
         "gemm_packed", "stencil_sweep", "adamw_update", "sgdm_update",  # the library surface
         "gemm_wgmma", "gemm_batched_wgmma", "flash_attention_mma",  # the Hopper routes
-        "gemm_splitk", "w4_gemm_stream", "w4_gemm_mma"}  # the weight-streaming routes
+        "gemm_splitk", "w4_gemm_stream", "w4_gemm_mma",  # the weight-streaming routes
+        "flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma"}  # the backward's
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
@@ -141,7 +142,10 @@ def test_every_slice_kernel_registered():
         "laser_tpu/ops/gemm/int4_kernel.py:87 build_w4_gemm"
     assert replaced["gemm_batched_wgmma"] == replaced["gemm_batched"]
     assert replaced["flash_attention_mma"] == replaced["flash_attention"]
-    for fname in ("ltt_gemm", "ltt_gemm_batched", "ltt_flash_fwd", "ltt_w4_gemm"):
+    assert replaced["flash_attention_bwd_dq_mma"] == replaced["flash_attention_bwd_dq"]
+    assert replaced["flash_attention_bwd_dkv_mma"] == replaced["flash_attention_bwd_dkv"]
+    for fname in ("ltt_gemm", "ltt_gemm_batched", "ltt_flash_fwd", "ltt_w4_gemm",
+                  "ltt_flash_bwd_dq", "ltt_flash_bwd_dkv"):
         # route, route taken
         assert registry.SIGNATURES[fname][-3:-1] == (ctypes.c_int, ctypes.POINTER(ctypes.c_int))
     assert registry.SIGNATURES["ltt_ce_bwd"][9] is ctypes.c_double  # eps, q formed in double
