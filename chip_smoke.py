@@ -51,8 +51,11 @@ printed:
    of Llama's int4 w_gate (stream up to 64 rows, mma, WMMA), 20 calls in a
    CUDA graph each: the crossovers behind the launchers' M thresholds. The
    CNN path's kernels run in f32 at C1's
-   shapes (the planewise conv at conv 1, the direct conv at convs 2 and 3,
-   the (16, 1000) softmax), with conv 3 also in bf16 and at stride 2, the
+   shapes (the planewise conv at conv 1, the direct conv's ffma route at
+   convs 2 and 3, the (16, 1000) softmax), with conv 3 also in bf16 (the
+   mma route) and at stride 2 (one launch of either route), each direct
+   case also on the classic kernels asked for in the same run (at stride 2
+   laser_tpu's phase convs, ``conv2d_direct(..., route="classic")``), the
    row softmax at 8192 x 4096 and the online softmax at 64 x 128256; the
    library is cuDNN (TF32 off) or ``torch.softmax``.
 3. The serving slice: ServingEngine over the 8-layer d2048 bf16 transformer
@@ -112,8 +115,8 @@ printed:
 12. The CNN slice, configuration C1: ``init_cnn`` with convs 3->20->64->64
    at 224x224 (pooled 2x2 after each), head 50176->128->1000, f32, random
    weights from a seed; ``cnn_predict`` on 16 images from a seed. Checks the
-   launches per forward (planewise conv 1, direct conv 2, gemm 2, softmax 1,
-   nothing else, no plain call), that each row of probabilities sums to 1
+   launches per forward (planewise conv 1, the direct conv's ffma route 2,
+   gemm 2, softmax 1, nothing else, no plain call), that each row of probabilities sums to 1
    within 1e-5, and the logits within 1e-4 (of max) of the ``plain=True``
    route and of the same forward on cuDNN/cuBLAS with TF32 off, argmax
    identical; prints images/s of both (median of 20 synchronised forwards)
@@ -190,8 +193,9 @@ printed:
    tensor; ``stencil_solve`` red-black and Jacobi on 1024^2 f32 (randn,
    seed 0), f = 0, 100 iterations (bench.py:576-610); ``gemm_packed`` bf16
    and f32 at 4096^3 (randn * 0.05, alpha 0.05, bench.py:54-63) with B
-   packed once and 4 different A. The path runs once with the counts at 0
-   (all four kernels must launch, no plain version run). The updates and
+   packed once and 4 different A (bf16 on the wgmma route, f32 on the
+   classic kernels). The path runs once with the counts at 0 (all five
+   kernels must launch, no plain version run). The updates and
    the stencil are held to their plain versions bit for bit, the packed
    products to the plain version and to torch.matmul on the unpacked
    operands (bf16 2^-7, f32 1e-5 of max), the card's packed bytes to a CPU
@@ -338,7 +342,7 @@ CNN_BATCH, CNN_FORWARDS = 16, 20
 # launches of each kernel per cnn_predict (every other kernel: none), and
 # the device kernels of one forward: these 6, the split-K reduce of each
 # head product, and PyTorch's bias add, ReLU and mean pool after each conv
-CNN_LAUNCHES = {"conv_planewise": 1, "conv_direct": 2, "gemm_splitk": 2, "softmax": 1}
+CNN_LAUNCHES = {"conv_planewise": 1, "conv_direct_ffma": 2, "gemm_splitk": 2, "softmax": 1}
 CNN_DEVICE_KERNELS = 17
 # forwards in the profiled window: a trace late in the script once kept 1
 # of one forward's 15 kernels; over 10 a dropped record shows as coverage
@@ -923,12 +927,14 @@ def decode_cases():
 
 def cnn_cases():
     """The CNN path's kernels at C1's shapes in f32 (conv 1 planewise, convs
-    2 and 3 direct, the (16, 1000) softmax), conv 3 in bf16, conv 3's input
-    at stride 2 (phase convs), and the softmax kernels at bench.py:421's
-    8192 x 4096 and at 64 rows of Llama-3's 128256-word vocabulary (online)."""
+    2 and 3 on the direct conv's ffma route, the (16, 1000) softmax), conv 3
+    in bf16 (the mma route), conv 3's input at stride 2 (one launch), each
+    direct case again on the classic kernels asked for (at stride 2, the
+    phase convs), and the softmax kernels at bench.py:421's 8192 x 4096 and
+    at 64 rows of Llama-3's 128256-word vocabulary (online)."""
     from laser_tpu_torch.ops.conv import (conv2d_direct, conv2d_direct_reference,
                                           conv2d_planewise_reference, conv2d_required_ops,
-                                          conv_direct, conv_planewise)
+                                          conv_planewise)
     from laser_tpu_torch.ops.vector_math import (softmax, softmax_online_reference,
                                                  softmax_reference)
 
@@ -956,25 +962,36 @@ def cnn_cases():
                     library=lambda: torch.softmax(x, -1), library_call="torch.softmax",
                     slot=slot, per_row=True, dtype=torch.float32)
 
-    p1 = (1, 1)
+    p1, s2 = (1, 1), (2, 2)
 
-    def direct(x, w):
-        return conv_direct(x, w, p1)
+    def direct(route=None, strides=(1, 1)):
+        return lambda x, w: conv2d_direct(x, w, p1, strides, route=route)
 
-    def direct_plain(x, w):
-        return conv2d_direct_reference(x, w, p1)
+    def plain(strides=(1, 1)):
+        return lambda x, w: conv2d_direct_reference(x, w, p1, strides)
 
+    c2 = ((16, 20, 112, 112), (64, 20, 3, 3))
     c3 = ((16, 64, 56, 56), (64, 64, 3, 3))
+    bf16 = torch.bfloat16
     return [
         conv_case("conv_planewise", (16, 3, 224, 224), (20, 3, 3, 3),
                   lambda x, w: conv_planewise(x, w, p1),
                   lambda x, w: conv2d_planewise_reference(x, w, p1)),
-        conv_case("conv_direct", (16, 20, 112, 112), (64, 20, 3, 3), direct, direct_plain),
-        conv_case("conv_direct", *c3, direct, direct_plain, slot="conv3"),
-        conv_case("conv_direct", *c3, direct, direct_plain, dtype=torch.bfloat16,
+        # the routes the library picks
+        conv_case("conv_direct_ffma", *c2, direct(), plain()),
+        conv_case("conv_direct_ffma", *c3, direct(), plain(), slot="conv3"),
+        conv_case("conv_direct_ffma", *c3, direct(strides=s2), plain(s2), stride=2,
+                  slot="strided"),
+        conv_case("conv_direct_mma", *c3, direct(), plain(), dtype=bf16),
+        conv_case("conv_direct_mma", *c3, direct(strides=s2), plain(s2), dtype=bf16, stride=2,
+                  slot="strided"),
+        # the classic kernels asked for, in the same run (at stride 2:
+        # laser_tpu's phase convs on them, the 1x1 phase through torch.matmul)
+        conv_case("conv_direct", *c2, direct("classic"), plain()),
+        conv_case("conv_direct", *c3, direct("classic"), plain(), slot="conv3"),
+        conv_case("conv_direct", *c3, direct("classic"), plain(), dtype=bf16,
                   slot="conv3_bf16"),
-        conv_case("conv_direct", *c3, lambda x, w: conv2d_direct(x, w, p1, (2, 2)),
-                  lambda x, w: conv2d_direct_reference(x, w, p1, (2, 2)), stride=2,
+        conv_case("conv_direct", *c3, direct("classic", s2), plain(s2), stride=2,
                   slot="strided"),
         softmax_case("softmax", 16, 1000, softmax_reference),
         softmax_case("softmax", 8192, 4096, softmax_reference, slot="bench"),
@@ -2641,7 +2658,7 @@ def library_small_checks():
     """Each library kernel once at a small odd shape against its plain
     version (phase 2): the packed GEMM at 100 x 120 x 90 on an odd plan
     (48 x 80 x 40, the gather route) with beta * C, int8 -> int32 and f16,
-    and bf16 on a planned (blocks) route; the stencil at 12 x 16, 2 x 5 (no
+    and bf16 on a planned plan (the wgmma route); the stencil at 12 x 16, 2 x 5 (no
     interior: no launch) and bf16 33 x 65; the optimizers on a 37-element
     bias and a (3, 5, 7) leaf in f32 and bf16. Bit for bit, the floats of the
     packed GEMM within PACKED_REL (f16 as bf16)."""
@@ -2669,8 +2686,9 @@ def library_small_checks():
         pa, pb = PK.gemm_prepack_a(a, tiles=tiles), PK.gemm_prepack_b(b, tiles=tiles)
         got = PK.gemm_packed(alpha, pa, pb, beta, c)
         want = PK.gemm_packed_plain(alpha, pa, pb, beta, c, dt, acc, got.dtype)
-        route = "blocks" if PK.blocks_route(dt, pa.block[0], pb.block[1], pa.block[1]) \
-            else "gather"
+        plan = (pa.block[0], pb.block[1], pa.block[1])
+        route = "wgmma" if PK.wgmma_route(dt, *plan) else "blocks" \
+            if PK.blocks_route(dt, *plan) else "gather"
         tag = f"gemm_packed {M}x{N}x{K} {dt} tiles {pa.block[0]}x{pb.block[1]}x{pa.block[1]} " \
               f"({route} route), beta * C"
         if dt == torch.int8:
@@ -2750,7 +2768,8 @@ def phase_gemm_table(spec):
 # the stencil solver, the prepacked GEMM) at full size
 # ---------------------------------------------------------------------------
 
-LIBRARY_KERNELS = ("adamw_update", "sgdm_update", "stencil_sweep", "gemm_packed")
+LIBRARY_KERNELS = ("adamw_update", "sgdm_update", "stencil_sweep", "gemm_packed",
+                   "gemm_packed_wgmma")
 # packed GEMM, kernel vs plain and vs torch.matmul on the unpacked operands
 # (TF32 off), max |d| / max |want|: bf16 one output rounding, f32 summation
 # order over K = 4096
@@ -2972,21 +2991,36 @@ def library_cases(spec):
             plain=(lambda mt=method: ST.stencil_sweeps_plain(u, f, STENCIL_ITERS, mt)),
             check=check_stencil(method), nbytes=3 * cells * 4,
             flops=STENCIL_FLOPS * interior * STENCIL_ITERS, peak=spec.f32_tflops))
-    for dt, slot in ((torch.bfloat16, ""), (torch.float32, "f32")):
+    def check_classic(got):
+        pas, pb, _ = packed_out[torch.bfloat16]
+        want = PK.gemm_packed_plain(PACKED_ALPHA, pas[0], pb, 0.0, None, torch.bfloat16,
+                                    torch.float32, torch.bfloat16)
+        return _rel_check("gemm_packed bf16 A0, the classic kernels asked for, vs plain",
+                          PACKED_REL[torch.bfloat16])(got, want)
+
+    # the routes the library picks (bf16: wgmma; f32: the classic kernels),
+    # then bf16 on the classic kernels asked for, in the same run
+    pas, pb, _ = packed_out[torch.bfloat16]
+    bf16_classic = PK.gemm_packed(PACKED_ALPHA, pas[0], pb, route="classic")
+    for name, dt, slot, route in (("gemm_packed_wgmma", torch.bfloat16, "", None),
+                                  ("gemm_packed", torch.float32, "", None),
+                                  ("gemm_packed", torch.bfloat16, "bf16", "classic")):
         pas, pb, _ = packed_out[dt]
         n3 = PACKED_N ** 3
         cases.append(Table(
-            "gemm_packed", slot, f"{PACKED_N}^3 {DTYPE_TAGS[dt]}, alpha 0.05, B packed once, "
-            f"{PACKED_A_COUNT} A (tiles {pas[0].block[0]} x {pb.block[1]} x {pb.block[0]})",
-            run=(lambda pa=pas[0], pb=pb: PK.gemm_packed(PACKED_ALPHA, pa, pb)),
+            name, slot, f"{PACKED_N}^3 {DTYPE_TAGS[dt]}, alpha 0.05, B packed once, "
+            f"{PACKED_A_COUNT} A (tiles {pas[0].block[0]} x {pb.block[1]} x {pb.block[0]})"
+            + (", the classic kernels asked for" if route else ""),
+            run=(lambda pa=pas[0], pb=pb, r=route: PK.gemm_packed(PACKED_ALPHA, pa, pb, route=r)),
             plain=(lambda pa=pas[0], pb=pb, dt=dt: PK.gemm_packed_plain(
                 PACKED_ALPHA, pa, pb, 0.0, None, dt, torch.float32, dt)),
-            check=check_packed(dt), nbytes=3 * PACKED_N * PACKED_N * dt.itemsize,
+            check=check_classic if route else check_packed(dt),
+            nbytes=3 * PACKED_N * PACKED_N * dt.itemsize,
             flops=2 * n3, peak=spec.bf16_tflops if dt == torch.bfloat16 else spec.f32_tflops,
             library=(lambda a=packed_in[dt][0][0], b=packed_in[dt][1]: torch.matmul(a, b)),
             library_call="torch.matmul on the unpacked operands (cuBLAS, TF32 off)", dtype=dt))
     outs = [s3, s1, t1, t2, red, jac, packed_out[torch.bfloat16][2][0],
-            packed_out[torch.float32][2][0]]
+            packed_out[torch.float32][2][0], bf16_classic]
     extra = dict(adamw_default=adamw_default, sgd_default=sgd_default, packed_in=packed_in,
                  leaves=leaves,
                  packed_tiles={dt: (po[0][0].block, po[1].block)
@@ -3051,8 +3085,8 @@ def phase_library(spec):
           f"{conv:.3e} (bound 1e-4)", flush=True)
     if not conv < 1e-4:
         fail(f"stencil did not converge: {conv}")
-    for dt, slot in ((torch.bfloat16, ""), (torch.float32, "f32")):
-        e = entries["gemm_packed"][slot] if slot else entries["gemm_packed"]
+    for dt, name in ((torch.bfloat16, "gemm_packed_wgmma"), (torch.float32, "gemm_packed")):
+        e = entries[name]
         a_list, b = extra["packed_in"][dt]
         (bm, bk), (_, bn) = extra["packed_tiles"][dt]
         tiles = PK.GemmTiles(bm, bn, bk, 0)

@@ -48,6 +48,7 @@
 #include "hopper.cuh"
 #include "int8_tile.cuh"
 #include "splitk.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -464,12 +465,9 @@ __global__ void __launch_bounds__(I8_THREADS) gemm_i8_kernel(GemmArgs p) {
 // TMA multicast, are the next steps.
 // The route needs 16-byte-aligned bases and each operand's contiguous
 // dimension a multiple of 8 (TMA's 16-byte strides) and M >= WG_MIN_M.
-constexpr int WG_STAGES = 3;
-constexpr int WG_BLOCKS_PER_SM = 2;
-constexpr int WG_THREADS = WG_CONSUMERS * 128 + 32;        // + the producer warp
-constexpr int WG_TILE_BYTES = WG_BM * WG_BK * 2;           // A's tile in a stage; B's the same
-constexpr int WG_STAGE_BYTES = 2 * WG_TILE_BYTES;
-constexpr int WG_SMEM_BYTES = WG_STAGES * WG_STAGE_BYTES + 1024;  // + 1024-byte alignment
+// The ring, the consumers and the epilogue's staging are the skeleton of
+// csrc/wgmma_gemm.cuh (shared with the packed GEMM); DenseTiles below gives
+// it this kernel's box coordinates and epilogue.
 // The routes' M thresholds, from chip_smoke.py phase 2's crossover (every
 // route asked for at M 1..128, 20 calls in a CUDA graph; NVIDIA H100 80GB
 // HBM3, 700 W; PERF.md §6). bf16 split-K against wgmma: on the decode
@@ -523,133 +521,44 @@ __device__ __forceinline__ void epilogue_store4(const GemmArgs& p, void* out, in
   }
 }
 
-// TA: A stored (K, M), read MN-major; TB: B stored (N, K), read K-major.
-// A persistent grid: block b takes output tiles b, b + gridDim.x, ... The
-// ring runs on across tiles, so the producer loads the next tile's first
-// stages while the consumers run the last one's epilogue.
+// The skeleton's tile policy for row-major operands. TA: A stored (K, M),
+// read MN-major; TB: B stored (N, K), read K-major. Each operand is a 3-D
+// map (column, row, batch entry).
+template <bool TA, bool TB>
+struct DenseTiles {
+  GemmArgs p;
+  int M, N, ktiles;
+
+  __device__ __forceinline__ void load(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                       uint8_t* a_tile, uint8_t* b_tile, uint64_t* bar,
+                                       const TileCoord& c, int kt) const {
+    const int k0 = kt * WG_BK;
+    if (TA) {
+      tma_load_3d(a_tile, map_a, bar, c.m0, k0, c.z);
+      tma_load_3d(a_tile + WG_HALF_BYTES, map_a, bar, c.m0 + 64, k0, c.z);
+    } else {
+      tma_load_3d(a_tile, map_a, bar, k0, c.m0, c.z);
+    }
+    if (TB) {
+      tma_load_3d(b_tile, map_b, bar, k0, c.n0, c.z);
+    } else {
+      tma_load_3d(b_tile, map_b, bar, c.n0, k0, c.z);
+      tma_load_3d(b_tile + WG_HALF_BYTES, map_b, bar, c.n0 + 64, k0, c.z);
+    }
+  }
+
+  __device__ __forceinline__ void store4(const TileCoord& c, int row, int col, float4 v) const {
+    void* out = static_cast<char*>(p.out) + (size_t)c.z * p.batch_o * dtype_size(p.out_dtype);
+    epilogue_store4(p, out, row, col, v);
+  }
+};
+
 template <typename T, bool TA, bool TB>
 __global__ void __launch_bounds__(WG_THREADS, WG_BLOCKS_PER_SM)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
-                      const __grid_constant__ CUtensorMap map_b, const GemmArgs p, int ntiles) {
-  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
-  extern __shared__ uint8_t wg_smem_raw[];
-  // the swizzle atoms are 1024 bytes: align the ring to them
-  uint8_t* ring = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ktiles = (p.K + WG_BK - 1) / WG_BK;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < WG_STAGES; ++s) {
-      mbar_init(&full[s], 1);                    // the producer's expect_tx
-      mbar_init(&empty[s], WG_CONSUMERS * 4);    // lane 0 of every consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  int s = 0;
-  uint32_t phase = 0;
-  if (warp == WG_CONSUMERS * 4) {  // the producer warp: lane 0 issues every load
-    if (lane == 0) {
-      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-        const TileCoord c = tile_coord(t, p.M, p.N);
-        for (int kt = 0; kt < ktiles; ++kt) {
-          mbar_wait(&empty[s], phase ^ 1);  // the first pass over the ring never waits
-          uint8_t* a_tile = ring + s * WG_STAGE_BYTES;
-          uint8_t* b_tile = a_tile + WG_TILE_BYTES;
-          mbar_expect_tx(&full[s], WG_STAGE_BYTES);
-          const int k0 = kt * WG_BK;
-          if (TA) {
-            tma_load_3d(a_tile, &map_a, &full[s], c.m0, k0, c.z);
-            tma_load_3d(a_tile + WG_HALF_BYTES, &map_a, &full[s], c.m0 + 64, k0, c.z);
-          } else {
-            tma_load_3d(a_tile, &map_a, &full[s], k0, c.m0, c.z);
-          }
-          if (TB) {
-            tma_load_3d(b_tile, &map_b, &full[s], k0, c.n0, c.z);
-          } else {
-            tma_load_3d(b_tile, &map_b, &full[s], c.n0, k0, c.z);
-            tma_load_3d(b_tile + WG_HALF_BYTES, &map_b, &full[s], c.n0 + 64, k0, c.z);
-          }
-          if (++s == WG_STAGES) {
-            s = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wg owns output rows [64 wg, 64 wg + 64) of a tile;
-  // its A rows are 8 KB into the tile in either layout
-  const int wg = warp >> 2;
-  float acc[64];
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const TileCoord c = tile_coord(t, p.M, p.N);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    int prev = -1;
-    for (int kt = 0; kt < ktiles; ++kt) {
-      mbar_wait(&full[s], phase);
-      const uint32_t a_tile = smem_u32(ring + s * WG_STAGE_BYTES) + wg * WG_HALF_BYTES;
-      const uint32_t b_tile = smem_u32(ring + s * WG_STAGE_BYTES + WG_TILE_BYTES);
-      acc_fence(acc);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-      for (int kk = 0; kk < WG_BK / 16; ++kk)
-        wgmma_m64n128k16<T, TA, TB>(acc, operand_desc<!TA>(a_tile, kk),
-                                    operand_desc<TB>(b_tile, kk));
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      // the previous stage's products are done once at most this group runs
-      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-      acc_fence(acc);
-      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-      prev = s;
-      if (++s == WG_STAGES) {
-        s = 0;
-        phase ^= 1;
-      }
-    }
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    acc_fence(acc);
-
-    // The epilogue, through the tile's last stage (32 KB, still held from
-    // the producer): each half of the tile's columns goes from the
-    // accumulators into it as fp32, then every consumer thread runs the
-    // float epilogue on 4 neighbouring outputs at a time and stores them.
-    // The accumulator layout (m64nNk16): acc[4 j + 2 h + e] is row 16 w +
-    // lane / 4 + 8 h of the warpgroup's 64, column 8 j + 2 (lane % 4) + e.
-    float* stage = reinterpret_cast<float*>(ring + prev * WG_STAGE_BYTES);
-    const int lrow = wg * 64 + (warp & 3) * 16 + (lane >> 2);
-    void* out = static_cast<char*>(p.out) + (size_t)c.z * p.batch_o * dtype_size(p.out_dtype);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      consumers_sync();  // the stage's products (or the last half's reads) are done
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int j = 8 * half + jj;
-          *reinterpret_cast<float2*>(stage + staged(lrow + 8 * h, 8 * jj + 2 * (lane & 3))) =
-              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-        }
-      }
-      consumers_sync();
-      for (int idx = threadIdx.x; idx < WG_BM * 16; idx += WG_CONSUMERS * 128) {
-        const int r = idx >> 4, cl = (idx & 15) * 4;
-        const int row = c.m0 + r, col = c.n0 + 64 * half + cl;
-        if (row < p.M && col < p.N)
-          epilogue_store4(p, out, row, col,
-                          *reinterpret_cast<const float4*>(stage + staged(r, cl)));
-      }
-    }
-    consumers_sync();  // every read of the stage is done: hand it back to the producer
-    fence_proxy_async();
-    if (lane == 0) mbar_arrive(&empty[prev]);
-  }
+                      const __grid_constant__ CUtensorMap map_b, const DenseTiles<TA, TB> tiles,
+                      int ntiles) {
+  wgmma_gemm<T, TA, TB>(&map_a, &map_b, tiles, ntiles);
 }
 
 // The wgmma route takes bf16/f16 inputs with 16-byte-aligned bases, K > 0,
@@ -680,7 +589,8 @@ int launch_wgmma_tt(const GemmArgs& p, int batch, cudaStream_t s) {
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int ntiles = static_cast<int>(tiles);
   const int slots = sm_count() * WG_BLOCKS_PER_SM;
-  kernel<<<ntiles > slots ? slots : ntiles, WG_THREADS, WG_SMEM_BYTES, s>>>(ma, mb, p, ntiles);
+  const DenseTiles<TA, TB> pol{p, p.M, p.N, (p.K + WG_BK - 1) / WG_BK};
+  kernel<<<ntiles > slots ? slots : ntiles, WG_THREADS, WG_SMEM_BYTES, s>>>(ma, mb, pol, ntiles);
   return ltt::launch_status();
 }
 

@@ -13,9 +13,24 @@
 // the int8 tensor cores (int32 accumulators that wrap mod 2^32, as
 // laser_tpu's int32 accumulator does).
 //
-// Design. Packing exists so that the multiply reads each block as one
-// contiguous run and needs no edge masks; the "blocks" route (fast = 1)
-// exploits both. A CTA owns a CM x CN output tile inside one (bm, bn)
+// Routes; the launcher picks one, or is asked for one (enum Route), and
+// reports it:
+// - wgmma (bf16/f16 inputs, bm and bn multiples of 128, bk of 64, 16-byte
+//   bases, any float output): packed_wgmma_kernel, the persistent wgmma +
+//   TMA skeleton of csrc/wgmma_gemm.cuh (a producer warp, a 3-stage ring of
+//   128 x 64 A and 64 x 128 B boxes, two consumer warpgroups on wgmma
+//   m64n128k16) that csrc/gemm.cu's gemm_wgmma_kernel runs. Packing makes
+//   the fit exact: a packed block is a row-major (bm, bk) or (bk, bn)
+//   matrix, so packed A is the 3-D tensor map (inner bk, outer bm, batch
+//   gm * gk) and packed B (inner bn, outer bk, batch gk * gn), the block
+//   index the outer coordinate; with the sizes above every box lies inside
+//   one block and its zero padding, so the k loop walks gk * bk / 64 steps
+//   with no fill and no masks (the padding is inert). Only the epilogue,
+//   laser_tpu's per-op rounding below, masks rows >= M and columns >= N.
+// - classic, every other plan or type: the kernels below.
+// Design of the classic kernels. Packing exists so that the multiply reads
+// each block as one contiguous run and needs no edge masks; the "blocks"
+// route (fast = 1) exploits both. A CTA owns a CM x CN output tile inside one (bm, bn)
 // block (bm % CM == 0, bn % CN == 0). Its rows of an A block are one
 // contiguous run of CM * bk elements, and with bn == CN the B block is one
 // run of bk * CN; each k-block is staged whole (D = bk deep) into shared
@@ -32,15 +47,18 @@
 // 16 (f32) or 64 (int8) deep gathered element by element from the blocked
 // layout with its index arithmetic, zero past the padded extent, loaded
 // synchronously.
-// Simple first: no TMA or wgmma yet.
 #include <mma.h>
 
 #include "common.cuh"
 #include "int8_tile.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 using namespace nvcuda;
+namespace hp = ltt::hp;
+
+enum Route { kRouteAuto = 0, kRouteClassic = 1, kRouteWgmma = 2 };
 using ltt::from_f32;
 using ltt::to_f32;
 
@@ -389,6 +407,98 @@ __global__ void __launch_bounds__(I8_THREADS) packed_i8_kernel(PackedArgs p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 / f16 on Hopper: the wgmma + TMA skeleton over the packed blocks
+// ---------------------------------------------------------------------------
+
+// The skeleton's tile policy: a (tile, k step) reads A block (m0 / bm, k0 /
+// bk) at (k0 % bk, m0 % bm) and the two 64-wide halves of B block (k0 / bk,
+// n0 / bn) at (n0 % bn (+ 64), k0 % bk); the epilogue is laser_tpu's.
+struct PackedTiles {
+  PackedArgs p;
+  int M, N, ktiles;
+
+  __device__ __forceinline__ void load(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                       uint8_t* a_tile, uint8_t* b_tile, uint64_t* bar,
+                                       const hp::TileCoord& c, int kt) const {
+    const int k0 = kt * hp::WG_BK;
+    const int kb = k0 / p.bk, kin = k0 - kb * p.bk;
+    const int i = c.m0 / p.bm, j = c.n0 / p.bn;
+    hp::tma_load_3d(a_tile, map_a, bar, kin, c.m0 - i * p.bm, i * p.gk + kb);
+    const int nin = c.n0 - j * p.bn, zb = kb * p.gn + j;
+    hp::tma_load_3d(b_tile, map_b, bar, nin, kin, zb);
+    hp::tma_load_3d(b_tile + hp::WG_HALF_BYTES, map_b, bar, nin + 64, kin, zb);
+  }
+
+  // epilogue() on 4 neighbouring outputs, stored as one vector where the
+  // row holds all four and they are aligned
+  __device__ __forceinline__ void store4(const hp::TileCoord&, int row, int col,
+                                         float4 v) const {
+    const size_t i = (size_t)row * p.N + col;
+    float r[4] = {v.x, v.y, v.z, v.w};
+    const int n = min(4, p.N - col);
+    const float* cm = static_cast<const float*>(p.c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      r[e] = __fmul_rn(r[e], p.alpha);
+      if (cm && e < n) r[e] = __fadd_rn(r[e], __fmul_rn(p.beta, cm[i + e]));
+    }
+    if (n == 4 && (p.N & 3) == 0) {
+      if (p.out_dtype == ltt::kF32) {
+        *reinterpret_cast<float4*>(static_cast<float*>(p.out) + i) =
+            make_float4(r[0], r[1], r[2], r[3]);
+      } else if (p.out_dtype == ltt::kBF16) {
+        __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + i);
+        o[0] = __floats2bfloat162_rn(r[0], r[1]);
+        o[1] = __floats2bfloat162_rn(r[2], r[3]);
+      } else {
+        __half2* o = reinterpret_cast<__half2*>(static_cast<__half*>(p.out) + i);
+        o[0] = __floats2half2_rn(r[0], r[1]);
+        o[1] = __floats2half2_rn(r[2], r[3]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (e < n) store_out(p.out, i + e, r[e], p.out_dtype);
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(hp::WG_THREADS, hp::WG_BLOCKS_PER_SM)
+    packed_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_b, const PackedTiles tiles,
+                        int ntiles) {
+  hp::wgmma_gemm<T, false, false>(&map_a, &map_b, tiles, ntiles);
+}
+
+bool wgmma_fits(const PackedArgs& p, int in_dtype) {
+  return (in_dtype == ltt::kBF16 || in_dtype == ltt::kF16) && p.M > 0 && p.N > 0 && p.gk > 0 &&
+         p.bm % hp::WG_BM == 0 && p.bn % hp::WG_BN == 0 && p.bk % hp::WG_BK == 0 &&
+         hp::aligned16(p.a) && hp::aligned16(p.b) &&
+         (p.out_dtype == ltt::kF32 || p.out_dtype == ltt::kBF16 || p.out_dtype == ltt::kF16);
+}
+
+template <typename T>
+int launch_wgmma(const PackedArgs& p, int in_dtype, cudaStream_t s) {
+  CUtensorMap ma, mb;
+  if (!hp::encode_map(&ma, p.a, in_dtype, p.bk, p.bm, (uint64_t)p.gm * p.gk, hp::WG_BK,
+                      hp::WG_BM) ||
+      !hp::encode_map(&mb, p.b, in_dtype, p.bn, p.bk, (uint64_t)p.gk * p.gn, 64, hp::WG_BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = ltt::allow_smem(packed_wgmma_kernel<T>, hp::WG_SMEM_BYTES);
+  if (err) return err;
+  const long long tiles =
+      (long long)((p.M + hp::WG_BM - 1) / hp::WG_BM) * ((p.N + hp::WG_BN - 1) / hp::WG_BN);
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int ntiles = static_cast<int>(tiles);
+  const int slots = hp::sm_count() * hp::WG_BLOCKS_PER_SM;
+  const PackedTiles pol{p, p.M, p.N, p.gk * (p.bk / hp::WG_BK)};
+  packed_wgmma_kernel<T><<<ntiles > slots ? slots : ntiles, hp::WG_THREADS, hp::WG_SMEM_BYTES,
+                           s>>>(ma, mb, pol, ntiles);
+  return ltt::launch_status();
+}
+
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can opt into
 
 template <typename T>
@@ -417,15 +527,28 @@ bool blocks_route_ok(const PackedArgs& p, int cm, int cn, int kalign) {
 // a: (gm, gk, bm, bk) and b: (gk, gn, bk, bn), contiguous, of in_dtype (f32,
 // bf16, f16 or int8); c: (M, N) fp32 (int32 for int8) or null; out: (M, N)
 // in out_dtype (f32/bf16/f16 for float inputs, int32 for int8). alpha and
-// beta: the int32 values for int8 inputs. fast: the blocks route (bm and bn
-// multiples of the CTA tile, bk of the k alignment, both pointers 16-byte
-// aligned, two stages of bk-deep slabs within 227 KB), else the gather route.
+// beta: the int32 values for int8 inputs. route: 0 picks (wgmma where
+// wgmma_fits, else classic), 1 the classic kernels, 2 wgmma; *taken gets
+// the route that launched. fast, for the classic kernels: the blocks route
+// (bm and bn multiples of the CTA tile, bk of the k alignment, both pointers
+// 16-byte aligned, two stages of bk-deep slabs within 227 KB), else the
+// gather route.
 LTT_API int ltt_gemm_packed(const void* a, const void* b, const void* c, void* out, int M, int N,
                             int gm, int gn, int gk, int bm, int bn, int bk, double alpha,
-                            double beta, int in_dtype, int out_dtype, int fast, void* stream) {
+                            double beta, int in_dtype, int out_dtype, int fast, int route,
+                            int* taken, void* stream) {
   PackedArgs p = {a, b, c, out, M, N, gm, gn, gk, bm, bn, bk,
                   static_cast<float>(alpha), static_cast<float>(beta), 0, 0, out_dtype};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wg = wgmma_fits(p, in_dtype);
+  *taken = route == kRouteAuto ? (wg ? kRouteWgmma : kRouteClassic)
+           : route == kRouteClassic ? kRouteClassic
+           : route == kRouteWgmma && wg ? kRouteWgmma
+                                        : -1;
+  if (*taken < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (*taken == kRouteWgmma)
+    return in_dtype == ltt::kBF16 ? launch_wgmma<__nv_bfloat16>(p, in_dtype, s)
+                                  : launch_wgmma<__half>(p, in_dtype, s);
   if (in_dtype == ltt::kI8) {
     if (out_dtype != ltt::kI32) return static_cast<int>(cudaErrorInvalidValue);
     p.alpha_i = static_cast<int>(alpha);  // int32 values, exact in a double

@@ -8,21 +8,29 @@ zero-padded 4-D layout, the same bytes as laser_tpu's for the same plan:
     packed B: (ceil(K/bk), ceil(N/bn), bk, bn)
 
 ``gemm_packed`` multiplies two packed operands: ``alpha * A @ B + beta * C``
-at (M, N). On CUDA tensors it runs the kernel of csrc/packed_gemm.cu
-(replaces laser_tpu/ops/gemm/prepacked.py:80 ``_build_packed_gemm``); on CPU
-tensors its plain version ``gemm_packed_plain``. With a plan from
-``plan_tiles`` (or any plan whose bm and bn are multiples of the kernel's
-CTA tile, see ``tiling.py``) the kernel reads every block as one contiguous
-run and masks nothing in its main loop (the "blocks" route); any other plan
-laser_tpu accepts runs the kernel's "gather" route, correct and slower.
-Kernel dtypes: f32 (full fp32), bf16 and f16 (fp32 accumulators), int8
-(int32 accumulators that wrap). The packing itself is a reshape in
+at (M, N). On CUDA tensors it runs the kernels of csrc/packed_gemm.cu
+(replace laser_tpu/ops/gemm/prepacked.py:80 ``_build_packed_gemm``); on CPU
+tensors its plain version ``gemm_packed_plain``. Two routes, each with its
+own launch counter, the library picking one: ``gemm_packed_wgmma`` (bf16
+and f16 inputs on a plan whose bm and bn are multiples of 128 and bk of 64,
+16-byte-aligned data, as every 16-bit plan from ``plan_tiles`` is: the
+wgmma + TMA skeleton of csrc/gemm.cu's wgmma route, each packed block a
+tensor-map coordinate) and ``gemm_packed`` (the classic kernels: every f32
+and int8 product, and 16-bit plans the wgmma route does not take). With a
+plan whose bm and bn are multiples of the classic kernels' CTA tile (see
+``tiling.py``) those read every block as one contiguous run and mask
+nothing in their main loop (the "blocks" route); any other plan laser_tpu
+accepts runs their "gather" route, correct and slower. ``route="classic"``
+or ``"wgmma"`` on CUDA tensors asks for one (an error where it does not
+fit). Kernel dtypes: f32 (full fp32), bf16 and f16 (fp32 accumulators),
+int8 (int32 accumulators that wrap). The packing itself is a reshape in
 PyTorch, as laser_tpu's is XLA's. Like laser_tpu's, a packed operand bakes
 in its plan and dtype: never serialize it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -38,6 +46,14 @@ from .tiling import CTA, GemmTiles, plan_tiles, smem_per_block, stage_bytes
 
 GEMM_PACKED = registry.kernel("gemm_packed", "laser_tpu_torch/csrc/packed_gemm.cu",
                               "laser_tpu/ops/gemm/prepacked.py:80 _build_packed_gemm")
+GEMM_PACKED_WGMMA = registry.kernel("gemm_packed_wgmma", "laser_tpu_torch/csrc/packed_gemm.cu",
+                                    "laser_tpu/ops/gemm/prepacked.py:80 _build_packed_gemm")
+# route codes shared with csrc/packed_gemm.cu (enum Route), and the counter of each
+ROUTES = {None: 0, "classic": 1, "wgmma": 2}
+ROUTE_KERNELS = {1: GEMM_PACKED, 2: GEMM_PACKED_WGMMA}
+# the wgmma route's (rows, columns, depth) of a tile and a k step: a plan's
+# bm, bn and bk must be multiples (csrc/hopper.cuh WG_BM, WG_BN, WG_BK)
+WGMMA_TILE = (128, 128, 64)
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
 _FLOAT_OUT = (torch.float32, torch.bfloat16, torch.float16)
@@ -132,7 +148,16 @@ def blocks_route(dtype: torch.dtype, bm: int, bn: int, bk: int) -> bool:
             and stage_bytes(dtype, bk) <= smem_per_block())
 
 
-def _packed_cuda(alpha, packed_a, packed_b, beta, c, in_dtype, out_dtype):
+def wgmma_route(dtype: torch.dtype, bm: int, bn: int, bk: int) -> bool:
+    """Whether the kernel library takes its wgmma route for this plan (the
+    conditions of csrc/packed_gemm.cu's ``wgmma_fits``; the caller also
+    needs 16-byte aligned data and a float output)."""
+    tm, tn, tk = WGMMA_TILE
+    return (dtype in (torch.bfloat16, torch.float16) and bm % tm == 0 and bn % tn == 0
+            and bk % tk == 0)
+
+
+def _packed_cuda(alpha, packed_a, packed_b, beta, c, in_dtype, out_dtype, route):
     if in_dtype == torch.float32:
         check_f32_precision()
     a, b = packed_a.data, packed_b.data
@@ -151,26 +176,32 @@ def _packed_cuda(alpha, packed_a, packed_b, beta, c, in_dtype, out_dtype):
     c_acc = None if c is None else c.to(torch.int32 if int8 else torch.float32).contiguous()
     if int8:
         alpha, beta = int32_scalar(alpha), int32_scalar(beta)
-    fast = (blocks_route(in_dtype, bm, bn, bk) and a.data_ptr() % 16 == 0
-            and b.data_ptr() % 16 == 0)
-    lib = registry.load_library()
-    status = lib.ltt_gemm_packed(
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    if route == "wgmma" and not (wgmma_route(in_dtype, bm, bn, bk) and aligned):
+        raise ValueError(f"gemm_packed: route 'wgmma' does not take {in_dtype} on the plan "
+                         f"({bm}, {bn}, {bk}) (bf16/f16, multiples of {WGMMA_TILE})")
+    fast = blocks_route(in_dtype, bm, bn, bk) and aligned
+    taken = ctypes.c_int(0)
+    status = registry.load_library().ltt_gemm_packed(
         a.data_ptr(), b.data_ptr(), None if c_acc is None else c_acc.data_ptr(), out.data_ptr(),
         M, N, gm, gn, gk, bm, bn, bk, float(alpha), float(beta),
         registry.GEMM_DTYPE_CODES[in_dtype], registry.GEMM_DTYPE_CODES[kernel_out], int(fast),
-        registry.stream_handle(a))
+        registry.route_code(ROUTES, route), ctypes.byref(taken), registry.stream_handle(a))
     registry.check_launch(status, "gemm_packed")
-    GEMM_PACKED.launches += 1
+    ROUTE_KERNELS[taken.value].launches += 1
     return out if kernel_out == out_dtype else out.to(out_dtype)
 
 
 def gemm_packed(alpha, packed_a: PackedMatrix, packed_b: PackedMatrix, beta=0.0,
                 c: Optional[torch.Tensor] = None, *, out_dtype=None,
-                acc_dtype=None) -> torch.Tensor:
+                acc_dtype=None, route: Optional[str] = None) -> torch.Tensor:
     """gemm_packed analog: multiply two packed operands, returning the (M, N)
     result ``alpha * A @ B + beta * C``. alpha and beta are cast to the
     accumulator type (an int8 product with alpha 0.5 is 0, as in
-    laser_tpu)."""
+    laser_tpu). ``route``: None lets the library pick, "classic" or
+    "wgmma" asks for one (CUDA operands'; CPU operands run the plain
+    version whatever the route, but an unknown name raises on both)."""
+    registry.route_code(ROUTES, route)
     if packed_a.operand != "A" or packed_b.operand != "B":
         raise ValueError("need (packed A, packed B)")
     if packed_a.cols != packed_b.rows:
@@ -192,5 +223,5 @@ def gemm_packed(alpha, packed_a: PackedMatrix, packed_b: PackedMatrix, beta=0.0,
     if c is not None and tuple(c.shape) != (M, N):
         raise ValueError(f"gemm_packed: c shape {tuple(c.shape)} != {(M, N)}")
     if registry.on_cuda(packed_a.data):
-        return _packed_cuda(alpha, packed_a, packed_b, beta, c, in_dtype, out_dtype)
+        return _packed_cuda(alpha, packed_a, packed_b, beta, c, in_dtype, out_dtype, route)
     return gemm_packed_plain(alpha, packed_a, packed_b, beta, c, in_dtype, acc, out_dtype)

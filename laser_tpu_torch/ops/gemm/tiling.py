@@ -2,13 +2,14 @@
 
 laser_tpu sizes (bm, bn, bk) so that double-buffered input blocks and the
 accumulator fit a TPU core's VMEM, from a table of a v5e's measured tiles.
-Neither carries over. Here a plan is sized for the packed kernel of
-csrc/packed_gemm.cu, whose "blocks" route stages each k-block whole (int8:
-64 deep at a time): bm and bn are multiples of the kernel's CTA tile (128 x
-128 for f32, bf16 and f16; 64 x 64 for int8), bk a multiple of its k step,
-and two stages of a CTA's (CM x bk) A slab and (bk x CN) B slab must fit
-half the shared memory a block may use (``device_info``), so that two CTAs
-share an SM.
+Neither carries over. Here a plan is sized for the packed kernels of
+csrc/packed_gemm.cu: bm and bn are multiples of the CTA tile (128 x 128
+for f32, bf16 and f16; 64 x 64 for int8), bk a multiple of the k step (64
+for bf16 and f16, the wgmma route's box depth, so that every planned
+16-bit plan takes that route), and two stages of a CTA's (CM x bk) A slab
+and (bk x CN) B slab must fit half the shared memory a block may use
+(``device_info``), so that two CTAs of the classic kernels' "blocks" route,
+which stages each k-block whole (int8: 64 deep at a time), share an SM.
 Among the depths that fit, the plan takes the one that pads K least, the
 deepest on a tie. ``overrides`` and the config's ``gemm_bm`` / ``gemm_bn``
 / ``gemm_bk`` fields replace a planned size, rounded up to the CTA tile.
@@ -40,11 +41,12 @@ class GemmTiles:
         return (cdiv(M, self.bm), cdiv(N, self.bn), cdiv(K, self.bk))
 
 
-# the packed kernel's (CTA rows, CTA columns, k step) by input type
-# (csrc/packed_gemm.cu CM, CN and the gather route's slab depth; int8: the
-# 64 x 64 tile of csrc/int8_tile.cuh), and the stages of its ring
-CTA = {torch.float32: (128, 128, 16), torch.bfloat16: (128, 128, 32),
-       torch.float16: (128, 128, 32), torch.int8: (64, 64, 64)}
+# the packed kernels' (CTA rows, CTA columns, k step) by input type
+# (csrc/packed_gemm.cu CM, CN; the k step f32's gather slab depth, the
+# 16-bit wgmma route's box depth; int8: the 64 x 64 tile of
+# csrc/int8_tile.cuh), and the stages of the classic kernels' ring
+CTA = {torch.float32: (128, 128, 16), torch.bfloat16: (128, 128, 64),
+       torch.float16: (128, 128, 64), torch.int8: (64, 64, 64)}
 STAGES = 2
 
 

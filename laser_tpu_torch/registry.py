@@ -125,7 +125,11 @@ SIGNATURES = {
     "ltt_softmax_online": (_P, _P, _I, _I, _I, _P),
     # x, w, out, N, C, H, W, c_out, kh, kw, ph, pw, dtype, stream
     "ltt_conv_planewise": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "ltt_conv_direct": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, out, N, C, H, W, c_out, kh, kw, ph, pw, sh, sw, ldw (weight row
+    # stride), dtype, route (0 picks, 1 classic, 2 ffma, 3 mma), route taken
+    # (out), stream
+    "ltt_conv_direct": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _IP, _P),
     # x, y, B, R, C, element size, stream
     "ltt_transpose": (_P, _P, _I64, _I64, _I64, _I, _P),
     # x, N, element size, stream
@@ -138,8 +142,10 @@ SIGNATURES = {
     # src, f, dst, rows, cols, colour (0 red, 1 black, 2 Jacobi), dtype, stream
     "ltt_stencil_sweep": (_P, _P, _P, _I, _I, _I, _I, _P),
     # a, b, c (or null), out, M, N, gm, gn, gk, bm, bn, bk, alpha, beta,
-    # in_dtype, out_dtype, fast (the blocks route), stream
-    "ltt_gemm_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P),
+    # in_dtype, out_dtype, fast (the classic kernels' blocks route), route (0
+    # picks, 1 classic, 2 wgmma), route taken (out), stream
+    "ltt_gemm_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I,
+                        _IP, _P),
 }
 
 

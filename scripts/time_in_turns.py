@@ -28,6 +28,16 @@ BENCH is one of:
   16 images at 224x224) under ``no_grad``, after one warm-up forward:
   ``images_per_s``, 16 over the median of 20 synchronised forwards (host
   clock), as phase 12 prints it.
+- ``conv``: the direct conv at chip_smoke.py phase 12's shapes on the
+  route each tree's ``conv2d_direct`` picks: C1's convs 2 and 3 in f32,
+  conv 3's input at stride 2 in f32 and bf16, conv 3 in bf16;
+  ``<case>_ms`` one call between two CUDA events (median of 20),
+  ``<case>_batched_ms`` 20 calls between two events (median of 5).
+- ``wgmma_gemm``: the products of the wgmma skeleton at chip_smoke.py's
+  shapes, bf16, each on the route the tree's library picks: ``linear``
+  M4096 K2048 N8192 with bias and gelu (phase 2), ``gemm_batched`` B4
+  4096^3 (phase 15), ``gemm_packed`` 4096^3 on the planned plan (phase
+  16); timed as ``conv``.
 - ``primitives``: every case of chip_smoke.py phase 13 (for_each,
   for_each_multi, row_reduce, map_reduce, vector math, reductions, Lux at
   bench.py's shapes), its generated bodies built first: the kernel's ms as
@@ -159,6 +169,58 @@ def cnn(smoke) -> dict:
         return {"images_per_s": smoke.images_per_s(lambda: cnn_predict(params, x))}
 
 
+def _timed(smoke, fns) -> dict:
+    res = {}
+    for name, fn in fns.items():
+        res[f"{name}_ms"] = smoke.cuda_ms(fn)
+        res[f"{name}_batched_ms"] = smoke.cuda_batched_ms(fn, reps=5)
+    return res
+
+
+def conv(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops.conv import conv2d_direct
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def inputs(xs, ws, dtype):
+        x = torch.randn(xs, generator=g, device="cuda").to(dtype)
+        w = (torch.randn(ws, generator=g, device="cuda") * (ws[1] * 9) ** -0.5).to(dtype)
+        return x, w
+
+    c2 = inputs((16, 20, 112, 112), (64, 20, 3, 3), torch.float32)
+    c3 = inputs((16, 64, 56, 56), (64, 64, 3, 3), torch.float32)
+    c3b = inputs((16, 64, 56, 56), (64, 64, 3, 3), torch.bfloat16)
+    p1, s2 = (1, 1), (2, 2)
+    return _timed(smoke, {
+        "conv2_f32": lambda: conv2d_direct(*c2, p1), "conv3_f32": lambda: conv2d_direct(*c3, p1),
+        "conv3_s2_f32": lambda: conv2d_direct(*c3, p1, s2),
+        "conv3_bf16": lambda: conv2d_direct(*c3b, p1),
+        "conv3_s2_bf16": lambda: conv2d_direct(*c3b, p1, s2)})
+
+
+def wgmma_gemm(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops.gemm import gemm_packed, gemm_prepack_a, gemm_prepack_b, linear
+    from laser_tpu_torch.ops.gemm.batched import gemm_batched
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(torch.bfloat16)
+
+    x, w, bias = rnd(4096, 2048), rnd(2048, 8192, std=2048 ** -0.5), rnd(8192, std=0.1)
+    ab, bb = rnd(4, 4096, 4096), rnd(4, 4096, 4096, std=4096 ** -0.5)
+    n = smoke.PACKED_N
+    pa, pb = gemm_prepack_a(rnd(n, n, std=0.05)), gemm_prepack_b(rnd(n, n, std=0.05))
+    return _timed(smoke, {
+        "linear_gelu": lambda: linear(x, w, bias, "gelu"),
+        "batched": lambda: gemm_batched(ab, bb),
+        "packed": lambda: gemm_packed(smoke.PACKED_ALPHA, pa, pb)})
+
+
 def primitives(smoke) -> dict:
     from laser_tpu_torch import registry
 
@@ -169,7 +231,8 @@ def primitives(smoke) -> dict:
 
 
 BENCHES = {"flash_forward": flash_forward, "flash_backward": flash_backward,
-           "serving": serving, "cnn": cnn, "primitives": primitives}
+           "serving": serving, "cnn": cnn, "conv": conv, "wgmma_gemm": wgmma_gemm,
+           "primitives": primitives}
 
 
 def _time_tree(bench: str, tree: str) -> dict:

@@ -3,8 +3,10 @@ same numpy inputs. On the CPU laser_tpu's shapes below reach each of its
 three conv kernels in interpret mode (planewise; the patch kernel; the
 per-tap kernel, taken for ow % 8 != 0), a strided conv its phase
 decomposition, and a 1x1 conv its GEMM; the port runs its kernels' plain
-versions on the routes its own rule picks. Tolerance: max |port -
-laser_tpu| <= 1e-5 of max |laser_tpu| in f32 (summation order only)."""
+versions on the routes its own rule picks (a strided conv: the direct
+kernel's, which takes the stride; with ``plain=True`` laser_tpu's phases).
+Tolerance: max |port - laser_tpu| <= 1e-5 of max |laser_tpu| in f32
+(summation order only)."""
 
 import numpy as np
 import pytest
@@ -21,8 +23,9 @@ CASES = {
     "planewise": ((2, 3, 16, 16), (8, 3, 3, 3), (1, 1), (1, 1), "conv_planewise"),
     "patch": ((2, 8, 16, 16), (16, 8, 3, 3), (1, 1), (1, 1), "conv_direct"),
     "per_tap": ((1, 8, 13, 17), (6, 8, 3, 3), (1, 1), (1, 1), "conv_direct"),
-    "strided": ((2, 8, 20, 20), (16, 8, 3, 3), (1, 1), (2, 2), "conv_planewise"),
+    "strided": ((2, 8, 20, 20), (16, 8, 3, 3), (1, 1), (2, 2), "conv_direct"),
     "1x1": ((2, 16, 8, 8), (32, 16, 1, 1), (0, 0), (1, 1), None),
+    "strided_5x5": ((1, 4, 17, 19), (6, 4, 5, 5), (2, 1), (3, 2), "conv_direct"),
 }
 
 
@@ -58,6 +61,20 @@ def test_conv2d_direct_matches_laser_tpu(ref, name):
     assert _rel_err(got, ref[name][0]) <= REL
     used = {n for n, c in registry.counts().items() if c["plain_calls"]}
     assert used & {"conv_planewise", "conv_direct"} == ({kernel} if kernel else set())
+
+
+@pytest.mark.parametrize("name", ["strided", "strided_5x5"])
+def test_plain_strided_conv_takes_laser_tpus_phases(ref, name):
+    """``plain=True`` sums laser_tpu's stride-1 phase convs (here all on
+    the planewise kernel's plain version), where the kernel route is one
+    direct conv at the stride."""
+    _, _, pad, st, _ = CASES[name]
+    x, w = (torch.from_numpy(a) for a in _inputs(name))
+    registry.reset_counts()
+    got = conv.conv2d_direct(x, w, pad, st, plain=True)
+    assert _rel_err(got, ref[name][0]) <= REL
+    used = {n for n, c in registry.counts().items() if c["plain_calls"]}
+    assert used & {"conv_planewise", "conv_direct"} == {"conv_planewise"}
 
 
 @pytest.mark.parametrize("name", list(CASES))

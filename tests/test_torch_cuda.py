@@ -16,7 +16,9 @@ GQA map at groups 1-8; the paged kernel over int8 pages at groups 1-8; the
 paged window (verify) kernel at W 1-8, groups 1-8, float and int8 pages;
 bursts and speculative decoding in the engine on the card; the planewise
 and direct conv kernels at odd channel counts, kernel sizes, paddings and
-strides; both softmax kernels from 1 to 40001 columns, all -inf rows and
+strides, the direct conv's ffma and mma routes at strides 1, 2 and (3, 2),
+ragged pixel tiles, K 65, 180 and 1170 (two tap-table chunks), and the
+classic route's phase convs at a stride; both softmax kernels from 1 to 40001 columns, all -inf rows and
 ``donate``; a small CNN and MLP through the kernels; the templates of
 csrc/foreach.cuh filled with generated bodies: for_each over bodies of each
 vocabulary group in f32/bf16/f16 and integer types, sizes 1 to 151557, with
@@ -44,7 +46,8 @@ the card, whole trees against the CPU route; the stencil sweeps in
 f32/bf16/f16 on grids from 2 x 5 to 257 x 130; the packed GEMM in
 f32/bf16/f16 (within the bounds below) and int8 (bit for bit) on planned,
 odd (48 x 80 x 40: the gather route) and wide plans, with beta * C, other
-output dtypes and the int8 alpha cast.
+output dtypes and the int8 alpha cast; its bf16/f16 wgmma route on planned
+and wide plans at M, N, K off the plan, to f32 and to the input type.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine that has none. Run it there with
@@ -697,38 +700,131 @@ def test_conv_planewise(dev, dtype, xs, ws, pad):
     assert CONV_PLANEWISE.launches == before + 1
 
 
+# the direct conv's route by dtype (csrc/conv.cu pick_route)
+CONV_ROUTE = {torch.float32: "conv_direct_ffma", torch.bfloat16: "conv_direct_mma",
+              torch.float16: "conv_direct_mma"}
+
+
+def _conv_inputs(seed, xs, ws, dtype, dev):
+    g = _gen(dev, seed)
+    return _rnd(g, xs, dtype, dev), _rnd(g, ws, dtype, dev,
+                                         std=(ws[1] * ws[2] * ws[3]) ** -0.5)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", [None, "classic"])
 @pytest.mark.parametrize("xs,ws,pad", [
     ((2, 8, 13, 17), (6, 8, 3, 3), (1, 1)),
     ((1, 20, 30, 30), (70, 20, 3, 3), (1, 1)),   # two tiles of 64 output channels
     ((2, 16, 9, 11), (5, 16, 5, 3), (2, 1)),
     ((1, 65, 7, 7), (3, 65, 1, 1), (0, 0))])     # K = 65: a ragged last slab
-def test_conv_direct(dev, dtype, xs, ws, pad):
-    from laser_tpu_torch.ops.conv import CONV_DIRECT, conv2d_direct_reference, conv_direct
+def test_conv_direct(dev, dtype, route, xs, ws, pad):
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.conv import conv2d_direct_reference, conv_direct
 
-    g = _gen(dev, 31)
-    x, w = _rnd(g, xs, dtype, dev), _rnd(g, ws, dtype, dev, std=(ws[1] * ws[2] * ws[3]) ** -0.5)
-    before = CONV_DIRECT.launches
-    _check(conv_direct(x, w, pad), conv2d_direct_reference(x, w, pad), dtype)
-    assert CONV_DIRECT.launches == before + 1
+    x, w = _conv_inputs(31, xs, ws, dtype, dev)
+    registry.reset_counts()
+    got = conv_direct(x, w, pad, route=route)
+    c = registry.counts()
+    name = "conv_direct" if route == "classic" else CONV_ROUTE[dtype]
+    assert c[name]["launches"] == 1 == sum(v["launches"] for v in c.values())
+    _check(got, conv2d_direct_reference(x, w, pad), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("xs,ws,pad,strides", [
     ((2, 8, 20, 20), (16, 8, 3, 3), (1, 1), (2, 2)),
     ((1, 20, 17, 19), (6, 20, 5, 5), (2, 2), (3, 2))])
-def test_conv2d_direct_strided(dev, xs, ws, pad, strides):
-    """Strided convs as stride-1 phase convs on the kernels (and a 1x1 phase
-    on gemm), against the direct kernel's plain version at the stride."""
+def test_conv2d_direct_strided(dev, dtype, xs, ws, pad, strides):
+    """A strided conv is one launch of the direct kernel at the stride (no
+    phase convs, pad, copies or adds), against its plain version there."""
     from laser_tpu_torch import registry
     from laser_tpu_torch.ops.conv import conv2d_direct, conv2d_direct_reference
 
-    g = _gen(dev, 32)
-    x, w = _rnd(g, xs, torch.float32, dev), _rnd(g, ws, torch.float32, dev)
-    want = conv2d_direct_reference(x, w, pad, strides)
+    x, w = _conv_inputs(32, xs, ws, dtype, dev)
     registry.reset_counts()
     got = conv2d_direct(x, w, pad, strides)
-    assert all(c["plain_calls"] == 0 for c in registry.counts().values())
-    _check(got, want, torch.float32)
+    c = registry.counts()
+    assert c[CONV_ROUTE[dtype]]["launches"] == 1 == sum(v["launches"] for v in c.values())
+    assert all(v["plain_calls"] == 0 for v in c.values())
+    _check(got, conv2d_direct_reference(x, w, pad, strides), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("xs,ws,pad,strides", [
+    ((2, 8, 13, 17), (6, 8, 3, 3), (1, 1), (1, 1)),
+    ((1, 20, 30, 30), (70, 20, 3, 3), (1, 1), (1, 1)),     # K 180, two channel tiles
+    ((2, 16, 9, 11), (5, 16, 5, 3), (2, 1), (1, 1)),       # a 5 x 3 kernel
+    ((1, 65, 7, 7), (3, 65, 1, 1), (0, 0), (1, 1)),        # K 65
+    ((2, 64, 56, 56), (64, 64, 3, 3), (1, 1), (2, 2)),     # C1's conv 3 at stride 2
+    ((1, 20, 17, 19), (70, 20, 5, 5), (2, 2), (3, 2)),
+    ((2, 65, 20, 23), (7, 65, 1, 1), (0, 0), (2, 2)),      # a strided 1x1, K 65
+    ((1, 4, 300, 37), (9, 4, 3, 5), (0, 2), (1, 3)),       # many pixel tiles
+    ((1, 130, 9, 9), (16, 130, 3, 3), (1, 1), (1, 1))])    # K 1170: two tap-table chunks
+def test_conv_direct_gather_routes(dev, dtype, xs, ws, pad, strides):
+    """The ffma (f32) and mma (bf16/f16) routes, each launched once and
+    nothing else, against the plain version at the stride."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.conv import conv2d_direct_reference, conv_direct
+
+    x, w = _conv_inputs(38, xs, ws, dtype, dev)
+    registry.reset_counts()
+    got = conv_direct(x, w, pad, strides)
+    c = registry.counts()
+    assert c[CONV_ROUTE[dtype]]["launches"] == 1 == sum(v["launches"] for v in c.values())
+    _check(got, conv2d_direct_reference(x, w, pad, strides), dtype)
+
+
+def test_conv_direct_routes_asked_for(dev):
+    """Each route runs where asked and raises where it does not fit: ffma
+    takes f32 only, mma bf16/f16 only, classic stride 1 only; an unknown
+    name raises."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.conv import conv2d_direct_reference, conv_direct
+
+    for dtype, route, other in ((torch.float32, "ffma", "mma"),
+                                (torch.bfloat16, "mma", "ffma"),
+                                (torch.float16, "mma", "ffma")):
+        x, w = _conv_inputs(39, (2, 16, 12, 12), (8, 16, 3, 3), dtype, dev)
+        registry.reset_counts()
+        _check(conv_direct(x, w, (1, 1), (2, 2), route=route),
+               conv2d_direct_reference(x, w, (1, 1), (2, 2)), dtype)
+        assert registry.counts()[CONV_ROUTE[dtype]]["launches"] == 1
+        with pytest.raises(ValueError, match=other):
+            conv_direct(x, w, (1, 1), route=other)
+        with pytest.raises(ValueError, match="classic"):
+            conv_direct(x, w, (1, 1), (2, 2), route="classic")
+        with pytest.raises(ValueError, match="unknown route"):
+            conv_direct(x, w, (1, 1), route="wgmma")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv2d_direct_classic_strided_runs_the_phases(dev, dtype):
+    """route="classic" at a stride keeps laser_tpu's phase decomposition on
+    the classic kernels: at 3 x 3 stride 2, three phase convs on the classic
+    direct kernel and the 1 x 1 phase through ``gemm`` (a plain float
+    product: torch.matmul, as laser_tpu hands it to XLA)."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.conv import conv2d_direct, conv2d_direct_reference
+
+    x, w = _conv_inputs(40, (2, 64, 20, 21), (16, 64, 3, 3), dtype, dev)
+    registry.reset_counts()
+    got = conv2d_direct(x, w, (1, 1), (2, 2), route="classic")
+    c = registry.counts()
+    assert c["conv_direct"]["launches"] == 3 == sum(v["launches"] for v in c.values())
+    assert all(v["plain_calls"] == 0 for v in c.values())
+    want = conv2d_direct_reference(x, w, (1, 1), (2, 2))
+    if dtype == torch.float32:
+        _check(got, want, dtype)
+    else:
+        # laser_tpu's phases round each phase conv to the dtype and add the
+        # phases in it (4 phase roundings, 3 of the adds): within 8 unit
+        # roundings of max of the kernel route's one rounding (ROADMAP.md
+        # queue 3, settled on purpose)
+        torch.cuda.synchronize()
+        u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -11
+        err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+        assert err.item() <= 8 * u, err.item()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -796,7 +892,7 @@ def test_cnn_and_mlp_through_the_kernels(dev):
         probs = cnn_predict(params, x)
         c = registry.counts()
         _check(cnn_forward(params, x), want, torch.float32)
-        assert (c["conv_planewise"]["launches"], c["conv_direct"]["launches"],
+        assert (c["conv_planewise"]["launches"], c["conv_direct_ffma"]["launches"],
                 _route_launches(c, "gemm"), c["softmax"]["launches"]) == (1, 2, 2, 1)
         assert all(v["plain_calls"] == 0 for v in c.values())
         assert (probs.sum(-1) - 1).abs().max().item() <= 1e-5
@@ -1570,7 +1666,8 @@ def test_stencil_bit_identical(dev, dtype, shape, method, iters):
 @pytest.mark.parametrize("shape", [(1, 1, 1), (100, 120, 90), (130, 257, 200)])
 def test_gemm_packed(dev, dtype, plan, shape):
     from laser_tpu_torch.ops.gemm import GemmTiles, gemm_packed, gemm_prepack_a, gemm_prepack_b
-    from laser_tpu_torch.ops.gemm.prepacked import GEMM_PACKED, gemm_packed_plain
+    from laser_tpu_torch.ops.gemm.prepacked import (GEMM_PACKED, GEMM_PACKED_WGMMA,
+                                                    gemm_packed_plain, wgmma_route)
 
     M, N, K = shape
     g = _gen(dev, 84)
@@ -1586,16 +1683,78 @@ def test_gemm_packed(dev, dtype, plan, shape):
     pa, pb = gemm_prepack_a(a, tiles=tiles), gemm_prepack_b(b, tiles=tiles)
     cpu_pa = gemm_prepack_a(a.cpu(), tiles=tiles)
     _equal(pa.data, cpu_pa.data)  # the packed bytes do not depend on the device
+    # the 16-bit products on planned and wide plans take the wgmma route
+    kern = GEMM_PACKED_WGMMA if wgmma_route(dtype, pa.block[0], pb.block[1], pa.block[1]) \
+        else GEMM_PACKED
     for cc in (None, c):
-        before = GEMM_PACKED.launches
+        before = kern.launches
         got = gemm_packed(alpha, pa, pb, beta, cc)
-        assert GEMM_PACKED.launches == before + 1
+        assert kern.launches == before + 1
         acc = torch.int32 if dtype == torch.int8 else torch.float32
         want = gemm_packed_plain(alpha, pa, pb, beta, cc, dtype, acc, got.dtype)
         if dtype == torch.int8:
             _equal(got, want)
         else:
             _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("plan", ["planned", (256, 128, 64), (128, 256, 128)])
+@pytest.mark.parametrize("shape", [(100, 120, 90), (130, 257, 200), (384, 256, 320)])
+@pytest.mark.parametrize("to_f32", [False, True])
+def test_gemm_packed_wgmma(dev, dtype, plan, shape, to_f32):
+    """The wgmma route over the packed blocks, with and without beta * C,
+    at M, N, K off the plan (zero padding inert, the epilogue masked),
+    against the plain version; only its counter moves."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.gemm import GemmTiles, gemm_packed, gemm_prepack_a, gemm_prepack_b
+    from laser_tpu_torch.ops.gemm.prepacked import gemm_packed_plain
+
+    M, N, K = shape
+    g = _gen(dev, 86)
+    a, b = _rnd(g, (M, K), dtype, dev), _rnd(g, (K, N), dtype, dev, std=K ** -0.5)
+    c = _rnd(g, (M, N), torch.float32, dev)
+    tiles = None if plan == "planned" else GemmTiles(*plan, vmem_limit_bytes=0)
+    pa, pb = gemm_prepack_a(a, tiles=tiles), gemm_prepack_b(b, tiles=tiles)
+    out_dtype = torch.float32 if to_f32 else dtype
+    for cc in (None, c):
+        registry.reset_counts()
+        got = gemm_packed(0.5, pa, pb, -1.5, cc, out_dtype=out_dtype)
+        counts = registry.counts()
+        assert counts["gemm_packed_wgmma"]["launches"] == 1
+        assert sum(v["launches"] for v in counts.values()) == 1
+        _check(got, gemm_packed_plain(0.5, pa, pb, -1.5, cc, dtype, torch.float32, out_dtype),
+               out_dtype)
+
+
+def test_gemm_packed_routes_asked_for(dev):
+    """"classic" runs the blocks kernels on a plan wgmma takes; "wgmma"
+    raises on the ODD plan (which the library keeps on the gather route)
+    and on f32; an unknown route raises."""
+    from laser_tpu_torch.ops.gemm import GemmTiles, gemm_packed, gemm_prepack_a, gemm_prepack_b
+    from laser_tpu_torch.ops.gemm.prepacked import (GEMM_PACKED, GEMM_PACKED_WGMMA,
+                                                    gemm_packed_plain)
+
+    g = _gen(dev, 87)
+    a, b = _rnd(g, (100, 90), torch.bfloat16, dev), _rnd(g, (90, 120), torch.bfloat16, dev)
+    pa, pb = gemm_prepack_a(a), gemm_prepack_b(b)
+    want = gemm_packed_plain(1.0, pa, pb, 0.0, None, torch.bfloat16, torch.float32,
+                             torch.bfloat16)
+    before, wg = GEMM_PACKED.launches, GEMM_PACKED_WGMMA.launches
+    _check(gemm_packed(1.0, pa, pb, route="classic"), want, torch.bfloat16)
+    _check(gemm_packed(1.0, pa, pb, route="wgmma"), want, torch.bfloat16)
+    assert (GEMM_PACKED.launches, GEMM_PACKED_WGMMA.launches) == (before + 1, wg + 1)
+    odd = GemmTiles(48, 80, 40, vmem_limit_bytes=0)
+    po, qo = gemm_prepack_a(a, tiles=odd), gemm_prepack_b(b, tiles=odd)
+    before = GEMM_PACKED.launches
+    _check(gemm_packed(1.0, po, qo), want, torch.bfloat16)
+    assert (GEMM_PACKED.launches, GEMM_PACKED_WGMMA.launches) == (before + 1, wg + 1)
+    with pytest.raises(ValueError, match="wgmma"):
+        gemm_packed(1.0, po, qo, route="wgmma")
+    with pytest.raises(ValueError, match="wgmma"):
+        gemm_packed(1.0, gemm_prepack_a(a.float()), gemm_prepack_b(b.float()), route="wgmma")
+    with pytest.raises(ValueError, match="unknown route"):
+        gemm_packed(1.0, pa, pb, route="mma")
 
 
 def test_gemm_packed_out_dtypes_and_int8_alpha(dev):

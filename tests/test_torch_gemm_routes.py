@@ -1,5 +1,6 @@
-"""The GEMM kernels' route names against the CUDA launchers' codes, and the
-route argument on the CPU (where every route runs the plain version).
+"""The GEMM and conv kernels' route names against the CUDA launchers'
+codes, and the route argument on the CPU (where every route runs the plain
+version).
 
 ``gemm_fused(route=...)`` and ``gemm_w4(route=...)`` pass a code to
 csrc/gemm.cu (``enum Route``) and csrc/w4_gemm.cu (``enum W4Route``); each
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 from laser_tpu_torch import registry
-from laser_tpu_torch.ops.gemm import int4_kernel, kernel
+from laser_tpu_torch.ops import conv
+from laser_tpu_torch.ops.gemm import int4_kernel, kernel, prepacked
 
 
 def _enum(source: str, name: str) -> dict:
@@ -54,3 +56,36 @@ def test_routes_on_the_cpu_run_the_plain_version():
         kernel.gemm_fused(a, b, route="gemv")
     with pytest.raises(ValueError):
         int4_kernel.gemm_w4(a, wq, route="gemv")
+
+
+@pytest.mark.parametrize("source,module", [("conv.cu", conv), ("packed_gemm.cu", prepacked)])
+def test_conv_and_packed_route_codes_match_the_launchers(source, module):
+    """csrc/conv.cu's and csrc/packed_gemm.cu's ``enum Route`` against
+    ``conv.ROUTES`` and ``prepacked.ROUTES``, each code with its counter."""
+    codes = _enum(source, "Route")
+    assert sorted(codes.values()) == sorted(module.ROUTES.values())
+    assert module.ROUTES[None] == 0 and min(codes.values()) == 0
+    assert sorted(module.ROUTE_KERNELS) == sorted(v for v in codes.values() if v)
+    assert len({k.name for k in module.ROUTE_KERNELS.values()}) == len(module.ROUTE_KERNELS)
+    assert all(k.source.endswith(source) for k in module.ROUTE_KERNELS.values())
+
+
+def test_conv_and_packed_routes_on_the_cpu_run_the_plain_version():
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(2, 8, 11, 9).astype(np.float32))
+    w = torch.from_numpy(rng.randn(6, 8, 3, 3).astype(np.float32))
+    want = conv.conv2d_direct_reference(x, w, (1, 1), (2, 1))
+    for route in conv.ROUTES:
+        assert torch.equal(conv.conv_direct(x, w, (1, 1), (2, 1), route=route), want)
+    with pytest.raises(ValueError):
+        conv.conv_direct(x, w, route="wgmma")
+    with pytest.raises(ValueError):
+        conv.conv2d_direct(x, w, route="wgmma")
+    a = torch.from_numpy(rng.randn(20, 30).astype(np.float32)).bfloat16()
+    b = torch.from_numpy(rng.randn(30, 12).astype(np.float32)).bfloat16()
+    pa, pb = prepacked.gemm_prepack_a(a), prepacked.gemm_prepack_b(b)
+    want = prepacked.gemm_packed(0.5, pa, pb)
+    for route in prepacked.ROUTES:
+        assert torch.equal(prepacked.gemm_packed(0.5, pa, pb, route=route), want)
+    with pytest.raises(ValueError):
+        prepacked.gemm_packed(0.5, pa, pb, route="mma")

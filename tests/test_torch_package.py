@@ -110,7 +110,8 @@ def test_every_slice_kernel_registered():
         "gemm_packed", "stencil_sweep", "adamw_update", "sgdm_update",  # the library surface
         "gemm_wgmma", "gemm_batched_wgmma", "flash_attention_mma",  # the Hopper routes
         "gemm_splitk", "w4_gemm_stream", "w4_gemm_mma",  # the weight-streaming routes
-        "flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma"}  # the backward's
+        "flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma",  # the backward's
+        "conv_direct_ffma", "conv_direct_mma", "gemm_packed_wgmma"}  # the conv's, packed
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
@@ -138,6 +139,9 @@ def test_every_slice_kernel_registered():
     # each route of one TPU kernel counts its own launches
     assert replaced["gemm_wgmma"] == replaced["gemm_splitk"] == replaced["gemm"] == \
         "laser_tpu/ops/gemm/kernel.py:62 build_gemm"
+    assert replaced["conv_direct_ffma"] == replaced["conv_direct_mma"] == \
+        replaced["conv_direct"] == "laser_tpu/ops/conv.py:152 _build_direct_conv"
+    assert replaced["gemm_packed_wgmma"] == replaced["gemm_packed"]
     assert replaced["w4_gemm_stream"] == replaced["w4_gemm_mma"] == replaced["w4_gemm"] == \
         "laser_tpu/ops/gemm/int4_kernel.py:87 build_w4_gemm"
     assert replaced["gemm_batched_wgmma"] == replaced["gemm_batched"]

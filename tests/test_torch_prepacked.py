@@ -189,6 +189,20 @@ def test_plan_tiles_fits_the_kernel(dtype):
     assert not prepacked.blocks_route(dtype, *ODD)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_planned_16bit_plan_takes_the_wgmma_route(dtype):
+    """csrc/packed_gemm.cu's wgmma predicate: the planned plan at bench.py's
+    4096^3 and at laser_tpu's odd test shape takes it; the ODD plan, f32 and
+    int8 do not."""
+    for m, n, k in ((4096, 4096, 4096), (M, N, K)):
+        t = G.plan_tiles(m, n, k, dtype)
+        assert prepacked.wgmma_route(dtype, t.bm, t.bn, t.bk)
+    assert not prepacked.wgmma_route(dtype, *ODD)
+    for other in (torch.float32, torch.int8):
+        t = G.plan_tiles(4096, 4096, 4096, other)
+        assert not prepacked.wgmma_route(other, t.bm, t.bn, t.bk)
+
+
 def test_plan_tiles_overrides_and_config():
     """``overrides`` and the config's gemm_bm/bn/bk replace planned sizes,
     rounded up to the CTA tile; laser_tpu's plan object builds here."""
