@@ -32,7 +32,20 @@ printed:
    kernels they replace at the same shapes, asked for by ``route=``
    (``gemm``: WMMA; ``flash_attention``, ``flash_attention_bwd_dq``,
    ``flash_attention_bwd_dkv``: FFMA), each case asserting that its route's
-   counter moved; the backward also at a ragged S 1030, D 64. The
+   counter moved; the backward also at a ragged S 1030, D 64. Paged
+   attention's decode (row 4) and verify (row 5) run on the split route
+   (``paged_attention_split``, ``paged_window_attention_split``: one
+   tensor-core skeleton split over the keys) and on the classic kernels
+   asked for, over bf16 pages and int8 pages at the Llama widths, each with
+   SDPA with the key (or causal window) mask on K/V gathered beforehand as
+   its library call and also as 20 calls in a CUDA graph, warm and over
+   copies of the pools past L2; the split route's decode at W 1 must give
+   the verify's bits, and each two calls the same bits. The layer norm
+   (4096 x 2048) and the RMS norm at the Llama width (4096 and 8 rows of
+   4096) run on the vec route (``norm_vec``: the row in registers) and on
+   the classic kernel asked for, gains in bf16, beside ``F.layer_norm`` /
+   ``F.rms_norm``, also in a CUDA graph (the 4096 rows also over copies of
+   x past L2). The
    weight-streaming products run on the routes the library picks: the
    decode GEMM (M 8) and the verify's (M 40) on split-K (``gemm_splitk``),
    the Llama-3-8B decode products (K4096 N14336, K14336 N4096) bf16 on
@@ -296,8 +309,8 @@ TRAIN_BATCH, TRAIN_F32_BATCH = (8, 1024), (4, 256)
 TRAIN_STEPS, LR, WD = 6, 3e-4, 0.01
 # bf16 products with M > 40 (prefill) take the wgmma GEMM, the decode
 # products (M <= 40) the split-K route; bf16 flash at D 128 the tensor cores
-SERVING_KERNELS = ("gemm_splitk", "gemm_wgmma", "norm", "flash_attention_mma",
-                   "paged_attention")
+SERVING_KERNELS = ("gemm_splitk", "gemm_wgmma", "norm_vec", "flash_attention_mma",
+                   "paged_attention_split")
 # runs S1 and S2: the plain burst engine, then the quantized self-draft
 SPEC_GAMMA = 4
 S1_CFG = dict(page_size=64, n_pages=8 * 7 + 2, max_seqs=8, max_pages_per_seq=7,
@@ -305,34 +318,34 @@ S1_CFG = dict(page_size=64, n_pages=8 * 7 + 2, max_seqs=8, max_pages_per_seq=7,
 S1_TRAFFIC = dict(n=8, prompt=128, new=256)
 S2_CFG = dict(SERVE_CFG, kv_quant=True, decode_burst=20, pipeline_bursts=True)
 SPEC_KERNELS = {"s1_plain": SERVING_KERNELS,
-                "s1_spec": SERVING_KERNELS + ("paged_window_attention",),
+                "s1_spec": SERVING_KERNELS + ("paged_window_attention_split",),
                 "s2_plain": SERVING_KERNELS,
-                "s2_spec": SERVING_KERNELS + ("w4_gemm_stream", "paged_window_attention")}
+                "s2_spec": SERVING_KERNELS + ("w4_gemm_stream", "paged_window_attention_split")}
 SPEC_F32_CFG = dict(SERVE_CFG, decode_burst=20, pipeline_bursts=True)
 DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=2, d_ff=512, vocab=8192)
 LLAMA_DRAFT_F32 = dict(n_layers=1, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab=8192)
 # bf16 at D 128: the flash forward and backward on the tensor cores
-TRAINING_KERNELS = ("gemm_wgmma", "norm", "flash_attention_mma", "flash_attention_bwd_dq_mma",
+TRAINING_KERNELS = ("gemm_wgmma", "norm_vec", "flash_attention_mma", "flash_attention_bwd_dq_mma",
                     "flash_attention_bwd_dkv_mma", "ce_fused_grad", "ce_fwd")
 # Llama training (phase 17): phase 7's widths and rope, batch 4 x 1024; the
 # loss's chunked branch runs ce_bwd and no other CE kernel
 LLAMA_TRAIN_BATCH = (4, 1024)
 LLAMA_MP_LAYERS = 4
-LLAMA_TRAIN_KERNELS = ("gemm_wgmma", "norm", "flash_attention_mma",
+LLAMA_TRAIN_KERNELS = ("gemm_wgmma", "norm_vec", "flash_attention_mma",
                        "flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma", "ce_bwd")
 # phase 6's f32 llama loss: the FFMA GEMM and flash kernels (forward and
-# backward)
-LLAMA_TRAIN_F32_KERNELS = ("gemm", "norm", "flash_attention", "flash_attention_bwd_dq",
+# backward); the norm's d512 rows take the vec kernel in f32 too
+LLAMA_TRAIN_F32_KERNELS = ("gemm", "norm_vec", "flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv", "ce_bwd")
 # ce_bwd against its plain version: f32 exp and the same fp32 arithmetic;
 # bf16 dx one rounding of the largest element apart
 CE_BWD_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-6}
 # run (b)'s block linears are all int4 (decode on the stream route, prefill
 # on the mma route) and its logits torch.matmul: no gemm
-LLAMA_KERNELS = {"llama": ("gemm_splitk", "gemm_wgmma", "norm", "flash_attention_mma",
-                           "paged_attention"),
-                 "llama_int4": ("w4_gemm_stream", "w4_gemm_mma", "norm", "flash_attention_mma",
-                                "paged_attention")}
+LLAMA_KERNELS = {"llama": ("gemm_splitk", "gemm_wgmma", "norm_vec", "flash_attention_mma",
+                           "paged_attention_split"),
+                 "llama_int4": ("w4_gemm_stream", "w4_gemm_mma", "norm_vec",
+                                "flash_attention_mma", "paged_attention_split")}
 # the CNN slice, C1: laser_tpu's init_cnn with convs at the conv benchmark's
 # shapes (bench.py:1061-1108: N16 C3->20 224^2, and 64->64 at 56^2 after two
 # pools) and ImageNet-1k's 1000 classes; batch 16, f32
@@ -483,9 +496,9 @@ class Case:
     dtype: torch.dtype = torch.bfloat16  # the input type: the bound's peak rate
     rel: Optional[float] = None  # the comparison's bound, if not REL_BOUND's
     graph: bool = False       # also time it (and the library call) as a CUDA graph
-    # (kernel, library) over copies of the weight that together exceed the
-    # L2 cache, each call on the next: timed as a CUDA graph, the cold cache
-    # a decode step finds
+    # (kernel, library) over copies of the inputs (the weight, the pages,
+    # the rows) that together exceed the L2 cache, each call on the next:
+    # timed as a CUDA graph, the cold cache a serving step finds
     cold: Optional[tuple] = None
 
 
@@ -508,9 +521,7 @@ def kernel_cases(dtype, full: bool):
     from laser_tpu_torch.ops.attention_bwd import flash_attention_bwd_reference
     from laser_tpu_torch.ops.gemm import linear, linear_reference
     from laser_tpu_torch.ops.gemm.kernel import gemm_fused
-    from laser_tpu_torch.ops.norm import layer_norm, layer_norm_reference
-    from laser_tpu_torch.ops.paged_attention import (paged_attention,
-                                                     paged_attention_reference, quantize_kv)
+    from laser_tpu_torch.ops.paged_attention import quantize_kv
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(0)
@@ -558,13 +569,7 @@ def kernel_cases(dtype, full: bool):
             lambda: gemm_fused(x, w, bias=bias, epilogue="gelu", route="classic"),
             lambda: linear_reference(x, w, bias, "gelu"), **gemm_case))
 
-    xn, gam, bet = rnd(rows, cols), rnd(cols), rnd(cols, std=0.1)
-    cases.append(Case(
-        "norm", f"{rows}x{cols} layer", lambda: layer_norm(xn, gam, bet),
-        lambda: layer_norm_reference(xn, gam, bet), flops=8 * rows * cols,
-        nbytes=(2 * rows * cols + 2 * cols) * isz,
-        library=lambda: F.layer_norm(xn, (cols,), gam, bet, eps=1e-6),
-        library_call="F.layer_norm"))
+    cases += norm_cases(rnd, rows, cols, full)
 
     def causal_pairs(bh, s):
         return bh * s * (s + 1) // 2
@@ -627,13 +632,7 @@ def kernel_cases(dtype, full: bool):
     perm = torch.randperm(P - 1, generator=g, device=DEVICE)
     tables = perm[:slots * pages].reshape(slots, pages).int().contiguous()
     lengths = torch.linspace(0, pages * ps, slots, device=DEVICE).int()
-    keys = int(lengths.sum().item())
-    cases.append(Case(
-        "paged_attention", f"slots{slots} H{H} hd{hd} ps{ps} pages{pages} "
-        f"lengths 0..{pages * ps}", lambda: paged_attention(qd, kp, vp, tables, lengths),
-        lambda: paged_attention_reference(qd, kp, vp, tables, lengths),
-        flops=4 * keys * H * hd, nbytes=(2 * keys * H * hd + 2 * slots * H * hd) * isz
-        + tables.numel() * 4 + slots * 4))
+    cases += paged_cases(qd, kp, vp, tables, lengths, full=full)
 
     # GQA prefill: 8 prompts x 32 query heads over 8 kv heads
     qg, kg, vg = rnd(Bg, Hq, S, D), rnd(Bg, Hkv, S, D), rnd(Bg, Hkv, S, D)
@@ -658,14 +657,7 @@ def kernel_cases(dtype, full: bool):
     qi = rnd(slots, Hq, hd)
     kpi, ksi = quantize_kv(rnd(P, Hkv, ps, hd))
     vpi, vsi = quantize_kv(rnd(P, Hkv, ps, hd))
-    cases.append(Case(
-        "paged_attention", f"slots{slots} Hq{Hq} Hkv{Hkv} hd{hd} ps{ps} pages{pages} "
-        f"lengths 0..{pages * ps}, int8 pages",
-        lambda: paged_attention(qi, kpi, vpi, tables, lengths, k_scale=ksi, v_scale=vsi),
-        lambda: paged_attention_reference(qi, kpi, vpi, tables, lengths, k_scale=ksi,
-                                          v_scale=vsi),
-        flops=4 * keys * Hq * hd, nbytes=2 * keys * Hkv * (hd + 4) + 2 * slots * Hq * hd * isz
-        + tables.numel() * 4 + slots * 4, slot="int8"))
+    cases += paged_cases(qi, kpi, vpi, tables, lengths, ksi, vsi, full=full, slot="int8")
 
     # the verify: W window queries per slot over the same pages, at the
     # transformer width, then over the int8 pages at the llama widths; the
@@ -673,9 +665,9 @@ def kernel_cases(dtype, full: bool):
     # last verify windows do in the engine
     Wv = SPEC_GAMMA + 1
     lengths_w = torch.linspace(Wv, pages * ps + 2, slots, device=DEVICE).int()
-    cases.append(window_case(rnd(slots, Wv, H, hd), kp, vp, tables, lengths_w))
-    cases.append(window_case(rnd(slots, Wv, Hq, hd), kpi, vpi, tables, lengths_w, ksi, vsi,
-                             slot="int8"))
+    qw, qwi = rnd(slots, Wv, H, hd), rnd(slots, Wv, Hq, hd)
+    cases += window_cases(qw, kp, vp, tables, lengths_w, full=full)
+    cases += window_cases(qwi, kpi, vpi, tables, lengths_w, ksi, vsi, full=full, slot="int8")
 
     if f32 or not full:
         cases.append(w4_case(g, dtype, Mq, Kq, Nq, group))
@@ -751,9 +743,11 @@ def w4_case(g, dtype, M, K, N, group, slot="", name="w4_gemm", route=None, note=
     isz = torch.tensor([], dtype=dtype).element_size()
     h = torch.randn((M, K), generator=g, device=DEVICE).to(dtype)
     packed = K * N // 2 + (K // group) * N * 4
-    copies = [quantize_int4(torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5,
-                            group=group)
-              for _ in range(max(2, math.ceil(COLD_BYTES / packed)) if cold else 1)]
+
+    def weight():
+        return quantize_int4(torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5,
+                             group=group)
+    copies = cold_copies(weight, packed) if cold else [weight()]
     wq = copies[0]
     wd = dequantize_int4(wq).to(dtype)
     cold_runs = None
@@ -770,12 +764,152 @@ def w4_case(g, dtype, M, K, N, group, slot="", name="w4_gemm", route=None, note=
                 slot=slot, cold=cold_runs)
 
 
-def window_case(q, kp, vp, tables, lengths, ks=None, vs=None, slot=""):
-    """The paged window kernel; bytes count every key of each slot once
-    (its last query reads them all), operations every causal pair. Held to
-    its bound row by row: a row over 5 keys is a few times the size of one
-    over a thousand, so a bound on the whole output would let the long
-    slots drift."""
+def cold_copies(make, nbytes):
+    """``make()`` and further calls of it, enough that the ``nbytes`` each
+    call moves, over all copies, exceed the L2 cache: inputs a rotating
+    timing finds cold, as a serving step finds its activations and pages."""
+    return [make() for _ in range(max(2, math.ceil(COLD_BYTES / nbytes)))]
+
+
+def norm_cases(rnd, rows, cols, full: bool):
+    """Row 2: the layer norm at the serving prefill's rows (gains in the
+    rows' dtype, as every model keeps them) on the route the library picks
+    (``norm_vec`` where the row is whole 16-byte vectors) and, at full size,
+    on the classic kernel asked for; the RMS norm at the Llama width, prefill
+    (4096 rows) and decode (8 rows), the same two ways. Each also as 20
+    calls in a CUDA graph, and at full size the prefill rows over copies of
+    x past L2."""
+    from laser_tpu_torch.ops.norm import (layer_norm, layer_norm_reference, rms_norm,
+                                          rms_norm_reference)
+
+    gam, bet = rnd(cols), rnd(cols, std=0.1)
+    isz = gam.element_size()
+    nbytes = (2 * rows * cols + 2 * cols) * isz
+    xs = cold_copies(lambda: rnd(rows, cols), nbytes) if full else [rnd(rows, cols)]
+    xn = xs[0]
+    cases = []
+    classic = ", the classic kernel asked for"
+
+    def layer(x, route=None):
+        return layer_norm(x, gam, bet, route=route)
+
+    def lib(x=xn):
+        return F.layer_norm(x, (cols,), gam, bet, eps=1e-6)
+
+    for route in (None, "classic") if full else (None,):
+        cases.append(Case(
+            "norm" if route else "norm_vec", f"{rows}x{cols} layer{classic if route else ''}",
+            lambda route=route: layer(xn, route), lambda: layer_norm_reference(xn, gam, bet),
+            flops=8 * rows * cols, nbytes=nbytes, library=lib, library_call="F.layer_norm",
+            graph=True, cold=(rotating(lambda x, route=route: layer(x, route),
+                                       [(x,) for x in xs]),
+                              rotating(lib, [(x,) for x in xs])) if full else None))
+    if not full:
+        return cases
+    width = LLAMA["d_model"]
+    gr = rnd(width)
+    for r in (rows, 8):
+        nbytes = (2 * r * width + width) * isz
+        xrs = cold_copies(lambda r=r: rnd(r, width), nbytes) if r == rows else [rnd(r, width)]
+        xr = xrs[0]
+        lib = None
+        if hasattr(F, "rms_norm"):
+            lib = lambda x=xr: F.rms_norm(x, (width,), gr, eps=1e-6)  # noqa: E731
+        for route in (None, "classic"):
+            cold = None
+            if len(xrs) > 1 and lib:
+                cold = (rotating(lambda x, route=route: rms_norm(x, gr, route=route),
+                                 [(x,) for x in xrs]), rotating(lib, [(x,) for x in xrs]))
+            cases.append(Case(
+                "norm" if route else "norm_vec",
+                f"{r}x{width} rms{classic if route else ''}",
+                lambda xr=xr, route=route: rms_norm(xr, gr, route=route),
+                lambda xr=xr: rms_norm_reference(xr, gr), flops=5 * r * width,
+                nbytes=nbytes, library=lib, library_call="F.rms_norm" if lib else None,
+                slot=f"rms_{r}x{width}", graph=True, cold=cold))
+    return cases
+
+
+def same_bits(what, *runs):
+    """Fail unless every one of ``runs`` gives the first one's bits."""
+    outs = [run() for run in runs]
+    same = [torch.equal(outs[0], o) for o in outs[1:]]
+    print(f"  {what}: the same bits {same}", flush=True)
+    if not all(same):
+        fail(f"{what}: the bits differ {same}")
+
+
+def paged_pools(kp, vp, ks, vs, nbytes, cold):
+    """The pools (and int8 scales) as given and, with ``cold``, copies of
+    them, enough that the ``nbytes`` a call moves exceed L2 over all."""
+    pools = [(kp, vp, ks, vs)]
+    if cold:
+        pools += cold_copies(lambda: tuple(None if t is None else t.clone()
+                                           for t in (kp, vp, ks, vs)), nbytes)[1:]
+    return pools
+
+
+def paged_cases(q, kp, vp, tables, lengths, ks=None, vs=None, full=False, slot=""):
+    """Row 4: the decode kernel over the pages on the route the library picks
+    (16-bit q: ``paged_attention_split``) and, at full size, on the classic
+    kernel asked for, each also over copies of the pools past L2; bytes
+    count every key of each slot once. The library call is the verify's
+    comparator at W = 1: SDPA with the key mask on K/V gathered beforehand
+    (dequantized for int8 pages), the gather not timed. On the split route
+    the decode gives the same bits twice, and the verify's at W = 1."""
+    from laser_tpu_torch.ops.paged_attention import (paged_attention, paged_attention_reference,
+                                                     paged_window_attention)
+
+    S, Hq, hd = q.shape
+    Hkv, ps = kp.shape[1], kp.shape[2]
+    isz = q.element_size()
+    keys = int(lengths.clamp(max=tables.shape[1] * ps).sum().item())
+    row = hd * isz if ks is None else hd + 4
+    nbytes = 2 * keys * Hkv * row + 2 * S * Hq * hd * isz + tables.numel() * 4 + S * 4
+    f32 = q.dtype == torch.float32
+    pools = paged_pools(kp, vp, ks, vs, nbytes, full)
+    libs = [_sdpa_window(q[:, None], *p[:2], tables, lengths, *p[2:]) for p in pools]
+
+    def run(k, v, k_s, v_s, route=None, window=False):
+        kw = {} if k_s is None else dict(k_scale=k_s, v_scale=v_s)
+        if window:
+            return paged_window_attention(q[:, None], k, v, tables, lengths, route=route,
+                                          **kw)[:, 0]
+        return paged_attention(q, k, v, tables, lengths, route=route, **kw)
+
+    if not f32:
+        same_bits(f"paged split route, decode twice and verify at W 1, {slot or 'bf16'} pages",
+                  lambda: run(*pools[0], "split"), lambda: run(*pools[0], "split"),
+                  lambda: run(*pools[0], "split", window=True))
+    cases = []
+    for route in (None, "classic") if full else (None,):
+        name = "paged_attention" if route or f32 else "paged_attention_split"
+        cases.append(Case(
+            name, f"slots{S} Hq{Hq} Hkv{Hkv} hd{hd} ps{ps} pages{tables.shape[1]} lengths "
+            f"0..{int(lengths.max().item())}{', int8 pages' if ks is not None else ''}"
+            f"{', the classic kernel asked for' if route else ''}",
+            lambda route=route: run(*pools[0], route),
+            lambda: paged_attention_reference(q, kp, vp, tables, lengths,
+                                              **({} if ks is None else dict(k_scale=ks,
+                                                                            v_scale=vs))),
+            flops=4 * keys * Hq * hd, nbytes=nbytes, library=libs[0],
+            library_call="F.scaled_dot_product_attention with the key mask on K/V already "
+                         "gathered from the pages (dequantized for int8 pages); the gather is "
+                         "not timed", slot=slot, per_row=True, graph=full,
+            cold=(rotating(lambda *p, route=route: run(*p, route), pools),
+                  rotating(lambda f: f(), [(f,) for f in libs])) if full else None))
+    return cases
+
+
+def window_cases(q, kp, vp, tables, lengths, ks=None, vs=None, full=False, slot=""):
+    """Row 5: the paged window kernel on the route the library picks (16-bit
+    q: ``paged_window_attention_split``) and, at full size, on the classic
+    kernel asked for, each also over copies of the pools past L2; bytes
+    count every key of each slot once (its last query reads them all),
+    operations every causal pair. Held to its bound row by row: a row over
+    5 keys is a few times the size of one over a thousand, so a bound on
+    the whole output would let the long slots drift. On the split route two
+    calls give the same bits."""
     from laser_tpu_torch.ops.paged_attention import (paged_window_attention,
                                                      paged_window_attention_reference)
 
@@ -783,23 +917,40 @@ def window_case(q, kp, vp, tables, lengths, ks=None, vs=None, slot=""):
     Hkv, ps = kp.shape[1], kp.shape[2]
     cap = tables.shape[1] * ps  # keys a table row holds
     isz = q.element_size()
-    kw = {} if ks is None else dict(k_scale=ks, v_scale=vs)
     lens = lengths.tolist()
     keys = sum(min(n, cap) for n in lens)
     pairs = sum(min(max(n - W + w + 1, 0), cap) for n in lens if n > 0 for w in range(W))
     row = hd * isz if ks is None else hd + 4
-    return Case(
-        "paged_window_attention",
-        f"slots{S} W{W} Hq{Hq} Hkv{Hkv} hd{hd} ps{ps} pages{tables.shape[1]} lengths "
-        f"{min(lens)}..{max(lens)}{', int8 pages' if ks is not None else ''}",
-        lambda: paged_window_attention(q, kp, vp, tables, lengths, **kw),
-        lambda: paged_window_attention_reference(q, kp, vp, tables, lengths, **kw),
-        flops=4 * hd * Hq * pairs,
-        nbytes=2 * keys * Hkv * row + 2 * S * W * Hq * hd * isz + tables.numel() * 4 + S * 4,
-        library=_sdpa_window(q, kp, vp, tables, lengths, ks, vs),
-        library_call="F.scaled_dot_product_attention with the causal window mask on K/V "
-                     "already gathered from the pages (dequantized for int8 pages); the "
-                     "gather is not timed", slot=slot, per_row=True)
+    nbytes = 2 * keys * Hkv * row + 2 * S * W * Hq * hd * isz + tables.numel() * 4 + S * 4
+    f32 = q.dtype == torch.float32
+    pools = paged_pools(kp, vp, ks, vs, nbytes, full and not f32)
+    libs = [_sdpa_window(q, *p[:2], tables, lengths, *p[2:]) for p in pools]
+
+    def run(k, v, k_s, v_s, route=None):
+        kw = {} if k_s is None else dict(k_scale=k_s, v_scale=v_s)
+        return paged_window_attention(q, k, v, tables, lengths, route=route, **kw)
+
+    if not f32:
+        same_bits(f"paged split route, verify twice, {slot or 'bf16'} pages",
+                  lambda: run(*pools[0], "split"), lambda: run(*pools[0], "split"))
+    cases = []
+    for route in (None, "classic") if full else (None,):
+        cases.append(Case(
+            "paged_window_attention" if route or f32 else "paged_window_attention_split",
+            f"slots{S} W{W} Hq{Hq} Hkv{Hkv} hd{hd} ps{ps} pages{tables.shape[1]} lengths "
+            f"{min(lens)}..{max(lens)}{', int8 pages' if ks is not None else ''}"
+            f"{', the classic kernel asked for' if route else ''}",
+            lambda route=route: run(*pools[0], route),
+            lambda: paged_window_attention_reference(
+                q, kp, vp, tables, lengths, **({} if ks is None else dict(k_scale=ks,
+                                                                          v_scale=vs))),
+            flops=4 * hd * Hq * pairs, nbytes=nbytes, library=libs[0],
+            library_call="F.scaled_dot_product_attention with the causal window mask on K/V "
+                         "already gathered from the pages (dequantized for int8 pages); the "
+                         "gather is not timed", slot=slot, per_row=True, graph=not f32,
+            cold=(rotating(lambda *p, route=route: run(*p, route), pools),
+                  rotating(lambda f: f(), [(f,) for f in libs])) if len(pools) > 1 else None))
+    return cases
 
 
 def _sdpa_window(q, kp, vp, tables, lengths, ks, vs):
@@ -889,8 +1040,8 @@ def decode_cases():
 
     def dense(M, K, N, slot, dtype=torch.bfloat16, name="gemm_splitk", route=None, note=""):
         x = torch.randn((M, K), generator=g, device=DEVICE).to(dtype)
-        ws = [(torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5).to(dtype)
-              for _ in range(max(2, math.ceil(COLD_BYTES / (K * N * x.element_size()))))]
+        ws = cold_copies(lambda: (torch.randn((K, N), generator=g, device=DEVICE)
+                                  * K ** -0.5).to(dtype), K * N * x.element_size())
         w = ws[0]
         b = (torch.randn((N,), generator=g, device=DEVICE) * 0.1).to(dtype)
 
@@ -3188,14 +3339,14 @@ def phase_llama_train():
     nloss = out["loss"].item()
     rel = abs(rloss - nloss) / abs(nloss)
     extra = {k: rcounts[k]["launches"] - pcounts[k]["launches"]
-             for k in ("flash_attention_mma", "norm")}
+             for k in ("flash_attention_mma", "norm_vec")}
     print(f"  remat step loss {rloss:.6f}, the same weights without remat {nloss:.6f}: rel "
           f"{rel:.3e} (bound {TRAIN_LOSS_REL:.0e}); launches with remat minus without "
           f"{extra} (a block's flash forward and its two norms again)", flush=True)
     if not rel <= TRAIN_LOSS_REL:
         fail(f"remat step loss {rloss} vs {nloss}")
     check_counts(rcounts, LLAMA_TRAIN_KERNELS, "llama_train remat")
-    if extra != {"flash_attention_mma": LLAMA["n_layers"], "norm": 2 * LLAMA["n_layers"]}:
+    if extra != {"flash_attention_mma": LLAMA["n_layers"], "norm_vec": 2 * LLAMA["n_layers"]}:
         fail(f"remat relaunched {extra}")
     del params, opt, out
     torch.cuda.empty_cache()

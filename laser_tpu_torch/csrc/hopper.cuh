@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the GEMM kernels (csrc/gemm.cu,
-// csrc/w4_gemm.cu and the split-K skeleton in csrc/splitk.cuh) and the
-// flash kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu):
+// csrc/w4_gemm.cu and the split-K skeleton in csrc/splitk.cuh), the
+// flash kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) and
+// the paged attention split kernel (csrc/paged_split.cuh):
 // cp.async, ldmatrix and mma.sync m16n8k16, swizzled 16-bit tiles;
 // mbarriers, TMA tensor maps and loads,
 // wgmma m64n128k16 with its shared-memory descriptors, and the tile walk of
@@ -30,6 +31,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes through L1 (the paged kernels' per-key scales); zeros when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 

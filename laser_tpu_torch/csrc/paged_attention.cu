@@ -8,6 +8,12 @@
 // tables (S, max_pages) int32; lengths (S,) int32; out (S, Hq, hd); with
 // int8 pools also k_scale, v_scale (P, Hkv, ps) f32.
 //
+// Two routes. "split" (bf16/f16 q at hd 64 or 128, 16-byte-aligned q, pools
+// and out) is the tensor-core skeleton of paged_split.cuh at W = 1, shared
+// with the verify (ltt_paged_window_attention), so the two give the same
+// bits there. "classic", the kernel below, takes the rest (f32 q, other
+// head dims, unaligned operands), and route "classic" asks for it.
+//
 // What bounds it on the H100: each key and value row is read once and used
 // for `group` = Hq / Hkv dot products, so decode attention is bound by the
 // KV bytes streamed from HBM (8 slots x 16 heads x up to 1024 keys x 128 x
@@ -15,7 +21,7 @@
 // stream a quarter of the f32 bytes, half of bf16, plus 4 bytes of scale per
 // row).
 //
-// Design: one block per (slot, kv head), 4 warps. The Hq query heads fold
+// Classic design: one block per (slot, kv head), 4 warps. The Hq query heads fold
 // to (Hkv, group) with consecutive q heads per kv head (paged_attention.py:161).
 // The block reads its own table row and length (Hopper has no scalar
 // prefetch). The slot's keys are cut into 32-key tiles spread round-robin
@@ -35,6 +41,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "paged_split.cuh"
 
 namespace {
 
@@ -224,17 +231,29 @@ void launch_pool(const void* q, const void* kp, const void* vp, const float* ks,
 // q (S, Hq, hd); k_pool, v_pool (P, Hkv, ps, hd) in q's dtype, or int8 with
 // k_scale, v_scale (P, Hkv, ps) f32 (null for float pools); tables
 // (S, max_pages) int32; lengths (S,) int32; out (S, Hq, hd). hd <= 256,
-// Hq / Hkv <= 8.
+// Hq / Hkv <= 8. workspace: ltt_paged_workspace's bytes of fp32 scratch
+// (null where it says 0). route: 0 picks, 1 the classic kernel, 2 the split
+// kernel (an error where it does not fit); *taken gets the route that
+// launched.
 LTT_API int ltt_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                 const void* k_scale, const void* v_scale, const void* tables,
-                                const void* lengths, void* out, int S, int Hq, int Hkv, int ps,
-                                int hd, int max_pages, float scale, int dtype, int pool_dtype,
-                                void* stream) {
+                                const void* lengths, void* out, void* workspace, int S, int Hq,
+                                int Hkv, int ps, int hd, int max_pages, float scale, int dtype,
+                                int pool_dtype, int route, int* taken, void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int* t = static_cast<const int*>(tables);
   const int* l = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int r =
+      ltt::ps_route(route, ltt::ps_fits(dtype, hd, 1, Hq, Hkv, q, k_pool, v_pool, out));
+  if (r < 0) return static_cast<int>(cudaErrorInvalidValue);
+  *taken = r;
+  if (r == ltt::kPagedSplit) {
+    const PsArgs a{q, k_pool, v_pool, ks, vs, t, l, out, static_cast<float*>(workspace),
+                   S, 1, Hq, Hkv, ps, hd, max_pages, scale};
+    return ltt::paged_split(a, dtype, pool_dtype, s);
+  }
   if (dtype == ltt::kF32)
     launch_pool<float>(q, k_pool, v_pool, ks, vs, t, l, out, S, Hq, Hkv, ps, hd, max_pages,
                        scale, pool_dtype, s);
@@ -245,4 +264,17 @@ LTT_API int ltt_paged_attention(const void* q, const void* k_pool, const void* v
     launch_pool<__half>(q, k_pool, v_pool, ks, vs, t, l, out, S, Hq, Hkv, ps, hd, max_pages,
                         scale, pool_dtype, s);
   return ltt::launch_status();
+}
+
+// The bytes of workspace a decode (W = 1) or verify call with these
+// operands and route needs (the split kernel's fp32 partials past one key
+// chunk; else 0), in *bytes; returns an error where the route asked for does
+// not fit.
+LTT_API int ltt_paged_workspace(const void* q, const void* k_pool, const void* v_pool, int S,
+                                int W, int Hq, int Hkv, int ps, int hd, int max_pages,
+                                int dtype, int route, long long* bytes) {
+  const int r =
+      ltt::ps_route(route, ltt::ps_fits(dtype, hd, W, Hq, Hkv, q, k_pool, v_pool, nullptr));
+  *bytes = r == ltt::kPagedSplit ? ltt::ps_workspace_bytes(S, W, Hq, Hkv, ps, hd, max_pages) : 0;
+  return r < 0 ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }

@@ -6,7 +6,9 @@
 // the build's one nvcc per source compiles them in parallel.
 //
 // Replaces laser_tpu/ops/paged_attention.py:318 build_paged_window_attention
-// (float pools, and int8 pools with per-token scales; no window).
+// (float pools, and int8 pools with per-token scales; no window). Since the
+// split kernel of paged_split.cuh (the tensor cores) took the bf16/f16 calls
+// at hd 64 and 128, this kernel is the verify's route "classic".
 //
 // Layouts (as the TPU kernel's wrapper): q (S, W, Hq, hd); pools
 // (P, Hkv, ps, hd); tables (S, max_pages) int32; lengths (S,) int32; out

@@ -27,16 +27,31 @@ caller keeps every table entry below ``lengths`` a valid page id: the
 kernels do not check them.
 
 Replace laser_tpu/ops/paged_attention.py:121 build_paged_attention and :318
-build_paged_window_attention. Bound on the H100: KV bytes from HBM. Design:
-one block per (slot, kv head) reads its own table row (no scalar prefetch on
-Hopper). The decode kernel's four warps stream interleaved 32-key tiles with
-their own online softmax and merge at the end; the window kernel copies each
-32-key tile once into shared memory and gives each of its eight warps its
-own rows (csrc/*.cu).
+build_paged_window_attention. Bound on the H100: KV bytes from HBM. Two
+routes for each, each with its own launch counter:
+
+- "split" (``paged_attention_split``, ``paged_window_attention_split``):
+  bf16/f16 q at hd 64 or 128, pools in q's dtype or int8, 16-byte-aligned
+  operands. One tensor-core skeleton (csrc/paged_split.cuh) for both, the
+  decode being its W = 1: blocks over (key chunk, kv head, slot), the chunk
+  sized from the table's capacity and the SM count (never from
+  ``lengths``: no host read), 64-key tiles gathered by cp.async in the
+  pool's dtype, mma.sync, and the chunks' fp32 partials merged in a fixed
+  order (a workspace sized here through ``ltt_paged_workspace``). At W = 1
+  the decode and the verify give the same bits.
+- "classic" (``paged_attention``, ``paged_window_attention``): f32 q and
+  other head dims. One block per (slot, kv head): the decode kernel's four
+  warps stream interleaved 32-key tiles and merge at the end; the window
+  kernel copies each 32-key tile once into shared memory and gives each of
+  its eight warps its own rows.
+
+``route="classic"`` or ``"split"`` asks for one (a CUDA tensor's; an
+unknown name raises on any device); a route that does not fit raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -47,9 +62,19 @@ from .attention import masked_softmax_pv
 
 PAGED = registry.kernel("paged_attention", "laser_tpu_torch/csrc/paged_attention.cu",
                         "laser_tpu/ops/paged_attention.py:121 build_paged_attention")
+PAGED_SPLIT = registry.kernel("paged_attention_split", "laser_tpu_torch/csrc/paged_split.cuh",
+                              "laser_tpu/ops/paged_attention.py:121 build_paged_attention")
 PAGED_WINDOW = registry.kernel(
     "paged_window_attention", "laser_tpu_torch/csrc/paged_window_attention.cu",
     "laser_tpu/ops/paged_attention.py:318 build_paged_window_attention")
+PAGED_WINDOW_SPLIT = registry.kernel(
+    "paged_window_attention_split", "laser_tpu_torch/csrc/paged_split.cuh",
+    "laser_tpu/ops/paged_attention.py:318 build_paged_window_attention")
+# route codes shared with csrc/paged_split.cuh (enum PagedRoute), and the
+# counter of each, for the decode and for the verify
+ROUTES = {None: 0, "classic": 1, "split": 2}
+ROUTE_KERNELS = {1: PAGED, 2: PAGED_SPLIT}
+WINDOW_ROUTE_KERNELS = {1: PAGED_WINDOW, 2: PAGED_WINDOW_SPLIT}
 
 MAX_GROUP = 8
 MAX_HEAD_DIM = 256
@@ -110,23 +135,46 @@ def _check_cuda_operands(what, q, k_pool, v_pool, tables, lengths, k_scale, v_sc
     return quant
 
 
-def _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
-    quant = _check_cuda_operands("paged attention", q, k_pool, v_pool, tables, lengths,
+def _launch(entry, counters, q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
+            route, W):
+    """One call of ``entry`` (the decode's or the verify's), its workspace
+    asked for and allocated first; counts the route that launched."""
+    what = entry[len("ltt_"):]
+    quant = _check_cuda_operands(what.replace("_", " "), q, k_pool, v_pool, tables, lengths,
                                  k_scale, v_scale)
-    S, Hq, hd = q.shape
+    S, Hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
     _, Hkv, ps, _ = k_pool.shape
     out = torch.empty_like(q)
     if S == 0:
         return out
-    status = registry.load_library().ltt_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, Hq, Hkv, ps, hd,
-        tables.shape[1], float(scale), registry.DTYPE_CODES[q.dtype],
-        registry.POOL_DTYPE_CODES[k_pool.dtype], registry.stream_handle(q))
-    registry.check_launch(status, "paged_attention")
-    PAGED.launches += 1
+    code, dcode = registry.route_code(ROUTES, route), registry.DTYPE_CODES[q.dtype]
+    shape = (S, W, Hq, Hkv, ps, hd, tables.shape[1])
+    ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
+    try:
+        nbytes = registry.workspace(
+            "ltt_paged_workspace", ("paged", *shape, dcode, code,
+                                    *(p % 16 == 0 for p in ptrs), q.device.index),
+            *ptrs, *shape, dcode, code)
+    except registry.KernelLaunchError as e:  # the query refuses only a route that does not fit
+        raise ValueError(f"{what}: route {route!r} does not fit {q.dtype} at hd {hd}, "
+                         f"{W} x {Hq // Hkv} rows, these alignments") from e
+    ws = registry.scratch(nbytes, q.device)
+    taken = ctypes.c_int(0)
+    lib = registry.load_library()
+    status = getattr(lib, entry)(
+        *ptrs, k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), S, *((W,) if q.ndim == 4 else ()), Hq, Hkv,
+        ps, hd, tables.shape[1], float(scale), dcode, registry.POOL_DTYPE_CODES[k_pool.dtype],
+        code, ctypes.byref(taken), registry.stream_handle(q))
+    registry.check_launch(status, what)
+    counters[taken.value].launches += 1
     return out
+
+
+def _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, route=None):
+    return _launch("ltt_paged_attention", ROUTE_KERNELS, q, k_pool, v_pool, tables, lengths,
+                   k_scale, v_scale, scale, route, 1)
 
 
 def _check_pools(q_shape, k_pool, v_pool, k_scale, v_scale, window):
@@ -155,7 +203,8 @@ def _check_pools(q_shape, k_pool, v_pool, k_scale, v_scale, window):
 
 
 def _paged(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
-           window, plain):
+           window, plain, route=None):
+    registry.route_code(ROUTES, route)  # an unknown name raises on any device
     S, Hq, hd = q.shape
     k_scale, v_scale = _check_pools(q.shape, k_pool, v_pool, k_scale, v_scale, window)
     if Hq // k_pool.shape[1] > MAX_GROUP:
@@ -165,7 +214,7 @@ def _paged(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
         scale = 1.0 / (hd ** 0.5)
     if plain or not registry.on_cuda(q):
         return _paged_plain(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale)
-    return _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale)
+    return _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, route)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -173,10 +222,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                     k_scale: Optional[torch.Tensor] = None,
                     v_scale: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Decode attention over paged KV; see the module docstring."""
+                    window: Optional[int] = None, route: Optional[str] = None) -> torch.Tensor:
+    """Decode attention over paged KV; see the module docstring. ``route``
+    (a CUDA tensor's): None lets the library pick, "classic" or "split"
+    asks for one."""
     return _paged(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
-                  window, plain=False)
+                  window, plain=False, route=route)
 
 
 def paged_attention_reference(q, k_pool, v_pool, tables, lengths, *,
@@ -219,26 +270,14 @@ def _window_plain(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
     return o.reshape(S, W, Hq, hd).to(q.dtype)
 
 
-def _window_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale):
-    quant = _check_cuda_operands("paged window attention", q, k_pool, v_pool, tables,
-                                 lengths, k_scale, v_scale)
-    S, W, Hq, hd = q.shape
-    _, Hkv, ps, _ = k_pool.shape
-    out = torch.empty_like(q)
-    if S == 0:
-        return out
-    status = registry.load_library().ltt_paged_window_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, W, Hq, Hkv, ps, hd,
-        tables.shape[1], float(scale), registry.DTYPE_CODES[q.dtype],
-        registry.POOL_DTYPE_CODES[k_pool.dtype], registry.stream_handle(q))
-    registry.check_launch(status, "paged_window_attention")
-    PAGED_WINDOW.launches += 1
-    return out
+def _window_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, route=None):
+    return _launch("ltt_paged_window_attention", WINDOW_ROUTE_KERNELS, q, k_pool, v_pool,
+                   tables, lengths, k_scale, v_scale, scale, route, q.shape[1])
 
 
-def _window(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, window, plain):
+def _window(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, window, plain,
+            route=None):
+    registry.route_code(ROUTES, route)  # an unknown name raises on any device
     if q.ndim != 4:
         raise ValueError(f"q must be (S, W, Hq, hd), got {tuple(q.shape)}")
     S, W, Hq, hd = q.shape
@@ -251,7 +290,7 @@ def _window(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, window,
         scale = 1.0 / (hd ** 0.5)
     if plain or not registry.on_cuda(q):
         return _window_plain(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale)
-    return _window_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale)
+    return _window_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, route)
 
 
 def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -259,12 +298,14 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
                            scale: Optional[float] = None,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           route: Optional[str] = None) -> torch.Tensor:
     """W-query (speculative verify) attention over paged KV: q (S, W, Hq, hd)
     -> (S, W, Hq, hd); see the module docstring. The pages already hold the
-    K/V rows of all lengths[s] positions, the W new ones included."""
+    K/V rows of all lengths[s] positions, the W new ones included.
+    ``route`` as in ``paged_attention``."""
     return _window(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale,
-                   window, plain=False)
+                   window, plain=False, route=route)
 
 
 def paged_window_attention_reference(q, k_pool, v_pool, tables, lengths, *,

@@ -86,8 +86,10 @@ SIGNATURES = {
     # x, q, scales, partials (or null), rows, cols, per_row, stochastic,
     # seed, dtype, stream
     "ltt_quantize_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _I, _P),
-    # x, gamma, beta, y, rows, cols, kind, eps, dtype, stream
-    "ltt_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # x, gamma (or null), beta (or null), y, rows, cols, kind, eps, dtype,
+    # gamma dtype, beta dtype, route (0 picks, 1 classic, 2 vec), route taken
+    # (out), stream
+    "ltt_norm": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _IP, _P),
     # q, k, v, o, m (or null), l (or null), BH, S, D, Hq, Hkv, causal, scale,
     # dtype, route (0 picks, 1 FFMA, 2 tensor cores), route taken (out), stream
     "ltt_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _IP, _P),
@@ -106,20 +108,24 @@ SIGNATURES = {
     # x, targets, lse, g, dx, T, W (columns of x), c0, V, eps, dtype, stream
     "ltt_ce_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _I, _P),
     # q, k_pool, v_pool, k_scale (or null), v_scale (or null), tables,
-    # lengths, out, S, Hq, Hkv, ps, hd, max_pages, scale, dtype, pool_dtype,
-    # stream
-    "ltt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _F, _I, _I, _P),
+    # lengths, out, workspace (or null), S, Hq, Hkv, ps, hd, max_pages, scale,
+    # dtype, pool_dtype, route (0 picks, 1 classic, 2 split), route taken
+    # (out), stream
+    "ltt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _F, _I, _I, _I, _IP, _P),
+    # q, k_pool, v_pool, S, W, Hq, Hkv, ps, hd, max_pages, dtype, route,
+    # workspace bytes (out)
+    "ltt_paged_workspace": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LLP),
     # h, q4, s4, out, workspace (or null), M, N, K, group, dtype, route (0
     # picks, 1 classic, 2 stream, 3 mma), route taken (out), stream
     "ltt_w4_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _P),
     # h, q4, s4, M, N, K, group, dtype, route, workspace bytes (out)
     "ltt_w4_gemm_workspace": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _LLP),
     # q, k_pool, v_pool, k_scale (or null), v_scale (or null), tables,
-    # lengths, out, S, W, Hq, Hkv, ps, hd, max_pages, scale, dtype,
-    # pool_dtype, stream
-    "ltt_paged_window_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _F, _I, _I, _P),
+    # lengths, out, workspace (or null), S, W, Hq, Hkv, ps, hd, max_pages,
+    # scale, dtype, pool_dtype, route, route taken (out), stream
+    "ltt_paged_window_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _I, _I, _IP, _P),
     # x, y (may be x), rows, cols, dtype, stream
     "ltt_softmax_rows": (_P, _P, _I, _I, _I, _P),
     "ltt_softmax_online": (_P, _P, _I, _I, _I, _P),
@@ -247,9 +253,30 @@ def workspace(query: str, key: tuple, *args) -> int:
     return got
 
 
+# one scratch buffer a device, with the stream it was allocated on, grown
+# to the largest size asked for: the launches of one stream run in order,
+# so a call reuses it once the call before it is done with it. A call on
+# another stream, or one that needs more, allocates anew; the buffer it
+# drops goes back to the caching allocator, which reuses it only on the
+# stream it was allocated on
+_SCRATCH: Dict[int, tuple] = {}
+
+
 def scratch(nbytes: int, device) -> Optional[torch.Tensor]:
-    """An fp32 scratch tensor of ``nbytes`` (None for 0)."""
-    return torch.empty(nbytes // 4, dtype=torch.float32, device=device) if nbytes else None
+    """An fp32 scratch tensor of at least ``nbytes`` (None for 0) for a
+    launch on the current stream of ``device``: no allocation on a
+    host-bound decode step. Under CUDA graph capture a new one from the
+    graph's pool, so that no buffer a graph holds is ever dropped."""
+    if not nbytes:
+        return None
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(nbytes // 4, dtype=torch.float32, device=device)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    held = _SCRATCH.get(device.index)
+    if held is None or held[0] != stream or held[1].numel() * 4 < nbytes:
+        held = _SCRATCH[device.index] = (
+            stream, torch.empty(nbytes // 4, dtype=torch.float32, device=device))
+    return held[1]
 
 
 def check_launch(status: int, name: str) -> None:
@@ -482,5 +509,7 @@ def load_generated(text: str) -> ctypes.CDLL:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as a pointer value."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as a pointer value (read
+    raw: building a torch.cuda.Stream object would cost every launch host
+    time)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -38,6 +38,18 @@ BENCH is one of:
   M4096 K2048 N8192 with bias and gelu (phase 2), ``gemm_batched`` B4
   4096^3 (phase 15), ``gemm_packed`` 4096^3 on the planned plan (phase
   16); timed as ``conv``.
+- ``paged``: paged attention at chip_smoke.py phase 2's shapes, bf16 q, on
+  the route each tree picks: the decode (8 slots, lengths 0..1024 over 16
+  pages of 64: the serving engine's decode shape) over bf16 pages at 16
+  heads and over int8 pages at Hq 32 / Hkv 8, and the verify (W 5, lengths
+  5..1026) over the same pages; timed as ``conv``, ``<case>_graph_ms``, 20
+  calls in a CUDA graph, and ``<case>_host_us``, the host's microseconds a
+  call (100 calls enqueued, no sync before the clock stops); where the
+  tree's wrappers take ``route=``, also the bf16 decode's and verify's
+  host time on the classic kernels asked for (``<case>_classic_host_us``).
+- ``norm``: the layer norm of 4096 x 2048 bf16 rows with bf16 gains and
+  the RMS norm of 4096 x 4096 and 8 x 4096 (the Llama width), on the route
+  each tree picks; timed as ``paged`` (no classic host times).
 - ``primitives``: every case of chip_smoke.py phase 13 (for_each,
   for_each_multi, row_reduce, map_reduce, vector math, reductions, Lux at
   bench.py's shapes), its generated bodies built first: the kernel's ms as
@@ -221,6 +233,102 @@ def wgmma_gemm(smoke) -> dict:
         "packed": lambda: gemm_packed(smoke.PACKED_ALPHA, pa, pb)})
 
 
+def _host_us(fn, n: int = 100, reps: int = 5) -> float:
+    """Host microseconds a call: ``n`` calls enqueued after a sync, on the
+    host's clock, with no sync before the clock stops (the card runs
+    behind), median of ``reps``: the wrapper's Python and its launches."""
+    import time
+
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _timed_graph(smoke, fns, host=()) -> dict:
+    """``_timed``, 20 calls in a CUDA graph, and the host's work a call
+    (``_host_us``) for each of ``fns`` and for the further ``host``
+    ({name: fn}, timed on the host alone)."""
+    res = _timed(smoke, fns)
+    for name, fn in fns.items():
+        res[f"{name}_graph_ms"] = smoke.cuda_graph_ms(fn)
+    for name, fn in {**fns, **dict(host)}.items():
+        res[f"{name}_host_us"] = _host_us(fn)
+    return res
+
+
+def _routes(fn) -> bool:
+    """Whether this tree's ``fn`` takes ``route=`` (the parent's may not)."""
+    import inspect
+
+    return "route" in inspect.signature(fn).parameters
+
+
+def paged(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops.paged_attention import (paged_attention, paged_window_attention,
+                                                     quantize_kv)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    slots, H, hd, ps, pages = 8, 16, 128, 64, 16
+    Hq, Hkv, W = smoke.LLAMA["n_heads"], smoke.LLAMA["n_kv_heads"], smoke.SPEC_GAMMA + 1
+    P = slots * pages + 1
+    tables = torch.randperm(P - 1, generator=g, device="cuda")[:slots * pages]
+    tables = tables.reshape(slots, pages).int().contiguous()
+    lengths = torch.linspace(0, pages * ps, slots, device="cuda").int()
+    lengths_w = torch.linspace(W, pages * ps + 2, slots, device="cuda").int()
+    kp, vp = rnd(P, H, ps, hd), rnd(P, H, ps, hd)
+    kpi, ksi = quantize_kv(rnd(P, Hkv, ps, hd))
+    vpi, vsi = quantize_kv(rnd(P, Hkv, ps, hd))
+    q, qi, qw, qwi = rnd(slots, H, hd), rnd(slots, Hq, hd), rnd(slots, W, H, hd), rnd(
+        slots, W, Hq, hd)
+    i8 = dict(k_scale=ksi, v_scale=vsi)
+    host = {}
+    if _routes(paged_attention):  # the classic kernels' wrappers, for the host's share
+        host = {"decode_bf16_classic": lambda: paged_attention(q, kp, vp, tables, lengths,
+                                                               route="classic"),
+                "verify_bf16_classic": lambda: paged_window_attention(
+                    qw, kp, vp, tables, lengths_w, route="classic")}
+    return _timed_graph(smoke, {
+        "decode_bf16": lambda: paged_attention(q, kp, vp, tables, lengths),
+        "decode_int8": lambda: paged_attention(qi, kpi, vpi, tables, lengths, **i8),
+        "verify_bf16": lambda: paged_window_attention(qw, kp, vp, tables, lengths_w),
+        "verify_int8": lambda: paged_window_attention(qwi, kpi, vpi, tables, lengths_w, **i8)},
+        host)
+
+
+def norm(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops.norm import layer_norm, rms_norm
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    width = smoke.LLAMA["d_model"]
+    x, gam, bet = rnd(4096, 2048), rnd(2048), rnd(2048)
+    xr, xd, gr = rnd(4096, width), rnd(8, width), rnd(width)
+    return _timed_graph(smoke, {
+        "layer_4096x2048": lambda: layer_norm(x, gam, bet),
+        f"rms_4096x{width}": lambda: rms_norm(xr, gr),
+        f"rms_8x{width}": lambda: rms_norm(xd, gr)})
+
+
 def primitives(smoke) -> dict:
     from laser_tpu_torch import registry
 
@@ -232,7 +340,7 @@ def primitives(smoke) -> dict:
 
 BENCHES = {"flash_forward": flash_forward, "flash_backward": flash_backward,
            "serving": serving, "cnn": cnn, "conv": conv, "wgmma_gemm": wgmma_gemm,
-           "primitives": primitives}
+           "paged": paged, "norm": norm, "primitives": primitives}
 
 
 def _time_tree(bench: str, tree: str) -> dict:

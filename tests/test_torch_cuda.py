@@ -176,19 +176,161 @@ def test_gemm_unaligned_operands(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("cols", [1, 33, 200, 1000, 3000])
+@pytest.mark.parametrize("gdtype", [None, torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("cols", [1, 33, 200, 1000, 2048, 3000, 4096])
 @pytest.mark.parametrize("kind", ["layer", "rms"])
-def test_norm(dev, dtype, cols, kind):
+def test_norm(dev, dtype, gdtype, cols, kind):
+    """One launch a call, gains read in their own dtype: the vec kernel
+    where the row is whole 16-byte vectors (at most 1024 of them), else the
+    classic kernel; held against the plain version and against the classic
+    kernel asked for."""
+    from laser_tpu_torch import registry
     from laser_tpu_torch.ops import norm
 
     g = _gen(dev, 4)
     x = _rnd(g, (5, 7, cols), dtype, dev, std=3.0) + 1
-    gam, bet = _rnd(g, (cols,), dtype, dev), _rnd(g, (cols,), dtype, dev)
+    gam = None if gdtype is None else _rnd(g, (cols,), gdtype, dev)
+    bet = None if gdtype is None else _rnd(g, (cols,), gdtype, dev)
     if kind == "layer":
-        got, want = norm.layer_norm(x, gam, bet), norm.layer_norm_reference(x, gam, bet)
+        run = lambda route=None: norm.layer_norm(x, gam, bet, route=route)  # noqa: E731
+        want = norm.layer_norm_reference(x, gam, bet)
     else:
-        got, want = norm.rms_norm(x, gam), norm.rms_norm_reference(x, gam)
+        run = lambda route=None: norm.rms_norm(x, gam, route=route)  # noqa: E731
+        want = norm.rms_norm_reference(x, gam)
+    registry.reset_counts()
+    got = run()
+    counts = registry.counts()
+    n = 16 // x.element_size()
+    vec = cols % n == 0 and cols // n <= 1024
+    assert counts["norm_vec"]["launches"] == int(vec)
+    assert counts["norm"]["launches"] == int(not vec)
+    assert sum(c["launches"] for c in counts.values()) == 1
     _check(got, want, dtype)
+    _check(got, run("classic"), dtype)
+
+
+def test_norm_unaligned_view_and_routes_asked_for(dev):
+    """A row view 2 bytes off a 16-byte boundary takes the classic kernel;
+    ``route="vec"`` raises there and runs on the aligned rows, "classic"
+    runs anywhere, an unknown name raises."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops import norm
+
+    g = _gen(dev, 17)
+    buf = _rnd(g, (8 * 2048 + 1,), torch.bfloat16, dev)
+    x = buf[1:].view(8, 2048)
+    gam, bet = _rnd(g, (2048,), torch.bfloat16, dev), _rnd(g, (2048,), torch.bfloat16, dev)
+    registry.reset_counts()
+    _check(norm.layer_norm(x, gam, bet), norm.layer_norm_reference(x, gam, bet),
+           torch.bfloat16)
+    assert registry.counts()["norm"]["launches"] == 1
+    with pytest.raises(ValueError, match="vec"):
+        norm.layer_norm(x, gam, bet, route="vec")
+    xa = x.clone()
+    registry.reset_counts()
+    _check(norm.rms_norm(xa, gam, route="vec"), norm.rms_norm_reference(xa, gam),
+           torch.bfloat16)
+    _check(norm.rms_norm(xa, gam, route="classic"), norm.rms_norm_reference(xa, gam),
+           torch.bfloat16)
+    assert (registry.counts()["norm_vec"]["launches"],
+            registry.counts()["norm"]["launches"]) == (1, 1)
+    with pytest.raises(ValueError, match="unknown route"):
+        norm.layer_norm(xa, route="split")
+
+
+def _paged_inputs(g, dev, dtype, S, W, Hq, Hkv, hd, ps, mp, quant):
+    """q (S, W, Hq, hd), pools of S * mp + 1 pages (int8 with scales when
+    ``quant``) and a shuffled table."""
+    from laser_tpu_torch.ops.paged_attention import quantize_kv
+
+    P = S * mp + 1
+    q = _rnd(g, (S, W, Hq, hd), dtype, dev)
+    kp, vp = _rnd(g, (P, Hkv, ps, hd), dtype, dev), _rnd(g, (P, Hkv, ps, hd), dtype, dev)
+    kw = {}
+    if quant:
+        kp, ks = quantize_kv(kp)
+        vp, vs = quantize_kv(vp)
+        kw = dict(k_scale=ks, v_scale=vs)
+    tables = torch.randperm(P, generator=g, device=dev)[:S * mp].reshape(S, mp).int()
+    return q, kp, vp, tables, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("W,Hq,Hkv", [(1, 4, 4), (1, 8, 2), (1, 8, 1), (5, 4, 4), (5, 8, 2),
+                                      (8, 8, 1), (5, 32, 8), (8, 16, 2)])
+def test_paged_split_route(dev, dtype, quant, hd, ps, W, Hq, Hkv):
+    """The split kernel (decode at W = 1, verify at W 1-8, groups 1-8, G up
+    to 64) row by row against the plain version and the classic kernel
+    asked for, at lengths 0, exactly W, across a page, across 64-, 128- and
+    256-key chunk boundaries, at capacity and two past the table; two calls
+    give the same bits, and at W = 1 the decode gives the verify's bits."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.paged_attention import (paged_attention, paged_window_attention,
+                                                     paged_window_attention_reference)
+
+    g = _gen(dev, 18)
+    mp = 384 // ps  # 384 keys a table row: six 64-key tiles
+    q, kp, vp, tables, kw = _paged_inputs(g, dev, dtype, 7, W, Hq, Hkv, hd, ps, mp, quant)
+    cap = mp * ps
+    lengths = torch.tensor([0, W, ps + W // 2 + 1, 130, 257, cap, cap + 2], device=dev,
+                           dtype=torch.int32)
+    registry.reset_counts()
+    got = paged_window_attention(q, kp, vp, tables, lengths, **kw)
+    again = paged_window_attention(q, kp, vp, tables, lengths, **kw)
+    assert registry.counts()["paged_window_attention_split"]["launches"] == 2
+    assert registry.counts()["paged_window_attention"]["launches"] == 0
+    _check_rows(got, paged_window_attention_reference(q, kp, vp, tables, lengths, **kw), dtype)
+    _check_rows(got, paged_window_attention(q, kp, vp, tables, lengths, route="classic", **kw),
+                dtype)
+    assert registry.counts()["paged_window_attention"]["launches"] == 1
+    assert torch.equal(got, again)
+    assert (got[0] == 0).all()
+    if W == 1:
+        dec = paged_attention(q[:, 0], kp, vp, tables, lengths, **kw)
+        assert registry.counts()["paged_attention_split"]["launches"] == 1
+        assert torch.equal(dec, got[:, 0])
+        _check_rows(dec, paged_attention(q[:, 0], kp, vp, tables, lengths, route="classic",
+                                         **kw), dtype)
+        assert registry.counts()["paged_attention"]["launches"] == 1
+
+
+def test_paged_routes_asked_for(dev):
+    """route="split" raises where it does not fit (f32 q, hd 256, a pool off
+    a 16-byte boundary), which route=None sends to the classic kernel;
+    route="classic" runs the classic kernels on 16-bit q; an unknown name
+    raises."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.paged_attention import (paged_attention,
+                                                     paged_attention_reference,
+                                                     paged_window_attention)
+
+    g = _gen(dev, 19)
+    lengths = torch.tensor([5, 40, 0], device=dev, dtype=torch.int32)
+    for dtype, hd in ((torch.float32, 128), (torch.bfloat16, 256)):
+        q, kp, vp, tables, _ = _paged_inputs(g, dev, dtype, 3, 1, 4, 2, hd, 16, 4, False)
+        with pytest.raises(ValueError, match="split"):
+            paged_attention(q[:, 0], kp, vp, tables, lengths, route="split")
+        with pytest.raises(ValueError, match="split"):
+            paged_window_attention(q, kp, vp, tables, lengths, route="split")
+    q, kp, vp, tables, _ = _paged_inputs(g, dev, torch.bfloat16, 3, 1, 4, 2, 64, 16, 4, False)
+    off = torch.cat([kp.flatten(), kp.flatten()[:1]])[1:].view(kp.shape)  # 2 bytes off
+    registry.reset_counts()
+    _check_rows(paged_attention(q[:, 0], off, vp, tables, lengths),
+                paged_attention_reference(q[:, 0], off, vp, tables, lengths), torch.bfloat16)
+    assert registry.counts()["paged_attention"]["launches"] == 1
+    with pytest.raises(ValueError, match="split"):
+        paged_attention(q[:, 0], off, vp, tables, lengths, route="split")
+    registry.reset_counts()
+    paged_attention(q[:, 0], kp, vp, tables, lengths, route="classic")
+    paged_window_attention(q, kp, vp, tables, lengths, route="classic")
+    counts = registry.counts()
+    assert (counts["paged_attention"]["launches"], counts["paged_window_attention"]["launches"],
+            counts["paged_attention_split"]["launches"]) == (1, 1, 0)
+    with pytest.raises(ValueError, match="unknown route"):
+        paged_attention(q[:, 0], kp, vp, tables, lengths, route="mma")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -290,7 +432,7 @@ def test_train_step_through_the_kernels(dev):
     loss, grads = value_and_grad(lambda p, t: tf.transformer_lm_loss(p, t, n_heads=2))(
         params, tokens)
     counts = registry.counts()
-    for name in ("norm", "flash_attention", "flash_attention_bwd_dq",
+    for name in ("norm_vec", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "ce_fused_grad"):
         assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
     # f32: the tensor-core routes of the backward do not take it
@@ -405,7 +547,7 @@ def test_llama_train_step_through_the_kernels(dev):
         return out, registry.counts()
 
     (loss, grads), counts = run()
-    for name in ("norm", "flash_attention", "flash_attention_bwd_dq",
+    for name in ("norm_vec", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "ce_bwd"):
         assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
     for name in ("flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma"):
@@ -420,7 +562,7 @@ def test_llama_train_step_through_the_kernels(dev):
     for a, b in zip(tree_leaves(rgrads), tree_leaves(grads)):
         assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item()
     assert rcounts["flash_attention"]["launches"] == counts["flash_attention"]["launches"] + 2
-    assert rcounts["norm"]["launches"] == counts["norm"]["launches"] + 4
+    assert rcounts["norm_vec"]["launches"] == counts["norm_vec"]["launches"] + 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -473,7 +615,7 @@ def test_engine_matches_plain_greedy_with_preemption(dev):
     out = eng.run()
     counts = registry.counts()
     assert all(counts[n]["plain_calls"] == 0 and counts[n]["launches"] > 0
-               for n in ("norm", "flash_attention", "paged_attention"))
+               for n in ("norm_vec", "flash_attention", "paged_attention"))
     assert _route_launches(counts, "gemm") > 0
     assert eng.stats.get("preemptions", 0) >= 1
     for p, rid in zip(prompts, ids):
@@ -534,7 +676,7 @@ def test_flash_gqa(dev, dtype, Hkv, S, causal):
 @pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 4), (8, 2), (8, 1)])
 @pytest.mark.parametrize("hd,ps", [(64, 16), (128, 64)])
 def test_paged_attention_int8(dev, dtype, Hq, Hkv, hd, ps):
-    from laser_tpu_torch.ops.paged_attention import (PAGED, paged_attention,
+    from laser_tpu_torch.ops.paged_attention import (ROUTE_KERNELS, paged_attention,
                                                      paged_attention_reference, quantize_kv)
 
     g = _gen(dev, 15)
@@ -545,9 +687,10 @@ def test_paged_attention_int8(dev, dtype, Hq, Hkv, hd, ps):
     vp, vs = quantize_kv(_rnd(g, (P, Hkv, ps, hd), dtype, dev))
     tables = torch.randperm(P, generator=g, device=dev)[:S * mp].reshape(S, mp).int()
     lengths = torch.tensor([0, 1, ps, 3 * ps + 5, mp * ps], device=dev, dtype=torch.int32)
-    before = PAGED.launches
+    counter = ROUTE_KERNELS[1 if dtype == torch.float32 else 2]  # f32: classic; 16-bit: split
+    before = counter.launches
     got = paged_attention(q, kp, vp, tables, lengths, k_scale=ks, v_scale=vs)
-    assert PAGED.launches == before + 1
+    assert counter.launches == before + 1
     _check(got, paged_attention_reference(q, kp, vp, tables, lengths, k_scale=ks, v_scale=vs),
            dtype)
     assert (got[0] == 0).all()
@@ -577,7 +720,7 @@ def test_llama_engine_int4_int8_kv_matches_plain(dev):
     ids = [eng.add_request(p, 6) for p in prompts]
     out = eng.run()
     counts = registry.counts()
-    for n in ("w4_gemm", "norm", "flash_attention", "paged_attention"):
+    for n in ("w4_gemm", "norm_vec", "flash_attention", "paged_attention"):
         assert counts[n]["launches"] > 0, n
     assert all(c["plain_calls"] == 0 for c in counts.values())
     deq = dict(params, blocks=[{k: dequantize_int4(w) if isinstance(w, dict) else w
@@ -594,7 +737,8 @@ def test_llama_engine_int4_int8_kv_matches_plain(dev):
 @pytest.mark.parametrize("hd,ps,quant", [(64, 16, False), (128, 64, False), (128, 64, True),
                                          (256, 16, False), (32, 16, True)])
 def test_paged_window_attention(dev, dtype, W, Hq, Hkv, hd, ps, quant):
-    from laser_tpu_torch.ops.paged_attention import (PAGED_WINDOW, paged_window_attention,
+    from laser_tpu_torch.ops.paged_attention import (WINDOW_ROUTE_KERNELS,
+                                                     paged_window_attention,
                                                      paged_window_attention_reference,
                                                      quantize_kv)
 
@@ -613,9 +757,11 @@ def test_paged_window_attention(dev, dtype, W, Hq, Hkv, hd, ps, quant):
     # a window two positions past the table (rows there see every key it holds)
     lengths = torch.tensor([0, W, ps + W // 2 + 1, 3 * ps + 5, mp * ps, mp * ps + 2],
                            device=dev, dtype=torch.int32)
-    before = PAGED_WINDOW.launches
+    # the split route takes 16-bit q at hd 64 and 128, classic the rest
+    counter = WINDOW_ROUTE_KERNELS[2 if dtype != torch.float32 and hd in (64, 128) else 1]
+    before = counter.launches
     got = paged_window_attention(q, kp, vp, tables, lengths, **kw)
-    assert PAGED_WINDOW.launches == before + 1
+    assert counter.launches == before + 1
     _check_rows(got, paged_window_attention_reference(q, kp, vp, tables, lengths, **kw), dtype)
     assert (got[0] == 0).all()
 

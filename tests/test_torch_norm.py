@@ -52,3 +52,32 @@ def test_axis_argument():
     rng = np.random.RandomState(12)
     x = rng.randn(6, 40, 3).astype(np.float32)
     assert _rel_err(layer_norm(torch.from_numpy(x), axis=1), jlayer_norm(x, axis=1)) <= REL
+
+
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+def test_bf16_with_bf16_gains(kind):
+    """bf16 rows with bf16 gamma / beta, as every model keeps its gains:
+    laser_tpu casts them to f32 inside its kernel, the port's kernels read
+    them in their own dtype. Tolerance 2^-7 of max: one bf16 rounding of the
+    output apart."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy((rng.randn(9, 200) * 3 + 1).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.randn(200).astype(np.float32)).bfloat16()
+    b = torch.from_numpy((rng.randn(200) * 0.1).astype(np.float32)).bfloat16()
+    jx, jg, jb = (jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16) for t in (x, g, b))
+    if kind == "layer":
+        got, want = layer_norm(x, g, b), jlayer_norm(jx, jg, jb)
+    else:
+        got, want = rms_norm(x, g), jrms_norm(jx, jg)
+    assert got.dtype == torch.bfloat16
+    assert _rel_err(got.float(), np.asarray(want, np.float32)) <= 2.0 ** -7
+
+
+def test_unknown_route_raises_on_cpu():
+    x = torch.ones(2, 8)
+    for fn in (layer_norm, rms_norm):
+        with pytest.raises(ValueError, match="unknown route"):
+            fn(x, route="wgmma")
+        fn(x, route="vec")  # a known name: a CPU tensor runs the plain version

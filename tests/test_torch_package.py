@@ -111,7 +111,8 @@ def test_every_slice_kernel_registered():
         "gemm_wgmma", "gemm_batched_wgmma", "flash_attention_mma",  # the Hopper routes
         "gemm_splitk", "w4_gemm_stream", "w4_gemm_mma",  # the weight-streaming routes
         "flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma",  # the backward's
-        "conv_direct_ffma", "conv_direct_mma", "gemm_packed_wgmma"}  # the conv's, packed
+        "conv_direct_ffma", "conv_direct_mma", "gemm_packed_wgmma",  # the conv's, packed
+        "paged_attention_split", "paged_window_attention_split", "norm_vec"}  # split KV, norm
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
@@ -121,7 +122,7 @@ def test_every_slice_kernel_registered():
         "ltt_transpose", "ltt_transpose_inplace",
         "ltt_gemm_batched", "ltt_gemm_limbs", "ltt_gemm_int32", "ltt_quantize_int8",
         "ltt_gemm_packed", "ltt_stencil_sweep", "ltt_adamw", "ltt_sgdm",
-        "ltt_gemm_workspace", "ltt_w4_gemm_workspace"}
+        "ltt_gemm_workspace", "ltt_w4_gemm_workspace", "ltt_paged_workspace"}
     # alpha and beta are doubles: an int8 GEMM's int32 alpha passes exactly
     assert registry.SIGNATURES["ltt_gemm"][11:13] == (ctypes.c_double, ctypes.c_double)
     assert registry.SIGNATURES["ltt_quantize_int8"][8] is ctypes.c_int64  # the seed's 64 bits
