@@ -60,9 +60,15 @@ printed:
    MB), each call on the next (``cold_graph_ms``, ``library_cold_graph_ms``),
    as a decode step finds them. Then every route asked for at M 1
    to 128 of the decode product, Llama's w_down and the transformer's w2
-   (bf16: split-K up to 64 rows, wgmma, WMMA), of the decode product in f32 (split-K, FFMA) and
-   of Llama's int4 w_gate (stream up to 64 rows, mma, WMMA), 20 calls in a
-   CUDA graph each: the crossovers behind the launchers' M thresholds. The
+   (bf16: split-K up to 64 rows, wgmma, WMMA), at M 16 to 256 of the
+   decode product in f32 (split-K up to 64 rows, simt, FFMA) and of
+   Llama's int4 w_gate (stream up to 64 rows, mma, WMMA), 20 calls in a
+   CUDA graph each: the crossovers behind the launchers' M thresholds.
+   Row 1's f32 product, Lux's relu(a @ b + bias) at M4096 K2048 N2048, runs
+   on the route the library picks (``gemm_simt``: the FFMA skeleton of
+   csrc/simt_gemm.cuh) and on the classic FFMA kernel asked for
+   (``gemm``), the two held to the same bits and timed beside
+   ``torch.relu(torch.addmm(...))`` with TF32 off and the FFMA bound. The
    CNN path's kernels run in f32 at C1's
    shapes (the planewise conv at conv 1, the direct conv's ffma route at
    convs 2 and 3, the (16, 1000) softmax), with conv 3 also in bf16 (the
@@ -207,8 +213,10 @@ printed:
    seed 0), f = 0, 100 iterations (bench.py:576-610); ``gemm_packed`` bf16
    and f32 at 4096^3 (randn * 0.05, alpha 0.05, bench.py:54-63) with B
    packed once and 4 different A (bf16 on the wgmma route, f32 on the
-   classic kernels). The path runs once with the counts at 0 (all five
-   kernels must launch, no plain version run). The updates and
+   simt route). The path runs once with the counts at 0 (all five
+   kernels must launch, no plain version run). Outside that count f32 runs
+   once more on the classic kernels asked for (the simt route's bits) and
+   bf16 too, each checked and timed beside its route. The updates and
    the stencil are held to their plain versions bit for bit, the packed
    products to the plain version and to torch.matmul on the unpacked
    operands (bf16 2^-7, f32 1e-5 of max), the card's packed bytes to a CPU
@@ -250,7 +258,8 @@ and gradients through the kernels against ``plain=True``.
 
 Phase 2 also runs each kernel of phases 15 and 16 once at a small odd
 shape against its plain version (bit for bit but for the packed float
-products), and holds the paged window (verify)
+products; the f32 simt route also bit for bit against the classic
+kernels), and holds the paged window (verify)
 kernel against its plain version: bf16 at run S1's shape, int8 pages at the Llama widths, and f32,
 each output row against its own size, with one window ending past its
 table. The profiles record device activity only.
@@ -333,9 +342,9 @@ LLAMA_TRAIN_BATCH = (4, 1024)
 LLAMA_MP_LAYERS = 4
 LLAMA_TRAIN_KERNELS = ("gemm_wgmma", "norm_vec", "flash_attention_mma",
                        "flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma", "ce_bwd")
-# phase 6's f32 llama loss: the FFMA GEMM and flash kernels (forward and
-# backward); the norm's d512 rows take the vec kernel in f32 too
-LLAMA_TRAIN_F32_KERNELS = ("gemm", "norm_vec", "flash_attention", "flash_attention_bwd_dq",
+# phase 6's f32 llama loss: the simt GEMM and the FFMA flash kernels
+# (forward and backward); the norm's d512 rows take the vec kernel in f32 too
+LLAMA_TRAIN_F32_KERNELS = ("gemm_simt", "norm_vec", "flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv", "ce_bwd")
 # ce_bwd against its plain version: f32 exp and the same fp32 arithmetic;
 # bf16 dx one rounding of the largest element apart
@@ -552,7 +561,7 @@ def kernel_cases(dtype, full: bool):
     cases = []
     # the route each kernel takes by itself: 16-bit inputs the Hopper ones
     f32 = dtype == torch.float32
-    gemm_name = "gemm" if f32 else "gemm_wgmma"
+    gemm_name = "gemm_simt" if f32 else "gemm_wgmma"
     flash_name = "flash_attention" if f32 else "flash_attention_mma"
     bwd_route = "" if f32 else "_mma"
 
@@ -1154,7 +1163,7 @@ def cnn_cases():
 # crossovers behind csrc/gemm.cu's SPLITK_MAX_M and WG_MIN_M and
 # csrc/w4_gemm.cu's W4_STREAM_MAX_M
 CROSSOVER_M = (1, 8, 16, 32, 40, 64, 128)
-CROSSOVER_F32_M = (1, 8, 16, 32, 64)
+CROSSOVER_F32_M = (16, 32, 64, 128, 256)
 
 
 def _crossover_row(label, runs):
@@ -1169,8 +1178,9 @@ def gemm_crossover():
     """Every GEMM route asked for by ``route=`` at M rows of the decode
     product (K 2048, N 6144), of Llama-3-8B's w_down (K 14336, N 4096) and
     of the transformer's w2 (K 8192, N 2048),
-    bf16 with a bias (split-K up to 64 rows); f32 split-K against the FFMA
-    kernel on the decode product; the int4 routes at M rows of the Llama
+    bf16 with a bias (split-K up to 64 rows); f32 split-K (up to 64 rows),
+    simt and the classic FFMA kernel on the decode product at M 16 to 256;
+    the int4 routes at M rows of the Llama
     w_gate product (K 4096, N 14336, group 64; stream up to 64 rows).
     Device ms a call, 20 in a CUDA graph: {product: {M: {route: ms}}}."""
     from laser_tpu_torch.ops.gemm.int4_kernel import gemm_w4, quantize_int4
@@ -1183,7 +1193,7 @@ def gemm_crossover():
             (torch.bfloat16, (2048, 6144), CROSSOVER_M, ("splitk", "wgmma", "classic")),
             (torch.bfloat16, (14336, 4096), CROSSOVER_M, ("splitk", "wgmma", "classic")),
             (torch.bfloat16, (8192, 2048), CROSSOVER_M, ("splitk", "wgmma", "classic")),
-            (torch.float32, (2048, 6144), CROSSOVER_F32_M, ("splitk", "classic"))):
+            (torch.float32, (2048, 6144), CROSSOVER_F32_M, ("splitk", "simt", "classic"))):
         key = f"{DTYPE_TAGS[dtype]} K{K} N{N}"
         w = (torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5).to(dtype)
         b = torch.zeros((N,), device=DEVICE, dtype=dtype)
@@ -1205,6 +1215,31 @@ def gemm_crossover():
     return out
 
 
+def f32_gemm_cases():
+    """Row 1's f32 product at its main shape, Lux's relu(a @ b + bias) at
+    M4096 K2048 N2048 (phase 13): on the route the library picks (simt) and
+    on the classic FFMA kernel asked for, which must give the same bits;
+    the library call ``torch.relu(torch.addmm(...))`` with TF32 off."""
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused, gemm_plain
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(5)
+    M, K, N = 4096, 2048, 2048
+    x = torch.randn(M, K, generator=g, device=DEVICE)
+    w = torch.randn(K, N, generator=g, device=DEVICE) * K ** -0.5
+    bias = torch.randn(N, generator=g, device=DEVICE) * 0.1
+    simt = lambda: gemm_fused(x, w, bias=bias, epilogue="relu")  # noqa: E731
+    classic = lambda: gemm_fused(x, w, bias=bias, epilogue="relu", route="classic")  # noqa: E731
+    same_bits(f"gemm f32 M{M} K{K} N{N} bias+relu, simt and classic routes", simt, classic)
+    kw = dict(plain=lambda: gemm_plain(x, w, bias=bias, epilogue="relu"),
+              flops=2 * M * K * N, nbytes=(M * K + K * N + M * N + N) * 4,
+              library=lambda: torch.relu(torch.addmm(bias, x, w)),
+              library_call="torch.relu(torch.addmm(bias, a, b)), TF32 off", dtype=torch.float32)
+    return [Case("gemm_simt", f"M{M} K{K} N{N} bias+relu f32", simt, **kw),
+            Case("gemm", f"M{M} K{K} N{N} bias+relu f32, the FFMA kernel asked for", classic,
+                 slot="f32", **kw)]
+
+
 def check_route(case: Case):
     """Run the case once with the counts at 0: its kernel record (the route)
     must have launched. Returns the output."""
@@ -1224,7 +1259,8 @@ def phase_kernels(spec):
     print("phase 2: kernels vs plain versions", flush=True)
     record = {}
     f32 = kernel_cases(torch.float32, full=False)
-    timed = kernel_cases(torch.bfloat16, full=True) + decode_cases() + cnn_cases()
+    timed = (kernel_cases(torch.bfloat16, full=True) + f32_gemm_cases() + decode_cases()
+             + cnn_cases())
     for case in f32:
         compare(f"{case.name} {case.shape} [f32]", check_route(case), case.plain(),
                 case.per_row, case.rel)
@@ -1525,11 +1561,25 @@ def phase_train_f32():
     from laser_tpu_torch.models import transformer as tf
     from laser_tpu_torch.ops.optim import tree_leaves
 
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.gemm.kernel import ROUTE_KERNELS
+
     print("phase 6: f32 train step, kernels vs plain, 2L d512", flush=True)
     n_heads = MODEL_F32["n_heads"]
     params = tf.init_transformer(1, dtype=torch.float32, device=DEVICE, **MODEL_F32)
     tokens = train_batch(MODEL_F32["vocab"], TRAIN_F32_BATCH, 1)
     check_routes(params, tokens, transformer_loss(n_heads), F32_LOSS_REL, F32_GRAD_REL, "max")
+    # the kernel route alone, counted: its products (M 1024 rows, the
+    # backward's transposed operands) on the simt route, no plain GEMM
+    registry.reset_counts()
+    loss_and_grads(params, tokens, transformer_loss(n_heads), plain=False)
+    torch.cuda.synchronize()
+    counts = registry.counts()
+    print(f"  the kernel route's loss and gradients, counted: "
+          f"{json.dumps({k: v for k, v in counts.items() if any(v.values())})}", flush=True)
+    if counts["gemm_simt"]["launches"] == 0 or any(
+            counts[k.name]["plain_calls"] for k in ROUTE_KERNELS.values()):
+        fail(f"f32 train step: gemm_simt never launched or a plain GEMM ran: {counts}")
     # Adam's first step moves each element by about lr whatever the size of
     # its gradient, so an element whose gradient lies within the summation
     # error of zero may step the other way: max |delta| <= 2 lr, mean
@@ -1551,7 +1601,6 @@ def phase_train_f32():
     if not (dmax <= 2 * LR and dmean <= 1e-3 * LR):
         fail("f32 updated params outside the Adam-aware bound")
 
-    from laser_tpu_torch import registry
     from laser_tpu_torch.models.llama import init_llama
 
     print("  llama: 2L d512, 8 q heads over 2 kv heads, vocab 8192, the chunked loss "
@@ -2213,7 +2262,7 @@ def phase_primitives(spec):
     # a late profiler session may keep only some kernels (phase 12): say how many
     launched = sum(c["launches"] for c in registry.counts().values())
     kept = sum(r["calls"] for r in prof["top"]
-               if "ltt::" in r["kernel"] or "gemm_f32_kernel" in r["kernel"])
+               if "ltt::" in r["kernel"] or "gemm_simt_kernel" in r["kernel"])
     print(f"  {kept} of the {launched} kernel launches of the port kept in the trace "
           f"(the idle share holds for what was kept)", flush=True)
     prof["kernels_recorded"] = [kept, launched]
@@ -2809,7 +2858,8 @@ def library_small_checks():
     """Each library kernel once at a small odd shape against its plain
     version (phase 2): the packed GEMM at 100 x 120 x 90 on an odd plan
     (48 x 80 x 40, the gather route) with beta * C, int8 -> int32 and f16,
-    and bf16 on a planned plan (the wgmma route); the stencil at 12 x 16, 2 x 5 (no
+    bf16 on a planned plan (the wgmma route) and f32 on one (the simt route,
+    also bit for bit against the classic kernels); the stencil at 12 x 16, 2 x 5 (no
     interior: no launch) and bf16 33 x 65; the optimizers on a 37-element
     bias and a (3, 5, 7) leaf in f32 and bf16. Bit for bit, the floats of the
     packed GEMM within PACKED_REL (f16 as bf16)."""
@@ -2838,8 +2888,8 @@ def library_small_checks():
         got = PK.gemm_packed(alpha, pa, pb, beta, c)
         want = PK.gemm_packed_plain(alpha, pa, pb, beta, c, dt, acc, got.dtype)
         plan = (pa.block[0], pb.block[1], pa.block[1])
-        route = "wgmma" if PK.wgmma_route(dt, *plan) else "blocks" \
-            if PK.blocks_route(dt, *plan) else "gather"
+        route = "wgmma" if PK.wgmma_route(dt, *plan) else "simt" if PK.simt_route(dt, *plan) \
+            else "blocks" if PK.blocks_route(dt, *plan) else "gather"
         tag = f"gemm_packed {M}x{N}x{K} {dt} tiles {pa.block[0]}x{pb.block[1]}x{pa.block[1]} " \
               f"({route} route), beta * C"
         if dt == torch.int8:
@@ -2850,6 +2900,15 @@ def library_small_checks():
         else:
             _rel_check(tag, PACKED_REL[torch.float32 if dt == torch.float32
                                        else torch.bfloat16])(got, want)
+        if dt == torch.float32:  # and on a planned plan: the simt route
+            pa, pb = PK.gemm_prepack_a(a), PK.gemm_prepack_b(b)
+            got = PK.gemm_packed(alpha, pa, pb, beta, c)
+            want = PK.gemm_packed_plain(alpha, pa, pb, beta, c, dt, acc, got.dtype)
+            _rel_check(f"gemm_packed {M}x{N}x{K} f32 tiles {pa.block[0]}x{pb.block[1]}x"
+                       f"{pa.block[1]} (simt route), beta * C", PACKED_REL[dt])(got, want)
+            same_bits("gemm_packed f32 simt route against the classic kernels",
+                      lambda: PK.gemm_packed(alpha, pa, pb, beta, c, route="simt"),
+                      lambda: PK.gemm_packed(alpha, pa, pb, beta, c, route="classic"))
     for shape, dt in (((12, 16), torch.float32), ((2, 5), torch.float32),
                       ((33, 65), torch.bfloat16)):
         u = torch.randn(shape, generator=g, device=DEVICE).to(dt)
@@ -2919,7 +2978,7 @@ def phase_gemm_table(spec):
 # the stencil solver, the prepacked GEMM) at full size
 # ---------------------------------------------------------------------------
 
-LIBRARY_KERNELS = ("adamw_update", "sgdm_update", "stencil_sweep", "gemm_packed",
+LIBRARY_KERNELS = ("adamw_update", "sgdm_update", "stencil_sweep", "gemm_packed_simt",
                    "gemm_packed_wgmma")
 # packed GEMM, kernel vs plain and vs torch.matmul on the unpacked operands
 # (TF32 off), max |d| / max |want|: bf16 one output rounding, f32 summation
@@ -3142,19 +3201,30 @@ def library_cases(spec):
             plain=(lambda mt=method: ST.stencil_sweeps_plain(u, f, STENCIL_ITERS, mt)),
             check=check_stencil(method), nbytes=3 * cells * 4,
             flops=STENCIL_FLOPS * interior * STENCIL_ITERS, peak=spec.f32_tflops))
-    def check_classic(got):
-        pas, pb, _ = packed_out[torch.bfloat16]
-        want = PK.gemm_packed_plain(PACKED_ALPHA, pas[0], pb, 0.0, None, torch.bfloat16,
-                                    torch.float32, torch.bfloat16)
-        return _rel_check("gemm_packed bf16 A0, the classic kernels asked for, vs plain",
-                          PACKED_REL[torch.bfloat16])(got, want)
+    def check_classic(dt):
+        def check(got):
+            pas, pb, outs_ = packed_out[dt]
+            want = PK.gemm_packed_plain(PACKED_ALPHA, pas[0], pb, 0.0, None, dt, torch.float32,
+                                        dt)
+            err = _rel_check(f"gemm_packed {DTYPE_TAGS[dt]} A0, the classic kernels asked for, "
+                             "vs plain", PACKED_REL[dt])(got, want)
+            if dt == torch.float32:  # the simt route sums in the classic kernel's order
+                same = torch.equal(got, outs_[0])
+                print(f"  gemm_packed f32 A0: the simt route's bits equal the classic "
+                      f"kernels': {same}", flush=True)
+                if not same:
+                    fail("gemm_packed f32: the simt and classic routes' bits differ")
+            return err
+        return check
 
-    # the routes the library picks (bf16: wgmma; f32: the classic kernels),
-    # then bf16 on the classic kernels asked for, in the same run
-    pas, pb, _ = packed_out[torch.bfloat16]
-    bf16_classic = PK.gemm_packed(PACKED_ALPHA, pas[0], pb, route="classic")
+    # the routes the library picks (bf16: wgmma; f32: simt), then both on
+    # the classic kernels asked for, in the same run
+    classic_out = {dt: PK.gemm_packed(PACKED_ALPHA, packed_out[dt][0][0], packed_out[dt][1],
+                                      route="classic")
+                   for dt in (torch.float32, torch.bfloat16)}
     for name, dt, slot, route in (("gemm_packed_wgmma", torch.bfloat16, "", None),
-                                  ("gemm_packed", torch.float32, "", None),
+                                  ("gemm_packed_simt", torch.float32, "", None),
+                                  ("gemm_packed", torch.float32, "", "classic"),
                                   ("gemm_packed", torch.bfloat16, "bf16", "classic")):
         pas, pb, _ = packed_out[dt]
         n3 = PACKED_N ** 3
@@ -3165,13 +3235,14 @@ def library_cases(spec):
             run=(lambda pa=pas[0], pb=pb, r=route: PK.gemm_packed(PACKED_ALPHA, pa, pb, route=r)),
             plain=(lambda pa=pas[0], pb=pb, dt=dt: PK.gemm_packed_plain(
                 PACKED_ALPHA, pa, pb, 0.0, None, dt, torch.float32, dt)),
-            check=check_classic if route else check_packed(dt),
+            check=check_classic(dt) if route else check_packed(dt),
             nbytes=3 * PACKED_N * PACKED_N * dt.itemsize,
             flops=2 * n3, peak=spec.bf16_tflops if dt == torch.bfloat16 else spec.f32_tflops,
             library=(lambda a=packed_in[dt][0][0], b=packed_in[dt][1]: torch.matmul(a, b)),
             library_call="torch.matmul on the unpacked operands (cuBLAS, TF32 off)", dtype=dt))
     outs = [s3, s1, t1, t2, red, jac, packed_out[torch.bfloat16][2][0],
-            packed_out[torch.float32][2][0], bf16_classic]
+            packed_out[torch.float32][2][0], classic_out[torch.float32],
+            classic_out[torch.bfloat16]]
     extra = dict(adamw_default=adamw_default, sgd_default=sgd_default, packed_in=packed_in,
                  leaves=leaves,
                  packed_tiles={dt: (po[0][0].block, po[1].block)
@@ -3236,7 +3307,7 @@ def phase_library(spec):
           f"{conv:.3e} (bound 1e-4)", flush=True)
     if not conv < 1e-4:
         fail(f"stencil did not converge: {conv}")
-    for dt, name in ((torch.bfloat16, "gemm_packed_wgmma"), (torch.float32, "gemm_packed")):
+    for dt, name in ((torch.bfloat16, "gemm_packed_wgmma"), (torch.float32, "gemm_packed_simt")):
         e = entries[name]
         a_list, b = extra["packed_in"][dt]
         (bm, bk), (_, bn) = extra["packed_tiles"][dt]
@@ -3430,7 +3501,7 @@ def main():
     cnn_counts, cnn_result = timed(phase_cnn)
     prim_counts, prim_record, prim_result = timed(phase_primitives, spec)
     record.update({k: v for k, v in prim_record.items() if k != "lux_gemm"})
-    record["gemm"]["lux_relu_bias"] = prim_record["lux_gemm"]
+    record["gemm_simt"]["lux_relu_bias"] = prim_record["lux_gemm"]
     layout_counts, layout_record, layout_result = timed(phase_layout, spec)
     record.update(layout_record)
     table_counts, table_record = timed(phase_gemm_table, spec)

@@ -16,7 +16,7 @@
 // at 4096^3); the accumulator wraps mod 2^32 (no .satfinite), as
 // laser_tpu's int32 accumulator does.
 //
-// Three routes; the launcher picks one from the shape and alignment, or is
+// Four routes; the launcher picks one from the shape and alignment, or is
 // asked for one (enum Route), and reports it:
 // - split-K (small M): bf16/f16/f32 products with M <= SPLITK_MAX_M
 //   (SPLITK_F32_MAX_M for f32), B not transposed, A not transposed, N % 8 ==
@@ -27,12 +27,18 @@
 //   column a thread, the same ring and plan). Partials reduce in a second
 //   kernel in a fixed order; the epilogue runs once, after the sum.
 // - wgmma (compute-bound 16-bit products, M >= WG_MIN_M): see its note.
+// - simt (f32 products split-K does not take: M > SPLITK_F32_MAX_M, or
+//   transposed operands, or a batch): gemm_simt_kernel, the FFMA skeleton of
+//   csrc/simt_gemm.cuh (a 128 x 128 tile, 8 x 8 outputs a thread, both
+//   operands staged k-major through a 3-stage ring), any transposition,
+//   each operand's contiguous dimension a multiple of 4 and 16-byte bases.
 // - classic, every other product: one 64x64 output tile per block, K walked
-//   in 32 (16-bit WMMA: gemm_tc_kernel), 64 (int8) or 16 (FFMA) deep slabs
-//   staged through shared memory. Transposed operands are read in place by
-//   the tile loader (int8: staged K-contiguous and read by column-major
-//   fragments, csrc/int8_tile.cuh). It takes the products the other routes
-//   cannot: transposed, ragged (N % 8, K % 8) or unaligned operands, int8.
+//   in 32 (16-bit WMMA: gemm_tc_kernel), 64 (int8) or 16 (FFMA:
+//   gemm_f32_kernel) deep slabs staged through shared memory. Transposed
+//   operands are read in place by the tile loader (int8: staged
+//   K-contiguous and read by column-major fragments, csrc/int8_tile.cuh). It
+//   takes the products the other routes cannot: ragged (N % 8, K % 8; f32:
+//   a contiguous dimension % 4) or unaligned operands, int8.
 // Out-of-range M/N/K reads load as 0 on BOTH operands (0 * garbage can be
 // NaN: kernel.py:107-115); stores are masked. The float epilogue (alpha,
 // beta*C, bias, activation) runs in fp32 before the single cast to the
@@ -47,6 +53,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "int8_tile.cuh"
+#include "simt_gemm.cuh"
 #include "splitk.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -55,6 +62,7 @@ namespace {
 using namespace nvcuda;
 using namespace ltt::hp;
 namespace sk = ltt::sk;
+namespace simt = ltt::simt;
 using ltt::from_f32;
 using ltt::to_f32;
 
@@ -478,12 +486,19 @@ __global__ void __launch_bounds__(I8_THREADS) gemm_i8_kernel(GemmArgs p) {
 // wgmma's grid a fraction of the SMs. 40 keeps the speculative verify's
 // rows (W 5 x 8 slots) on split-K. wgmma is ahead of the WMMA kernel at
 // every M measured, so it takes every other 16-bit product it fits. f32
-// split-K is ahead of the FFMA kernel at every M to 64.
+// (K 2048, N 6144): split-K is ahead of simt at every M to 64 (0.1334
+// against 0.2213 ms at M 64), so SPLITK_F32_MAX_M stays 64; simt is ahead
+// of the classic FFMA kernel at M 16..64 and 256 (0.2359 against 0.2664)
+// and even with it at M 128, where simt's 48 tiles leave most SMs idle
+// (0.2341 against 0.2311, 0.2355 against 0.2428 in another run), so simt
+// takes every other f32 product it fits.
 constexpr int SPLITK_MAX_M = 40;
 constexpr int SPLITK_F32_MAX_M = 64;
 constexpr int WG_MIN_M = SPLITK_MAX_M + 1;
 
-enum Route { kRouteAuto = 0, kRouteClassic = 1, kRouteWgmma = 2, kRouteSplitK = 3 };
+enum Route {
+  kRouteAuto = 0, kRouteClassic = 1, kRouteWgmma = 2, kRouteSplitK = 3, kRouteSimt = 4
+};
 
 __device__ __forceinline__ void store_out2(void* out, size_t i, float v0, float v1, int dt) {
   if (dt == ltt::kF32) {
@@ -773,23 +788,91 @@ int launch_splitk(const GemmArgs& p, int in_dtype, float* ws, cudaStream_t s) {
                     sk::dense_weights<__half>(p.b, p.N), ws, GemmEpi{p}, s);
 }
 
+// ---------------------------------------------------------------------------
+// f32 on the simt skeleton (csrc/simt_gemm.cuh): see its note
+// ---------------------------------------------------------------------------
+
+// The skeleton's tile policy for row-major operands. TA: A stored (K, M),
+// k-major; TB: B stored (N, K), k-minor. Reads past M, N or K are 0.
+template <bool TA, bool TB>
+struct SimtDense {
+  static constexpr bool kAKMajor = TA, kBKMajor = !TB;
+  GemmArgs p;
+  int M, N, ktiles, m0, n0;
+
+  __device__ __forceinline__ const float* a(int kt, int x, int y, bool& ok) const {
+    const float* A = static_cast<const float*>(p.a);
+    const int k = kt * simt::kBK + (TA ? x : y), m = m0 + (TA ? y : x);
+    ok = k < p.K && m < M;
+    return ok ? A + (TA ? (size_t)k * M + m : (size_t)m * p.K + k) : A;
+  }
+
+  __device__ __forceinline__ const float* b(int kt, int x, int y, bool& ok) const {
+    const float* B = static_cast<const float*>(p.b);
+    const int k = kt * simt::kBK + (TB ? y : x), n = n0 + (TB ? x : y);
+    ok = k < p.K && n < N;
+    return ok ? B + (TB ? (size_t)n * p.K + k : (size_t)k * N + n) : B;
+  }
+
+  __device__ __forceinline__ void store4(int row, int col, float4 v) const {
+    epilogue_store4(p, p.out, row, col, v);
+  }
+};
+
+template <bool TA, bool TB>
+__global__ void __launch_bounds__(simt::kThreads, simt::kBlocksPerSm)
+    gemm_simt_kernel(GemmArgs p) {
+  extern __shared__ __align__(16) float simt_smem[];
+  to_batch_entry(p, sizeof(float));
+  const SimtDense<TA, TB> t{p, p.M, p.N, (p.K + simt::kBK - 1) / simt::kBK,
+                            (int)blockIdx.y * simt::kBM, (int)blockIdx.x * simt::kBN};
+  simt::gemm_tile(t, t.m0, t.n0, simt_smem);
+}
+
+// The simt route takes f32 inputs with 16-byte-aligned bases and each
+// operand's contiguous dimension a multiple of 4 (whole 16-byte vectors).
+bool simt_fits(const GemmArgs& p, int in_dtype) {
+  if (in_dtype != ltt::kF32 || !aligned16(p.a) || !aligned16(p.b)) return false;
+  return (p.trans_a ? p.M : p.K) % 4 == 0 && (p.trans_b ? p.K : p.N) % 4 == 0;
+}
+
+template <bool TA, bool TB>
+int launch_simt_tt(const GemmArgs& p, int batch, cudaStream_t s) {
+  auto kernel = gemm_simt_kernel<TA, TB>;
+  const int err = ltt::allow_smem(kernel, simt::kSmemBytes);
+  if (err) return err;
+  dim3 grid((p.N + simt::kBN - 1) / simt::kBN, (p.M + simt::kBM - 1) / simt::kBM, batch);
+  kernel<<<grid, simt::kThreads, simt::kSmemBytes, s>>>(p);
+  return ltt::launch_status();
+}
+
+int launch_simt(const GemmArgs& p, int batch, cudaStream_t s) {
+  if (p.trans_a && p.trans_b) return launch_simt_tt<true, true>(p, batch, s);
+  if (p.trans_a) return launch_simt_tt<true, false>(p, batch, s);
+  if (p.trans_b) return launch_simt_tt<false, true>(p, batch, s);
+  return launch_simt_tt<false, false>(p, batch, s);
+}
+
 // The route a product takes, or -1 where the route asked for does not fit.
 // kRouteAuto: split-K up to SPLITK_MAX_M (SPLITK_F32_MAX_M) rows where it
-// fits (and split_ok: ltt_gemm only), then wgmma from WG_MIN_M rows where it
-// fits, else the classic kernels. An asked-for route runs at any M it can
-// take.
+// fits (and split_ok: ltt_gemm only), then wgmma from WG_MIN_M rows (16-bit)
+// or simt (f32) where it fits, else the classic kernels. An asked-for route
+// runs at any M it can take.
 int pick_route(const GemmArgs& p, int in_dtype, int batch, int route, bool split_ok) {
   const int split_max = in_dtype == ltt::kF32 ? SPLITK_F32_MAX_M : SPLITK_MAX_M;
   switch (route) {
     case kRouteAuto:
       if (split_ok && splitk_fits(p, in_dtype, batch, split_max)) return kRouteSplitK;
-      return wgmma_fits(p, in_dtype, WG_MIN_M) ? kRouteWgmma : kRouteClassic;
+      if (wgmma_fits(p, in_dtype, WG_MIN_M)) return kRouteWgmma;
+      return simt_fits(p, in_dtype) ? kRouteSimt : kRouteClassic;
     case kRouteClassic:
       return kRouteClassic;
     case kRouteWgmma:
       return wgmma_fits(p, in_dtype, 1) ? kRouteWgmma : -1;
     case kRouteSplitK:
       return split_ok && splitk_fits(p, in_dtype, batch, 16 * sk::kMaxMT) ? kRouteSplitK : -1;
+    case kRouteSimt:
+      return simt_fits(p, in_dtype) ? kRouteSimt : -1;
     default:
       return -1;
   }
@@ -802,6 +885,7 @@ int launch(GemmArgs& p, int in_dtype, int batch, int route, bool split_ok, float
   if (*taken < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (*taken == kRouteSplitK) return launch_splitk(p, in_dtype, ws, s);
   if (*taken == kRouteWgmma) return launch_wgmma(p, in_dtype, batch, s);
+  if (*taken == kRouteSimt) return launch_simt(p, batch, s);
   const uintptr_t pa = reinterpret_cast<uintptr_t>(p.a), pb = reinterpret_cast<uintptr_t>(p.b);
   if (in_dtype == ltt::kI8) {
     // a 16-byte chunk along the contiguous index: K (A) or M (A transposed),
@@ -854,7 +938,7 @@ GemmArgs make_args(const void* a, const void* b, void* out, int M, int N, int K,
 // or null and bias: (N,) or null, fp32 for float inputs and int32 for int8
 // inputs; out: (M,N) in out_dtype (kI32 only for int8 inputs). All
 // contiguous row-major. alpha and beta are the int32 values for int8 inputs.
-// route: 0 picks, 1 the WMMA/FFMA/int8 kernels, 2 wgmma, 3 split-K; *taken
+// route: 0 picks, 1 the WMMA/FFMA/int8 kernels, 2 wgmma, 3 split-K, 4 simt; *taken
 // gets the route that launched. workspace: ltt_gemm_workspace's bytes of
 // fp32 scratch (null where it says 0).
 LTT_API int ltt_gemm(const void* a, const void* b, const void* c, const void* bias, void* out,

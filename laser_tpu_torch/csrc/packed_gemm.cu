@@ -27,6 +27,16 @@
 //   one block and its zero padding, so the k loop walks gk * bk / 64 steps
 //   with no fill and no masks (the padding is inert). Only the epilogue,
 //   laser_tpu's per-op rounding below, masks rows >= M and columns >= N.
+// - simt (f32 inputs, bm and bn multiples of 128, bk of 16, 16-byte bases,
+//   any float output: every planned f32 plan, tiling.CTA's f32 k step is
+//   16): packed_simt_kernel, the FFMA skeleton of csrc/simt_gemm.cuh that
+//   csrc/gemm.cu's gemm_simt_kernel runs (a 128 x 128 tile, 8 x 8 outputs a
+//   thread, a 3-stage ring of 16-deep slabs staged k-major). Packed B's
+//   block rows are k-major (cp.async), packed A's are k-minor (registers,
+//   stored transposed); with the sizes above a tile and a slab lie inside
+//   one block and its zero padding, so nothing is masked but the epilogue,
+//   laser_tpu's per-op rounding below. It sums each output in k order from
+//   0 with fmaf, as packed_f32_kernel does: the same bits on both routes.
 // - classic, every other plan or type: the kernels below.
 // Design of the classic kernels. Packing exists so that the multiply reads
 // each block as one contiguous run and needs no edge masks; the "blocks"
@@ -51,14 +61,16 @@
 
 #include "common.cuh"
 #include "int8_tile.cuh"
+#include "simt_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
 
 using namespace nvcuda;
 namespace hp = ltt::hp;
+namespace simt = ltt::simt;
 
-enum Route { kRouteAuto = 0, kRouteClassic = 1, kRouteWgmma = 2 };
+enum Route { kRouteAuto = 0, kRouteClassic = 1, kRouteWgmma = 2, kRouteSimt = 3 };
 using ltt::from_f32;
 using ltt::to_f32;
 
@@ -407,6 +419,40 @@ __global__ void __launch_bounds__(I8_THREADS) packed_i8_kernel(PackedArgs p) {
   }
 }
 
+// epilogue() on 4 neighbouring outputs (row < M, col < N, col a multiple
+// of 4), stored as one vector where the row holds all four and they are
+// aligned
+__device__ __forceinline__ void store4_epilogue(const PackedArgs& p, int row, int col,
+                                                float4 v) {
+  const size_t i = (size_t)row * p.N + col;
+  float r[4] = {v.x, v.y, v.z, v.w};
+  const int n = min(4, p.N - col);
+  const float* cm = static_cast<const float*>(p.c);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    r[e] = __fmul_rn(r[e], p.alpha);
+    if (cm && e < n) r[e] = __fadd_rn(r[e], __fmul_rn(p.beta, cm[i + e]));
+  }
+  if (n == 4 && (p.N & 3) == 0) {
+    if (p.out_dtype == ltt::kF32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(p.out) + i) =
+          make_float4(r[0], r[1], r[2], r[3]);
+    } else if (p.out_dtype == ltt::kBF16) {
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + i);
+      o[0] = __floats2bfloat162_rn(r[0], r[1]);
+      o[1] = __floats2bfloat162_rn(r[2], r[3]);
+    } else {
+      __half2* o = reinterpret_cast<__half2*>(static_cast<__half*>(p.out) + i);
+      o[0] = __floats2half2_rn(r[0], r[1]);
+      o[1] = __floats2half2_rn(r[2], r[3]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) store_out(p.out, i + e, r[e], p.out_dtype);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // bf16 / f16 on Hopper: the wgmma + TMA skeleton over the packed blocks
 // ---------------------------------------------------------------------------
@@ -430,37 +476,9 @@ struct PackedTiles {
     hp::tma_load_3d(b_tile + hp::WG_HALF_BYTES, map_b, bar, nin + 64, kin, zb);
   }
 
-  // epilogue() on 4 neighbouring outputs, stored as one vector where the
-  // row holds all four and they are aligned
   __device__ __forceinline__ void store4(const hp::TileCoord&, int row, int col,
                                          float4 v) const {
-    const size_t i = (size_t)row * p.N + col;
-    float r[4] = {v.x, v.y, v.z, v.w};
-    const int n = min(4, p.N - col);
-    const float* cm = static_cast<const float*>(p.c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      r[e] = __fmul_rn(r[e], p.alpha);
-      if (cm && e < n) r[e] = __fadd_rn(r[e], __fmul_rn(p.beta, cm[i + e]));
-    }
-    if (n == 4 && (p.N & 3) == 0) {
-      if (p.out_dtype == ltt::kF32) {
-        *reinterpret_cast<float4*>(static_cast<float*>(p.out) + i) =
-            make_float4(r[0], r[1], r[2], r[3]);
-      } else if (p.out_dtype == ltt::kBF16) {
-        __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + i);
-        o[0] = __floats2bfloat162_rn(r[0], r[1]);
-        o[1] = __floats2bfloat162_rn(r[2], r[3]);
-      } else {
-        __half2* o = reinterpret_cast<__half2*>(static_cast<__half*>(p.out) + i);
-        o[0] = __floats2half2_rn(r[0], r[1]);
-        o[1] = __floats2half2_rn(r[2], r[3]);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (e < n) store_out(p.out, i + e, r[e], p.out_dtype);
-    }
+    store4_epilogue(p, row, col, v);
   }
 };
 
@@ -499,6 +517,65 @@ int launch_wgmma(const PackedArgs& p, int in_dtype, cudaStream_t s) {
   return ltt::launch_status();
 }
 
+// ---------------------------------------------------------------------------
+// f32 on the simt skeleton (csrc/simt_gemm.cuh) over the packed blocks
+// ---------------------------------------------------------------------------
+
+// The skeleton's tile policy: slab kt (k0 = 16 kt) of the tile at (m0, n0)
+// reads rows m0 % bm .. + 127 of A block (m0 / bm, k0 / bk) at columns k0 %
+// bk .. + 15 (k-minor) and rows k0 % bk .. + 15 of B block (k0 / bk, n0 /
+// bn) at columns n0 % bn .. + 127 (k-major); all inside the padded blocks.
+struct SimtPacked {
+  static constexpr bool kAKMajor = false, kBKMajor = true;
+  PackedArgs p;
+  int M, N, ktiles;
+  const float* a0;  // the tile's first row in A block (m0 / bm, 0)
+  const float* b0;  // its first column in B block (0, n0 / bn)
+
+  __device__ __forceinline__ const float* a(int kt, int x, int y, bool& ok) const {
+    const int k0 = kt * simt::kBK, kb = k0 / p.bk;
+    ok = true;
+    return a0 + (size_t)kb * p.bm * p.bk + x * p.bk + (k0 - kb * p.bk) + y;
+  }
+
+  __device__ __forceinline__ const float* b(int kt, int x, int y, bool& ok) const {
+    const int k0 = kt * simt::kBK, kb = k0 / p.bk;
+    ok = true;
+    return b0 + (size_t)kb * p.gn * p.bk * p.bn + (k0 - kb * p.bk + x) * p.bn + y;
+  }
+
+  __device__ __forceinline__ void store4(int row, int col, float4 v) const {
+    store4_epilogue(p, row, col, v);
+  }
+};
+
+__global__ void __launch_bounds__(simt::kThreads, simt::kBlocksPerSm)
+    packed_simt_kernel(const PackedArgs p) {
+  extern __shared__ __align__(16) float simt_smem[];
+  const int m0 = blockIdx.y * simt::kBM, n0 = blockIdx.x * simt::kBN;
+  const int i = m0 / p.bm, j = n0 / p.bn;
+  const float* a0 =
+      static_cast<const float*>(p.a) + ((size_t)i * p.gk * p.bm + m0 - i * p.bm) * p.bk;
+  const float* b0 = static_cast<const float*>(p.b) + (size_t)j * p.bk * p.bn + n0 - j * p.bn;
+  const SimtPacked t{p, p.M, p.N, p.gk * (p.bk / simt::kBK), a0, b0};
+  simt::gemm_tile(t, m0, n0, simt_smem);
+}
+
+bool simt_fits(const PackedArgs& p, int in_dtype) {
+  return in_dtype == ltt::kF32 && p.M > 0 && p.N > 0 && p.bm % simt::kBM == 0 &&
+         p.bn % simt::kBN == 0 && p.bk % simt::kBK == 0 && hp::aligned16(p.a) &&
+         hp::aligned16(p.b) &&
+         (p.out_dtype == ltt::kF32 || p.out_dtype == ltt::kBF16 || p.out_dtype == ltt::kF16);
+}
+
+int launch_simt(const PackedArgs& p, cudaStream_t s) {
+  const int err = ltt::allow_smem(packed_simt_kernel, simt::kSmemBytes);
+  if (err) return err;
+  dim3 grid((p.N + simt::kBN - 1) / simt::kBN, (p.M + simt::kBM - 1) / simt::kBM);
+  packed_simt_kernel<<<grid, simt::kThreads, simt::kSmemBytes, s>>>(p);
+  return ltt::launch_status();
+}
+
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can opt into
 
 template <typename T>
@@ -528,11 +605,11 @@ bool blocks_route_ok(const PackedArgs& p, int cm, int cn, int kalign) {
 // bf16, f16 or int8); c: (M, N) fp32 (int32 for int8) or null; out: (M, N)
 // in out_dtype (f32/bf16/f16 for float inputs, int32 for int8). alpha and
 // beta: the int32 values for int8 inputs. route: 0 picks (wgmma where
-// wgmma_fits, else classic), 1 the classic kernels, 2 wgmma; *taken gets
-// the route that launched. fast, for the classic kernels: the blocks route
-// (bm and bn multiples of the CTA tile, bk of the k alignment, both pointers
-// 16-byte aligned, two stages of bk-deep slabs within 227 KB), else the
-// gather route.
+// wgmma_fits, simt where simt_fits, else classic), 1 the classic kernels,
+// 2 wgmma, 3 simt; *taken gets the route that launched. fast, for the
+// classic kernels: the blocks route (bm and bn multiples of the CTA tile, bk
+// of the k alignment, both pointers 16-byte aligned, two stages of bk-deep
+// slabs within 227 KB), else the gather route.
 LTT_API int ltt_gemm_packed(const void* a, const void* b, const void* c, void* out, int M, int N,
                             int gm, int gn, int gk, int bm, int bn, int bk, double alpha,
                             double beta, int in_dtype, int out_dtype, int fast, int route,
@@ -540,15 +617,17 @@ LTT_API int ltt_gemm_packed(const void* a, const void* b, const void* c, void* o
   PackedArgs p = {a, b, c, out, M, N, gm, gn, gk, bm, bn, bk,
                   static_cast<float>(alpha), static_cast<float>(beta), 0, 0, out_dtype};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wg = wgmma_fits(p, in_dtype);
-  *taken = route == kRouteAuto ? (wg ? kRouteWgmma : kRouteClassic)
+  const bool wg = wgmma_fits(p, in_dtype), sm = simt_fits(p, in_dtype);
+  *taken = route == kRouteAuto ? (wg ? kRouteWgmma : sm ? kRouteSimt : kRouteClassic)
            : route == kRouteClassic ? kRouteClassic
            : route == kRouteWgmma && wg ? kRouteWgmma
+           : route == kRouteSimt && sm  ? kRouteSimt
                                         : -1;
   if (*taken < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (*taken == kRouteWgmma)
     return in_dtype == ltt::kBF16 ? launch_wgmma<__nv_bfloat16>(p, in_dtype, s)
                                   : launch_wgmma<__half>(p, in_dtype, s);
+  if (*taken == kRouteSimt) return launch_simt(p, s);
   if (in_dtype == ltt::kI8) {
     if (out_dtype != ltt::kI32) return static_cast<int>(cudaErrorInvalidValue);
     p.alpha_i = static_cast<int>(alpha);  // int32 values, exact in a double

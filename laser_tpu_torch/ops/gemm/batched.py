@@ -12,8 +12,10 @@ routes, entry by entry, with the same accumulator and output rule.
 Replaces laser_tpu/ops/gemm/batched.py:28 _build_batched. Bound on the
 H100: the tensor-core rate at BASELINE.json's bf16 4096^3 batch. bf16/f16
 entries that fit the wgmma route (kernel.py) run it with the batch entry as
-the tensor maps' third coordinate (counter ``gemm_batched_wgmma``); every
-other batch runs the 64 x 64 kernels (``gemm_batched``).
+the tensor maps' third coordinate (counter ``gemm_batched_wgmma``); f32
+entries that fit the simt route run ``gemm_simt_kernel`` with the batch
+entry as blockIdx.z (counted on the kernel's own counter, ``gemm_simt``);
+every other batch runs the 64 x 64 kernels (``gemm_batched``).
 """
 
 from __future__ import annotations
@@ -25,13 +27,13 @@ import torch
 from ... import registry
 from ...config import check_f32_precision, pin_fp32_matmul
 from .api import _acc_dtype, _dispatch, gemm, is_integer
-from .kernel import INT8_OUT_DTYPES, ROUTES, exact_int_product, wrap32
+from .kernel import GEMM_SIMT, INT8_OUT_DTYPES, ROUTES, exact_int_product, wrap32
 
 GEMM_BATCHED = registry.kernel("gemm_batched", "laser_tpu_torch/csrc/gemm.cu",
                                "laser_tpu/ops/gemm/batched.py:28 _build_batched")
 GEMM_BATCHED_WGMMA = registry.kernel("gemm_batched_wgmma", "laser_tpu_torch/csrc/gemm.cu",
                                      "laser_tpu/ops/gemm/batched.py:28 _build_batched")
-ROUTE_KERNELS = {1: GEMM_BATCHED, 2: GEMM_BATCHED_WGMMA}
+ROUTE_KERNELS = {1: GEMM_BATCHED, 2: GEMM_BATCHED_WGMMA, 4: GEMM_SIMT}
 
 
 def gemm_batched_plain(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:

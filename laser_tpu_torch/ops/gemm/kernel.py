@@ -13,21 +13,27 @@ place; M/N/K tails are masked.
 Replaces laser_tpu/ops/gemm/kernel.py:62 build_gemm. Bound on the H100:
 tensor-core throughput at prefill and training (M up to 8192), the weight
 bytes from HBM at decode (M = 1..40); int8 at 4096^3, the int8 tensor-core
-rate. Three routes, each with its own launch counter, the kernel library
-picking one from the shape and alignment: ``gemm_splitk`` (bf16/f16 with M
-<= 40, f32 with M <= 64, neither operand transposed, N % 8 == 0 (f32: N %
-4), 16-byte-aligned bases: the weight streamed through a cp.async ring over
-(column tile, K split) blocks, mma.sync (FFMA for f32), partials summed in
-a fixed order by a second kernel, so two calls give the same bits; its fp32
-workspace allocated here), ``gemm_wgmma`` (bf16/f16 with M > 40, K and each
+rate; f32, the FFMA rate (67 TFLOP/s). Four routes, each with its own
+launch counter, the kernel library picking one from the shape and
+alignment: ``gemm_splitk`` (bf16/f16 with M <= 40, f32 with M <= 64,
+neither operand transposed, N % 8 == 0 (f32: N % 4), 16-byte-aligned
+bases: the weight streamed through a cp.async ring over (column tile, K
+split) blocks, mma.sync (FFMA for f32), partials summed in a fixed order by
+a second kernel, so two calls give the same bits; its fp32 workspace
+allocated here), ``gemm_wgmma`` (bf16/f16 with M > 40, K and each
 operand's contiguous dimension multiples of 8, 16-byte-aligned bases:
 wgmma fed by a TMA ring, a 128 x 128 tile, transposed operands read in
-place) and ``gemm`` (every other product: WMMA bf16/f16 and s8 on a 64 x 64
-tile, f32 FFMA). The M thresholds come from chip_smoke.py's crossover
-(csrc/gemm.cu). Each applies the epilogue in the accumulator type before
-one cast. ``route="classic"``, ``"wgmma"`` or ``"splitk"`` on a CUDA tensor
-asks for one (wgmma at any M, split-K up to 64 rows; an error where it does
-not fit), to time them against each other.
+place), ``gemm_simt`` (f32 products split-K does not take, each operand's
+contiguous dimension a multiple of 4, 16-byte-aligned bases: the FFMA
+skeleton of csrc/simt_gemm.cuh, a 128 x 128 tile, 8 x 8 outputs a thread,
+both operands staged k-major through a 3-stage ring; the same bits as the
+classic FFMA kernel) and ``gemm`` (every other product: WMMA bf16/f16 and
+s8 on a 64 x 64 tile, f32 FFMA). The M thresholds come from chip_smoke.py's
+crossover (csrc/gemm.cu). Each applies the epilogue in the accumulator type
+before one cast. ``route="classic"``, ``"wgmma"``, ``"splitk"`` or
+``"simt"`` on a CUDA tensor asks for one (wgmma and simt at any M, split-K
+up to 64 rows; an error where it does not fit), to time them against each
+other.
 
 ``gemm_fused`` launches the kernel for CUDA tensors and runs
 ``gemm_plain`` for CPU tensors; there is no other fallback. torch has no
@@ -53,9 +59,11 @@ GEMM_WGMMA = registry.kernel("gemm_wgmma", "laser_tpu_torch/csrc/gemm.cu",
                              "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
 GEMM_SPLITK = registry.kernel("gemm_splitk", "laser_tpu_torch/csrc/gemm.cu",
                               "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
+GEMM_SIMT = registry.kernel("gemm_simt", "laser_tpu_torch/csrc/gemm.cu",
+                            "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
 # route codes shared with csrc/gemm.cu (enum Route), and the counter of each
-ROUTES = {None: 0, "classic": 1, "wgmma": 2, "splitk": 3}
-ROUTE_KERNELS = {1: GEMM, 2: GEMM_WGMMA, 3: GEMM_SPLITK}
+ROUTES = {None: 0, "classic": 1, "wgmma": 2, "splitk": 3, "simt": 4}
+ROUTE_KERNELS = {1: GEMM, 2: GEMM_WGMMA, 3: GEMM_SPLITK, 4: GEMM_SIMT}
 
 # epilogue codes shared with csrc/gemm.cu (enum Epilogue)
 EPILOGUES = {None: 0, "none": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "gelu": 4}
@@ -204,7 +212,8 @@ def gemm_fused(a, b, *, alpha=1.0, beta=0.0, c=None, bias=None,
                transpose_b=False, route=None):
     """The hand kernel for a CUDA tensor, its plain version for a CPU one.
     a, b share one float dtype or int8; c is (M, N); bias is (N,). ``route``:
-    None lets the library pick, "classic", "wgmma" or "splitk" asks for one
+    None lets the library pick, "classic", "wgmma", "splitk" or "simt" asks
+    for one
     (a CUDA tensor's; a CPU tensor runs the plain version whatever the
     route, but an unknown name raises on both)."""
     default_out = torch.int32 if a.dtype == torch.int8 else a.dtype

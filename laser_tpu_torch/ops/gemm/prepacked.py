@@ -10,19 +10,23 @@ zero-padded 4-D layout, the same bytes as laser_tpu's for the same plan:
 ``gemm_packed`` multiplies two packed operands: ``alpha * A @ B + beta * C``
 at (M, N). On CUDA tensors it runs the kernels of csrc/packed_gemm.cu
 (replace laser_tpu/ops/gemm/prepacked.py:80 ``_build_packed_gemm``); on CPU
-tensors its plain version ``gemm_packed_plain``. Two routes, each with its
-own launch counter, the library picking one: ``gemm_packed_wgmma`` (bf16
-and f16 inputs on a plan whose bm and bn are multiples of 128 and bk of 64,
-16-byte-aligned data, as every 16-bit plan from ``plan_tiles`` is: the
-wgmma + TMA skeleton of csrc/gemm.cu's wgmma route, each packed block a
-tensor-map coordinate) and ``gemm_packed`` (the classic kernels: every f32
-and int8 product, and 16-bit plans the wgmma route does not take). With a
-plan whose bm and bn are multiples of the classic kernels' CTA tile (see
-``tiling.py``) those read every block as one contiguous run and mask
-nothing in their main loop (the "blocks" route); any other plan laser_tpu
-accepts runs their "gather" route, correct and slower. ``route="classic"``
-or ``"wgmma"`` on CUDA tensors asks for one (an error where it does not
-fit). Kernel dtypes: f32 (full fp32), bf16 and f16 (fp32 accumulators),
+tensors its plain version ``gemm_packed_plain``. Three routes, each with
+its own launch counter, the library picking one: ``gemm_packed_wgmma``
+(bf16 and f16 inputs on a plan whose bm and bn are multiples of 128 and bk
+of 64, 16-byte-aligned data, as every 16-bit plan from ``plan_tiles`` is:
+the wgmma + TMA skeleton of csrc/gemm.cu's wgmma route, each packed block a
+tensor-map coordinate), ``gemm_packed_simt`` (f32 inputs on a plan whose bm
+and bn are multiples of 128 and bk of 16, 16-byte-aligned data, as every
+f32 plan from ``plan_tiles`` is: the FFMA skeleton of csrc/gemm.cu's simt
+route, csrc/simt_gemm.cuh; the same bits as the classic f32 kernel) and
+``gemm_packed`` (the classic kernels: every int8 product, and the float
+plans the other routes do not take). With a plan whose bm and bn are
+multiples of the classic kernels' CTA tile (see ``tiling.py``) those read
+every block as one contiguous run and mask nothing in their main loop (the
+"blocks" route); any other plan laser_tpu accepts runs their "gather"
+route, correct and slower. ``route="classic"``, ``"wgmma"`` or ``"simt"``
+on CUDA tensors asks for one (an error where it does not fit). Kernel
+dtypes: f32 (full fp32), bf16 and f16 (fp32 accumulators),
 int8 (int32 accumulators that wrap). The packing itself is a reshape in
 PyTorch, as laser_tpu's is XLA's. Like laser_tpu's, a packed operand bakes
 in its plan and dtype: never serialize it.
@@ -48,12 +52,16 @@ GEMM_PACKED = registry.kernel("gemm_packed", "laser_tpu_torch/csrc/packed_gemm.c
                               "laser_tpu/ops/gemm/prepacked.py:80 _build_packed_gemm")
 GEMM_PACKED_WGMMA = registry.kernel("gemm_packed_wgmma", "laser_tpu_torch/csrc/packed_gemm.cu",
                                     "laser_tpu/ops/gemm/prepacked.py:80 _build_packed_gemm")
+GEMM_PACKED_SIMT = registry.kernel("gemm_packed_simt", "laser_tpu_torch/csrc/packed_gemm.cu",
+                                   "laser_tpu/ops/gemm/prepacked.py:80 _build_packed_gemm")
 # route codes shared with csrc/packed_gemm.cu (enum Route), and the counter of each
-ROUTES = {None: 0, "classic": 1, "wgmma": 2}
-ROUTE_KERNELS = {1: GEMM_PACKED, 2: GEMM_PACKED_WGMMA}
-# the wgmma route's (rows, columns, depth) of a tile and a k step: a plan's
-# bm, bn and bk must be multiples (csrc/hopper.cuh WG_BM, WG_BN, WG_BK)
+ROUTES = {None: 0, "classic": 1, "wgmma": 2, "simt": 3}
+ROUTE_KERNELS = {1: GEMM_PACKED, 2: GEMM_PACKED_WGMMA, 3: GEMM_PACKED_SIMT}
+# the wgmma and simt routes' (rows, columns, depth) of a tile and a k step: a
+# plan's bm, bn and bk must be multiples (csrc/hopper.cuh WG_BM, WG_BN,
+# WG_BK; csrc/simt_gemm.cuh kBM, kBN, kBK)
 WGMMA_TILE = (128, 128, 64)
+SIMT_TILE = (128, 128, 16)
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
 _FLOAT_OUT = (torch.float32, torch.bfloat16, torch.float16)
@@ -157,6 +165,14 @@ def wgmma_route(dtype: torch.dtype, bm: int, bn: int, bk: int) -> bool:
             and bk % tk == 0)
 
 
+def simt_route(dtype: torch.dtype, bm: int, bn: int, bk: int) -> bool:
+    """Whether the kernel library takes its simt route for this plan (the
+    conditions of csrc/packed_gemm.cu's ``simt_fits``; the caller also needs
+    16-byte aligned data and a float output)."""
+    tm, tn, tk = SIMT_TILE
+    return dtype == torch.float32 and bm % tm == 0 and bn % tn == 0 and bk % tk == 0
+
+
 def _packed_cuda(alpha, packed_a, packed_b, beta, c, in_dtype, out_dtype, route):
     if in_dtype == torch.float32:
         check_f32_precision()
@@ -180,6 +196,9 @@ def _packed_cuda(alpha, packed_a, packed_b, beta, c, in_dtype, out_dtype, route)
     if route == "wgmma" and not (wgmma_route(in_dtype, bm, bn, bk) and aligned):
         raise ValueError(f"gemm_packed: route 'wgmma' does not take {in_dtype} on the plan "
                          f"({bm}, {bn}, {bk}) (bf16/f16, multiples of {WGMMA_TILE})")
+    if route == "simt" and not (simt_route(in_dtype, bm, bn, bk) and aligned):
+        raise ValueError(f"gemm_packed: route 'simt' does not take {in_dtype} on the plan "
+                         f"({bm}, {bn}, {bk}) (f32, multiples of {SIMT_TILE})")
     fast = blocks_route(in_dtype, bm, bn, bk) and aligned
     taken = ctypes.c_int(0)
     status = registry.load_library().ltt_gemm_packed(
@@ -198,8 +217,8 @@ def gemm_packed(alpha, packed_a: PackedMatrix, packed_b: PackedMatrix, beta=0.0,
     """gemm_packed analog: multiply two packed operands, returning the (M, N)
     result ``alpha * A @ B + beta * C``. alpha and beta are cast to the
     accumulator type (an int8 product with alpha 0.5 is 0, as in
-    laser_tpu). ``route``: None lets the library pick, "classic" or
-    "wgmma" asks for one (CUDA operands'; CPU operands run the plain
+    laser_tpu). ``route``: None lets the library pick, "classic", "wgmma"
+    or "simt" asks for one (CUDA operands'; CPU operands run the plain
     version whatever the route, but an unknown name raises on both)."""
     registry.route_code(ROUTES, route)
     if packed_a.operand != "A" or packed_b.operand != "B":

@@ -72,7 +72,7 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)  # an out-parameter: workspace bytes
 SIGNATURES = {
     # a, b, c, bias, out, workspace (or null), M, N, K, trans_a, trans_b,
     # alpha, beta (the int32 values for int8 inputs), epilogue, in_dtype,
-    # out_dtype, route (0 picks, 1 WMMA/FFMA/int8, 2 wgmma, 3 split-K), route
+    # out_dtype, route (0 picks, 1 WMMA/FFMA/int8, 2 wgmma, 3 split-K, 4 simt), route
     # taken (out), stream
     "ltt_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _IP, _P),
     # a, b, M, N, K, trans_a, trans_b, in_dtype, route, workspace bytes (out)
@@ -149,7 +149,7 @@ SIGNATURES = {
     "ltt_stencil_sweep": (_P, _P, _P, _I, _I, _I, _I, _P),
     # a, b, c (or null), out, M, N, gm, gn, gk, bm, bn, bk, alpha, beta,
     # in_dtype, out_dtype, fast (the classic kernels' blocks route), route (0
-    # picks, 1 classic, 2 wgmma), route taken (out), stream
+    # picks, 1 classic, 2 wgmma, 3 simt), route taken (out), stream
     "ltt_gemm_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I,
                         _IP, _P),
 }

@@ -50,6 +50,14 @@ BENCH is one of:
 - ``norm``: the layer norm of 4096 x 2048 bf16 rows with bf16 gains and
   the RMS norm of 4096 x 4096 and 8 x 4096 (the Llama width), on the route
   each tree picks; timed as ``paged`` (no classic host times).
+- ``f32_gemm``: the f32 products and the f32 paths that run them, on the
+  route each tree picks: ``lux_relu``, row 1's f32 product (Lux's relu(a
+  @ b + bias), M4096 K2048 N2048, phase 13) and ``packed``, row 32's
+  (``gemm_packed`` 4096^3 on the planned plan, phase 16), timed as
+  ``conv``; ``train_step_ms``, phase 6's f32 ``transformer_train_step``
+  (2L d512, batch 4 x 256) and ``llama_loss_grad_ms``, its llama loss and
+  gradients (the chunked branch), each the median of 10 synchronised
+  calls after 2 (host clock).
 - ``primitives``: every case of chip_smoke.py phase 13 (for_each,
   for_each_multi, row_reduce, map_reduce, vector math, reductions, Lux at
   bench.py's shapes), its generated bodies built first: the kernel's ms as
@@ -233,6 +241,57 @@ def wgmma_gemm(smoke) -> dict:
         "packed": lambda: gemm_packed(smoke.PACKED_ALPHA, pa, pb)})
 
 
+def f32_gemm(smoke) -> dict:
+    import time
+
+    import torch
+
+    from laser_tpu_torch.models import transformer as tf
+    from laser_tpu_torch.models.llama import init_llama
+    from laser_tpu_torch.ops.gemm import gemm_packed, gemm_prepack_a, gemm_prepack_b
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(4096, 2048, generator=g, device="cuda")
+    w = torch.randn(2048, 2048, generator=g, device="cuda") * 2048 ** -0.5
+    bias = torch.randn(2048, generator=g, device="cuda") * 0.1
+    n = smoke.PACKED_N
+    pa = gemm_prepack_a(torch.randn(n, n, generator=g, device="cuda") * 0.05)
+    pb = gemm_prepack_b(torch.randn(n, n, generator=g, device="cuda") * 0.05)
+    res = _timed(smoke, {
+        "lux_relu": lambda: gemm_fused(x, w, bias=bias, epilogue="relu"),
+        "packed": lambda: gemm_packed(smoke.PACKED_ALPHA, pa, pb)})
+
+    def step_ms(fn) -> float:
+        times = []
+        for i in range(12):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    cfg, heads = smoke.MODEL_F32, smoke.MODEL_F32["n_heads"]
+    params = tf.init_transformer(1, dtype=torch.float32, device="cuda", **cfg)
+    state = tf.transformer_train_init(params)
+    tokens = smoke.train_batch(cfg["vocab"], smoke.TRAIN_F32_BATCH, 1)
+    res["train_step_ms"] = step_ms(lambda: tf.transformer_train_step(
+        params, state, tokens, 1, n_heads=heads, lr=smoke.LR, weight_decay=smoke.WD))
+    lcfg = smoke.LLAMA_F32
+    lp = init_llama(1, dtype=torch.float32, device="cuda", max_len=smoke.TRAIN_F32_BATCH[1],
+                    **lcfg)
+    ltok = smoke.train_batch(lcfg["vocab"], smoke.TRAIN_F32_BATCH, 2)
+    loss = smoke.llama_loss(lcfg, memory_budget_bytes=None)
+    static = {k: lp[k] for k in ("rope_cos", "rope_sin") if k in lp}
+    trained = {k: v for k, v in lp.items() if k not in static}
+    res["llama_loss_grad_ms"] = step_ms(lambda: smoke.loss_and_grads(
+        trained, ltok, lambda p, t, plain: loss({**p, **static}, t, plain), plain=False))
+    return res
+
+
 def _host_us(fn, n: int = 100, reps: int = 5) -> float:
     """Host microseconds a call: ``n`` calls enqueued after a sync, on the
     host's clock, with no sync before the clock stops (the card runs
@@ -340,7 +399,7 @@ def primitives(smoke) -> dict:
 
 BENCHES = {"flash_forward": flash_forward, "flash_backward": flash_backward,
            "serving": serving, "cnn": cnn, "conv": conv, "wgmma_gemm": wgmma_gemm,
-           "paged": paged, "norm": norm, "primitives": primitives}
+           "paged": paged, "norm": norm, "primitives": primitives, "f32_gemm": f32_gemm}
 
 
 def _time_tree(bench: str, tree: str) -> dict:

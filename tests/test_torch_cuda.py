@@ -47,7 +47,11 @@ f32/bf16/f16 on grids from 2 x 5 to 257 x 130; the packed GEMM in
 f32/bf16/f16 (within the bounds below) and int8 (bit for bit) on planned,
 odd (48 x 80 x 40: the gather route) and wide plans, with beta * C, other
 output dtypes and the int8 alpha cast; its bf16/f16 wgmma route on planned
-and wide plans at M, N, K off the plan, to f32 and to the input type.
+and wide plans at M, N, K off the plan, to f32 and to the input type; the
+f32 simt routes (dense in every transposition with each epilogue, beta * C
+and bf16 outputs, batched, packed on planned and wide plans) bit for bit
+against the classic FFMA kernels, and the f32 routes the library picks by
+shape and alignment.
 
 Needs a CUDA device and nvcc; skips without them. This file imports no JAX,
 so it runs on a machine that has none. Run it there with
@@ -1550,8 +1554,7 @@ def test_gemm_int8_unaligned_operands(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int8])
 @pytest.mark.parametrize("shape", [(1, 1, 1, 1), (3, 20, 37, 19), (2, 130, 64, 70)])
 def test_gemm_batched(dev, dtype, shape):
-    from laser_tpu_torch.ops.gemm.batched import (GEMM_BATCHED, GEMM_BATCHED_WGMMA,
-                                                  gemm_batched, gemm_batched_plain)
+    from laser_tpu_torch.ops.gemm.batched import ROUTE_KERNELS, gemm_batched, gemm_batched_plain
 
     B, M, K, N = shape
     g = _gen(dev, 73)
@@ -1559,9 +1562,9 @@ def test_gemm_batched(dev, dtype, shape):
         a, b = _int8(g, (B, M, K), dev), _int8(g, (B, K, N), dev)
     else:
         a, b = _rnd(g, (B, M, K), dtype, dev), _rnd(g, (B, K, N), dtype, dev, std=K ** -0.5)
-    before = GEMM_BATCHED.launches + GEMM_BATCHED_WGMMA.launches
+    before = sum(k.launches for k in ROUTE_KERNELS.values())
     got = gemm_batched(a, b)
-    assert GEMM_BATCHED.launches + GEMM_BATCHED_WGMMA.launches == before + 1
+    assert sum(k.launches for k in ROUTE_KERNELS.values()) == before + 1
     want = gemm_batched_plain(a, b, got.dtype)
     if dtype == torch.int8:
         _equal(got, want)
@@ -1812,8 +1815,9 @@ def test_stencil_bit_identical(dev, dtype, shape, method, iters):
 @pytest.mark.parametrize("shape", [(1, 1, 1), (100, 120, 90), (130, 257, 200)])
 def test_gemm_packed(dev, dtype, plan, shape):
     from laser_tpu_torch.ops.gemm import GemmTiles, gemm_packed, gemm_prepack_a, gemm_prepack_b
-    from laser_tpu_torch.ops.gemm.prepacked import (GEMM_PACKED, GEMM_PACKED_WGMMA,
-                                                    gemm_packed_plain, wgmma_route)
+    from laser_tpu_torch.ops.gemm.prepacked import (GEMM_PACKED, GEMM_PACKED_SIMT,
+                                                    GEMM_PACKED_WGMMA, gemm_packed_plain,
+                                                    simt_route, wgmma_route)
 
     M, N, K = shape
     g = _gen(dev, 84)
@@ -1829,8 +1833,10 @@ def test_gemm_packed(dev, dtype, plan, shape):
     pa, pb = gemm_prepack_a(a, tiles=tiles), gemm_prepack_b(b, tiles=tiles)
     cpu_pa = gemm_prepack_a(a.cpu(), tiles=tiles)
     _equal(pa.data, cpu_pa.data)  # the packed bytes do not depend on the device
-    # the 16-bit products on planned and wide plans take the wgmma route
-    kern = GEMM_PACKED_WGMMA if wgmma_route(dtype, pa.block[0], pb.block[1], pa.block[1]) \
+    # the 16-bit products on planned and wide plans take the wgmma route, the
+    # f32 ones the simt route
+    plan = (dtype, pa.block[0], pb.block[1], pa.block[1])
+    kern = GEMM_PACKED_WGMMA if wgmma_route(*plan) else GEMM_PACKED_SIMT if simt_route(*plan) \
         else GEMM_PACKED
     for cc in (None, c):
         before = kern.launches
@@ -2327,3 +2333,165 @@ def test_w4_gemm_takes_the_classic_kernel_by_shape(dev):
         before = W4_GEMM.launches
         _check(gemm_w4(h, wq16, route="classic"), gemm_w4_plain(h, wq16), torch.bfloat16)
         assert W4_GEMM.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The f32 simt routes: csrc/gemm.cu gemm_simt_kernel and csrc/packed_gemm.cu
+# packed_simt_kernel on the FFMA skeleton of csrc/simt_gemm.cuh, each against
+# its plain version and bit for bit against the classic FFMA kernel it
+# replaces (one fp32 accumulator an output, summed in k order with fmaf in
+# both), each asserting which route's counter moved
+# ---------------------------------------------------------------------------
+
+# (M, K, N, epilogue): contiguous dimensions multiples of 4 (the route's
+# 16-byte vectors) in every transposition, none a multiple of 16 or 128 but
+# the small corner's K; K 1028 walks 65 slabs with a ragged last one
+SIMT_SHAPES = [(300, 68, 136, "gelu"), (132, 1028, 260, "relu"), (516, 36, 388, "sigmoid"),
+               (4, 20, 12, "tanh"), (260, 100, 132, None)]
+
+
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("shape", SIMT_SHAPES, ids=lambda s: "x".join(map(str, s[:3])))
+@pytest.mark.parametrize("with_c", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gemm_simt(dev, ta, tb, shape, with_c, out_dtype):
+    """route="simt" with a bias and each epilogue, alpha and beta * C, to f32
+    and bf16: the classic kernel's bits, the plain version's values; only
+    its counter moves."""
+    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_SIMT, gemm_fused, gemm_plain
+
+    M, K, N, epilogue = shape
+    g = _gen(dev, 96)
+    a = _rnd(g, (K, M) if ta else (M, K), torch.float32, dev)
+    b = _rnd(g, (N, K) if tb else (K, N), torch.float32, dev, std=K ** -0.5)
+    kw = dict(bias=_rnd(g, (N,), torch.float32, dev), epilogue=epilogue, transpose_a=ta,
+              transpose_b=tb, out_dtype=out_dtype)
+    if with_c:
+        kw.update(alpha=0.75, beta=-1.5, c=_rnd(g, (M, N), torch.float32, dev))
+    before = (GEMM_SIMT.launches, GEMM.launches)
+    got = gemm_fused(a, b, route="simt", **kw)
+    assert (GEMM_SIMT.launches, GEMM.launches) == (before[0] + 1, before[1])
+    classic = gemm_fused(a, b, route="classic", **kw)
+    assert GEMM.launches == before[1] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, classic)
+    _check(got, gemm_plain(a, b, **kw), out_dtype)
+
+
+def test_gemm_batched_simt(dev):
+    """f32 batched takes the simt route (blockIdx.z), counted on gemm_simt:
+    the classic batched kernel's bits."""
+    from laser_tpu_torch.ops.gemm.batched import (GEMM_BATCHED, _gemm_batched_cuda,
+                                                  gemm_batched, gemm_batched_plain)
+    from laser_tpu_torch.ops.gemm.kernel import GEMM_SIMT
+
+    g = _gen(dev, 97)
+    a, b = _rnd(g, (3, 140, 36), torch.float32, dev), _rnd(g, (3, 36, 44), torch.float32, dev)
+    before = (GEMM_SIMT.launches, GEMM_BATCHED.launches)
+    got = gemm_batched(a, b)
+    assert (GEMM_SIMT.launches, GEMM_BATCHED.launches) == (before[0] + 1, before[1])
+    classic = _gemm_batched_cuda(a, b, torch.float32, route="classic")
+    assert GEMM_BATCHED.launches == before[1] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, classic)
+    _check(got, gemm_batched_plain(a, b, torch.float32), torch.float32)
+
+
+def test_gemm_f32_routes_by_shape(dev):
+    """The library's f32 routes: M 65 and above takes simt, M 64 and below
+    split-K, a transposed operand at M 8 simt (split-K does not take it), an
+    operand off 16 bytes or a contiguous dimension off a multiple of 4 the
+    classic kernel. route="simt" refuses bf16 and those two, and route=
+    "splitk" a transposed operand."""
+    from laser_tpu_torch.ops.gemm.kernel import (GEMM, GEMM_SIMT, GEMM_SPLITK, gemm_fused,
+                                                 gemm_plain)
+
+    g = _gen(dev, 98)
+    K, N = 256, 200
+    w = _rnd(g, (K, N), torch.float32, dev, std=K ** -0.5)
+
+    def counts():
+        return GEMM.launches, GEMM_SIMT.launches, GEMM_SPLITK.launches
+
+    for M, taken in ((65, 1), (300, 1), (64, 2), (1, 2)):
+        x = _rnd(g, (M, K), torch.float32, dev)
+        before = counts()
+        _check(gemm_fused(x, w), gemm_plain(x, w), torch.float32)
+        assert counts()[taken] == before[taken] + 1 and sum(counts()) == sum(before) + 1, M
+    x = _rnd(g, (8, K), torch.float32, dev)
+    xt = x.t().contiguous()
+    xu = _rnd(g, (8 * K + 1,), torch.float32, dev)[1:].view(8, K)
+    x70, w70 = _rnd(g, (300, 70), torch.float32, dev), _rnd(g, (70, N), torch.float32, dev)
+    assert xu.data_ptr() % 16
+    cases = [((xt, w), dict(transpose_a=True), gemm_plain(x, w), 1),
+             ((xu, w), {}, gemm_plain(xu, w), 0),
+             ((x70, w70), {}, gemm_plain(x70, w70), 0)]
+    for args, kw, want, taken in cases:
+        before = counts()
+        _check(gemm_fused(*args, **kw), want, torch.float32)
+        assert counts()[taken] == before[taken] + 1 and sum(counts()) == sum(before) + 1, taken
+        if taken == 0:
+            with pytest.raises(Exception):
+                gemm_fused(*args, route="simt", **kw)
+    with pytest.raises(Exception):
+        gemm_fused(xt, w, transpose_a=True, route="splitk")
+    with pytest.raises(Exception):
+        gemm_fused(x.bfloat16(), w.bfloat16(), route="simt")
+
+
+@pytest.mark.parametrize("plan", ["planned", (128, 128, 16), (256, 128, 64), (128, 256, 32),
+                                  (128, 128, 48)])
+@pytest.mark.parametrize("shape", [(100, 120, 90), (130, 257, 200), (384, 256, 320),
+                                   (1, 1, 1)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gemm_packed_simt(dev, plan, shape, out_dtype):
+    """The simt route over f32 packed blocks, with and without beta * C, at
+    M, N, K off the plan (zero padding inert, the epilogue masked): the
+    classic kernels' bits, the plain version's values; only its counter
+    moves."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.gemm import GemmTiles, gemm_packed, gemm_prepack_a, gemm_prepack_b
+    from laser_tpu_torch.ops.gemm.prepacked import gemm_packed_plain, simt_route
+
+    M, N, K = shape
+    g = _gen(dev, 99)
+    a, b = _rnd(g, (M, K), torch.float32, dev), _rnd(g, (K, N), torch.float32, dev,
+                                                       std=K ** -0.5)
+    c = _rnd(g, (M, N), torch.float32, dev)
+    tiles = None if plan == "planned" else GemmTiles(*plan, vmem_limit_bytes=0)
+    pa, pb = gemm_prepack_a(a, tiles=tiles), gemm_prepack_b(b, tiles=tiles)
+    assert simt_route(torch.float32, pa.block[0], pb.block[1], pa.block[1])
+    for cc in (None, c):
+        registry.reset_counts()
+        got = gemm_packed(0.5, pa, pb, -1.5, cc, out_dtype=out_dtype)
+        counts = registry.counts()
+        assert counts["gemm_packed_simt"]["launches"] == 1
+        assert sum(v["launches"] for v in counts.values()) == 1
+        classic = gemm_packed(0.5, pa, pb, -1.5, cc, out_dtype=out_dtype, route="classic")
+        assert registry.counts()["gemm_packed"]["launches"] == 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, classic)
+        _check(got, gemm_packed_plain(0.5, pa, pb, -1.5, cc, torch.float32, torch.float32,
+                                      out_dtype), out_dtype)
+
+
+def test_gemm_packed_simt_refuses_what_it_does_not_take(dev):
+    """route="simt" raises on the odd plan (the gather route's), on bf16 and
+    on an unknown name; the odd plan still runs on the classic kernels."""
+    from laser_tpu_torch.ops.gemm import GemmTiles, gemm_packed, gemm_prepack_a, gemm_prepack_b
+    from laser_tpu_torch.ops.gemm.prepacked import GEMM_PACKED, gemm_packed_plain
+
+    g = _gen(dev, 100)
+    a, b = _rnd(g, (100, 90), torch.float32, dev), _rnd(g, (90, 120), torch.float32, dev)
+    odd = GemmTiles(48, 80, 40, vmem_limit_bytes=0)
+    po, qo = gemm_prepack_a(a, tiles=odd), gemm_prepack_b(b, tiles=odd)
+    before = GEMM_PACKED.launches
+    _check(gemm_packed(1.0, po, qo), gemm_packed_plain(1.0, po, qo, 0.0, None, torch.float32,
+                                                       torch.float32, torch.float32),
+           torch.float32)
+    assert GEMM_PACKED.launches == before + 1
+    with pytest.raises(ValueError, match="simt"):
+        gemm_packed(1.0, po, qo, route="simt")
+    with pytest.raises(ValueError, match="simt"):
+        gemm_packed(1.0, gemm_prepack_a(a.bfloat16()), gemm_prepack_b(b.bfloat16()),
+                    route="simt")

@@ -54,6 +54,23 @@ def test_transposes_in_place(ta, tb):
     assert _rel_err(got, want) <= REL
 
 
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True), (True, False), (True, True)])
+def test_simt_route_matches_laser_tpu(ta, tb):
+    """route="simt" (the f32 FFMA skeleton on a card) runs the plain version
+    on CPU tensors: laser_tpu's f32 result, with the bias and relu."""
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused
+
+    rng = np.random.RandomState(6)
+    M, K, N = 20, 36, 44
+    a = rng.randn(*((K, M) if ta else (M, K))).astype(np.float32)
+    b = rng.randn(*((N, K) if tb else (K, N))).astype(np.float32)
+    bias = rng.randn(N).astype(np.float32)
+    want = jgemm(a, b, bias=bias, epilogue="relu", transpose_a=ta, transpose_b=tb)
+    got = gemm_fused(_t(a), _t(b), bias=_t(bias), epilogue="relu", transpose_a=ta,
+                     transpose_b=tb, route="simt")
+    assert _rel_err(got, want) <= REL
+
+
 def test_alpha_beta_c():
     rng = np.random.RandomState(3)
     a = rng.randn(40, 130).astype(np.float32)

@@ -89,3 +89,43 @@ def test_conv_and_packed_routes_on_the_cpu_run_the_plain_version():
         assert torch.equal(prepacked.gemm_packed(0.5, pa, pb, route=route), want)
     with pytest.raises(ValueError):
         prepacked.gemm_packed(0.5, pa, pb, route="mma")
+
+
+def test_simt_routes_have_their_own_counters():
+    """The simt routes' codes in csrc/gemm.cu and csrc/packed_gemm.cu, their
+    counters (a batched f32 launch counts on ``gemm_simt``, the kernel it
+    runs), and the skeleton's tile against the planner's f32 CTA."""
+    from laser_tpu_torch.ops.gemm import batched, tiling
+
+    assert _enum("gemm.cu", "Route")["kRouteSimt"] == kernel.ROUTES["simt"]
+    assert _enum("packed_gemm.cu", "Route")["kRouteSimt"] == prepacked.ROUTES["simt"]
+    simt = kernel.ROUTE_KERNELS[kernel.ROUTES["simt"]]
+    assert simt is kernel.GEMM_SIMT and simt.name == "gemm_simt"
+    assert batched.ROUTE_KERNELS[kernel.ROUTES["simt"]] is simt
+    packed = prepacked.ROUTE_KERNELS[prepacked.ROUTES["simt"]]
+    assert packed is prepacked.GEMM_PACKED_SIMT and packed.name == "gemm_packed_simt"
+    assert packed.source.endswith("packed_gemm.cu") and simt.source.endswith("gemm.cu")
+    for source in ("gemm.cu", "packed_gemm.cu"):
+        assert '#include "simt_gemm.cuh"' in (registry.CSRC_DIR / source).read_text()
+    text = (registry.CSRC_DIR / "simt_gemm.cuh").read_text()
+    tile = tuple(int(re.search(r"\b%s = (\d+)" % k, text).group(1)) for k in ("kBM", "kBN", "kBK"))
+    assert tile == prepacked.SIMT_TILE == tiling.CTA[torch.float32]
+
+
+def test_simt_route_on_the_cpu_runs_the_plain_version():
+    """route="simt" on CPU tensors: the plain version's bits, one plain call,
+    no launch; a bf16 product asked for simt also runs the plain version
+    (the route is checked only where a card launches)."""
+    rng = np.random.RandomState(2)
+    a = torch.from_numpy(rng.randn(70, 36).astype(np.float32))
+    b = torch.from_numpy(rng.randn(44, 36).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(44).astype(np.float32))
+    kw = dict(bias=bias, epilogue="relu", transpose_b=True, alpha=0.5, beta=2.0,
+              c=torch.ones(70, 44))
+    want = kernel.gemm_plain(a, b, **kw)
+    before = (kernel.GEMM.plain_calls, kernel.GEMM_SIMT.launches)
+    assert torch.equal(kernel.gemm_fused(a, b, route="simt", **kw), want)
+    assert (kernel.GEMM.plain_calls, kernel.GEMM_SIMT.launches) == (before[0] + 1, before[1])
+    ab, bb = a.bfloat16(), b.bfloat16()
+    assert torch.equal(kernel.gemm_fused(ab, bb, transpose_b=True, route="simt"),
+                       kernel.gemm_plain(ab, bb, transpose_b=True))

@@ -112,7 +112,8 @@ def test_every_slice_kernel_registered():
         "gemm_splitk", "w4_gemm_stream", "w4_gemm_mma",  # the weight-streaming routes
         "flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma",  # the backward's
         "conv_direct_ffma", "conv_direct_mma", "gemm_packed_wgmma",  # the conv's, packed
-        "paged_attention_split", "paged_window_attention_split", "norm_vec"}  # split KV, norm
+        "paged_attention_split", "paged_window_attention_split", "norm_vec",  # split KV, norm
+        "gemm_simt", "gemm_packed_simt"}  # the f32 FFMA skeleton
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
@@ -138,11 +139,11 @@ def test_every_slice_kernel_registered():
     assert replaced["sgdm_update"] == "laser_tpu/ops/optim.py:80 _build_sgdm"
     assert replaced["ce_bwd"] == "laser_tpu/ops/loss.py:130 _build_ce_bwd"
     # each route of one TPU kernel counts its own launches
-    assert replaced["gemm_wgmma"] == replaced["gemm_splitk"] == replaced["gemm"] == \
-        "laser_tpu/ops/gemm/kernel.py:62 build_gemm"
+    assert replaced["gemm_wgmma"] == replaced["gemm_splitk"] == replaced["gemm_simt"] == \
+        replaced["gemm"] == "laser_tpu/ops/gemm/kernel.py:62 build_gemm"
     assert replaced["conv_direct_ffma"] == replaced["conv_direct_mma"] == \
         replaced["conv_direct"] == "laser_tpu/ops/conv.py:152 _build_direct_conv"
-    assert replaced["gemm_packed_wgmma"] == replaced["gemm_packed"]
+    assert replaced["gemm_packed_wgmma"] == replaced["gemm_packed_simt"] == replaced["gemm_packed"]
     assert replaced["w4_gemm_stream"] == replaced["w4_gemm_mma"] == replaced["w4_gemm"] == \
         "laser_tpu/ops/gemm/int4_kernel.py:87 build_w4_gemm"
     assert replaced["gemm_batched_wgmma"] == replaced["gemm_batched"]

@@ -211,3 +211,41 @@ def test_plan_tiles_overrides_and_config():
     with config_override(gemm_bm=None, gemm_bn=300, gemm_bk=None):
         assert G.plan_tiles(1000, 1000, 1000, torch.bfloat16).bn == 384
     assert G.GemmTiles(**TILES_128).grid(300, 100, 129) == (3, 1, 2)
+
+
+@pytest.mark.parametrize("dtype,plan,want", [
+    (torch.float32, (128, 128, 32), True), (torch.float32, ODD, False),
+    (torch.bfloat16, (128, 128, 32), False), (torch.float32, (256, 384, 16), True),
+    (torch.float32, (128, 128, 8), False), (torch.int8, (128, 128, 64), False)])
+def test_simt_route_predicate(dtype, plan, want):
+    """csrc/packed_gemm.cu's simt predicate: f32, bm and bn multiples of 128,
+    bk of 16 (``prepacked.SIMT_TILE``)."""
+    assert prepacked.simt_route(dtype, *plan) is want
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096, 4096), (M, N, K), (1, 1, 1), (300, 70, 4000)])
+def test_planned_f32_plan_takes_the_simt_route(shape):
+    """Every f32 plan ``plan_tiles`` makes (``tiling.CTA[float32]`` is
+    (128, 128, 16)) takes the simt route, and none takes wgmma."""
+    t = G.plan_tiles(*shape, torch.float32)
+    assert prepacked.simt_route(torch.float32, t.bm, t.bn, t.bk)
+    assert not prepacked.wgmma_route(torch.float32, t.bm, t.bn, t.bk)
+    assert tiling.CTA[torch.float32] == prepacked.SIMT_TILE
+
+
+@pytest.mark.parametrize("route", ["simt", "classic"])
+def test_f32_routes_on_the_cpu_vs_laser_tpu(f32_case, route):
+    """route="simt" and "classic" on CPU operands run the plain version:
+    laser_tpu's result on its own plan within 1e-5, and the same bits as
+    the route the library picks."""
+    from laser_tpu_torch.ops.gemm.prepacked import GEMM_PACKED, GEMM_PACKED_SIMT
+
+    a, b, c, runs = f32_case
+    tiles, want = runs["laser_plan"]
+    t = G.GemmTiles(*tiles, vmem_limit_bytes=0)
+    pa, pb = G.gemm_prepack_a(_t(a), tiles=t), G.gemm_prepack_b(_t(b), tiles=t)
+    before = (GEMM_PACKED.plain_calls, GEMM_PACKED_SIMT.launches)
+    got = G.gemm_packed(0.5, pa, pb, -1.5, _t(c), route=route)
+    assert (GEMM_PACKED.plain_calls, GEMM_PACKED_SIMT.launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, G.gemm_packed(0.5, pa, pb, -1.5, _t(c)))
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
