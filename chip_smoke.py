@@ -61,7 +61,8 @@ printed:
    as a decode step finds them. Then every route asked for at M 1
    to 128 of the decode product, Llama's w_down and the transformer's w2
    (bf16: split-K up to 64 rows, wgmma, WMMA), at M 16 to 256 of the
-   decode product in f32 (split-K up to 64 rows, simt, FFMA) and of
+   decode product in f32 (split-K up to 64 rows, simt, FFMA), of an int8
+   4096 x 4096 weight (wgmma on B row-major and on B K-major, WMMA) and of
    Llama's int4 w_gate (stream up to 64 rows, mma, WMMA), 20 calls in a
    CUDA graph each: the crossovers behind the launchers' M thresholds.
    Row 1's f32 product, Lux's relu(a @ b + bias) at M4096 K2048 N2048, runs
@@ -185,24 +186,36 @@ printed:
 
 15. The GEMM dtype table at bench.py's shapes and data (bench.py:128-273)
    and BASELINE.json's batched GEMM: ``gemm`` int8 4096^3 (randint(-8, 8))
-   -> int32; ``gemm`` int32 2048^3 (randint(-1000, 1000)), the kernel timed
-   on pre-split limbs; the limb kernel on the 8 digit planes of full-range
-   int64 2048^3 and ``gemm`` int64 end to end; ``gemm_f64`` 2048^3 (randn *
-   2^[-30, 30)) at 8 and 4 slices and the limb kernel on its digits;
-   ``gemm_batched`` bf16 B4 4096^3 (the wgmma route); ``quantize_int8`` of
-   4096^2 f32 per row, global and stochastic; ``gemm_quantized`` 4096^3
-   f32. The path runs once with the counts at 0 (launches by path
-   "gemm_table"; gemm, gemm_batched_wgmma, gemm_int32, gemm_limbs and
-   quantize_int8 must launch, no plain version run). Outside that count
-   the batched product runs once more on the WMMA kernel it replaces
-   (``route="classic"``), checked and timed beside it. Integer results and quantization are held to their
-   plain versions bit for bit, each integer plain version's 64 x 64 corner
-   to an exact integer oracle on the host and int8 also to
+   -> int32 (the int8 wgmma route, B copied K-major first: a transpose
+   launch); ``gemm`` int32 2048^3 (randint(-1000, 1000)), the kernel timed on
+   pre-split limbs (B's K-major); the limb kernel on the 8 digit planes of
+   full-range int64 2048^3 and ``gemm`` int64 end to end; ``gemm_f64``
+   2048^3 (randn * 2^[-30, 30)) at 8 and 4 slices and the limb kernel on
+   its digits; ``gemm_batched`` bf16 B4 4096^3 (the wgmma route);
+   ``quantize_int8`` of 4096^2 f32 per row, global and stochastic;
+   ``gemm_quantized`` 4096^3 f32. The path runs once with the counts at 0
+   (launches by path "gemm_table"; gemm_i8_wgmma, gemm_batched_wgmma,
+   gemm_int32_wgmma, gemm_limbs_wgmma, quantize_int8 and transpose (the
+   int8 product's copy of B) must launch, and
+   the WMMA kernels they replace, gemm, gemm_int32 and gemm_limbs, must
+   not; no plain version run). Outside that count, as yardsticks beside
+   it: each replaced WMMA kernel on the same inputs (``route="classic"``:
+   the int8 GEMM, the int32 kernel and the limb kernel on the int64 and
+   f64 digits, B's K-major, the batched product), the int8 product on a K-major B (no
+   copy) against ``torch._int_mm`` in cuBLASLt's native TN layout, the
+   public ``gemm_limbs`` on (8, K, N) planes (one K-major copy in the
+   call) and the K-major copies alone (csrc/transpose.cu's 1-byte
+   kernel), each checked and timed. Integer results and quantization are
+   held to their plain versions bit for bit, each integer plain version's
+   64 x 64 corner to an exact integer oracle on the host and int8 also to
    ``torch._int_mm``; f64 within 1e-15 of plain and 2^-50 (8 slices) or
    2^-24 (4) of cuBLAS DGEMM, relative to K rowmax|a| colmax|b|; bf16
    batched within 2^-7; then timed as in phase 13, the bound at the rate
-   of the work's type (int8 1979 TOP/s, f64 67 TFLOP/s, bf16 989). It also
-   prints what torch.matmul does with CUDA int32 and int64.
+   of the work's type (int8 1979 TOP/s, f64 67 TFLOP/s, bf16 989). Then
+   ``gemm`` int64 and ``gemm_f64`` (8 slices) run under torch.profiler:
+   the device time of the limb kernel against the digit split and the
+   combine. It also prints what torch.matmul does with CUDA int32 and
+   int64.
 
 16. The library surface at full size, path "library": the card's name and
    power limit; ``adamw_step(backend="pallas")`` at steps 1 (weight decay
@@ -1160,8 +1173,8 @@ def cnn_cases():
 
 
 # the rows at which the GEMM routes are timed against each other: the
-# crossovers behind csrc/gemm.cu's SPLITK_MAX_M and WG_MIN_M and
-# csrc/w4_gemm.cu's W4_STREAM_MAX_M
+# crossovers behind csrc/gemm.cu's SPLITK_MAX_M and WG_MIN_M (and its int8
+# routes) and csrc/w4_gemm.cu's W4_STREAM_MAX_M
 CROSSOVER_M = (1, 8, 16, 32, 40, 64, 128)
 CROSSOVER_F32_M = (16, 32, 64, 128, 256)
 
@@ -1180,7 +1193,9 @@ def gemm_crossover():
     of the transformer's w2 (K 8192, N 2048),
     bf16 with a bias (split-K up to 64 rows); f32 split-K (up to 64 rows),
     simt and the classic FFMA kernel on the decode product at M 16 to 256;
-    the int4 routes at M rows of the Llama
+    int8 -> int32 at K 4096, N 4096 on the wgmma route (B row-major, copied
+    K-major first in the call, and B given K-major) and the WMMA kernel at M 1 to
+    128; the int4 routes at M rows of the Llama
     w_gate product (K 4096, N 14336, group 64; stream up to 64 rows).
     Device ms a call, 20 in a CUDA graph: {product: {M: {route: ms}}}."""
     from laser_tpu_torch.ops.gemm.int4_kernel import gemm_w4, quantize_int4
@@ -1203,6 +1218,19 @@ def gemm_crossover():
             out[key][f"M{M}"] = _crossover_row(f"{key} M{M}", {
                 r: (lambda r=r, x=x: gemm_fused(x, w, bias=b, route=r)) for r in routes
                 if r != "splitk" or M <= 64})
+    # int8 -> int32 (K 4096, N 4096): the wgmma route on a row-major B (its
+    # K-major copy in the call) and on a K-major B (none), the WMMA kernel
+    K, N = 4096, 4096
+    w8 = torch.randint(-8, 8, (K, N), generator=g, device=DEVICE, dtype=torch.int8)
+    w8t = w8.t().contiguous()
+    key = f"int8 K{K} N{N}"
+    out[key] = {}
+    for M in CROSSOVER_M:
+        x = torch.randint(-8, 8, (M, K), generator=g, device=DEVICE, dtype=torch.int8)
+        out[key][f"M{M}"] = _crossover_row(f"{key} M{M}", {
+            "wgmma": lambda x=x: gemm_fused(x, w8, route="wgmma"),
+            "wgmma_bt": lambda x=x: gemm_fused(x, w8t, transpose_b=True, route="wgmma"),
+            "classic": lambda x=x: gemm_fused(x, w8, route="classic")})
     K, N = 4096, 14336
     wq = quantize_int4(torch.randn((K, N), generator=g, device=DEVICE) * K ** -0.5, group=64)
     key = f"int4 K{K} N{N} group64"
@@ -2172,7 +2200,8 @@ def check_and_time(spec, cases, outs, check):
     """Each case's first result (``outs``) held to its bound by
     ``check(case, got) -> max abs error``; a reduction run again must give
     the same bits; then the kernel (one call between two events, and 20 in a
-    row), the plain version and the library call timed beside the bound.
+    row), the plain version and the library call (one call, and 20 in a
+    row) timed beside the bound.
     Returns the record entries by kernel name (a slot's under its name)."""
     entries = {}
     for case, got in zip(cases, outs):
@@ -2188,18 +2217,19 @@ def check_and_time(spec, cases, outs, check):
         ms, pms = cuda_ms(kern, reps=PRIM_REPS), cuda_ms(case.plain, reps=5)
         batched = cuda_batched_ms(kern)
         lms = cuda_ms(case.library, reps=PRIM_REPS) if case.library else None
+        lbatched = cuda_batched_ms(case.library) if case.library else None
         peak = getattr(case, "peak", 0.0) or (
             spec.bf16_tflops if case.dtype == torch.bfloat16 else spec.f32_tflops)
         t_ops = case.flops / (peak * 1e12) * 1e3
         t_bytes = case.nbytes / (spec.hbm_gbps * 1e9) * 1e3
         bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        lib = "none" if lms is None else f"{lms:.4f} ms ({lbatched:.4f} ms 20 in a row)"
         print(f"    time: kernel {ms:.4f} ms ({batched:.4f} ms per call of 20 in a row), "
-              f"plain {pms:.4f} ms, library "
-              f"{'none' if lms is None else f'{lms:.4f} ms'} ({case.library_call}), "
+              f"plain {pms:.4f} ms, library {lib} ({case.library_call}), "
               f"bound {bms:.4f} ms ({by}, {case.nbytes / 1e6:.1f} MB)", flush=True)
         entry = {"shape": case.shape, "max_abs_err": err, "ms": ms, "batched_ms": batched,
                  "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms,
-                 "library_call": case.library_call}
+                 "library_batched_ms": lbatched, "library_call": case.library_call}
         if case.slot:
             entries.setdefault(case.name, {})[case.slot] = entry
         else:
@@ -2571,7 +2601,10 @@ def phase_layout(spec):
 # int32 / int64 / f64, the batched GEMM, int8 quantization)
 # ---------------------------------------------------------------------------
 
-TABLE_KERNELS = ("gemm", "gemm_batched_wgmma", "gemm_int32", "gemm_limbs", "quantize_int8")
+TABLE_KERNELS = ("gemm_i8_wgmma", "gemm_batched_wgmma", "gemm_int32_wgmma", "gemm_limbs_wgmma",
+                 "quantize_int8", "transpose")
+# the WMMA kernels the int8 wgmma routes replace: no launch on the path
+TABLE_REPLACED = ("gemm", "gemm_int32", "gemm_limbs")
 # f64 through digit slices, relative to K * rowmax|a| * colmax|b|: against
 # the plain route (the same digits and bucket sums) and against cuBLAS
 # DGEMM (8 slices: the classical f64 bound; 4 slices: the fast tier)
@@ -2669,8 +2702,10 @@ def _quant_check(tag):
 def table_cases(spec, n: int = 4096, m: int = 2048):
     """bench.py's GEMM dtype rows (bench.py:128-273: int8 at n^3, the
     others at m^3) and BASELINE.json's batched GEMM (n^3), data as bench.py
-    makes it, from a seed."""
+    makes it, from a seed. Returns the cases and the runs to profile
+    ({what: fn}: the int64 and f64 GEMMs end to end)."""
     from laser_tpu_torch.ops import quant as Q
+    from laser_tpu_torch.ops import transpose as TR
     from laser_tpu_torch.ops.gemm import batched as BT
     from laser_tpu_torch.ops.gemm import f64_kernel as F64
     from laser_tpu_torch.ops.gemm import int32_kernel as I32
@@ -2684,31 +2719,64 @@ def table_cases(spec, n: int = 4096, m: int = 2048):
     C = ORACLE_CORNER
     cases = []
 
-    # int8 4096^3, randint(-8, 8) (bench.py:128-176, :1130)
+    # int8 4096^3, randint(-8, 8) (bench.py:128-176, :1130): the wgmma route
+    # with B copied K-major first (a transpose launch on the path); beside
+    # it, outside the path's count, the WMMA kernel it replaces (B read in
+    # place), the product on a K-major B (no copy) against _int_mm in
+    # cuBLASLt's native TN layout, and the copy alone
     a8 = torch.randint(-8, 8, (n, n), generator=g, device=DEVICE, dtype=torch.int8)
     b8 = torch.randint(-8, 8, (n, n), generator=g, device=DEVICE, dtype=torch.int8)
+    b8t = b8.t().contiguous()
+    int8 = dict(plain=lambda: KR.gemm_plain(a8, b8),
+                check=_int_check("gemm int8", lambda: a8[:C].cpu().numpy().astype(np.int64)
+                                 @ b8[:, :C].cpu().numpy().astype(np.int64),
+                                 library=lambda: torch._int_mm(a8, b8)),
+                nbytes=2 * n * n + 4 * n * n, flops=2 * n ** 3, peak=spec.int8_tops,
+                dtype=torch.int8)
     cases.append(Table(
-        "gemm", "int8", f"{n}^3 int8 -> int32, randint(-8, 8)", run=lambda: gemm(a8, b8),
-        plain=lambda: KR.gemm_plain(a8, b8),
-        check=_int_check("gemm int8", lambda: a8[:C].cpu().numpy().astype(np.int64)
-                         @ b8[:, :C].cpu().numpy().astype(np.int64),
-                         library=lambda: torch._int_mm(a8, b8)),
-        nbytes=2 * n * n + 4 * n * n, flops=2 * n ** 3, peak=spec.int8_tops,
-        library=lambda: torch._int_mm(a8, b8), library_call="torch._int_mm (cuBLASLt int8)",
-        dtype=torch.int8))
+        "gemm_i8_wgmma", "", f"{n}^3 int8 -> int32, randint(-8, 8), B row-major (copied "
+        "K-major first: a transpose launch)", run=lambda: gemm(a8, b8),
+        library=lambda: torch._int_mm(a8, b8),
+        library_call="torch._int_mm (cuBLASLt int8), B row-major", **int8))
+    cases.append(Table(
+        "gemm", "int8", f"{n}^3 int8 -> int32, the WMMA kernel asked for",
+        run=lambda: KR.gemm_fused(a8, b8, route="classic"),
+        library=lambda: torch._int_mm(a8, b8),
+        library_call="torch._int_mm (cuBLASLt int8), B row-major", counted=False, **int8))
+    cases.append(Table(
+        "gemm_i8_wgmma", "b_kmajor", f"{n}^3 int8 -> int32, B given K-major (transpose_b, "
+        "no copy)", run=lambda: KR.gemm_fused(a8, b8t, transpose_b=True),
+        library=lambda: torch._int_mm(a8, b8t.t()),
+        library_call="torch._int_mm (cuBLASLt int8), B column-major (TN, its native layout)",
+        counted=False, **int8))
+    cases.append(Table(
+        "transpose", "int8_b_copy", f"{n}x{n} int8 -> K-major: the int8 route's copy of B",
+        run=lambda: TR.transpose2d(b8), plain=lambda: TR.transpose2d_reference(b8),
+        check=_bits_equal("int8 B copy"), nbytes=2 * n * n, flops=0, peak=spec.int8_tops,
+        library=lambda: b8.t().contiguous(), library_call="b.t().contiguous()",
+        counted=False, dtype=torch.int8))
 
-    # int32 2048^3, randint(-1000, 1000) (bench.py:178-204): 10 limb products
+    # int32 2048^3, randint(-1000, 1000) (bench.py:178-204): 10 limb
+    # products; the kernel alone on pre-split limbs (B's K-major, as
+    # gemm_int32 splits b.t()), and the WMMA kernel it replaces on the same
+    # limbs
     a32 = torch.randint(-1000, 1000, (m, m), generator=g, device=DEVICE, dtype=torch.int32)
     b32 = torch.randint(-1000, 1000, (m, m), generator=g, device=DEVICE, dtype=torch.int32)
-    la, lb = I32.int32_limbs(a32), I32.int32_limbs(b32)
+    la, lb, lbt = I32.int32_limbs(a32), I32.int32_limbs(b32), I32.int32_limbs(b32.t())
+    int32 = dict(plain=lambda: I32.gemm_int32_limbs_plain(la, lb),
+                 check=_int_check("gemm_int32", lambda: _wrap_np(
+                     a32[:C].cpu().numpy().astype(np.int64)
+                     @ b32[:, :C].cpu().numpy().astype(np.int64), 32)),
+                 nbytes=3 * 4 * m * m, flops=10 * 2 * m ** 3, peak=spec.int8_tops,
+                 dtype=torch.int32)
     cases.append(Table(
-        "gemm_int32", "", f"{m}^3 int32, randint(-1000, 1000), exact mod 2^32",
-        run=lambda: gemm(a32, b32), time_run=lambda: I32.gemm_int32_limbs(la, lb),
-        plain=lambda: I32.gemm_int32_limbs_plain(la, lb),
-        check=_int_check("gemm_int32", lambda: _wrap_np(
-            a32[:C].cpu().numpy().astype(np.int64) @ b32[:, :C].cpu().numpy().astype(np.int64),
-            32)),
-        nbytes=3 * 4 * m * m, flops=10 * 2 * m ** 3, peak=spec.int8_tops, dtype=torch.int32))
+        "gemm_int32_wgmma", "", f"{m}^3 int32, randint(-1000, 1000), exact mod 2^32",
+        run=lambda: gemm(a32, b32), time_run=lambda: I32.gemm_int32_limbs_kmajor(la, lbt),
+        **int32))
+    cases.append(Table(
+        "gemm_int32", "", f"{m}^3 int32 on pre-split limbs (B's K-major), the WMMA kernel "
+        "asked for", run=lambda: I32.gemm_int32_limbs_kmajor(la, lbt, route="classic"),
+        counted=False, **int32))
 
     # int64 2048^3, full range (bench.py:258-273): 36 limb products; the
     # limb kernel alone on the pre-split digits is bench.py's device rate
@@ -2716,22 +2784,36 @@ def table_cases(spec, n: int = 4096, m: int = 2048):
                         dtype=torch.int64)
     b64 = torch.randint(-2**63, 2**63 - 1, (m, m), generator=g, device=DEVICE,
                         dtype=torch.int64)
-    da, db = I64.int64_limbs(a64).contiguous(), I64.int64_limbs(b64).contiguous()
+    da, db = I64.int64_limbs(a64), I64.int64_limbs(b64)
+    dbt = I64.int64_limbs(b64.t())
 
     def oracle64():
         w = a64[:C].cpu().numpy().astype(object) @ b64[:, :C].cpu().numpy().astype(object)
         return _wrap_np(w, 64)
 
+    limbs = dict(plain=lambda: L.gemm_limbs_plain(da, db, 8),
+                 check=_bits_equal("gemm_limbs int64 digits"),
+                 nbytes=2 * 8 * m * m + 8 * 4 * m * m, flops=36 * 2 * m ** 3,
+                 peak=spec.int8_tops, dtype=torch.int8)
     cases.append(Table(
-        "gemm_limbs", "", f"{m}^3, 8 x 8 int8 digit planes of int64 -> 8 buckets",
-        run=lambda: L.gemm_limbs(da, db, 8), plain=lambda: L.gemm_limbs_plain(da, db, 8),
-        check=_bits_equal("gemm_limbs int64 digits"),
-        nbytes=2 * 8 * m * m + 8 * 4 * m * m, flops=36 * 2 * m ** 3, peak=spec.int8_tops,
-        dtype=torch.int8))
+        "gemm_limbs_wgmma", "", f"{m}^3, 8 x 8 int8 digit planes of int64 -> 8 buckets "
+        "(B's K-major)", run=lambda: L.gemm_limbs_kmajor(da, dbt, 8), **limbs))
     cases.append(Table(
-        "gemm_limbs", "int64_gemm", f"gemm {m}^3 int64, full range, exact mod 2^64 "
+        "gemm_limbs", "", f"{m}^3, 8 x 8 int64 digit planes -> 8 buckets (B's K-major), the "
+        "WMMA kernel asked for", run=lambda: L.gemm_limbs_kmajor(da, dbt, 8, route="classic"),
+        counted=False, **limbs))
+    cases.append(Table(
+        "gemm_limbs_wgmma", "public", f"gemm_limbs {m}^3 on (8, K, N) planes: one K-major "
+        "copy, then the kernel", run=lambda: L.gemm_limbs(da, db, 8), counted=False, **limbs))
+    cases.append(Table(
+        "transpose", "limb_b_copy", f"8 x {m}x{m} int8 planes -> K-major: gemm_limbs' copy",
+        run=lambda: TR.transpose2d_batched(db), plain=lambda: TR.transpose2d_batched_reference(db),
+        check=_bits_equal("limb B copy"), nbytes=2 * 8 * m * m, flops=0, peak=spec.int8_tops,
+        counted=False, dtype=torch.int8))
+    cases.append(Table(
+        "gemm_limbs_wgmma", "int64_gemm", f"gemm {m}^3 int64, full range, exact mod 2^64 "
         "(digit split, limb kernel, combine)", run=lambda: gemm(a64, b64),
-        plain=lambda: I64.gemm_int64(a64, b64, limbs=L.gemm_limbs_plain),
+        plain=lambda: I64.gemm_int64(a64, b64, limbs=L.gemm_limbs_kmajor_plain),
         check=_int_check("gemm int64", oracle64), nbytes=3 * 8 * m * m,
         flops=36 * 2 * m ** 3, peak=spec.int8_tops, dtype=torch.int64))
 
@@ -2743,22 +2825,31 @@ def table_cases(spec, n: int = 4096, m: int = 2048):
         torch.randint(-30, 30, (m, m), generator=g, device=DEVICE).double())
     fa, _ = F64.f64_digits(af, 1, 8)
     fb, _ = F64.f64_digits(bf, 0, 8)
+    fbt, _ = F64.f64_digits(bf.t(), 1, 8)
     for slices, tag in ((8, "accurate"), (4, "fast")):
         cases.append(Table(
-            "gemm_limbs", f"f64_{tag}", f"gemm_f64 {m}^3, randn * 2^[-30, 30), {slices} slices",
+            "gemm_limbs_wgmma", f"f64_{tag}",
+            f"gemm_f64 {m}^3, randn * 2^[-30, 30), {slices} slices",
             run=(lambda s=slices: F64.gemm_f64(af, bf, slices=s)),
-            plain=(lambda s=slices: F64.gemm_f64(af, bf, slices=s, limbs=L.gemm_limbs_plain)),
+            plain=(lambda s=slices: F64.gemm_f64(af, bf, slices=s,
+                                                 limbs=L.gemm_limbs_kmajor_plain)),
             check=_f64_check(f"gemm_f64 {tag}", af, bf, slices), nbytes=3 * 8 * m * m,
             flops=2 * m ** 3, peak=spec.f64_tflops,
             library=lambda: torch.matmul(af, bf), library_call="torch.matmul f64 (cuBLAS DGEMM)",
             dtype=torch.float64))
+    digits64 = dict(plain=lambda: L.gemm_limbs_plain(fa, fb, 8),
+                    check=_bits_equal("gemm_limbs f64 digits"),
+                    nbytes=2 * 8 * m * m + 8 * 4 * m * m, flops=2 * m ** 3,
+                    peak=spec.f64_tflops, library=lambda: torch.matmul(af, bf),
+                    library_call="torch.matmul f64 (cuBLAS DGEMM)", dtype=torch.int8)
     cases.append(Table(
-        "gemm_limbs", "f64_digits", f"{m}^3, 8 x 8 f64 digit planes -> 8 buckets",
-        run=lambda: L.gemm_limbs(fa, fb, 8), plain=lambda: L.gemm_limbs_plain(fa, fb, 8),
-        check=_bits_equal("gemm_limbs f64 digits"), nbytes=2 * 8 * m * m + 8 * 4 * m * m,
-        flops=2 * m ** 3, peak=spec.f64_tflops,
-        library=lambda: torch.matmul(af, bf), library_call="torch.matmul f64 (cuBLAS DGEMM)",
-        dtype=torch.int8))
+        "gemm_limbs_wgmma", "f64_digits", f"{m}^3, 8 x 8 f64 digit planes -> 8 buckets "
+        "(B's K-major)", run=lambda: L.gemm_limbs_kmajor(fa, fbt, 8), **digits64))
+    cases.append(Table(
+        "gemm_limbs", "f64_digits", f"{m}^3, 8 x 8 f64 digit planes -> 8 buckets (B's "
+        "K-major), the WMMA kernel asked for",
+        run=lambda: L.gemm_limbs_kmajor(fa, fbt, 8, route="classic"), counted=False,
+        **digits64))
 
     # BASELINE.json:11's bf16 4096^3 batched GEMM, 4 entries
     B = 4
@@ -2802,11 +2893,13 @@ def table_cases(spec, n: int = 4096, m: int = 2048):
         return KR.gemm_plain(qa, qb, transpose_b=True).float() * sa * sb.reshape(1, -1)
 
     cases.append(Table(
-        "gemm", "quantized", f"gemm_quantized {n}^3 f32 (int8 per row / per column)",
+        "gemm_i8_wgmma", "quantized", f"gemm_quantized {n}^3 f32 (int8 per row / per column)",
         run=lambda: Q.gemm_quantized(aq, bq), plain=quantized_plain,
         check=_bits_equal("gemm_quantized"), nbytes=3 * 4 * n * n, flops=2 * n ** 3,
         peak=spec.int8_tops))
-    return cases
+    profiled = {f"gemm int64 {m}^3": lambda: gemm(a64, b64),
+                f"gemm_f64 {m}^3, 8 slices": lambda: F64.gemm_f64(af, bf, slices=8)}
+    return cases, profiled
 
 
 def table_small_checks():
@@ -2830,6 +2923,10 @@ def table_small_checks():
 
     a, bt, c, bias = i8(37, 100), i8(45, 100), i32(37, 45), i32(45)
     kw = dict(alpha=3, beta=-2, c=c, bias=bias, epilogue="relu", transpose_b=True)
+    aw, bw, cw, biasw = i8(130, 96), i8(96, 45), i32(130, 45), i32(45)
+    kww = dict(alpha=-3, beta=2, c=cw, bias=biasw, epilogue="relu")
+    lwa, lwb, lwc = I32.int32_limbs(i32(5, 112)), I32.int32_limbs(i32(112, 7)), i32(5, 7)
+    dwa, dwb = i8(3, 33, 48), i8(5, 48, 65)
     la, lb, lc = I32.int32_limbs(i32(5, 100)), I32.int32_limbs(i32(100, 7)), i32(5, 7)
     da, db = i8(3, 33, 31), i8(5, 31, 65)
     ab, bb = i8(3, 17, 33), i8(3, 33, 9)
@@ -2844,6 +2941,13 @@ def table_small_checks():
          lambda: I32.gemm_int32_limbs_plain(la, lb, -2**31, 2**31 - 1, lc)),
         ("gemm_limbs 3 x 5 planes 33x31x65 -> 6 buckets", lambda: L.gemm_limbs(da, db, 6),
          lambda: L.gemm_limbs_plain(da, db, 6)),
+        ("gemm int8 130x96x45 (wgmma route), C, bias, relu",
+         lambda: KR.gemm_fused(aw, bw, route="wgmma", **kww), lambda: KR.gemm_plain(aw, bw, **kww)),
+        ("gemm_int32 5x112x7 (wgmma route), alpha, beta, C",
+         lambda: I32.gemm_int32_limbs(lwa, lwb, -2**31, 2**31 - 1, lwc, route="wgmma"),
+         lambda: I32.gemm_int32_limbs_plain(lwa, lwb, -2**31, 2**31 - 1, lwc)),
+        ("gemm_limbs 3 x 5 planes 33x48x65 -> 8 buckets (wgmma route)",
+         lambda: L.gemm_limbs(dwa, dwb, 8, route="wgmma"), lambda: L.gemm_limbs_plain(dwa, dwb, 8)),
         ("quantize_int8 37x100 stochastic", lambda: Q.quantize_int8(xq, stochastic=True, seed=3),
          lambda: Q.quantize_int8_plain(xq, True, True, 3)))
     for tag, kern, plain in checks:
@@ -2852,6 +2956,9 @@ def table_small_checks():
         if not _same_bits(got, want):
             fail(f"{tag}: kernel and plain version differ")
         print(f"  {tag}: bit-identical to the plain version", flush=True)
+    same_bits("gemm int8 130x96x45, C, bias, relu: the wgmma route and the WMMA kernel",
+              lambda: KR.gemm_fused(aw, bw, route="wgmma", **kww),
+              lambda: KR.gemm_fused(aw, bw, route="classic", **kww))
 
 
 def library_small_checks():
@@ -2954,7 +3061,7 @@ def phase_gemm_table(spec):
         except RuntimeError as e:
             print(f"  torch.matmul on CUDA {dt}: {str(e).splitlines()[0]} (no library GEMM)",
                   flush=True)
-    cases = table_cases(spec)
+    cases, profiled = table_cases(spec)
     torch.cuda.synchronize()
     registry.reset_counts()
     outs = {i: case.run() for i, case in enumerate(cases) if case.counted}
@@ -2967,9 +3074,24 @@ def phase_gemm_table(spec):
     for k in TABLE_KERNELS:
         if counts[k]["launches"] == 0:
             fail(f"gemm table: {k} never launched")
+    for k in TABLE_REPLACED:
+        if counts[k]["launches"]:
+            fail(f"gemm table: the replaced kernel {k} launched on the path")
     if any(c["plain_calls"] for c in counts.values()):
         fail(f"gemm table: a plain version ran: {counts}")
     entries = check_and_time(spec, cases, outs, lambda case, got: case.check(got, case.plain()))
+    # the limb kernel's share of the int64 and f64 GEMMs' device time; the
+    # rest is the torch digit split and combine
+    for what, fn in profiled.items():
+        fn()
+        prof = profile_step(lambda: [fn() for _ in range(3)], f"{what}, 3 calls")
+        kern = sum(r["ms"] for r in prof["top"] if "limb_wgmma_kernel" in r["kernel"])
+        print(f"  {what}: limb kernel {kern / 3:.4f} ms a call, "
+              f"{100 * kern / prof['busy_ms']:.1f}% of device busy; the digit split and "
+              f"combine {(prof['busy_ms'] - kern) / 3:.4f} ms a call", flush=True)
+        entries["gemm_limbs_wgmma"].setdefault("profiles", {})[what] = {
+            **prof, "limb_kernel_ms_per_call": kern / 3,
+            "split_combine_ms_per_call": (prof["busy_ms"] - kern) / 3}
     return {"gemm_table": counts}, entries
 
 

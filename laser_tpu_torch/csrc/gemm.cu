@@ -12,9 +12,9 @@
 // bytes streamed from HBM. f32 runs as full-fp32 FFMA, never TF32
 // (config.matmul_precision "highest", laser_tpu/ops/gemm/kernel.py:87-89).
 // int8 inputs (bench.py's int8 4096^3 row, gemm_quantized) run on the int8
-// tensor cores (WMMA s8, int32 accumulators: 1979 TOP/s dense is the bound
-// at 4096^3); the accumulator wraps mod 2^32 (no .satfinite), as
-// laser_tpu's int32 accumulator does.
+// tensor cores (wgmma s8 where it fits, else WMMA s8; int32 accumulators:
+// 1979 TOP/s dense is the bound at 4096^3); the accumulator
+// wraps mod 2^32 (no .satfinite), as laser_tpu's int32 accumulator does.
 //
 // Four routes; the launcher picks one from the shape and alignment, or is
 // asked for one (enum Route), and reports it:
@@ -26,7 +26,8 @@
 //   for 16-bit inputs; f32 runs gemm_splitk_f32_kernel below (FFMA, a
 //   column a thread, the same ring and plan). Partials reduce in a second
 //   kernel in a fixed order; the epilogue runs once, after the sum.
-// - wgmma (compute-bound 16-bit products, M >= WG_MIN_M): see its note.
+// - wgmma (compute-bound 16-bit products, M >= WG_MIN_M; int8 products
+//   with K % 16 == 0, one batch entry): see their notes.
 // - simt (f32 products split-K does not take: M > SPLITK_F32_MAX_M, or
 //   transposed operands, or a batch): gemm_simt_kernel, the FFMA skeleton of
 //   csrc/simt_gemm.cuh (a 128 x 128 tile, 8 x 8 outputs a thread, both
@@ -133,15 +134,20 @@ __device__ __forceinline__ float epilogue_value(const GemmArgs& p, float acc, in
   return activate(r, p.epilogue);
 }
 
-// The int8 path's epilogue in int32: alpha * acc + beta * C + bias wrapping
-// mod 2^32 (uint32 arithmetic: signed overflow is undefined in C++), relu on
-// the int, any other activation in fp32 on the int's value.
-__device__ __forceinline__ void store_int_epilogue(const GemmArgs& p, int acc, int m, int n,
-                                                   size_t i) {
+// alpha * acc + beta * C + bias of the int8 path, wrapping mod 2^32 (uint32
+// arithmetic: signed overflow is undefined in C++)
+__device__ __forceinline__ int int_epilogue_value(const GemmArgs& p, int acc, int m, int n) {
   uint32_t r = (uint32_t)acc * (uint32_t)p.alpha_i;
   if (p.c) r += (uint32_t)p.beta_i * (uint32_t)static_cast<const int*>(p.c)[(size_t)m * p.N + n];
   if (p.bias) r += (uint32_t)static_cast<const int*>(p.bias)[n];
-  int v = (int)r;
+  return (int)r;
+}
+
+// The int8 path's epilogue in int32 (int_epilogue_value), relu on the int,
+// any other activation in fp32 on the int's value.
+__device__ __forceinline__ void store_int_epilogue(const GemmArgs& p, int acc, int m, int n,
+                                                   size_t i) {
+  int v = int_epilogue_value(p, acc, m, n);
   if (p.epilogue == kRelu) v = max(v, 0);
   if (p.epilogue == kNone || p.epilogue == kRelu) {
     if (p.out_dtype == ltt::kI32)
@@ -491,7 +497,11 @@ __global__ void __launch_bounds__(I8_THREADS) gemm_i8_kernel(GemmArgs p) {
 // of the classic FFMA kernel at M 16..64 and 256 (0.2359 against 0.2664)
 // and even with it at M 128, where simt's 48 tiles leave most SMs idle
 // (0.2341 against 0.2311, 0.2355 against 0.2428 in another run), so simt
-// takes every other f32 product it fits.
+// takes every other f32 product it fits. int8 (K 4096, N 4096): the wgmma
+// route is ahead of the WMMA kernel at every M measured, 1 to 128, even with
+// B's K-major copy in the call (0.0620 against 0.0869 ms at M 1, 0.0621
+// against 0.1000 at M 128; 0.0164 on a B given K-major), so it takes every
+// int8 product it fits.
 constexpr int SPLITK_MAX_M = 40;
 constexpr int SPLITK_F32_MAX_M = 64;
 constexpr int WG_MIN_M = SPLITK_MAX_M + 1;
@@ -540,9 +550,9 @@ __device__ __forceinline__ void epilogue_store4(const GemmArgs& p, void* out, in
 // read MN-major; TB: B stored (N, K), read K-major. Each operand is a 3-D
 // map (column, row, batch entry).
 template <bool TA, bool TB>
-struct DenseTiles {
+struct DenseTiles : OneSegment {
   GemmArgs p;
-  int M, N, ktiles;
+  int M, N;
 
   __device__ __forceinline__ void load(const CUtensorMap* map_a, const CUtensorMap* map_b,
                                        uint8_t* a_tile, uint8_t* b_tile, uint64_t* bar,
@@ -562,7 +572,8 @@ struct DenseTiles {
     }
   }
 
-  __device__ __forceinline__ void store4(const TileCoord& c, int row, int col, float4 v) const {
+  __device__ __forceinline__ void store4(const TileCoord& c, int, int row, int col,
+                                         float4 v) const {
     void* out = static_cast<char*>(p.out) + (size_t)c.z * p.batch_o * dtype_size(p.out_dtype);
     epilogue_store4(p, out, row, col, v);
   }
@@ -604,7 +615,7 @@ int launch_wgmma_tt(const GemmArgs& p, int batch, cudaStream_t s) {
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int ntiles = static_cast<int>(tiles);
   const int slots = sm_count() * WG_BLOCKS_PER_SM;
-  const DenseTiles<TA, TB> pol{p, p.M, p.N, (p.K + WG_BK - 1) / WG_BK};
+  const DenseTiles<TA, TB> pol{{(p.K + WG_BK - 1) / WG_BK}, p, p.M, p.N};
   kernel<<<ntiles > slots ? slots : ntiles, WG_THREADS, WG_SMEM_BYTES, s>>>(ma, mb, pol, ntiles);
   return ltt::launch_status();
 }
@@ -620,6 +631,107 @@ int launch_wgmma_t(const GemmArgs& p, int batch, cudaStream_t s) {
 int launch_wgmma(const GemmArgs& p, int in_dtype, int batch, cudaStream_t s) {
   if (in_dtype == ltt::kBF16) return launch_wgmma_t<__nv_bfloat16>(p, batch, s);
   return launch_wgmma_t<__half>(p, batch, s);
+}
+
+// ---------------------------------------------------------------------------
+// int8 on Hopper: the same skeleton on the int8 tensor cores
+// ---------------------------------------------------------------------------
+// Replaces kernel.py:62 build_gemm's int8 -> int32 case (the int8 4096^3 row
+// of bench.py, gemm_quantized) where it fits. What bounds it on the H100: 2MNK
+// int8 operations at 1979 TOP/s (0.0694 ms at 4096^3) against 48 MB of
+// operands and output at 3.35 TB/s (0.0150 ms): the tensor cores. Only wgmma
+// reaches that rate, so the route is gemm_wgmma_kernel's skeleton
+// (csrc/wgmma_gemm.cuh) with the int8 instruction, m64n128k32 s32.s8.s8:
+// - a stage is a bf16 stage in bytes, 128 rows of 128 bytes (k 128) a
+//   side, 128-byte swizzled, so the ring, the descriptors and the 32-byte k
+//   step are the 16-bit kernel's; int32 accumulators, no .satfinite, so the
+//   sum wraps mod 2^32 as gemm_i8_kernel's and laser_tpu's accumulator do;
+// - the 8-bit forms read only K-major operands, so the route takes A (M, K)
+//   and B transposed (N, K) and nothing else: the wrapper
+//   (ops/gemm/kernel.py) copies a transposed A or a row-major B K-major
+//   first, with csrc/transpose.cu's 1-byte kernel (K x N bytes, 16 MB at
+//   4096^3, a launch of its own);
+// - the epilogue stages the int32 bits (never a float: 24 bits would not
+//   hold them) through the tile's last stage and runs gemm_i8_kernel's
+//   int32 epilogue (alpha, beta * C, bias wrapping mod 2^32, the
+//   activation, the output type) on 4 outputs at a time;
+// - TMA fills boxes past M, N and K with zeros, so ragged edges need no
+//   masks; its 16-byte strides need K % 16 == 0 and 16-byte bases. One
+//   batch entry (ltt_gemm; the batched int8 product stays on
+//   gemm_i8_kernel).
+
+// The int8 epilogue on four outputs of row `row` from column `col`: an int32
+// output without a float activation is one 16-byte store where the row holds
+// all four.
+__device__ __forceinline__ void int_epilogue_store4(const GemmArgs& p, int row, int col, int4 v) {
+  const size_t i = (size_t)row * p.N + col;
+  const int r[4] = {v.x, v.y, v.z, v.w};
+  const int n = min(4, p.N - col);
+  if (n == 4 && (p.N & 3) == 0 && p.out_dtype == ltt::kI32 &&
+      (p.epilogue == kNone || p.epilogue == kRelu)) {
+    int o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o[e] = int_epilogue_value(p, r[e], row, col + e);
+      if (p.epilogue == kRelu) o[e] = max(o[e], 0);
+    }
+    *reinterpret_cast<int4*>(static_cast<int*>(p.out) + i) = make_int4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) store_int_epilogue(p, r[e], row, col + e, i + e);
+  }
+}
+
+// The skeleton's tile policy for the int8 route: A (M, K) and B (N, K), both
+// K-major 2-D maps (one batch entry).
+struct I8Tiles : OneSegment {
+  GemmArgs p;
+  int M, N;
+
+  __device__ __forceinline__ void load(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                       uint8_t* a_tile, uint8_t* b_tile, uint64_t* bar,
+                                       const TileCoord& c, int kt) const {
+    const int k0 = kt * WG_BK_I8;
+    tma_load_3d(a_tile, map_a, bar, k0, c.m0, 0);
+    tma_load_3d(b_tile, map_b, bar, k0, c.n0, 0);
+  }
+
+  __device__ __forceinline__ void store4(const TileCoord&, int, int row, int col, int4 v) const {
+    int_epilogue_store4(p, row, col, v);
+  }
+};
+
+__global__ void __launch_bounds__(WG_THREADS, WG_BLOCKS_PER_SM)
+    gemm_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_b, const I8Tiles tiles,
+                         int ntiles) {
+  wgmma_gemm<int8_t, false, true>(&map_a, &map_b, tiles, ntiles);
+}
+
+// The int8 route takes one batch entry (ltt_gemm only) with K-major operands
+// (A not transposed, B transposed), K > 0 a multiple of 16 and 16-byte
+// bases.
+bool i8_wgmma_fits(const GemmArgs& p, int in_dtype, int batch, bool ltt_gemm_only) {
+  if (in_dtype != ltt::kI8 || batch != 1 || !ltt_gemm_only || p.K <= 0 || p.K % 16) return false;
+  return !p.trans_a && p.trans_b && aligned16(p.a) && aligned16(p.b);
+}
+
+int launch_i8_wgmma(const GemmArgs& p, cudaStream_t s) {
+  CUtensorMap ma, mb;
+  if (!encode_map_i8(&ma, p.a, p.K, p.M, 1, WG_BM) ||
+      !encode_map_i8(&mb, p.b, p.K, p.N, 1, WG_BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = ltt::allow_smem(gemm_i8_wgmma_kernel, WG_SMEM_BYTES);
+  if (err) return err;
+  const long long tiles = (long long)((p.M + WG_BM - 1) / WG_BM) * ((p.N + WG_BN - 1) / WG_BN);
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int ntiles = static_cast<int>(tiles);
+  const int slots = sm_count() * WG_BLOCKS_PER_SM;
+  const I8Tiles pol{{(p.K + WG_BK_I8 - 1) / WG_BK_I8}, p, p.M, p.N};
+  gemm_i8_wgmma_kernel<<<ntiles > slots ? slots : ntiles, WG_THREADS, WG_SMEM_BYTES, s>>>(
+      ma, mb, pol, ntiles);
+  return ltt::launch_status();
 }
 
 // ---------------------------------------------------------------------------
@@ -855,20 +967,24 @@ int launch_simt(const GemmArgs& p, int batch, cudaStream_t s) {
 
 // The route a product takes, or -1 where the route asked for does not fit.
 // kRouteAuto: split-K up to SPLITK_MAX_M (SPLITK_F32_MAX_M) rows where it
-// fits (and split_ok: ltt_gemm only), then wgmma from WG_MIN_M rows (16-bit)
-// or simt (f32) where it fits, else the classic kernels. An asked-for route
-// runs at any M it can take.
+// fits (and split_ok: ltt_gemm only, which has a workspace), then wgmma from
+// WG_MIN_M rows (16-bit; int8 at any M, ltt_gemm only, K-major operands) or
+// simt (f32) where it fits, else the classic kernels. An asked-for route runs at any M it can
+// take.
 int pick_route(const GemmArgs& p, int in_dtype, int batch, int route, bool split_ok) {
   const int split_max = in_dtype == ltt::kF32 ? SPLITK_F32_MAX_M : SPLITK_MAX_M;
   switch (route) {
     case kRouteAuto:
       if (split_ok && splitk_fits(p, in_dtype, batch, split_max)) return kRouteSplitK;
-      if (wgmma_fits(p, in_dtype, WG_MIN_M)) return kRouteWgmma;
+      if (wgmma_fits(p, in_dtype, WG_MIN_M) || i8_wgmma_fits(p, in_dtype, batch, split_ok))
+        return kRouteWgmma;
       return simt_fits(p, in_dtype) ? kRouteSimt : kRouteClassic;
     case kRouteClassic:
       return kRouteClassic;
     case kRouteWgmma:
-      return wgmma_fits(p, in_dtype, 1) ? kRouteWgmma : -1;
+      return wgmma_fits(p, in_dtype, 1) || i8_wgmma_fits(p, in_dtype, batch, split_ok)
+                 ? kRouteWgmma
+                 : -1;
     case kRouteSplitK:
       return split_ok && splitk_fits(p, in_dtype, batch, 16 * sk::kMaxMT) ? kRouteSplitK : -1;
     case kRouteSimt:
@@ -884,7 +1000,8 @@ int launch(GemmArgs& p, int in_dtype, int batch, int route, bool split_ok, float
   *taken = pick_route(p, in_dtype, batch, route, split_ok);
   if (*taken < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (*taken == kRouteSplitK) return launch_splitk(p, in_dtype, ws, s);
-  if (*taken == kRouteWgmma) return launch_wgmma(p, in_dtype, batch, s);
+  if (*taken == kRouteWgmma)
+    return in_dtype == ltt::kI8 ? launch_i8_wgmma(p, s) : launch_wgmma(p, in_dtype, batch, s);
   if (*taken == kRouteSimt) return launch_simt(p, batch, s);
   const uintptr_t pa = reinterpret_cast<uintptr_t>(p.a), pb = reinterpret_cast<uintptr_t>(p.b);
   if (in_dtype == ltt::kI8) {
@@ -938,9 +1055,10 @@ GemmArgs make_args(const void* a, const void* b, void* out, int M, int N, int K,
 // or null and bias: (N,) or null, fp32 for float inputs and int32 for int8
 // inputs; out: (M,N) in out_dtype (kI32 only for int8 inputs). All
 // contiguous row-major. alpha and beta are the int32 values for int8 inputs.
-// route: 0 picks, 1 the WMMA/FFMA/int8 kernels, 2 wgmma, 3 split-K, 4 simt; *taken
-// gets the route that launched. workspace: ltt_gemm_workspace's bytes of
-// fp32 scratch (null where it says 0).
+// route: 0 picks, 1 the WMMA/FFMA/int8 kernels, 2 wgmma (16-bit, and int8
+// with A not transposed and B transposed), 3 split-K, 4 simt; *taken gets
+// the route that launched. workspace: ltt_gemm_workspace's bytes of fp32
+// scratch (null where it says 0).
 LTT_API int ltt_gemm(const void* a, const void* b, const void* c, const void* bias, void* out,
                      void* workspace, int M, int N, int K, int trans_a, int trans_b, double alpha,
                      double beta, int epilogue, int in_dtype, int out_dtype, int route,

@@ -4,9 +4,10 @@
 // the paged attention split kernel (csrc/paged_split.cuh):
 // cp.async, ldmatrix and mma.sync m16n8k16, swizzled 16-bit tiles;
 // mbarriers, TMA tensor maps and loads,
-// wgmma m64n128k16 with its shared-memory descriptors, and the tile walk of
-// the persistent wgmma kernels. Everything here is inline: each including
-// source gets its own copy of the device code.
+// wgmma m64n128k16 (16-bit) and m64n128k32 (int8) with their shared-memory
+// descriptors, and the tile walk of the persistent wgmma kernels.
+// Everything here is inline: each including source gets its own copy of
+// the device code.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through cudart
@@ -199,9 +200,12 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 }
 
 // ---------------------------------------------------------------------------
-// wgmma m64n128k16 on 128-byte-swizzled tiles, and the persistent tile walk
+// wgmma on 128-byte-swizzled tiles, and the persistent tile walk
 // ---------------------------------------------------------------------------
-constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64;
+// A stage's operand tile is 128 rows (or k rows) of 128 bytes: k 64 of a
+// 16-bit type (WG_BK), k 128 of int8 (WG_BK_I8); each instruction takes 32
+// bytes of K (k16 of a 16-bit type, k32 of int8)
+constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64, WG_BK_I8 = 128;
 constexpr int WG_CONSUMERS = 2;           // warpgroups, 64 rows each
 constexpr int WG_HALF_BYTES = 64 * 128;   // one 64-wide MN-major box: 64 K-rows of 128 bytes
 // tile rows walked together before the next column of tiles (L2 reuse)
@@ -215,7 +219,8 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_
 }
 
 // K-major (K contiguous, 128-byte rows): rows at 128 B, 8-row groups at 1024
-// B (SBO); the k16 step is +32 B within the swizzled row. MN-major (64
+// B (SBO); a 32-byte k step (k16 16-bit, k32 int8) is +32 B within the
+// swizzled row. MN-major (16-bit only; 64
 // M or N values a 128-byte row, one row a k): 8-k groups at 1024 B (SBO),
 // 64-wide MN blocks at WG_HALF_BYTES (LBO); the k16 step is +2048 B.
 template <bool KMAJOR>
@@ -236,6 +241,11 @@ __device__ __forceinline__ int mn_major_chunk(int half, int k, int chunk) {
 __device__ __forceinline__ void acc_fence(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void acc_fence(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define LTT_WGMMA_M64N128K16(TY)                                                                    \
@@ -274,6 +284,47 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
   }
 }
 #undef LTT_WGMMA_M64N128K16
+
+// d += A (64 x 32) B (32 x 128) of int8, int32 accumulators, both operands
+// K-major (the only layout the 8-bit forms read from shared memory). No
+// .satfinite: the sum wraps mod 2^32, as the classic int8 kernels' does.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// One 32-byte k step of the skeleton's product in T's form: k16 of a 16-bit
+// type (fp32 accumulators), k32 of int8 (int32 accumulators).
+template <typename T, bool TA, bool TB, typename Acc>
+__device__ __forceinline__ void wgmma_k32b(Acc (&d)[64], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    static_assert(!TA && TB, "the 8-bit forms read both operands K-major");
+    wgmma_m64n128k32_s8(d, da, db);
+  } else {
+    wgmma_m64n128k16<T, TA, TB>(d, da, db);
+  }
+}
 
 // Output tile t of the grid's walk: (row, column, batch entry) origin.
 // Tiles go WG_GROUP_M rows at a time down each column of tiles, so a wave
@@ -355,6 +406,14 @@ inline bool encode_map(CUtensorMap* map, const void* base, int dtype, uint64_t i
                       dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
                       2, inner, outer, batch, box_inner, box_outer, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An int8 (batch, outer, inner) matrix, 128-byte swizzle: the int8 wgmma
+// tiles, 128 bytes (k 128) by box_outer rows.
+inline bool encode_map_i8(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
+                          uint64_t batch, uint32_t box_outer) {
+  return encode_tiled(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, inner, outer, batch, 128,
+                      box_outer, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 inline int sm_count() {

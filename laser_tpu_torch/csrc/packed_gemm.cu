@@ -460,9 +460,9 @@ __device__ __forceinline__ void store4_epilogue(const PackedArgs& p, int row, in
 // The skeleton's tile policy: a (tile, k step) reads A block (m0 / bm, k0 /
 // bk) at (k0 % bk, m0 % bm) and the two 64-wide halves of B block (k0 / bk,
 // n0 / bn) at (n0 % bn (+ 64), k0 % bk); the epilogue is laser_tpu's.
-struct PackedTiles {
+struct PackedTiles : hp::OneSegment {
   PackedArgs p;
-  int M, N, ktiles;
+  int M, N;
 
   __device__ __forceinline__ void load(const CUtensorMap* map_a, const CUtensorMap* map_b,
                                        uint8_t* a_tile, uint8_t* b_tile, uint64_t* bar,
@@ -476,7 +476,7 @@ struct PackedTiles {
     hp::tma_load_3d(b_tile + hp::WG_HALF_BYTES, map_b, bar, nin + 64, kin, zb);
   }
 
-  __device__ __forceinline__ void store4(const hp::TileCoord&, int row, int col,
+  __device__ __forceinline__ void store4(const hp::TileCoord&, int, int row, int col,
                                          float4 v) const {
     store4_epilogue(p, row, col, v);
   }
@@ -511,7 +511,7 @@ int launch_wgmma(const PackedArgs& p, int in_dtype, cudaStream_t s) {
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int ntiles = static_cast<int>(tiles);
   const int slots = hp::sm_count() * hp::WG_BLOCKS_PER_SM;
-  const PackedTiles pol{p, p.M, p.N, p.gk * (p.bk / hp::WG_BK)};
+  const PackedTiles pol{{p.gk * (p.bk / hp::WG_BK)}, p, p.M, p.N};
   packed_wgmma_kernel<T><<<ntiles > slots ? slots : ntiles, hp::WG_THREADS, hp::WG_SMEM_BYTES,
                            s>>>(ma, mb, pol, ntiles);
   return ltt::launch_status();

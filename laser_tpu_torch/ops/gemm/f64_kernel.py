@@ -8,9 +8,12 @@ split into ``slices`` signed 7-bit digits of the scaled mantissa:
     A[i,:] = 2^(sa_i) sum_p dA_p[i,:] 128^-(p+1)     dA in [-64, 64]
     C[i,j] = 2^(sa_i + sb_j) sum_s S_s[i,j] 128^-(s+2),  S_s = sum_{p+q=s} dA_p @ dB_q
 
-The bucket planes S_s come from the limb kernel (``gemm_limbs``,
+The bucket planes S_s come from the limb kernel (``gemm_limbs_kmajor``,
 csrc/limb_gemm.cu), exact in int32; everything else is f64 torch on the
-same device. This is laser_tpu's ``_gemm_f64_jax`` route, the one JAX takes
+same device. B's digits are split from ``b.t()`` (one scale a row of it, a
+column of b), so they come K-major, (slices, N, K), as the kernel's wgmma
+route reads them: the same digits as ``f64_digits(b, 0, slices)``,
+transposed. This is laser_tpu's ``_gemm_f64_jax`` route, the one JAX takes
 where f64 is IEEE: the H100 holds f64, so laser_tpu's host route (digit
 extraction on the host, the triple-f32 combine) exists only for the TPU
 and is not ported. ``slices`` 8 (36 digit products) matches the classical
@@ -30,7 +33,7 @@ from typing import Optional
 import torch
 
 from .kernel import _ACT, _epilogue_code
-from .limb_kernel import gemm_limbs, max_k_for
+from .limb_kernel import gemm_limbs_kmajor, max_k_for
 
 DEFAULT_SLICES = 8
 
@@ -68,7 +71,7 @@ def f64_digits(x: torch.Tensor, axis: int, slices: int):
         d = torch.round(t)  # half to even, as jnp.round
         t = t - d
         digits.append(d.to(torch.int8))
-    return torch.stack(digits), scale.squeeze(axis)
+    return torch.stack(digits).contiguous(), scale.squeeze(axis)
 
 
 def bucket_weights(n_buckets: int):
@@ -78,10 +81,11 @@ def bucket_weights(n_buckets: int):
 def gemm_f64(a: torch.Tensor, b: torch.Tensor, *, alpha=1.0, beta=0.0,
              c: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
              epilogue: Optional[str] = None, slices: int = DEFAULT_SLICES,
-             limbs=gemm_limbs) -> torch.Tensor:
+             limbs=gemm_limbs_kmajor) -> torch.Tensor:
     """epilogue(alpha * (a @ b) + beta * c + bias) in f64 through int8 digit
-    products; a (M, K), b (K, N) f64. ``limbs`` is the bucket product
-    (``gemm_limbs_plain``: the plain route on any device)."""
+    products; a (M, K), b (K, N) f64. ``limbs`` is the bucket product on
+    K-major B planes (``gemm_limbs_kmajor_plain``: the plain route on any
+    device)."""
     act = _ACT[_epilogue_code(epilogue)]
     a, b = a.double(), b.double()
     M, K = a.shape
@@ -92,7 +96,7 @@ def gemm_f64(a: torch.Tensor, b: torch.Tensor, *, alpha=1.0, beta=0.0,
     for k0 in range(0, K, k_chunk):
         k1 = min(k0 + k_chunk, K)
         da, sa = f64_digits(a[:, k0:k1], 1, slices)
-        db, sb = f64_digits(b[k0:k1, :], 0, slices)
+        db, sb = f64_digits(b[k0:k1, :].t(), 1, slices)
         buckets = limbs(da, db, slices)
         part = buckets[0].double() * w[0]
         for s in range(1, slices):

@@ -4,8 +4,10 @@
 The int32 GEMM's digit split widened to 8 limbs: A @ B = sum_{i+j<8}
 (A_i @ B_j) << 8(i+j) mod 2^64, 36 int8 products. The 64-bit combine needs
 carries an int32 accumulator cannot hold, so the limb kernel
-(``gemm_limbs``, csrc/limb_gemm.cu) emits the 8 exact bucket planes and
-the combine sum_s int64(S_s) << 8s runs as a torch pass. Each bucket sums
+(``gemm_limbs_kmajor``, csrc/limb_gemm.cu) emits the 8 exact bucket planes
+and the combine sum_s int64(S_s) << 8s runs as a torch pass. B's limbs are
+split from ``b.t()``, so they come K-major, (8, N, K), as the kernel's
+wgmma route reads them. Each bucket sums
 at most 8 K products of magnitude <= 2^14, so K is chunked at 8192
 (``max_k_for(8)``) and chunk results add mod 2^64. The combine, alpha and
 beta * C are int64 tensor arithmetic, which wraps in two's complement in
@@ -21,7 +23,7 @@ from typing import Optional
 import torch
 
 from .int32_kernel import signed_limbs
-from .limb_kernel import gemm_limbs, max_k_for
+from .limb_kernel import gemm_limbs_kmajor, max_k_for
 
 N_LIMBS = 8
 K_CHUNK = max_k_for(N_LIMBS)  # 8192
@@ -48,10 +50,10 @@ def int64_scalar(v) -> int:
 
 
 def gemm_int64(a: torch.Tensor, b: torch.Tensor, *, alpha: int = 1, beta: int = 0,
-               c: Optional[torch.Tensor] = None, limbs=gemm_limbs) -> torch.Tensor:
+               c: Optional[torch.Tensor] = None, limbs=gemm_limbs_kmajor) -> torch.Tensor:
     """alpha * (a @ b) + beta * c, exact mod 2^64; int64 or uint64 in and
-    out. ``limbs`` is the bucket product (``gemm_limbs_plain``: the plain
-    route on any device)."""
+    out. ``limbs`` is the bucket product on K-major B planes
+    (``gemm_limbs_kmajor_plain``: the plain route on any device)."""
     was_uint = a.dtype == torch.uint64
     if was_uint:
         a, b = a.view(torch.int64), b.view(torch.int64)
@@ -64,8 +66,7 @@ def gemm_int64(a: torch.Tensor, b: torch.Tensor, *, alpha: int = 1, beta: int = 
     out = torch.zeros((M, N), dtype=torch.int64, device=a.device)
     for k0 in range(0, K, K_CHUNK):
         k1 = min(k0 + K_CHUNK, K)
-        buckets = limbs(int64_limbs(a[:, k0:k1]).contiguous(),
-                        int64_limbs(b[k0:k1, :]).contiguous(), N_LIMBS)
+        buckets = limbs(int64_limbs(a[:, k0:k1]), int64_limbs(b[k0:k1, :].t()), N_LIMBS)
         out = out + combine_mod64(buckets)
     out = out * int64_scalar(alpha)
     if c is not None:

@@ -15,7 +15,12 @@ tensor-core throughput at prefill and training (M up to 8192), the weight
 bytes from HBM at decode (M = 1..40); int8 at 4096^3, the int8 tensor-core
 rate; f32, the FFMA rate (67 TFLOP/s). Four routes, each with its own
 launch counter, the kernel library picking one from the shape and
-alignment: ``gemm_splitk`` (bf16/f16 with M <= 40, f32 with M <= 64,
+alignment: ``gemm_i8_wgmma`` (int8 with K % 16 == 0, at any M: wgmma s8 fed
+by a TMA ring on the 16-bit route's skeleton, int32 accumulators that wrap;
+the 8-bit wgmma reads only K-major operands, so where the route may be
+taken (None or "wgmma") a transposed A or a row-major B is first copied
+K-major by csrc/transpose.cu, a ``transpose`` launch; the int32 epilogue as the
+classic kernel's), ``gemm_splitk`` (bf16/f16 with M <= 40, f32 with M <= 64,
 neither operand transposed, N % 8 == 0 (f32: N % 4), 16-byte-aligned
 bases: the weight streamed through a cp.async ring over (column tile, K
 split) blocks, mma.sync (FFMA for f32), partials summed in a fixed order by
@@ -32,8 +37,8 @@ s8 on a 64 x 64 tile, f32 FFMA). The M thresholds come from chip_smoke.py's
 crossover (csrc/gemm.cu). Each applies the epilogue in the accumulator type
 before one cast. ``route="classic"``, ``"wgmma"``, ``"splitk"`` or
 ``"simt"`` on a CUDA tensor asks for one (wgmma and simt at any M, split-K
-up to 64 rows; an error where it does not fit), to time them against each
-other.
+up to 64 rows; int8 takes "classic" and "wgmma"; an error where it does not
+fit), to time them against each other.
 
 ``gemm_fused`` launches the kernel for CUDA tensors and runs
 ``gemm_plain`` for CPU tensors; there is no other fallback. torch has no
@@ -52,6 +57,7 @@ import torch.nn.functional as F
 
 from ... import registry
 from ...config import check_f32_precision, pin_fp32_matmul
+from ..transpose import transpose2d
 
 GEMM = registry.kernel("gemm", "laser_tpu_torch/csrc/gemm.cu",
                        "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
@@ -61,9 +67,13 @@ GEMM_SPLITK = registry.kernel("gemm_splitk", "laser_tpu_torch/csrc/gemm.cu",
                               "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
 GEMM_SIMT = registry.kernel("gemm_simt", "laser_tpu_torch/csrc/gemm.cu",
                             "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
+GEMM_I8_WGMMA = registry.kernel("gemm_i8_wgmma", "laser_tpu_torch/csrc/gemm.cu",
+                                "laser_tpu/ops/gemm/kernel.py:62 build_gemm")
 # route codes shared with csrc/gemm.cu (enum Route), and the counter of each
 ROUTES = {None: 0, "classic": 1, "wgmma": 2, "splitk": 3, "simt": 4}
 ROUTE_KERNELS = {1: GEMM, 2: GEMM_WGMMA, 3: GEMM_SPLITK, 4: GEMM_SIMT}
+# int8 inputs: the WMMA s8 kernel or the int8 wgmma route
+I8_ROUTE_KERNELS = {1: GEMM, 2: GEMM_I8_WGMMA}
 
 # epilogue codes shared with csrc/gemm.cu (enum Epilogue)
 EPILOGUES = {None: 0, "none": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "gelu": 4}
@@ -184,9 +194,17 @@ def _gemm_cuda(a, b, *, alpha, beta, c, bias, epilogue, out_dtype,
     acc_t = torch.int32 if int8 else torch.float32
     c_acc = c.to(acc_t).contiguous() if c is not None else None
     bias_acc = bias.to(acc_t).reshape(-1).contiguous() if bias is not None else None
+    code, in_code = registry.route_code(ROUTES, route), registry.GEMM_DTYPE_CODES[a.dtype]
     if int8:
         alpha, beta = int32_scalar(alpha), int32_scalar(beta)
-    code, in_code = registry.route_code(ROUTES, route), registry.GEMM_DTYPE_CODES[a.dtype]
+        if code in (ROUTES[None], ROUTES["wgmma"]):
+            # the int8 wgmma route reads only K-major operands, (M, K) and
+            # (N, K): one copy of each other operand (the WMMA kernel, where
+            # the launcher still takes it, reads the copies alike)
+            if transpose_a:
+                a, transpose_a = transpose2d(a), False
+            if not transpose_b:
+                b, transpose_b = transpose2d(b), True
     ws = registry.scratch(registry.workspace(
         "ltt_gemm_workspace",
         ("gemm", M, N, K, transpose_a, transpose_b, in_code, code, a.data_ptr() % 16 == 0,
@@ -203,7 +221,7 @@ def _gemm_cuda(a, b, *, alpha, beta, c, bias, epilogue, out_dtype,
         registry.GEMM_DTYPE_CODES[out_dtype], code, ctypes.byref(taken),
         registry.stream_handle(a))
     registry.check_launch(status, "gemm")
-    ROUTE_KERNELS[taken.value].launches += 1
+    (I8_ROUTE_KERNELS if int8 else ROUTE_KERNELS)[taken.value].launches += 1
     return out
 
 

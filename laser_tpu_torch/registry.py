@@ -72,17 +72,20 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)  # an out-parameter: workspace bytes
 SIGNATURES = {
     # a, b, c, bias, out, workspace (or null), M, N, K, trans_a, trans_b,
     # alpha, beta (the int32 values for int8 inputs), epilogue, in_dtype,
-    # out_dtype, route (0 picks, 1 WMMA/FFMA/int8, 2 wgmma, 3 split-K, 4 simt), route
+    # out_dtype, route (0 picks, 1 WMMA/FFMA/int8, 2 wgmma (16-bit and int8), 3
+    # split-K, 4 simt), route
     # taken (out), stream
     "ltt_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _IP, _P),
     # a, b, M, N, K, trans_a, trans_b, in_dtype, route, workspace bytes (out)
     "ltt_gemm_workspace": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _LLP),
     # a, b, out, B, M, N, K, in_dtype, out_dtype, route, route taken, stream
     "ltt_gemm_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _IP, _P),
-    # a digits, b digits, out, nA, nB, n_buckets, M, N, K, stream
-    "ltt_gemm_limbs": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # a limbs, b limbs, c (or null), out, M, N, K, alpha, beta, stream
-    "ltt_gemm_int32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # a digits, b digits (K-major), out, nA, nB, n_buckets, M, N, K, route (0
+    # picks, 1 classic, 2 wgmma), route taken (out), stream
+    "ltt_gemm_limbs": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _IP, _P),
+    # a limbs, b limbs (K-major), c (or null), out, M, N, K, alpha, beta,
+    # route, route taken (out), stream
+    "ltt_gemm_int32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _P),
     # x, q, scales, partials (or null), rows, cols, per_row, stochastic,
     # seed, dtype, stream
     "ltt_quantize_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _I, _P),

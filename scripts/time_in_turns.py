@@ -58,6 +58,16 @@ BENCH is one of:
   (2L d512, batch 4 x 256) and ``llama_loss_grad_ms``, its llama loss and
   gradients (the chunked branch), each the median of 10 synchronised
   calls after 2 (host clock).
+- ``int_gemm``: the integer GEMMs of chip_smoke.py phase 15 at its shapes
+  and data, on the route each tree picks: ``limbs``, ``gemm_limbs`` of
+  the 8 x 8 int64 digit planes of 2048^3 into 8 buckets from (8, K, N)
+  planes (one K-major copy in the call); ``limbs_kernel``, the same
+  product from K-major planes where the tree has ``gemm_limbs_kmajor``
+  (else as ``limbs``); ``int32``, the int32
+  kernel on pre-split limbs (``gemm_int32_limbs``; ``int32_kernel``
+  K-major where the tree has ``gemm_int32_limbs_kmajor``); ``int8``,
+  ``gemm`` int8 4096^3 -> int32 (B row-major); ``f64``, ``gemm_f64``
+  2048^3 at 8 slices end to end; timed as ``conv``.
 - ``primitives``: every case of chip_smoke.py phase 13 (for_each,
   for_each_multi, row_reduce, map_reduce, vector math, reductions, Lux at
   bench.py's shapes), its generated bodies built first: the kernel's ms as
@@ -388,6 +398,37 @@ def norm(smoke) -> dict:
         f"rms_8x{width}": lambda: rms_norm(xd, gr)})
 
 
+def int_gemm(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops.gemm import f64_kernel, int32_kernel, int64_kernel, limb_kernel
+    from laser_tpu_torch.ops.gemm.api import gemm
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    n, m = 4096, 2048
+    a8, b8 = (torch.randint(-8, 8, (n, n), generator=g, device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    a32, b32 = (torch.randint(-1000, 1000, (m, m), generator=g, device="cuda",
+                              dtype=torch.int32) for _ in range(2))
+    la, lb = int32_kernel.int32_limbs(a32), int32_kernel.int32_limbs(b32)
+    a64, b64 = (torch.randint(-2**63, 2**63 - 1, (m, m), generator=g, device="cuda",
+                              dtype=torch.int64) for _ in range(2))
+    da, db = int64_kernel.int64_limbs(a64), int64_kernel.int64_limbs(b64)
+    af, bf = (torch.randn(m, m, generator=g, device="cuda", dtype=torch.float64) * torch.exp2(
+        torch.randint(-30, 30, (m, m), generator=g, device="cuda").double()) for _ in range(2))
+    limbs = lambda: limb_kernel.gemm_limbs(da, db, 8)  # noqa: E731
+    int32 = lambda: int32_kernel.gemm_int32_limbs(la, lb)  # noqa: E731
+    limbs_kernel, int32_kernel_alone = limbs, int32
+    if hasattr(limb_kernel, "gemm_limbs_kmajor"):
+        dbt, lbt = db.transpose(1, 2).contiguous(), lb.transpose(1, 2).contiguous()
+        limbs_kernel = lambda: limb_kernel.gemm_limbs_kmajor(da, dbt, 8)  # noqa: E731
+        int32_kernel_alone = lambda: int32_kernel.gemm_int32_limbs_kmajor(la, lbt)  # noqa: E731
+    return _timed(smoke, {
+        "limbs": limbs, "limbs_kernel": limbs_kernel, "int32": int32,
+        "int32_kernel": int32_kernel_alone, "int8": lambda: gemm(a8, b8),
+        "f64": lambda: f64_kernel.gemm_f64(af, bf, slices=8)})
+
+
 def primitives(smoke) -> dict:
     from laser_tpu_torch import registry
 
@@ -399,7 +440,8 @@ def primitives(smoke) -> dict:
 
 BENCHES = {"flash_forward": flash_forward, "flash_backward": flash_backward,
            "serving": serving, "cnn": cnn, "conv": conv, "wgmma_gemm": wgmma_gemm,
-           "paged": paged, "norm": norm, "primitives": primitives, "f32_gemm": f32_gemm}
+           "paged": paged, "norm": norm, "primitives": primitives, "f32_gemm": f32_gemm,
+           "int_gemm": int_gemm}
 
 
 def _time_tree(bench: str, tree: str) -> dict:

@@ -38,7 +38,14 @@ accumulator wrap (K = 140000), unaligned operands; the batched GEMM in
 f32/bf16/f16/int8 and past the grid's 65535 entries; the limb kernel at
 1-8 planes, buckets 1-8, K 1-8192 and all-(-128) digits; the int32 kernel
 at INT_MIN/MAX with alpha, beta, C and uint32; int64 across its K chunk
-and f64 against the CPU route; int8 quantization (per row, global,
+and f64 against the CPU route; the int8 wgmma skeleton's three routes
+(the int8 GEMM, the limb product, the int32 GEMM) bit for bit against
+their plain versions and the WMMA kernels they replace: ragged M and N, K
+off 128 and at the int64 / f64 chunk boundaries, every int8 transposition,
+alpha, beta * C, bias, every epilogue and output dtype, -128 / 127
+operands, the accumulator's wrap, INT_MIN / INT_MAX, planes and buckets
+1-8 with nA != nB, more tiles than resident blocks, the routes picked by
+shape and the ones that do not fit raising; int8 quantization (per row, global,
 stochastic, f32/bf16/f16, 1 x 1 to 4096 x 3) and gemm_quantized; the
 library surface bit for bit: the AdamW and SGD-momentum updates in
 f32/bf16/f16 from 1 to 1000003 elements, unaligned (the scalar path), lr on
@@ -1491,19 +1498,31 @@ def _equal(got, want):
     assert torch.equal(got.cpu(), want.cpu())
 
 
+def _int8_launches():
+    """Launches of the int8 GEMM over its two routes."""
+    from laser_tpu_torch.ops.gemm.kernel import I8_ROUTE_KERNELS
+
+    return sum(k.launches for k in I8_ROUTE_KERNELS.values())
+
+
+def _limb_launches(module):
+    """Launches of the limb (or int32) kernel over its two routes."""
+    return sum(k.launches for k in module.ROUTE_KERNELS.values())
+
+
 @pytest.mark.parametrize("ta,tb", [(False, False), (True, False), (False, True), (True, True)])
 @pytest.mark.parametrize("shape", [(1, 1, 1), (1, 100, 33), (17, 15, 64), (64, 16, 1),
                                    (130, 257, 65), (33, 4096, 17)])
 def test_gemm_int8(dev, ta, tb, shape):
-    from laser_tpu_torch.ops.gemm.kernel import GEMM, gemm_fused, gemm_plain
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused, gemm_plain
 
     M, K, N = shape
     g = _gen(dev, 70)
     a = _int8(g, (K, M) if ta else (M, K), dev)
     b = _int8(g, (N, K) if tb else (K, N), dev)
-    before = GEMM.launches
+    before = _int8_launches()
     got = gemm_fused(a, b, transpose_a=ta, transpose_b=tb)
-    assert GEMM.launches == before + 1 and got.dtype == torch.int32
+    assert _int8_launches() == before + 1 and got.dtype == torch.int32
     _equal(got, gemm_plain(a, b, transpose_a=ta, transpose_b=tb))
 
 
@@ -1531,13 +1550,16 @@ def test_gemm_int8_epilogue_wraps(dev, epilogue, out_dtype):
 
 
 def test_gemm_int8_accumulator_wraps(dev):
-    """All -128 over K = 140000: the int32 sum passes 2^31 and wraps."""
+    """All -128 over K = 140000: the int32 sum passes 2^31 and wraps, on the
+    WMMA kernel and on the wgmma route alike."""
     from laser_tpu_torch.ops.gemm.kernel import gemm_fused, gemm_plain
 
     a, b = _int8(None, (3, 140000), dev, True), _int8(None, (140000, 5), dev, True)
-    got = gemm_fused(a, b)
-    _equal(got, gemm_plain(a, b))
-    assert got[0, 0].item() == (140000 * 16384 + 2**31) % 2**32 - 2**31
+    want = gemm_plain(a, b)
+    for route in (None, "classic", "wgmma"):
+        got = gemm_fused(a, b, route=route)
+        _equal(got, want)
+        assert got[0, 0].item() == (140000 * 16384 + 2**31) % 2**32 - 2**31
 
 
 def test_gemm_int8_unaligned_operands(dev):
@@ -1588,15 +1610,16 @@ def test_gemm_batched_past_the_grid_limit(dev):
 @pytest.mark.parametrize("shape", [(1, 1, 1), (33, 31, 65), (32, 32, 64), (40, 100, 17),
                                    (7, 8192, 9)])
 def test_gemm_limbs(dev, planes, shape):
-    from laser_tpu_torch.ops.gemm.limb_kernel import GEMM_LIMBS, gemm_limbs, gemm_limbs_plain
+    from laser_tpu_torch.ops.gemm import limb_kernel
+    from laser_tpu_torch.ops.gemm.limb_kernel import gemm_limbs, gemm_limbs_plain
 
     nA, nB, nb = planes
     M, K, N = shape
     g = _gen(dev, 75)
     da, db = _int8(g, (nA, M, K), dev), _int8(g, (nB, K, N), dev)
-    before = GEMM_LIMBS.launches
+    before = _limb_launches(limb_kernel)
     got = gemm_limbs(da, db, nb)
-    assert GEMM_LIMBS.launches == before + 1
+    assert _limb_launches(limb_kernel) == before + 1
     _equal(got, gemm_limbs_plain(da, db, nb))
 
 
@@ -1614,8 +1637,9 @@ def test_gemm_limbs_extreme_digits(dev):
 @pytest.mark.parametrize("shape", [(1, 1, 1), (5, 100, 7), (64, 257, 130), (1, 4096, 33)])
 @pytest.mark.parametrize("extreme", [False, True])
 def test_gemm_int32_kernel(dev, shape, extreme):
-    from laser_tpu_torch.ops.gemm.int32_kernel import (GEMM_INT32, gemm_int32,
-                                                       gemm_int32_limbs_plain, int32_limbs)
+    from laser_tpu_torch.ops.gemm import int32_kernel
+    from laser_tpu_torch.ops.gemm.int32_kernel import (gemm_int32, gemm_int32_limbs_plain,
+                                                       int32_limbs)
 
     M, K, N = shape
     g = _gen(dev, 76)
@@ -1629,9 +1653,9 @@ def test_gemm_int32_kernel(dev, shape, extreme):
 
     a, b, c = rnd(M, K), rnd(K, N), rnd(M, N)
     for alpha, beta, cc in ((1, 0, None), (lims[0], lims[1], c), (-3, 7, c)):
-        before = GEMM_INT32.launches
+        before = _limb_launches(int32_kernel)
         got = gemm_int32(a, b, alpha=alpha, beta=beta, c=cc)
-        assert GEMM_INT32.launches == before + 1
+        assert _limb_launches(int32_kernel) == before + 1
         _equal(got, gemm_int32_limbs_plain(int32_limbs(a), int32_limbs(b), alpha, beta, cc))
     ua, ub = a.view(torch.uint32), b.view(torch.uint32)
     _equal(gemm_int32(ua, ub).view(torch.int32), gemm_int32(a, b))
@@ -1641,17 +1665,19 @@ def test_int64_and_f64_gemm_match_the_cpu_route(dev):
     """int64 across the 8192 K-chunk with alpha, beta and C, uint64, and
     f64 (8 and 4 slices, a zero row) give the CPU route's result: the
     same digits, the same bucket sums, the same combine."""
-    from laser_tpu_torch.ops.gemm import gemm
+    from laser_tpu_torch.ops.gemm import gemm, limb_kernel
     from laser_tpu_torch.ops.gemm.f64_kernel import gemm_f64
-    from laser_tpu_torch.ops.gemm.limb_kernel import GEMM_LIMBS
 
     g = torch.Generator().manual_seed(77)
     a = torch.randint(-2**63, 2**63 - 1, (6, 8200), generator=g, dtype=torch.int64)
     b = torch.randint(-2**63, 2**63 - 1, (8200, 5), generator=g, dtype=torch.int64)
     c = torch.randint(-2**63, 2**63 - 1, (6, 5), generator=g, dtype=torch.int64)
-    before = GEMM_LIMBS.launches
+    before = (limb_kernel.GEMM_LIMBS.launches, limb_kernel.GEMM_LIMBS_WGMMA.launches)
     got = gemm(a.to(dev), b.to(dev), alpha=3, beta=-5, c=c.to(dev))
-    assert GEMM_LIMBS.launches == before + 2  # two K chunks
+    # two K chunks: 8192 on the wgmma route, the 8-deep tail on the classic
+    # kernel (K-major B planes)
+    assert (limb_kernel.GEMM_LIMBS.launches, limb_kernel.GEMM_LIMBS_WGMMA.launches) == \
+        (before[0] + 1, before[1] + 1)
     _equal(got, gemm(a, b, alpha=3, beta=-5, c=c))
     _equal(gemm(a.to(dev).view(torch.uint64), b.to(dev).view(torch.uint64)),
            gemm(a.view(torch.uint64), b.view(torch.uint64)))
@@ -1696,6 +1722,309 @@ def test_quantize_int8_zero_row_and_gemm_quantized(dev):
     got = gemm_quantized(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), gemm_quantized(a.cpu(), b.cpu()))
+
+
+# ---------------------------------------------------------------------------
+# The int8 wgmma skeleton (csrc/wgmma_gemm.cuh with wgmma s8): the int8 GEMM's
+# route, the limb product's and the int32 GEMM's. Each is held bit for bit to
+# its plain version and to the classic WMMA kernel it replaces.
+# ---------------------------------------------------------------------------
+
+def _routes_equal(run, want, counter, routes=("wgmma", "classic")):
+    """run(route) on each route equals ``want`` bit for bit; the wgmma run
+    counts one launch on ``counter``."""
+    before = counter.launches
+    got = {r: run(r) for r in routes}
+    assert counter.launches == before + 1
+    for r in routes:
+        _equal(got[r], want)
+
+
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("shape", [(1, 16, 1), (37, 48, 45), (64, 128, 64), (130, 272, 257),
+                                   (200, 4096, 129), (65, 8192, 33)])
+def test_gemm_i8_wgmma(dev, ta, tb, shape):
+    """Ragged M and N, K a multiple of 16 but not of 128, every transposition:
+    the wgmma route against the plain version and the WMMA kernel."""
+    from laser_tpu_torch.ops.gemm.kernel import GEMM_I8_WGMMA, gemm_fused, gemm_plain
+
+    M, K, N = shape
+    g = _gen(dev, 90)
+    a = _int8(g, (K, M) if ta else (M, K), dev)
+    b = _int8(g, (N, K) if tb else (K, N), dev)
+    kw = dict(transpose_a=ta, transpose_b=tb)
+    _routes_equal(lambda r: gemm_fused(a, b, route=r, **kw), gemm_plain(a, b, **kw),
+                  GEMM_I8_WGMMA)
+
+
+@pytest.mark.parametrize("epilogue,out_dtype", [(None, torch.int32), ("relu", torch.int32),
+                                                ("tanh", torch.float32),
+                                                ("sigmoid", torch.float32),
+                                                ("gelu", torch.bfloat16),
+                                                (None, torch.float32), ("relu", torch.bfloat16),
+                                                (None, torch.float16)])
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, True)])
+def test_gemm_i8_wgmma_epilogues(dev, epilogue, out_dtype, ta, tb):
+    """alpha, beta * C and the bias (INT_MIN / INT_MAX among them) wrap mod
+    2^32 on the wgmma route as on the WMMA kernel: the same bits, and the
+    plain version's (float outputs of an activation within a rounding)."""
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused, gemm_plain
+
+    g = _gen(dev, 91)
+    M, K, N = 131, 96, 70
+    a = _int8(g, (K, M) if ta else (M, K), dev)
+    b = _int8(g, (N, K) if tb else (K, N), dev)
+    c = torch.randint(-2**31, 2**31 - 1, (M, N), generator=g, device=dev, dtype=torch.int32)
+    c[0, :4] = torch.tensor([-2**31, 2**31 - 1, -1, 0], dtype=torch.int32)
+    bias = torch.randint(-2**31, 2**31 - 1, (N,), generator=g, device=dev, dtype=torch.int32)
+    for alpha, beta in ((3, -7), (0.5, 1.5), (2**31 - 1, -2**31)):
+        kw = dict(alpha=alpha, beta=beta, c=c, bias=bias, epilogue=epilogue,
+                  out_dtype=out_dtype, transpose_a=ta, transpose_b=tb)
+        got = gemm_fused(a, b, route="wgmma", **kw)
+        _equal(got, gemm_fused(a, b, route="classic", **kw))
+        want = gemm_plain(a, b, **kw)
+        if out_dtype == torch.int32 or epilogue is None:  # f16 overflows to inf alike
+            _equal(got, want)
+        else:
+            _check(got, want, torch.float32 if out_dtype == torch.float32 else torch.bfloat16)
+
+
+@pytest.mark.parametrize("value", [-128, 127])
+def test_gemm_i8_wgmma_extreme_digits(dev, value):
+    """Every operand -128 (or 127) at K 4096 and a mix of both at K 8192:
+    the largest products, the same bits on both routes."""
+    from laser_tpu_torch.ops.gemm.kernel import GEMM_I8_WGMMA, gemm_fused, gemm_plain
+
+    a = torch.full((70, 4096), value, dtype=torch.int8, device=dev)
+    b = torch.full((4096, 66), value, dtype=torch.int8, device=dev)
+    _routes_equal(lambda r: gemm_fused(a, b, route=r), gemm_plain(a, b), GEMM_I8_WGMMA)
+    g = _gen(dev, 92)
+    pool = torch.tensor([-128, 127], dtype=torch.int8, device=dev)
+    a, b = (pool[torch.randint(0, 2, s, generator=g, device=dev)] for s in ((65, 8192),
+                                                                            (8192, 40)))
+    _routes_equal(lambda r: gemm_fused(a, b, route=r), gemm_plain(a, b), GEMM_I8_WGMMA)
+
+
+def test_gemm_i8_wgmma_more_tiles_than_blocks(dev):
+    """1056 output tiles (4224 x 4096) for two blocks on each SM: the
+    persistent grid walks several tiles a block."""
+    from laser_tpu_torch.ops.gemm.kernel import GEMM_I8_WGMMA, gemm_fused, gemm_plain
+
+    g = _gen(dev, 93)
+    a, b = _int8(g, (4224, 64), dev), _int8(g, (64, 4096), dev)
+    _routes_equal(lambda r: gemm_fused(a, b, route=r), gemm_plain(a, b), GEMM_I8_WGMMA)
+
+
+def test_gemm_i8_routes_by_shape_and_asked_for(dev):
+    """The library picks wgmma for int8 at any M with K % 16 == 0 (the
+    bench row and gemm_quantized), the WMMA kernel for other K; a route
+    that does not fit raises, an unknown name raises ValueError."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.gemm.batched import gemm_batched, _gemm_batched_cuda
+    from laser_tpu_torch.ops.gemm.kernel import GEMM, GEMM_I8_WGMMA, gemm_fused
+    from laser_tpu_torch.ops.quant import gemm_quantized
+
+    g = _gen(dev, 94)
+    for (M, K), counter in (((64, 64), GEMM_I8_WGMMA), ((1, 64), GEMM_I8_WGMMA),
+                            ((300, 72), GEMM), ((300, 80), GEMM_I8_WGMMA)):
+        before = counter.launches
+        gemm_fused(_int8(g, (M, K), dev), _int8(g, (K, 40), dev))
+        assert counter.launches == before + 1, (M, K)
+    before = GEMM_I8_WGMMA.launches
+    gemm_quantized(_rnd(g, (128, 256), torch.float32, dev), _rnd(g, (256, 48), torch.float32, dev))
+    assert GEMM_I8_WGMMA.launches == before + 1
+    a, b = _int8(g, (80, 72), dev), _int8(g, (72, 40), dev)
+    with pytest.raises(registry.KernelLaunchError):  # K % 16 != 0
+        gemm_fused(a, b, route="wgmma")
+    au = _int8(g, (80 * 64 + 1,), dev)[1:].view(80, 64)
+    with pytest.raises(registry.KernelLaunchError):  # A read in place, unaligned
+        gemm_fused(au, _int8(g, (64, 40), dev), route="wgmma")
+    for route in ("splitk", "simt"):
+        with pytest.raises(registry.KernelLaunchError):
+            gemm_fused(au, _int8(g, (64, 40), dev), route=route)
+    with pytest.raises(ValueError):
+        gemm_fused(a, b, route="tensor")
+    ab, bb = _int8(g, (2, 80, 64), dev), _int8(g, (2, 64, 40), dev)
+    with pytest.raises(registry.KernelLaunchError):  # the batched int8 product: WMMA only
+        _gemm_batched_cuda(ab, bb, torch.int32, route="wgmma")
+    before = GEMM_I8_WGMMA.launches
+    gemm_batched(ab, bb)
+    assert GEMM_I8_WGMMA.launches == before
+
+
+@pytest.mark.parametrize("planes", [(8, 8, 8), (4, 4, 4), (3, 5, 6), (1, 1, 1), (8, 8, 1),
+                                    (2, 7, 8), (6, 1, 3), (1, 2, 5)])
+@pytest.mark.parametrize("shape", [(1, 16, 1), (33, 48, 65), (130, 272, 257), (7, 8192, 9)])
+def test_gemm_limbs_wgmma(dev, planes, shape):
+    """Planes 1-8 a side, nA != nB, buckets past the last pair (zero planes),
+    ragged M and N, K off 128 and at the int64 chunk boundary (8192): the
+    wgmma route, from (nB, K, N) planes and from K-major ones, against the
+    plain version and the WMMA kernel."""
+    from laser_tpu_torch.ops.gemm.limb_kernel import (GEMM_LIMBS_WGMMA, gemm_limbs,
+                                                      gemm_limbs_kmajor, gemm_limbs_plain)
+
+    nA, nB, nb = planes
+    M, K, N = shape
+    g = _gen(dev, 95)
+    da, db = _int8(g, (nA, M, K), dev), _int8(g, (nB, K, N), dev)
+    want = gemm_limbs_plain(da, db, nb)
+    _routes_equal(lambda r: gemm_limbs(da, db, nb, route=r), want, GEMM_LIMBS_WGMMA)
+    dbt = db.transpose(1, 2).contiguous()
+    _routes_equal(lambda r: gemm_limbs_kmajor(da, dbt, nb, route=r), want, GEMM_LIMBS_WGMMA)
+
+
+@pytest.mark.parametrize("slices", [8, 4])
+def test_gemm_limbs_wgmma_f64_chunk(dev, slices):
+    """The f64 GEMM's K chunk (32768) with digits in its range, [-64, 64]."""
+    from laser_tpu_torch.ops.gemm.limb_kernel import (GEMM_LIMBS_WGMMA, gemm_limbs,
+                                                      gemm_limbs_plain, max_k_for)
+
+    K = max_k_for(slices, 64)
+    g = _gen(dev, 100)
+    da = torch.randint(-64, 65, (slices, 129, K), generator=g, device=dev, dtype=torch.int8)
+    db = torch.randint(-64, 65, (slices, K, 130), generator=g, device=dev, dtype=torch.int8)
+    _routes_equal(lambda r: gemm_limbs(da, db, slices, route=r),
+                  gemm_limbs_plain(da, db, slices), GEMM_LIMBS_WGMMA)
+
+
+def test_gemm_limbs_wgmma_extreme_digits(dev):
+    """Every digit -128 at K = 8192: the largest bucket, 2^30, exact."""
+    from laser_tpu_torch.ops.gemm.limb_kernel import GEMM_LIMBS_WGMMA, gemm_limbs, gemm_limbs_plain
+
+    da, db = _int8(None, (8, 5, 8192), dev, True), _int8(None, (8, 8192, 3), dev, True)
+    want = gemm_limbs_plain(da, db, 8)
+    _routes_equal(lambda r: gemm_limbs(da, db, 8, route=r), want, GEMM_LIMBS_WGMMA)
+    assert want[7, 0, 0].item() == 8 * 8192 * 16384
+
+
+def test_gemm_limbs_more_tiles_than_blocks(dev):
+    """1056 tiles of 8 x 8 planes into 8 buckets at K 32."""
+    from laser_tpu_torch.ops.gemm.limb_kernel import GEMM_LIMBS_WGMMA, gemm_limbs, gemm_limbs_plain
+
+    g = _gen(dev, 96)
+    da, db = _int8(g, (8, 4224, 32), dev), _int8(g, (8, 32, 4096), dev)
+    _routes_equal(lambda r: gemm_limbs(da, db, 8, route=r), gemm_limbs_plain(da, db, 8),
+                  GEMM_LIMBS_WGMMA)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 1), (5, 112, 7), (64, 272, 130), (130, 4096, 33)])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_gemm_int32_wgmma(dev, shape, extreme):
+    """INT_MIN / INT_MAX operands, alpha, beta and C, uint32: the wgmma
+    route (the Horner sum of the 4 buckets) against the plain version and
+    the WMMA kernel, from (4, K, N) limbs and from K-major ones, and
+    gemm_int32 on the route it picks."""
+    from laser_tpu_torch.ops.gemm.int32_kernel import (GEMM_INT32_WGMMA, gemm_int32,
+                                                       gemm_int32_limbs,
+                                                       gemm_int32_limbs_kmajor,
+                                                       gemm_int32_limbs_plain, int32_limbs)
+
+    M, K, N = shape
+    g = _gen(dev, 97)
+    lims = (-2**31, 2**31 - 1)
+
+    def rnd(*s):
+        if extreme:
+            pool = torch.tensor([lims[0], lims[1], -1, 0, 1], device=dev, dtype=torch.int32)
+            return pool[torch.randint(0, 5, s, generator=g, device=dev)]
+        return torch.randint(*lims, s, generator=g, device=dev, dtype=torch.int32)
+
+    a, b, c = rnd(M, K), rnd(K, N), rnd(M, N)
+    la, lb, lbt = int32_limbs(a), int32_limbs(b), int32_limbs(b.t())
+    for alpha, beta, cc in ((1, 0, None), (lims[0], lims[1], c), (-3, 7, c)):
+        want = gemm_int32_limbs_plain(la, lb, alpha, beta, cc)
+        _routes_equal(lambda r: gemm_int32_limbs(la, lb, alpha, beta, cc, route=r), want,
+                      GEMM_INT32_WGMMA)
+        _routes_equal(lambda r: gemm_int32_limbs_kmajor(la, lbt, alpha, beta, cc, route=r),
+                      want, GEMM_INT32_WGMMA)
+        _equal(gemm_int32(a, b, alpha=alpha, beta=beta, c=cc), want)
+    ua, ub = a.view(torch.uint32), b.view(torch.uint32)
+    _equal(gemm_int32(ua, ub).view(torch.int32), gemm_int32(a, b))
+
+
+def test_limb_routes_by_shape_and_asked_for(dev):
+    """K % 16 != 0 or an unaligned plane takes the WMMA kernel (raises when
+    wgmma is asked for); an unknown route raises ValueError."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.gemm import int32_kernel, limb_kernel
+
+    g = _gen(dev, 98)
+    da, db = _int8(g, (3, 20, 100), dev), _int8(g, (4, 100, 30), dev)
+    before = limb_kernel.GEMM_LIMBS.launches
+    got = limb_kernel.gemm_limbs(da, db, 6)
+    assert limb_kernel.GEMM_LIMBS.launches == before + 1
+    _equal(got, limb_kernel.gemm_limbs_plain(da, db, 6))
+    with pytest.raises(registry.KernelLaunchError):
+        limb_kernel.gemm_limbs(da, db, 6, route="wgmma")
+    dbt = _int8(g, (4 * 30 * 96 + 1,), dev)[1:].view(4, 30, 96)
+    with pytest.raises(registry.KernelLaunchError):
+        limb_kernel.gemm_limbs_kmajor(_int8(g, (3, 20, 96), dev), dbt, 6, route="wgmma")
+    la, lb = _int8(g, (4, 9, 100), dev), _int8(g, (4, 100, 11), dev)
+    with pytest.raises(registry.KernelLaunchError):
+        int32_kernel.gemm_int32_limbs(la, lb, route="wgmma")
+    for fn in (lambda: limb_kernel.gemm_limbs(da, db, 6, route="mma"),
+               lambda: int32_kernel.gemm_int32_limbs(la, lb, route="mma")):
+        with pytest.raises(ValueError):
+            fn()
+
+
+def test_int8_kmajor_copies_are_transpose_launches(dev):
+    """Each K-major copy the int8 kernels need is a ``transpose`` launch of
+    its own, counted: ``gemm`` int8 on a row-major B or a transposed A (not
+    on the WMMA route asked for, which reads them in place), ``gemm_limbs``
+    and ``gemm_int32_limbs`` on laser_tpu's (n, K, N) planes on either
+    route; none where the operands come K-major."""
+    from laser_tpu_torch.ops.gemm import int32_kernel, limb_kernel
+    from laser_tpu_torch.ops.gemm.kernel import gemm_fused
+    from laser_tpu_torch.ops.transpose import TRANSPOSE
+
+    g = _gen(dev, 101)
+    a, b = _int8(g, (64, 96), dev), _int8(g, (96, 48), dev)
+    at, bt = a.t().contiguous(), b.t().contiguous()
+    da, db = _int8(g, (3, 20, 96), dev), _int8(g, (4, 96, 30), dev)
+    dbt = db.transpose(1, 2).contiguous()
+    x, y = (torch.randint(-2**31, 2**31 - 1, s, generator=g, device=dev, dtype=torch.int32)
+            for s in ((9, 96), (96, 11)))
+    la, lb = int32_kernel.int32_limbs(x), int32_kernel.int32_limbs(y)
+    for tag, run, copies in (
+            ("B row-major", lambda: gemm_fused(a, b), 1),
+            ("A transposed, B row-major", lambda: gemm_fused(at, b, transpose_a=True), 2),
+            ("B transposed", lambda: gemm_fused(a, bt, transpose_b=True), 0),
+            ("WMMA asked for", lambda: gemm_fused(at, b, transpose_a=True, route="classic"), 0),
+            ("gemm_limbs", lambda: limb_kernel.gemm_limbs(da, db, 6), 1),
+            ("gemm_limbs classic", lambda: limb_kernel.gemm_limbs(da, db, 6, route="classic"),
+             1),
+            ("gemm_limbs_kmajor", lambda: limb_kernel.gemm_limbs_kmajor(da, dbt, 6), 0),
+            ("gemm_int32_limbs", lambda: int32_kernel.gemm_int32_limbs(la, lb), 1),
+            ("gemm_int32", lambda: int32_kernel.gemm_int32(x, y), 0)):
+        before = TRANSPOSE.launches
+        run()
+        assert TRANSPOSE.launches == before + copies, tag
+
+
+def test_int64_and_f64_on_the_wgmma_route(dev):
+    """int64 at K 16384 (two chunks, both on the wgmma route) with alpha,
+    beta and C, and f64 at K 4096 (8 and 4 slices): the CPU route's bits."""
+    from laser_tpu_torch.ops.gemm import gemm, limb_kernel
+    from laser_tpu_torch.ops.gemm.f64_kernel import gemm_f64
+
+    g = torch.Generator().manual_seed(99)
+    a = torch.randint(-2**63, 2**63 - 1, (70, 16384), generator=g, dtype=torch.int64)
+    b = torch.randint(-2**63, 2**63 - 1, (16384, 33), generator=g, dtype=torch.int64)
+    c = torch.randint(-2**63, 2**63 - 1, (70, 33), generator=g, dtype=torch.int64)
+    before = limb_kernel.GEMM_LIMBS_WGMMA.launches
+    _equal(gemm(a.to(dev), b.to(dev), alpha=3, beta=-5, c=c.to(dev)),
+           gemm(a, b, alpha=3, beta=-5, c=c))
+    assert limb_kernel.GEMM_LIMBS_WGMMA.launches == before + 2
+    af = torch.randn(130, 4096, generator=g, dtype=torch.float64) * torch.exp2(
+        torch.randint(-30, 30, (130, 4096), generator=g).double())
+    bf = torch.randn(4096, 70, generator=g, dtype=torch.float64)
+    for slices in (8, 4):
+        before = limb_kernel.GEMM_LIMBS_WGMMA.launches
+        got = gemm_f64(af.to(dev), bf.to(dev), slices=slices)
+        torch.cuda.synchronize()
+        assert limb_kernel.GEMM_LIMBS_WGMMA.launches == before + 1
+        assert torch.equal(got.cpu(), gemm_f64(af, bf, slices=slices))
 
 
 # ---------------------------------------------------------------------------

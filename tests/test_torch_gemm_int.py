@@ -244,3 +244,17 @@ def test_limbs_reassemble_at_the_extremes(n, dtype, lims):
 def test_unsupported_integer_dtype_raises():
     with pytest.raises(NotImplementedError):
         gemm(torch.ones(2, 2, dtype=torch.int16), torch.ones(2, 2, dtype=torch.int16))
+
+
+@pytest.mark.parametrize("n,np_dtype", [(4, np.int32), (8, np.int64)])
+def test_kmajor_split_of_b_t_is_the_transposed_split(n, np_dtype):
+    """The port splits ``b.t()`` so that B's limbs come K-major, (n, N, K),
+    as the int8 wgmma route reads them: bit for bit the split of b,
+    transposed, and contiguous."""
+    rng = np.random.RandomState(21)
+    b = torch.from_numpy(np.concatenate([_extremes(rng, (20, 23), np_dtype),
+                                         _rand(rng, (17, 23), np_dtype)]))
+    split = int32_kernel.int32_limbs if n == 4 else int64_kernel.int64_limbs
+    kmajor = split(b.t())
+    assert kmajor.shape == (n, 23, 37) and kmajor.is_contiguous()
+    assert torch.equal(kmajor, split(b).transpose(1, 2))

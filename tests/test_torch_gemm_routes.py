@@ -129,3 +129,71 @@ def test_simt_route_on_the_cpu_runs_the_plain_version():
     ab, bb = a.bfloat16(), b.bfloat16()
     assert torch.equal(kernel.gemm_fused(ab, bb, transpose_b=True, route="simt"),
                        kernel.gemm_plain(ab, bb, transpose_b=True))
+
+
+def test_int8_wgmma_routes_have_their_own_counters():
+    """csrc/limb_gemm.cu's ``enum Route`` against ``limb_kernel.ROUTES`` and
+    ``int32_kernel.ROUTES``, each code with its counter on the kernel's
+    source; the int8 GEMM's wgmma code (csrc/gemm.cu) counts on its own
+    ``gemm_i8_wgmma``; every int8 wgmma kernel runs the shared skeleton."""
+    from laser_tpu_torch.ops.gemm import int32_kernel, limb_kernel
+
+    codes = _enum("limb_gemm.cu", "Route")
+    for module, names in ((limb_kernel, ("gemm_limbs", "gemm_limbs_wgmma")),
+                          (int32_kernel, ("gemm_int32", "gemm_int32_wgmma"))):
+        assert sorted(codes.values()) == sorted(module.ROUTES.values())
+        assert module.ROUTES[None] == 0 and codes["kRouteWgmma"] == module.ROUTES["wgmma"]
+        assert sorted(module.ROUTE_KERNELS) == sorted(v for v in codes.values() if v)
+        assert tuple(module.ROUTE_KERNELS[c].name for c in (1, 2)) == names
+        assert all(k.source.endswith("limb_gemm.cu") for k in module.ROUTE_KERNELS.values())
+    gemm_codes = _enum("gemm.cu", "Route")
+    assert sorted(kernel.I8_ROUTE_KERNELS) == [gemm_codes["kRouteClassic"],
+                                               gemm_codes["kRouteWgmma"]]
+    assert kernel.I8_ROUTE_KERNELS[gemm_codes["kRouteWgmma"]] is kernel.GEMM_I8_WGMMA
+    assert kernel.I8_ROUTE_KERNELS[gemm_codes["kRouteClassic"]] is kernel.GEMM
+    for source in ("gemm.cu", "limb_gemm.cu"):
+        text = (registry.CSRC_DIR / source).read_text()
+        assert '#include "wgmma_gemm.cuh"' in text and "wgmma_gemm<int8_t, false, true>" in text
+    assert "m64n128k32.s32.s8.s8" in (registry.CSRC_DIR / "hopper.cuh").read_text()
+
+
+def test_int8_routes_on_the_cpu_run_the_plain_version():
+    """Every route name of the int8 GEMM, the limb product and the int32
+    GEMM on CPU tensors: the plain version's bits and no launch; an
+    unknown name raises ValueError."""
+    from laser_tpu_torch.ops.gemm import int32_kernel, limb_kernel
+
+    rng = np.random.RandomState(3)
+    a = torch.from_numpy(rng.randint(-128, 128, (9, 48)).astype(np.int8))
+    b = torch.from_numpy(rng.randint(-128, 128, (48, 7)).astype(np.int8))
+    want = kernel.gemm_plain(a, b, alpha=3, epilogue="relu")
+    for route in (None, "classic", "wgmma"):
+        assert torch.equal(kernel.gemm_fused(a, b, alpha=3, epilogue="relu", route=route), want)
+    da = torch.from_numpy(rng.randint(-128, 128, (3, 9, 48)).astype(np.int8))
+    db = torch.from_numpy(rng.randint(-128, 128, (5, 48, 7)).astype(np.int8))
+    dbt = db.transpose(1, 2).contiguous()
+    planes = limb_kernel.gemm_limbs_plain(da, db, 6)
+    x = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, (9, 48)).astype(np.int32))
+    y = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, (48, 7)).astype(np.int32))
+    la, lb = int32_kernel.int32_limbs(x), int32_kernel.int32_limbs(y)
+    prod = int32_kernel.gemm_int32_limbs_plain(la, lb, -5, 3, x[:, :7].contiguous())
+    counters = [k for m in (kernel, limb_kernel, int32_kernel)
+                for k in (m.I8_ROUTE_KERNELS if m is kernel else m.ROUTE_KERNELS).values()]
+    before = [k.launches for k in counters]
+    for route in limb_kernel.ROUTES:
+        assert torch.equal(limb_kernel.gemm_limbs(da, db, 6, route=route), planes)
+        assert torch.equal(limb_kernel.gemm_limbs_kmajor(da, dbt, 6, route=route), planes)
+        assert torch.equal(int32_kernel.gemm_int32_limbs(la, lb, -5, 3, x[:, :7].contiguous(),
+                                                         route=route), prod)
+        assert torch.equal(int32_kernel.gemm_int32_limbs_kmajor(
+            la, int32_kernel.int32_limbs(y.t()), -5, 3, x[:, :7].contiguous(), route=route),
+            prod)
+    assert [k.launches for k in counters] == before
+    for fn in (lambda: kernel.gemm_fused(a, b, route="mma"),
+               lambda: limb_kernel.gemm_limbs(da, db, 6, route="mma"),
+               lambda: limb_kernel.gemm_limbs_kmajor(da, dbt, 6, route="mma"),
+               lambda: int32_kernel.gemm_int32_limbs(la, lb, route="mma"),
+               lambda: int32_kernel.gemm_int32_limbs_kmajor(la, lb.transpose(1, 2),
+                                                            route="mma")):
+        with pytest.raises(ValueError):
+            fn()

@@ -28,7 +28,7 @@ import torch
 
 from laser_tpu_torch.ops.gemm import gemm
 from laser_tpu_torch.ops.gemm.f64_kernel import f64_digits, gemm_f64
-from laser_tpu_torch.ops.gemm.limb_kernel import gemm_limbs, max_k_for
+from laser_tpu_torch.ops.gemm.limb_kernel import gemm_limbs, gemm_limbs_kmajor, max_k_for
 
 
 def _inputs():
@@ -140,6 +140,30 @@ def test_limb_buckets_bit_identical(laser, case):
         da, db, nb = torch.from_numpy(laser[f"da{s}"]), torch.from_numpy(laser[f"db{s}"]), s
     got = gemm_limbs(da, db, nb)
     assert got.dtype == torch.int32
+    want = laser["buckets_3x5" if case == "3x5" else f"buckets{nb}"]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("slices", [8, 4])
+def test_kmajor_digits_of_b_t_bit_identical(laser, slices):
+    """B's digits split from ``b.t()`` (the K-major planes the port's f64
+    GEMM makes): laser_tpu's digits of b transposed, its scales, bit for
+    bit."""
+    dbt, sbt = f64_digits(_t("b").t(), 1, slices)
+    assert dbt.is_contiguous() and dbt.dtype == torch.int8
+    np.testing.assert_array_equal(dbt.numpy(), laser[f"db{slices}"].transpose(0, 2, 1))
+    np.testing.assert_array_equal(sbt.numpy(), laser[f"sb{slices}"])
+
+
+@pytest.mark.parametrize("case", ["8", "4", "3x5"])
+def test_limb_buckets_kmajor_bit_identical(laser, case):
+    """``gemm_limbs_kmajor`` on the K-major B planes: laser_tpu's buckets."""
+    if case == "3x5":
+        da, db, nb = torch.from_numpy(X["d35a"]), torch.from_numpy(X["d35b"]), 6
+    else:
+        s = int(case)
+        da, db, nb = torch.from_numpy(laser[f"da{s}"]), torch.from_numpy(laser[f"db{s}"]), s
+    got = gemm_limbs_kmajor(da, db.transpose(1, 2).contiguous(), nb)
     want = laser["buckets_3x5" if case == "3x5" else f"buckets{nb}"]
     np.testing.assert_array_equal(got.numpy(), want)
 

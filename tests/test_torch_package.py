@@ -113,7 +113,8 @@ def test_every_slice_kernel_registered():
         "flash_attention_bwd_dq_mma", "flash_attention_bwd_dkv_mma",  # the backward's
         "conv_direct_ffma", "conv_direct_mma", "gemm_packed_wgmma",  # the conv's, packed
         "paged_attention_split", "paged_window_attention_split", "norm_vec",  # split KV, norm
-        "gemm_simt", "gemm_packed_simt"}  # the f32 FFMA skeleton
+        "gemm_simt", "gemm_packed_simt",  # the f32 FFMA skeleton
+        "gemm_i8_wgmma", "gemm_limbs_wgmma", "gemm_int32_wgmma"}  # the int8 wgmma skeleton
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
@@ -140,7 +141,9 @@ def test_every_slice_kernel_registered():
     assert replaced["ce_bwd"] == "laser_tpu/ops/loss.py:130 _build_ce_bwd"
     # each route of one TPU kernel counts its own launches
     assert replaced["gemm_wgmma"] == replaced["gemm_splitk"] == replaced["gemm_simt"] == \
-        replaced["gemm"] == "laser_tpu/ops/gemm/kernel.py:62 build_gemm"
+        replaced["gemm_i8_wgmma"] == replaced["gemm"] == "laser_tpu/ops/gemm/kernel.py:62 build_gemm"
+    assert replaced["gemm_limbs_wgmma"] == replaced["gemm_limbs"]
+    assert replaced["gemm_int32_wgmma"] == replaced["gemm_int32"]
     assert replaced["conv_direct_ffma"] == replaced["conv_direct_mma"] == \
         replaced["conv_direct"] == "laser_tpu/ops/conv.py:152 _build_direct_conv"
     assert replaced["gemm_packed_wgmma"] == replaced["gemm_packed_simt"] == replaced["gemm_packed"]
