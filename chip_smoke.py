@@ -76,8 +76,12 @@ printed:
    mma route) and at stride 2 (one launch of either route), each direct
    case also on the classic kernels asked for in the same run (at stride 2
    laser_tpu's phase convs, ``conv2d_direct(..., route="classic")``), the
-   row softmax at 8192 x 4096 and the online softmax at 64 x 128256; the
-   library is cuDNN (TF32 off) or ``torch.softmax``.
+   row softmax at 16 x 1000 and 8192 x 4096 in f32 and bf16 on the route
+   the library picks (``softmax_vec``: the row in registers) and on the
+   classic kernel asked for (``softmax``), the 16 x 1000 cases also in a
+   CUDA graph and as host microseconds a call (``host_us``: 100 calls
+   enqueued, no sync before the clock stops), and the online softmax at 64
+   x 128256; the library is cuDNN (TF32 off) or ``torch.softmax``.
 3. The serving slice: ServingEngine over the 8-layer d2048 bf16 transformer
    with random weights from a seed, 12 greedy requests through 8 slots.
    Checks token counts and range, that every serving kernel launched and no
@@ -136,7 +140,7 @@ printed:
    at 224x224 (pooled 2x2 after each), head 50176->128->1000, f32, random
    weights from a seed; ``cnn_predict`` on 16 images from a seed. Checks the
    launches per forward (planewise conv 1, the direct conv's ffma route 2,
-   gemm 2, softmax 1, nothing else, no plain call), that each row of probabilities sums to 1
+   gemm 2, softmax_vec 1, nothing else, no plain call), that each row of probabilities sums to 1
    within 1e-5, and the logits within 1e-4 (of max) of the ``plain=True``
    route and of the same forward on cuDNN/cuBLAS with TF32 off, argmax
    identical; prints images/s of both (median of 20 synchronised forwards)
@@ -226,18 +230,26 @@ printed:
    seed 0), f = 0, 100 iterations (bench.py:576-610); ``gemm_packed`` bf16
    and f32 at 4096^3 (randn * 0.05, alpha 0.05, bench.py:54-63) with B
    packed once and 4 different A (bf16 on the wgmma route, f32 on the
-   simt route). The path runs once with the counts at 0 (all five
-   kernels must launch, no plain version run). Outside that count f32 runs
-   once more on the classic kernels asked for (the simt route's bits) and
-   bf16 too, each checked and timed beside its route. The updates and
-   the stencil are held to their plain versions bit for bit, the packed
-   products to the plain version and to torch.matmul on the unpacked
-   operands (bf16 2^-7, f32 1e-5 of max), the card's packed bytes to a CPU
-   pack; a 16^2 grid with zero edges converges (interior < 1e-4 after 500
-   red-black iterations). Then timed as in phase 13, with the default
-   backends, torch.optim's fused AdamW / SGD and torch.matmul as library
-   calls, the stencil's sweeps/s, effective GB/s and streaming bound, and
-   the packing times.
+   simt route), and the packed int8 product at 4096^3 (randint(-8, 8),
+   alpha 1, B packed once; row 32's int8 route, the classic kernels). SGD
+   runs on the multi-tensor kernel (``sgdm_multi``: one launch for the
+   tree's one dtype), AdamW one launch a leaf. The path runs once with the
+   counts at 0 (all six kernels must launch, no plain version run).
+   Outside that count f32 runs once more on the classic kernels asked for
+   (the simt route's bits) and bf16 too, and SGD on the per-leaf kernel
+   asked for (``sgdm_update``, 99 launches a step), each checked and timed
+   beside its route. The updates and the stencil are held to their plain
+   versions bit for bit, the int8 product to its plain version and to
+   ``torch._int_mm`` bit for bit, the float packed products to the plain
+   version and to torch.matmul on the unpacked operands (bf16 2^-7, f32
+   1e-5 of max), the card's packed bytes to a CPU pack; a 16^2 grid with
+   zero edges converges (interior < 1e-4 after 500 red-black iterations).
+   Then timed as in phase 13, with the default backends, torch.optim's
+   fused AdamW / SGD (plain and Nesterov), ``torch._int_mm`` (B
+   column-major) and torch.matmul as library calls, the stencil's sweeps/s,
+   effective GB/s and streaming bound, and the packing times; one call of
+   each update under the profiler (device ms; SGD's one launch a step
+   over 50 steps) and the SGD steps' host microseconds.
 
 17. Llama training at phase 7's widths (Llama-3-8B: d_model 4096, 32
    query heads over 8 kv heads of 128, d_ff 14336, vocab 128256, rope base
@@ -377,7 +389,7 @@ CNN_BATCH, CNN_FORWARDS = 16, 20
 # launches of each kernel per cnn_predict (every other kernel: none), and
 # the device kernels of one forward: these 6, the split-K reduce of each
 # head product, and PyTorch's bias add, ReLU and mean pool after each conv
-CNN_LAUNCHES = {"conv_planewise": 1, "conv_direct_ffma": 2, "gemm_splitk": 2, "softmax": 1}
+CNN_LAUNCHES = {"conv_planewise": 1, "conv_direct_ffma": 2, "gemm_splitk": 2, "softmax_vec": 1}
 CNN_DEVICE_KERNELS = 17
 # forwards in the profiled window: a trace late in the script once kept 1
 # of one forward's 15 kernels; over 10 a dropped record shows as coverage
@@ -468,6 +480,22 @@ def cuda_graph_ms(fn, n: int = 20, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, n: int = 100, reps: int = 5) -> float:
+    """Host microseconds a call: ``n`` calls enqueued after a sync, on the
+    host's clock, with no sync before the clock stops (the card runs
+    behind), median of ``reps``: the wrapper's Python and its launches."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def rel_error(got, want, per_row: bool = False):
     """(max abs error, relative error) of ``got`` against ``want``: the
     error over max |want|, or with ``per_row`` each row of the last axis
@@ -522,6 +550,7 @@ class Case:
     # the rows) that together exceed the L2 cache, each call on the next:
     # timed as a CUDA graph, the cold cache a serving step finds
     cold: Optional[tuple] = None
+    host: bool = False        # also the host's microseconds a call (host_us), kernel and library
 
 
 def bound(case: Case, spec):
@@ -1128,12 +1157,24 @@ def cnn_cases():
             library=lambda: F.conv2d(x, w, padding=1, stride=stride),
             library_call="F.conv2d (cuDNN, TF32 off)", slot=slot, dtype=dtype)
 
-    def softmax_case(name, rows, cols, plain, slot=""):
-        x = torch.randn((rows, cols), generator=g, device=DEVICE) * 4
-        return Case(name, f"{rows}x{cols}", lambda: softmax(x), lambda: plain(x),
-                    flops=5 * rows * cols, nbytes=2 * rows * cols * 4,
-                    library=lambda: torch.softmax(x, -1), library_call="torch.softmax",
-                    slot=slot, per_row=True, dtype=torch.float32)
+    inputs = {}
+
+    def softmax_case(name, rows, cols, plain, slot="", dtype=torch.float32, route=None):
+        # the same rows for every route at one shape and dtype
+        key = (rows, cols, dtype)
+        if key not in inputs:
+            inputs[key] = (torch.randn((rows, cols), generator=g, device=DEVICE) * 4).to(dtype)
+        x = inputs[key]
+        lib = inputs.setdefault(key + ("library",), lambda: torch.softmax(x, -1))
+        small = rows * cols <= 16 * 1000
+        return Case(name, f"{rows}x{cols} {DTYPE_TAGS[dtype]}"
+                    + (", the classic kernel asked for" if route else ""),
+                    lambda: softmax(x, route=route), lambda: plain(x),
+                    flops=5 * rows * cols, nbytes=2 * rows * cols * x.element_size(),
+                    library=lib, library_call="torch.softmax", slot=slot, per_row=True,
+                    dtype=torch.float32, rel=REL_BOUND[torch.float32 if dtype == torch.float32
+                                                      else torch.bfloat16],
+                    graph=small, host=small)
 
     p1, s2 = (1, 1), (2, 2)
 
@@ -1166,8 +1207,19 @@ def cnn_cases():
                   slot="conv3_bf16"),
         conv_case("conv_direct", *c3, direct("classic", s2), plain(s2), stride=2,
                   slot="strided"),
-        softmax_case("softmax", 16, 1000, softmax_reference),
-        softmax_case("softmax", 8192, 4096, softmax_reference, slot="bench"),
+        # C1's and the MLP's head, bench.py:421's rows, each in f32 and bf16
+        # on the vec kernel, then on the classic kernel asked for
+        softmax_case("softmax_vec", 16, 1000, softmax_reference),
+        softmax_case("softmax_vec", 8192, 4096, softmax_reference, slot="bench"),
+        softmax_case("softmax_vec", 16, 1000, softmax_reference, slot="bf16", dtype=bf16),
+        softmax_case("softmax_vec", 8192, 4096, softmax_reference, slot="bench_bf16",
+                     dtype=bf16),
+        softmax_case("softmax", 16, 1000, softmax_reference, route="classic"),
+        softmax_case("softmax", 8192, 4096, softmax_reference, slot="bench", route="classic"),
+        softmax_case("softmax", 16, 1000, softmax_reference, slot="bf16", dtype=bf16,
+                     route="classic"),
+        softmax_case("softmax", 8192, 4096, softmax_reference, slot="bench_bf16", dtype=bf16,
+                     route="classic"),
         softmax_case("softmax_online", 64, 128256, softmax_online_reference),
     ]
 
@@ -1307,19 +1359,24 @@ def phase_kernels(spec):
         gms = cuda_graph_ms(case.kern) if case.graph else None
         lgms = cuda_graph_ms(case.library) if case.graph and case.library else None
         cgms, clgms = (cuda_graph_ms(f) for f in case.cold) if case.cold else (None, None)
+        hus = host_us(case.kern) if case.host else None
+        lhus = host_us(case.library) if case.host and case.library else None
         bms, by = bound(case, spec)
         lib = "none" if lms is None else f"{lms:.4f} ms ({lbatched:.4f} ms 20 in a row)"
         graph = "" if gms is None else (f"; in a CUDA graph: kernel {gms:.4f} ms, library "
                                         f"{'none' if lgms is None else f'{lgms:.4f} ms'}")
         if cgms is not None:
             graph += f"; cold L2: kernel {cgms:.4f} ms, library {clgms:.4f} ms"
+        if hus is not None:
+            graph += (f"; host: kernel {hus:.2f} us a call, library "
+                      f"{'none' if lhus is None else f'{lhus:.2f} us'}")
         print(f"    time: kernel {ms:.4f} ms ({batched:.4f} ms per call of 20 in a row), plain "
               f"{pms:.4f} ms, library {lib}, bound {bms:.4f} ms ({by}){graph}", flush=True)
         entry = {"shape": case.shape, "max_abs_err": err, "ms": ms, "batched_ms": batched,
                  "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms,
                  "library_batched_ms": lbatched, "graph_ms": gms, "library_graph_ms": lgms,
-                 "cold_graph_ms": cgms, "library_cold_graph_ms": clgms,
-                 "library_call": case.library_call}
+                 "cold_graph_ms": cgms, "library_cold_graph_ms": clgms, "host_us": hus,
+                 "library_host_us": lhus, "library_call": case.library_call}
         if case.slot:
             record.setdefault(case.name, {})[case.slot] = entry
         else:
@@ -1506,11 +1563,12 @@ def check_routes(params, tokens, loss_fn, loss_rel, grad_rel, norm: str):
           f"worst {worst[0]} {worst[1]:.3e}", flush=True)
 
 
-def profile_step(step_fn, what: str = "step"):
+def profile_step(step_fn, what: str = "step", require: bool = True):
     """One step (or engine run) under torch.profiler: device time by kernel,
     busy and idle share of its wall time. Device activity only: tracing
     every host op as well slows the host the idle share measures, and
-    summarising a speculative run's host ops took minutes."""
+    summarising a speculative run's host ops took minutes. A trace with no
+    device time fails the run, or with ``require=False`` gives None."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1524,7 +1582,10 @@ def profile_step(step_fn, what: str = "step"):
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
             if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
     if not rows:
-        fail("torch.profiler recorded no device time")
+        if require:
+            fail("torch.profiler recorded no device time")
+        print(f"  profiled {what}: the trace kept no device time", flush=True)
+        return None
     busy = sum(r[0] for r in rows)
     rows.sort(reverse=True)
     print(f"  profiled {what}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
@@ -1983,7 +2044,7 @@ def phase_cnn():
         print(f"  mlp_predict {dims}: rows sum to 1 within {msum:.3e}; counts "
               f"{json.dumps({k: v for k, v in mlp_counts.items() if v['launches']})}",
               flush=True)
-        if (gemm_launches(mlp_counts) != 2 or mlp_counts["softmax"]["launches"] != 1
+        if (gemm_launches(mlp_counts) != 2 or mlp_counts["softmax_vec"]["launches"] != 1
                 or any(c["plain_calls"] for c in mlp_counts.values())
                 or not msum <= PROB_SUM_TOL):
             fail(f"mlp: counts {mlp_counts}, row sums within {msum:.3e}")
@@ -2968,7 +3029,8 @@ def library_small_checks():
     bf16 on a planned plan (the wgmma route) and f32 on one (the simt route,
     also bit for bit against the classic kernels); the stencil at 12 x 16, 2 x 5 (no
     interior: no launch) and bf16 33 x 65; the optimizers on a 37-element
-    bias and a (3, 5, 7) leaf in f32 and bf16. Bit for bit, the floats of the
+    bias and a (3, 5, 7) leaf in f32 and bf16 (SGD on the multi-tensor
+    kernel and on the per-leaf kernel asked for). Bit for bit, the floats of the
     packed GEMM within PACKED_REL (f16 as bf16)."""
     from laser_tpu_torch.ops import optim
     from laser_tpu_torch.ops import stencil as ST
@@ -3041,11 +3103,15 @@ def library_small_checks():
         _tree_bits(f"adamw_update bias 37 + (3, 5, 7) {DTYPE_TAGS[dt]}, 2 steps", (p, m, v),
                    (want_p, want_m, want_v))
         want = _clone_tree((p, mom))
+        classic = _clone_tree((p, mom))
         for nesterov in (False, True):
             optim.sgd_momentum_step(p, grads, mom, lr=lr, nesterov=nesterov, backend="pallas")
+            _sgd_classic(classic[0], grads, classic[1], lr, nesterov)
             _plain_sgd(*want[:1], grads, want[1], lr, nesterov)
-        _tree_bits(f"sgdm_update bias 37 + (3, 5, 7) {DTYPE_TAGS[dt]}, plain and Nesterov",
+        _tree_bits(f"sgdm_multi bias 37 + (3, 5, 7) {DTYPE_TAGS[dt]}, plain and Nesterov",
                    (p, mom), want)
+        _tree_bits(f"sgdm_update (per leaf, asked for) bias 37 + (3, 5, 7) {DTYPE_TAGS[dt]}, "
+                   "plain and Nesterov", classic, want)
 
 
 def phase_gemm_table(spec):
@@ -3100,14 +3166,18 @@ def phase_gemm_table(spec):
 # the stencil solver, the prepacked GEMM) at full size
 # ---------------------------------------------------------------------------
 
-LIBRARY_KERNELS = ("adamw_update", "sgdm_update", "stencil_sweep", "gemm_packed_simt",
-                   "gemm_packed_wgmma")
+LIBRARY_KERNELS = ("adamw_update", "sgdm_multi", "stencil_sweep", "gemm_packed_simt",
+                   "gemm_packed_wgmma", "gemm_packed")
 # packed GEMM, kernel vs plain and vs torch.matmul on the unpacked operands
 # (TF32 off), max |d| / max |want|: bf16 one output rounding, f32 summation
 # order over K = 4096
 PACKED_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 STENCIL_N, STENCIL_ITERS = 1024, 100
+# SGD steps under the profiler (one launch a step)
+SGD_PROFILE_STEPS = 50
 PACKED_N, PACKED_A_COUNT, PACKED_ALPHA = 4096, 4, 0.05
+# the packed int8 product (row 32's int8 route, the classic kernels):
+# randint(-8, 8) operands, alpha 1, exact in int32
 # f32 operations a stencil cell update takes: 4 adds or subtracts, 1 multiply
 STENCIL_FLOPS = 6
 # AdamW and SGD operations an element: counted in csrc/optim.cu's adam_elem
@@ -3154,6 +3224,14 @@ def _plain_adamw(params, grads, m, v, step, lr, wd):
     return params, m, v
 
 
+def _sgd_classic(params, grads, mom, lr, nesterov):
+    """sgd_momentum_step(backend="pallas") on the per-leaf kernel asked for."""
+    from laser_tpu_torch.ops import optim
+
+    return optim.sgd_momentum_step(params, grads, mom, lr=lr, nesterov=nesterov,
+                                   backend="pallas", route="classic")
+
+
 def _plain_sgd(params, grads, mom, lr, nesterov):
     from laser_tpu_torch.ops import optim
 
@@ -3174,9 +3252,25 @@ def _torch_optimizer(params, grads, kind):
         leaf.grad = g.clone()
     cls = torch.optim.AdamW if kind == "adamw" else torch.optim.SGD
     fused = "fused" in inspect.signature(cls).parameters
-    kw = dict(lr=LR, weight_decay=0.0) if kind == "adamw" else dict(lr=LR, momentum=0.9)
+    kw = dict(lr=LR, weight_decay=0.0) if kind == "adamw" else dict(
+        lr=LR, momentum=0.9, nesterov=kind == "sgd_nesterov")
     opt = cls(leaves, **kw, **({"fused": True} if fused else {"foreach": True}))
-    return opt.step, f"torch.optim.{cls.__name__}({'fused' if fused else 'foreach'}=True).step"
+    return opt.step, (f"torch.optim.{cls.__name__}({'fused' if fused else 'foreach'}=True"
+                      f"{', nesterov=True' if kind == 'sgd_nesterov' else ''}).step")
+
+
+def _int_packed_check(plain, library):
+    """Bits equal to the plain version and to the library call."""
+    bits = _bits_equal("gemm_packed int8")
+
+    def check(got):
+        err = bits(got, plain())
+        same = torch.equal(got, library())
+        print(f"  gemm_packed int8: bit-identical to torch._int_mm: {same}", flush=True)
+        if not same:
+            fail("gemm_packed int8: kernel and torch._int_mm differ")
+        return err
+    return check
 
 
 def library_cases(spec):
@@ -3213,6 +3307,10 @@ def library_cases(spec):
         a_list = [(torch.randn(PACKED_N, PACKED_N, generator=g, device=DEVICE) * 0.05).to(dt)
                   for _ in range(PACKED_A_COUNT)]
         packed_in[dt] = (a_list, b)
+    g.manual_seed(0)
+    a8, b8 = (torch.randint(-8, 8, (PACKED_N, PACKED_N), generator=g, device=DEVICE,
+                            dtype=torch.int8) for _ in range(2))
+    b8_cols = b8.t().contiguous().t()  # B column-major: _int_mm's (cuBLASLt's TN) layout
 
     # --- the counted run: every entry point through its kernel ---
     torch.cuda.synchronize()
@@ -3233,11 +3331,21 @@ def library_cases(spec):
         pb = PK.gemm_prepack_b(b, m_hint=PACKED_N)
         pas = [PK.gemm_prepack_a(a, n_hint=PACKED_N) for a in a_list]
         packed_out[dt] = (pas, pb, [PK.gemm_packed(PACKED_ALPHA, pa, pb) for pa in pas])
+    pa8, pb8 = PK.gemm_prepack_a(a8, n_hint=PACKED_N), PK.gemm_prepack_b(b8, m_hint=PACKED_N)
+    out8 = PK.gemm_packed(1, pa8, pb8)
     torch.cuda.synchronize()
     counts = registry.counts()
+    # the per-leaf kernel asked for, outside the count, from the same states
+    cp, cm = _clone_tree(t0)
+    c1 = _sgd_classic(cp, grads, cm, lr, False)
+    cp, cm = _clone_tree(t1)
+    c2 = _sgd_classic(cp, grads, cm, lr, True)
 
     # --- checks and timings ---
     tree_bytes = {"adamw": 14 * n_params, "sgd": 10 * n_params}  # bf16: 7 and 5 streams
+    sgd_classic_run = (lambda: _sgd_classic(params, grads, mom, lr, False))
+    plain8 = (lambda: PK.gemm_packed_plain(1, pa8, pb8, 0.0, None, torch.int8, torch.int32,
+                                           torch.int32))
     adamw_run = (lambda: optim.adamw_step(params, grads, m, v, 3, lr=lr, weight_decay=0.1,
                                           backend="pallas"))
     adamw_plain = (lambda: _plain_adamw(params, grads, m, v, 3, lr, 0.1))
@@ -3253,10 +3361,10 @@ def library_cases(spec):
                               _plain_adamw(p_, grads, m_, v_, step, lr, wd))
         return check
 
-    def check_sgd(state_in, nesterov):
+    def check_sgd(state_in, nesterov, name="sgdm_multi"):
         def check(got):
             p_, mm = _clone_tree(state_in)
-            return _tree_bits(f"sgdm_update nesterov={nesterov}", got,
+            return _tree_bits(f"{name} nesterov={nesterov}", got,
                               _plain_sgd(p_, grads, mm, lr, nesterov))
         return check
 
@@ -3296,6 +3404,7 @@ def library_cases(spec):
 
     a_opt, a_call = _torch_optimizer(params, grads, "adamw")
     s_opt, s_call = _torch_optimizer(params, grads, "sgd")
+    s_opt_n, s_call_n = _torch_optimizer(params, grads, "sgd_nesterov")
     cells = STENCIL_N * STENCIL_N
     interior = (STENCIL_N - 2) ** 2
     cases = [
@@ -3307,13 +3416,37 @@ def library_cases(spec):
         Table("adamw_update", "step1", "the same tree, step 1, wd 0.0", run=adamw_run,
               plain=adamw_plain, check=check_adamw(s0, 1, 0.0), nbytes=tree_bytes["adamw"],
               flops=ADAMW_FLOPS * n_params, peak=spec.f32_tflops, dtype=torch.bfloat16),
-        Table("sgdm_update", "", f"{len(leaves)} leaves, {n_params} bf16 params, mu 0.9",
-              run=sgd_run, plain=sgd_plain, check=check_sgd(t0, False),
+        Table("sgdm_multi", "", f"{len(leaves)} leaves, {n_params} bf16 params, mu 0.9, "
+              "one launch", run=sgd_run, plain=sgd_plain, check=check_sgd(t0, False),
               nbytes=tree_bytes["sgd"], flops=SGD_FLOPS * n_params, peak=spec.f32_tflops,
               library=s_opt, library_call=s_call, dtype=torch.bfloat16),
-        Table("sgdm_update", "nesterov", "the same tree, Nesterov", run=sgd_run, plain=sgd_plain,
+        Table("sgdm_multi", "nesterov", "the same tree, Nesterov",
+              run=(lambda: optim.sgd_momentum_step(params, grads, mom, lr=lr, nesterov=True,
+                                                   backend="pallas")),
+              plain=(lambda: _plain_sgd(params, grads, mom, lr, True)),
               check=check_sgd(t1, True), nbytes=tree_bytes["sgd"], flops=SGD_FLOPS * n_params,
-              peak=spec.f32_tflops, dtype=torch.bfloat16),
+              peak=spec.f32_tflops, library=s_opt_n, library_call=s_call_n,
+              dtype=torch.bfloat16),
+        Table("sgdm_update", "", f"the same tree, mu 0.9, the per-leaf kernel asked for "
+              f"({len(leaves)} launches)", run=sgd_classic_run, plain=sgd_plain,
+              check=check_sgd(t0, False, "sgdm_update"), nbytes=tree_bytes["sgd"],
+              flops=SGD_FLOPS * n_params, peak=spec.f32_tflops, library=s_opt,
+              library_call=s_call, dtype=torch.bfloat16, counted=False),
+        Table("sgdm_update", "nesterov", "the same tree, Nesterov, the per-leaf kernel asked for",
+              run=(lambda: _sgd_classic(params, grads, mom, lr, True)),
+              plain=(lambda: _plain_sgd(params, grads, mom, lr, True)),
+              check=check_sgd(t1, True, "sgdm_update"), nbytes=tree_bytes["sgd"],
+              flops=SGD_FLOPS * n_params, peak=spec.f32_tflops, library=s_opt_n,
+              library_call=s_call_n, dtype=torch.bfloat16, counted=False),
+        Table("gemm_packed", "int8", f"{PACKED_N}^3 int8 -> int32, randint(-8, 8), alpha 1, "
+              f"B packed once (tiles {pa8.block[0]} x {pb8.block[1]} x {pb8.block[0]})",
+              run=(lambda: PK.gemm_packed(1, pa8, pb8)), plain=plain8,
+              check=_int_packed_check(plain8, lambda: torch._int_mm(a8, b8_cols)),
+              nbytes=2 * PACKED_N * PACKED_N + 4 * PACKED_N * PACKED_N,
+              flops=2 * PACKED_N ** 3, peak=spec.int8_tops,
+              library=(lambda: torch._int_mm(a8, b8_cols)),
+              library_call="torch._int_mm (cuBLASLt int8) on the unpacked operands, B "
+              "column-major", dtype=torch.int8),
     ]
     for method, slot in (("redblack", ""), ("jacobi", "jacobi")):
         cases.append(Table(
@@ -3362,7 +3495,7 @@ def library_cases(spec):
             flops=2 * n3, peak=spec.bf16_tflops if dt == torch.bfloat16 else spec.f32_tflops,
             library=(lambda a=packed_in[dt][0][0], b=packed_in[dt][1]: torch.matmul(a, b)),
             library_call="torch.matmul on the unpacked operands (cuBLAS, TF32 off)", dtype=dt))
-    outs = [s3, s1, t1, t2, red, jac, packed_out[torch.bfloat16][2][0],
+    outs = [s3, s1, t1, t2, c1, c2, out8, red, jac, packed_out[torch.bfloat16][2][0],
             packed_out[torch.float32][2][0], classic_out[torch.float32],
             classic_out[torch.bfloat16]]
     extra = dict(adamw_default=adamw_default, sgd_default=sgd_default, packed_in=packed_in,
@@ -3394,7 +3527,7 @@ def phase_library(spec):
     entries = check_and_time(spec, cases, outs, lambda case, got: errors[id(case)])
 
     # the default backends, and what the stencil and the packed GEMM need beside
-    for name, key in (("adamw_update", "adamw_default"), ("sgdm_update", "sgd_default")):
+    for name, key in (("adamw_update", "adamw_default"), ("sgdm_multi", "sgd_default")):
         dms = cuda_ms(extra[key], reps=5)
         entries[name]["default_backend_ms"] = dms
         print(f"  {name}: the default backend (laser_tpu's XLA expression in torch) "
@@ -3412,15 +3545,40 @@ def phase_library(spec):
               f"ms ({e['bound_by']}: u, f read once and u written once, "
               f"{STENCIL_FLOPS} flops a cell update), streaming bound of a design that is "
               f"not resident {e['streaming_bound_ms']:.4f} ms", flush=True)
-    # one call of each host-bound case under the profiler: its device time
-    for case, kernel, launches in ((cases[0], "adamw_kernel", len(extra["leaves"])),
-                                   (cases[2], "sgdm_kernel", len(extra["leaves"])),
-                                   (cases[4], "stencil_kernel", 2 * STENCIL_ITERS)):
-        prof = profile_step(case.run, f"one {case.name} call")
-        kept = sum(r["calls"] for r in prof["top"] if kernel in r["kernel"])
-        print(f"  {kept} of its {launches} kernel launches kept in the trace", flush=True)
+    # each update and the stencil under the profiler: the device time a
+    # call, as the mean time of the kernel's launches the trace kept times
+    # its launches a call; beside it ``trace_busy_ms``, the trace's busy time
+    # a call, which counts only the launches it kept. Late in this run a
+    # session's trace may drop its first ~18 launches (a fresh process
+    # keeps them all: scripts/trace_launches.py), so SGD's one launch a step
+    # runs SGD_PROFILE_STEPS times; should the trace keep none of them, its
+    # device time stays its 20 in a row (``batched_ms``)
+    for case, kernel, launches, calls in (
+            (cases[0], "adamw_kernel", len(extra["leaves"]), 1),
+            (cases[2], "sgdm_multi_kernel", 1, SGD_PROFILE_STEPS),
+            (cases[4], "sgdm_kernel", len(extra["leaves"]), 1),
+            (cases[7], "stencil_kernel", 2 * STENCIL_ITERS, 1)):
+        multi = kernel == "sgdm_multi_kernel"
+        prof = profile_step(lambda run=case.run, n=calls: [run() for _ in range(n)],
+                            f"{calls} {case.name} call{'s' if calls > 1 else ''}",
+                            require=not multi)
+        hits = [r for r in prof["top"] if kernel in r["kernel"]] if prof else []
+        kept = sum(r["calls"] for r in hits)
         e = entries[case.name]
-        e["device_ms"], e["profile_kept"] = prof["busy_ms"], [kept, launches]
+        e["profile_kept"] = [kept, launches * calls]
+        if not kept:
+            if not multi:
+                fail(f"library: the trace kept no {kernel} launch")
+            print(f"  the trace kept none of its {calls} launches", flush=True)
+            continue
+        e["device_ms"] = sum(r["ms"] for r in hits) / kept * launches
+        e["trace_busy_ms"] = prof["busy_ms"] / calls
+        print(f"  {kept} of its {launches * calls} kernel launches kept in the trace; device "
+              f"{e['device_ms']:.4f} ms a call", flush=True)
+    for case in cases[2], cases[4]:  # the host's share of an SGD step
+        e = entries[case.name]
+        e["host_us"] = host_us(case.run, n=20)
+        print(f"  {case.name}: host {e['host_us']:.1f} us a step", flush=True)
     u = torch.zeros(16, 16, device=DEVICE)
     u[1:-1, 1:-1] = torch.randn(14, 14, generator=torch.Generator(device=DEVICE).manual_seed(0),
                                 device=DEVICE)

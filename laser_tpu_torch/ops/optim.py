@@ -8,13 +8,21 @@ laser_tpu's pytrees; ``tree_leaves``/``tree_map`` walk them in one order
 ``adamw_step`` and ``sgd_momentum_step`` keep laser_tpu's ``backend``
 names. The default (``None`` or ``"xla"``) is laser_tpu's plain fp32
 expression (optim.py:147-168, :296-309), line for line, run by PyTorch.
-``backend="pallas"`` runs the fused kernels of csrc/optim.cu
-(``adamw_update``, ``sgdm_update``: replace optim.py:38 ``_build_adamw``
-and :80 ``_build_sgdm``), one launch per leaf, on CUDA tensors, and their
-plain versions ``adamw_update_plain`` / ``sgdm_update_plain`` (the same
-arithmetic, one rounding per op) on CPU tensors. As the Pallas route, that
-backend casts the gradient to the parameter's dtype, computes in fp32 and
-stores the moments in the parameter's dtype.
+``backend="pallas"`` runs the fused kernels of csrc/optim.cu on CUDA
+tensors (they replace optim.py:38 ``_build_adamw`` and :80 ``_build_sgdm``)
+and their plain versions ``adamw_update_plain`` / ``sgdm_update_plain``
+(the same arithmetic, one rounding per op) on CPU tensors:
+
+- AdamW: ``adamw_update``, one launch per leaf;
+- SGD with momentum: ``sgd_momentum_step``, one multi-tensor launch for
+  every leaf of one dtype (counter ``sgdm_multi``; ``sgdm_tables`` groups
+  the leaves by dtype and cuts a group past ``SGDM_TABLE_LEAVES`` into a
+  few launches); ``sgdm_update`` is the same kernel on one leaf.
+  ``route="classic"`` asks for the per-leaf kernel (counter
+  ``sgdm_update``), kept for comparison.
+
+As the Pallas route, that backend casts the gradient to the parameter's
+dtype, computes in fp32 and stores the moments in the parameter's dtype.
 
 Unlike laser_tpu, both backends update ``p``, ``m`` and ``v`` IN PLACE
 (laser_tpu's Pallas route donates them) and return the same trees, so the
@@ -23,13 +31,14 @@ moment leaf whose dtype differs from its parameter's is replaced by a new
 tensor of the parameter's dtype in the returned tree, as laser_tpu returns
 it. ``lr`` may be a 0-d tensor (a schedule's value); on the card the
 kernels read it through its pointer, so a step reads nothing back to the
-host.
+host and can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
+import array
 import math
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,14 +48,29 @@ ADAMW = registry.kernel("adamw_update", "laser_tpu_torch/csrc/optim.cu",
                         "laser_tpu/ops/optim.py:38 _build_adamw")
 SGDM = registry.kernel("sgdm_update", "laser_tpu_torch/csrc/optim.cu",
                        "laser_tpu/ops/optim.py:80 _build_sgdm")
+SGDM_MULTI = registry.kernel("sgdm_multi", "laser_tpu_torch/csrc/optim.cu",
+                             "laser_tpu/ops/optim.py:80 _build_sgdm")
+# leaves one sgdm_multi launch's table holds (csrc/optim.cu kMultiLeaves:
+# the table is the kernel's parameter, at most 32 KB)
+SGDM_TABLE_LEAVES = 768
+SGDM_ROUTES = (None, "classic")
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
+    out: List[torch.Tensor] = []
+    _collect_leaves(tree, out)
+    return out
+
+
+def _collect_leaves(tree, out: list) -> None:
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in tree_leaves(t)]
-    return [tree]
+        for k in sorted(tree):
+            _collect_leaves(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            _collect_leaves(t, out)
+    else:
+        out.append(tree)
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -241,9 +265,10 @@ def sgdm_update_plain(p, g, m, *, lr, mu, nesterov):
     m.copy_(m2)
 
 
-def sgdm_update(p, g, m, *, lr, mu, nesterov):
-    """One leaf's SGD-momentum update in place: the kernel for a CUDA
-    tensor, the plain version for a CPU one."""
+def sgdm_update_classic(p, g, m, *, lr, mu, nesterov):
+    """One leaf's SGD-momentum update in place on the per-leaf kernel
+    (route "classic"): the kernel for a CUDA tensor, the plain version for a
+    CPU one."""
     if not registry.on_cuda(p):
         return sgdm_update_plain(p, g, m, lr=lr, mu=mu, nesterov=nesterov)
     code = _kernel_dtype(p)
@@ -262,22 +287,136 @@ def sgdm_update(p, g, m, *, lr, mu, nesterov):
     return None
 
 
+def sgdm_tables(leaves: Sequence[tuple], capacity: int = SGDM_TABLE_LEAVES
+                ) -> List[Tuple[torch.dtype, list]]:
+    """The launches of one multi-tensor step: the ``leaves`` ((p, g, m),
+    or any tuple whose first item is the parameter) grouped by p's dtype (in
+    the order each dtype first appears), empty leaves dropped, each group
+    cut in order into tables of at most ``capacity`` leaves. Returns
+    [(dtype, [leaf, ...]), ...]."""
+    groups = {}
+    for leaf in leaves:
+        if leaf[0].numel():
+            groups.setdefault(leaf[0].dtype, []).append(leaf)
+    return [(dt, grp[i:i + capacity]) for dt, grp in groups.items()
+            for i in range(0, len(grp), capacity)]
+
+
+def _sgdm_multi_cuda(leaves, lr, mu, nesterov, cast: bool = False):
+    """Check the CUDA leaves in one pass (g and m each against p's device,
+    dtype and shape, every tensor contiguous; a non-contiguous g is copied)
+    and launch each of ``sgdm_tables``' tables. With ``cast`` a g or m of
+    another dtype is first cast to p's; returns the momentum leaves when a
+    cast replaced one, else None."""
+    p0 = leaves[0][0]
+    dev = p0.get_device()
+    ready, new_m = [], None
+    for i, (p, g, m) in enumerate(leaves):
+        dt, shape, gdt, mdt = p.dtype, p.shape, g.dtype, m.dtype
+        if cast and gdt != dt:
+            g, gdt = g.to(dt), dt
+        if cast and mdt != dt:
+            if new_m is None:
+                new_m = [leaf[2] for leaf in leaves]
+            m = new_m[i] = m.to(dt)
+            mdt = dt
+        if not g.is_contiguous():
+            g = g.contiguous()
+        if (gdt != dt or mdt != dt or g.shape != shape or m.shape != shape
+                or p.get_device() != dev or g.get_device() != dev or m.get_device() != dev):
+            bad = next(x for x in (p, g, m) if x.dtype != dt or x.shape != shape
+                       or x.get_device() != dev)
+            raise ValueError(f"sgd_momentum: a leaf on {bad.device} {bad.dtype} "
+                             f"{tuple(bad.shape)} against its parameter's {p.device} {dt} "
+                             f"{tuple(shape)} (the leaves on {p0.device})")
+        if not (p.is_contiguous() and m.is_contiguous()):
+            raise ValueError("sgd_momentum: the kernel updates contiguous tensors in place")
+        if dt not in registry.DTYPE_CODES:
+            _kernel_dtype(p)  # raises, naming the dtypes the kernels take
+        # g and m stay referenced here until the launch: a cast or copy freed
+        # earlier could be handed to the next one before the kernel reads it
+        ready.append((p, g, m, (p.data_ptr(), g.data_ptr(), m.data_ptr(), p.numel())))
+    tables = sgdm_tables(ready)
+    if tables:
+        lr_ptr, lr_val, _lr = _lr_args(lr, p0.device)
+        launch, stream = registry.entry("ltt_sgdm_multi"), registry.stream_handle(p0)
+        for dt, table in tables:
+            rows = array.array("q", [v for leaf in table for v in leaf[3]])
+            status = launch(rows.buffer_info()[0], len(table), lr_ptr, lr_val, float(mu),
+                                  int(nesterov), registry.DTYPE_CODES[dt], stream)
+            registry.check_launch(status, "sgdm_multi")
+            SGDM_MULTI.launches += 1
+        if len(tables) > len({dt for dt, _ in tables}):
+            registry.logger.debug("sgdm_multi: %d leaves in %d launches (%d leaves a table)",
+                                  len(ready), len(tables), SGDM_TABLE_LEAVES)
+    return new_m
+
+
+def _sgdm(leaves, lr, mu, nesterov, route, cast):
+    """The updates of ``leaves`` ((p, g, m) each): one ``sgdm_multi``
+    launch a dtype on CUDA tensors, the per-leaf kernel with
+    ``route="classic"``, the plain version on CPU tensors. With ``cast`` a
+    g or m of another dtype is first cast to p's; returns the momentum
+    leaves when a cast replaced one, else None."""
+    if route not in SGDM_ROUTES:
+        raise ValueError(f"unknown route {route!r}; have {[r for r in SGDM_ROUTES if r]}")
+    if not leaves:
+        return None
+    if route != "classic" and registry.on_cuda(leaves[0][0]):
+        return _sgdm_multi_cuda(leaves, lr, mu, nesterov, cast)
+    new_m = None
+    for i, (p, g, m) in enumerate(leaves):
+        dt = p.dtype
+        if cast and m.dtype != dt:
+            if new_m is None:
+                new_m = [leaf[2] for leaf in leaves]
+            m = new_m[i] = m.to(dt)
+        sgdm_update_classic(p, g.to(dt) if cast else g, m, lr=lr, mu=mu, nesterov=nesterov)
+    return new_m
+
+
+def sgdm_update(p, g, m, *, lr, mu, nesterov, route: Optional[str] = None):
+    """One leaf's SGD-momentum update in place: the multi-tensor kernel on
+    a one-leaf table (``route="classic"``: the per-leaf kernel) for a CUDA
+    tensor, the plain version for a CPU one."""
+    _sgdm([(p, g, m)], lr, mu, nesterov, route, cast=False)
+
+
+def _zip_leaves(params, grads, momentum) -> list:
+    """(p, g, m) of each leaf, walking the three trees together in
+    ``tree_leaves``' order; their structures must match."""
+    out: list = []
+    _collect_zip(params, grads, momentum, out)
+    return out
+
+
+def _collect_zip(a, b, c, out: list) -> None:
+    if isinstance(a, dict):
+        if len(b) != len(a) or len(c) != len(a):
+            raise ValueError(f"trees differ: keys {sorted(a)}, {sorted(b)}, {sorted(c)}")
+        for k in sorted(a):
+            _collect_zip(a[k], b[k], c[k], out)
+    elif isinstance(a, (list, tuple)):
+        for x, y, z in zip(a, b, c, strict=True):
+            _collect_zip(x, y, z, out)
+    else:
+        out.append((a, b, c))
+
+
 @torch.no_grad()
 def sgd_momentum_step(params, grads, momentum, *, lr, mu: float = 0.9,
-                      nesterov: bool = False, backend: Optional[str] = None):
+                      nesterov: bool = False, backend: Optional[str] = None,
+                      route: Optional[str] = None):
     """One SGD-with-momentum update over a parameter tree, in place;
     returns (params, momentum). Default backend: laser_tpu's expression
     (optim.py:296-309), the momentum kept in its own dtype;
-    ``backend="pallas"``: the fused kernel, one launch per leaf, the
-    momentum in the parameter's dtype."""
+    ``backend="pallas"``: the fused kernel, one launch a dtype (``route=
+    "classic"``: the per-leaf kernel; the trees' structures must match), the
+    gradient cast and the momentum kept in the parameter's dtype."""
     if _backend(backend, "sgd_momentum"):
-        new_m = []
-        for p, g, mm in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(momentum),
-                            strict=True):
-            mm = _state_leaf(mm, p)
-            sgdm_update(p, g.to(p.dtype), mm, lr=lr, mu=mu, nesterov=nesterov)
-            new_m.append(mm)
-        return params, _rebuild(momentum, new_m)
+        new_m = _sgdm(_zip_leaves(params, grads, momentum), lr, mu, nesterov, route, cast=True)
+        # a tree whose every moment was updated in place is returned as it is
+        return params, momentum if new_m is None else _rebuild(momentum, new_m)
     lr = lr.float() if torch.is_tensor(lr) else lr
     for p, g, mm in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(momentum)):
         g32 = g.float()

@@ -2,12 +2,16 @@
 ``_softmax_online``).
 
 ``softmax(x, axis=-1)`` is max-reduce, exp, sum-reduce and scale in one
-kernel, over two CUDA kernels (csrc/softmax.cu), the arithmetic in fp32 and
+kernel, over CUDA kernels in csrc/softmax.cu, the arithmetic in fp32 and
 one cast to x's dtype:
 
-- the row kernel replaces laser_tpu/ops/vector_math.py:276 softmax: one block
-  per row holds the row in shared memory as fp32, so the row is read from
-  device memory once;
+- two row kernels replace laser_tpu/ops/vector_math.py:276 softmax, each
+  with its own launch counter: ``softmax_vec`` (route "vec", every row the
+  row route takes) holds the row in registers, read and written in 16-byte
+  vectors, a warp a row up to 1024 columns and a block a row past that, a
+  ragged width or an unaligned view by elements in the same launch;
+  ``softmax`` (route "classic", asked for) gives each row one block that
+  holds the row in shared memory. ``route=`` asks for one;
 - the online kernel (``softmax_online``, which takes any width) replaces
   laser_tpu/ops/vector_math.py:200 _softmax_online: one block per row
   loops over it twice, a running (m, l) in the first sweep, exp(x - m) / l
@@ -23,8 +27,13 @@ bytes each over 0.7 of the chip's VMEM), which sends rows past ~350k columns
 online on a v5e and past ~46k on its CPU stand-in; the two packages compute
 the same function either way.
 
+A (rows, cols) contiguous CUDA tensor over the last axis (C1's and the
+MLP's head) takes a short host path: ``registry.on_cuda``'s device check,
+the library's entry point taken once and kept (``registry.entry``), no
+reshape or copy, the output allocated and the kernel launched.
+
 A row of nothing but -inf comes out as laser_tpu's kernels give it: NaN from
-the row kernel (0 / 0) and 0 from the online kernel, which takes an empty
+the row kernels (0 / 0) and 0 from the online kernel, which takes an empty
 sum as 1 (ROADMAP queue 3).
 
 ``donate=True``: laser_tpu aliases its output onto the donated input
@@ -33,9 +42,9 @@ result into x's own storage and returns a view of it when the rows are x's
 memory as it lies (x contiguous, ``axis`` the last); x must not be used
 afterwards. Otherwise ``donate`` changes nothing.
 
-Plain versions, in fp32: ``softmax_reference`` (the row kernel's function)
-and ``softmax_online_reference`` (the online kernel's). On CPU tensors each
-wrapper runs its plain version.
+Plain versions, in fp32: ``softmax_reference`` (the row kernels' function,
+counted under ``softmax``) and ``softmax_online_reference`` (the online
+kernel's). On CPU tensors each wrapper runs its plain version.
 
 ``exp``, ``log``, ``tanh`` and ``sigmoid`` (laser_tpu/ops/vector_math.py:172-
 197) run through ``ops.foreach.for_each``, whose body is one vector-math
@@ -68,11 +77,19 @@ from . import codegen
 
 SOFTMAX = registry.kernel("softmax", "laser_tpu_torch/csrc/softmax.cu",
                           "laser_tpu/ops/vector_math.py:276 softmax")
+SOFTMAX_VEC = registry.kernel("softmax_vec", "laser_tpu_torch/csrc/softmax.cu",
+                              "laser_tpu/ops/vector_math.py:276 softmax")
 SOFTMAX_ONLINE = registry.kernel("softmax_online", "laser_tpu_torch/csrc/softmax.cu",
                                  "laser_tpu/ops/vector_math.py:200 _softmax_online")
+# the row kernels' route codes, shared with csrc/softmax.cu (enum Route)
+ROUTES = {None: 0, "classic": 1, "vec": 2}
 
-# widest row the row kernel holds in shared memory (fp32: 64 KB)
+# widest row the row kernels take (the classic one holds it in shared
+# memory as fp32: 64 KB)
 SOFTMAX_ROW_MAX_COLS = 16384
+
+# most rows one launch takes: the launchers take the count as a C int
+SOFTMAX_MAX_ROWS = 2**31 - 1
 
 
 def _exp_shifted(xf: torch.Tensor):
@@ -101,37 +118,71 @@ def softmax_online_reference(x: torch.Tensor) -> torch.Tensor:
     return (e / torch.where(s > 0, s, torch.ones_like(s))).to(x.dtype)
 
 
-def _softmax_cuda(x2: torch.Tensor, out: torch.Tensor, online: bool) -> torch.Tensor:
-    if x2.dtype not in registry.DTYPE_CODES:
+def _rows_cuda(x2: torch.Tensor, out: Optional[torch.Tensor],
+               route: Optional[str]) -> torch.Tensor:
+    """The row kernels on (rows, cols) contiguous CUDA rows, into ``out``
+    (which may be x2; None: a new tensor)."""
+    code, rc = registry.DTYPE_CODES.get(x2.dtype), ROUTES.get(route)
+    if code is None:
         raise TypeError(f"softmax kernel: unsupported dtype {x2.dtype}")
+    if rc is None:
+        registry.route_code(ROUTES, route)  # raises, naming the routes
     rows, cols = x2.shape
-    if not online and cols > SOFTMAX_ROW_MAX_COLS:
+    if cols > SOFTMAX_ROW_MAX_COLS:
         raise ValueError(f"softmax row kernel: {cols} columns > {SOFTMAX_ROW_MAX_COLS}")
+    if rows > SOFTMAX_MAX_ROWS:
+        raise ValueError(f"softmax kernel: {rows} rows > {SOFTMAX_MAX_ROWS}")
+    if out is None:
+        out = torch.empty_like(x2)
     if rows == 0 or cols == 0:
         return out
-    lib = registry.load_library()
-    fn = lib.ltt_softmax_online if online else lib.ltt_softmax_rows
-    status = fn(x2.data_ptr(), out.data_ptr(), rows, cols, registry.DTYPE_CODES[x2.dtype],
-                registry.stream_handle(x2))
-    name = "softmax_online" if online else "softmax"
-    registry.check_launch(status, name)
-    (SOFTMAX_ONLINE if online else SOFTMAX).launches += 1
+    status = registry.entry("ltt_softmax_rows")(x2.data_ptr(), out.data_ptr(), rows, cols, code,
+                                                rc, registry.stream_handle(x2))
+    registry.check_launch(status, "softmax")
+    (SOFTMAX if route == "classic" else SOFTMAX_VEC).launches += 1
     return out
 
 
-def _run(x2: torch.Tensor, out: Optional[torch.Tensor], online: bool, plain: bool):
+def _online_cuda(x2: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    if x2.dtype not in registry.DTYPE_CODES:
+        raise TypeError(f"softmax kernel: unsupported dtype {x2.dtype}")
+    rows, cols = x2.shape
+    if rows > SOFTMAX_MAX_ROWS:
+        raise ValueError(f"softmax kernel: {rows} rows > {SOFTMAX_MAX_ROWS}")
+    if rows == 0 or cols == 0:
+        return out
+    status = registry.entry("ltt_softmax_online")(
+        x2.data_ptr(), out.data_ptr(), rows, cols, registry.DTYPE_CODES[x2.dtype],
+        registry.stream_handle(x2))
+    registry.check_launch(status, "softmax_online")
+    SOFTMAX_ONLINE.launches += 1
+    return out
+
+
+def _run(x2: torch.Tensor, out: Optional[torch.Tensor], online: bool, plain: bool,
+         route: Optional[str] = None):
     """One route on (rows, cols) contiguous rows, into ``out`` when given."""
     if plain or not registry.on_cuda(x2):
         y = (softmax_online_reference if online else softmax_reference)(x2)
         return y if out is None else out.copy_(y)
-    return _softmax_cuda(x2, torch.empty_like(x2) if out is None else out, online)
+    if online:
+        return _online_cuda(x2, torch.empty_like(x2) if out is None else out)
+    return _rows_cuda(x2, out, route)
 
 
 def softmax(x: torch.Tensor, *, axis: int = -1, donate: bool = False,
-            plain: bool = False) -> torch.Tensor:
-    """Row softmax over ``axis``: the row kernel for rows of at most
+            plain: bool = False, route: Optional[str] = None) -> torch.Tensor:
+    """Row softmax over ``axis``: the row kernels for rows of at most
     ``SOFTMAX_ROW_MAX_COLS`` columns, the online kernel for wider ones.
-    ``plain=True`` takes the same route through the plain versions."""
+    ``plain=True`` takes the same route through the plain versions.
+    ``route`` (the row kernels', a CUDA tensor's): None or "vec" the vec
+    kernel, "classic" the classic one; wider rows take the online kernel
+    whatever it says."""
+    if (x.is_cuda and not plain and x.dim() == 2 and (axis == -1 or axis == 1)
+            and x.is_contiguous() and x.shape[1] <= SOFTMAX_ROW_MAX_COLS and registry.on_cuda(x)):
+        return _rows_cuda(x, x if donate else None, route)
+    if route not in ROUTES:
+        registry.route_code(ROUTES, route)  # raises, naming the routes
     last = axis in (-1, x.ndim - 1)
     xm = x if last else x.movedim(axis, -1)
     shape = xm.shape
@@ -140,7 +191,7 @@ def softmax(x: torch.Tensor, *, axis: int = -1, donate: bool = False,
     in_place = donate and last and x.is_contiguous()
     if not in_place:
         x2 = x2.contiguous()
-    y = _run(x2, x2 if in_place else None, cols > SOFTMAX_ROW_MAX_COLS, plain)
+    y = _run(x2, x2 if in_place else None, cols > SOFTMAX_ROW_MAX_COLS, plain, route)
     y = y.reshape(shape)
     return y if last else y.movedim(-1, axis)
 

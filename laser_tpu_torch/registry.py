@@ -129,8 +129,10 @@ SIGNATURES = {
     # scale, dtype, pool_dtype, route, route taken (out), stream
     "ltt_paged_window_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _I, _I, _IP, _P),
+    # x, y (may be x), rows, cols, dtype, route (0 picks, 1 classic, 2
+    # vec), stream
+    "ltt_softmax_rows": (_P, _P, _I, _I, _I, _I, _P),
     # x, y (may be x), rows, cols, dtype, stream
-    "ltt_softmax_rows": (_P, _P, _I, _I, _I, _P),
     "ltt_softmax_online": (_P, _P, _I, _I, _I, _P),
     # x, w, out, N, C, H, W, c_out, kh, kw, ph, pw, dtype, stream
     "ltt_conv_planewise": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -148,6 +150,9 @@ SIGNATURES = {
     "ltt_adamw": (_P, _P, _P, _P, _I64, _P, _F, _F, _F, _F, _F, _F, _F, _P, _F, _F, _I, _I, _P),
     # p, g, m, n, lr (device) or null, lr, mu, nesterov, dtype, stream
     "ltt_sgdm": (_P, _P, _P, _I64, _P, _F, _F, _I, _I, _P),
+    # table (int64: p, g, m, n of each leaf), leaves, lr (device) or null, lr,
+    # mu, nesterov, dtype, stream
+    "ltt_sgdm_multi": (_P, _I, _P, _F, _F, _I, _I, _P),
     # src, f, dst, rows, cols, colour (0 red, 1 black, 2 Jacobi), dtype, stream
     "ltt_stencil_sweep": (_P, _P, _P, _I, _I, _I, _I, _P),
     # a, b, c (or null), out, M, N, gm, gn, gk, bm, bn, bk, alpha, beta,
@@ -221,8 +226,9 @@ def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); any other device raises. Kernels launch on the
     current device, so a tensor on another card raises too."""
-    if t.device.type == "cuda":
-        if t.device.index != torch.cuda.current_device():
+    if t.is_cuda:
+        # read without building device objects: every launch pays for it
+        if t.get_device() != torch._C._cuda_getDevice():
             raise ValueError(f"tensor on {t.device}, current device is "
                              f"cuda:{torch.cuda.current_device()}")
         return True
@@ -387,6 +393,20 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+# the library's entry points by name, each looked up once
+_ENTRIES: Dict[str, Callable] = {}
+
+
+def entry(name: str) -> Callable:
+    """The library's entry point ``name``, loaded on first use and kept: a
+    wrapper whose launch is host-bound calls it without ``load_library``'s
+    cache bookkeeping."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(load_library(), name)
+    return fn
+
+
 # ---------------------------------------------------------------------------
 # Generated sources (the elementwise and reduction templates)
 # ---------------------------------------------------------------------------
@@ -515,4 +535,4 @@ def stream_handle(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a pointer value (read
     raw: building a torch.cuda.Stream object would cost every launch host
     time)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

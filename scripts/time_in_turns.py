@@ -68,6 +68,21 @@ BENCH is one of:
   K-major where the tree has ``gemm_int32_limbs_kmajor``); ``int8``,
   ``gemm`` int8 4096^3 -> int32 (B row-major); ``f64``, ``gemm_f64``
   2048^3 at 8 slices end to end; timed as ``conv``.
+- ``softmax``: ``softmax(x)`` over the last axis on the route each tree
+  picks, f32 randn * 4 rows at C1's head (16 x 1000: ``c1_*``) and at
+  bench.py:421's 8192 x 4096 (``bench_*``), and ``torch.softmax`` on the
+  same rows in the same process (``torch_c1_*``, ``torch_bench_*``); each
+  timed as ``paged`` (one call, 20 in a row, 20 in a CUDA graph, the
+  host's microseconds a call).
+- ``sgd``: ``sgd_momentum_step(backend="pallas")`` over chip_smoke.py
+  phase 16's tree (the 8L d2048 bf16 transformer's 99 leaves, 419.6 M
+  parameters) with randn * 1e-3 gradients, zero momentum and lr a 0-d CUDA
+  tensor, mu 0.9 (``sgd``) and Nesterov (``nesterov``), and
+  ``torch.optim.SGD(fused=True).step`` over copies of the leaves
+  (``torch_sgd``, ``torch_nesterov``); one call between two CUDA events
+  (median of 20, ``<case>_ms``), 20 calls between two events
+  (``<case>_batched_ms``, median of 5) and the host's microseconds a step
+  (``<case>_host_us``, 20 steps enqueued).
 - ``primitives``: every case of chip_smoke.py phase 13 (for_each,
   for_each_multi, row_reduce, map_reduce, vector math, reductions, Lux at
   bench.py's shapes), its generated bodies built first: the kernel's ms as
@@ -302,35 +317,16 @@ def f32_gemm(smoke) -> dict:
     return res
 
 
-def _host_us(fn, n: int = 100, reps: int = 5) -> float:
-    """Host microseconds a call: ``n`` calls enqueued after a sync, on the
-    host's clock, with no sync before the clock stops (the card runs
-    behind), median of ``reps``: the wrapper's Python and its launches."""
-    import time
-
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        times.append((time.perf_counter() - t0) / n * 1e6)
-        torch.cuda.synchronize()
-    return statistics.median(times)
-
-
 def _timed_graph(smoke, fns, host=()) -> dict:
     """``_timed``, 20 calls in a CUDA graph, and the host's work a call
-    (``_host_us``) for each of ``fns`` and for the further ``host``
-    ({name: fn}, timed on the host alone)."""
+    (chip_smoke.py's ``host_us``: 100 calls enqueued, no sync before the
+    clock stops) for each of ``fns`` and for the further ``host`` ({name:
+    fn}, timed on the host alone)."""
     res = _timed(smoke, fns)
     for name, fn in fns.items():
         res[f"{name}_graph_ms"] = smoke.cuda_graph_ms(fn)
     for name, fn in {**fns, **dict(host)}.items():
-        res[f"{name}_host_us"] = _host_us(fn)
+        res[f"{name}_host_us"] = smoke.host_us(fn)
     return res
 
 
@@ -398,6 +394,42 @@ def norm(smoke) -> dict:
         f"rms_8x{width}": lambda: rms_norm(xd, gr)})
 
 
+def softmax(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops.vector_math import softmax as row_softmax
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    c1 = torch.randn(smoke.CNN_BATCH, smoke.CNN["num_classes"], generator=g, device="cuda") * 4
+    bench = torch.randn(8192, 4096, generator=g, device="cuda") * 4
+    return _timed_graph(smoke, {
+        "c1": lambda: row_softmax(c1), "bench": lambda: row_softmax(bench),
+        "torch_c1": lambda: torch.softmax(c1, -1), "torch_bench": lambda: torch.softmax(bench, -1)})
+
+
+def sgd(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.models.transformer import init_transformer
+    from laser_tpu_torch.ops import optim
+
+    params = init_transformer(0, dtype=torch.bfloat16, device="cuda", **smoke.MODEL)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    grads = optim.tree_map(lambda p: (torch.randn(p.shape, generator=g, device="cuda")
+                                      * 1e-3).to(p.dtype), params)
+    mom = optim.tree_map(torch.zeros_like, params)
+    lr = torch.tensor(smoke.LR, device="cuda")
+    fns = {"sgd": lambda: optim.sgd_momentum_step(params, grads, mom, lr=lr, backend="pallas"),
+           "nesterov": lambda: optim.sgd_momentum_step(params, grads, mom, lr=lr, nesterov=True,
+                                                       backend="pallas"),
+           "torch_sgd": smoke._torch_optimizer(params, grads, "sgd")[0],
+           "torch_nesterov": smoke._torch_optimizer(params, grads, "sgd_nesterov")[0]}
+    res = _timed(smoke, fns)
+    for name, fn in fns.items():
+        res[f"{name}_host_us"] = smoke.host_us(fn, n=20)
+    return res
+
+
 def int_gemm(smoke) -> dict:
     import torch
 
@@ -441,7 +473,7 @@ def primitives(smoke) -> dict:
 BENCHES = {"flash_forward": flash_forward, "flash_backward": flash_backward,
            "serving": serving, "cnn": cnn, "conv": conv, "wgmma_gemm": wgmma_gemm,
            "paged": paged, "norm": norm, "primitives": primitives, "f32_gemm": f32_gemm,
-           "int_gemm": int_gemm}
+           "int_gemm": int_gemm, "softmax": softmax, "sgd": sgd}
 
 
 def _time_tree(bench: str, tree: str) -> dict:

@@ -19,7 +19,9 @@ and direct conv kernels at odd channel counts, kernel sizes, paddings and
 strides, the direct conv's ffma and mma routes at strides 1, 2 and (3, 2),
 ragged pixel tiles, K 65, 180 and 1170 (two tap-table chunks), and the
 classic route's phase convs at a stride; both softmax kernels from 1 to 40001 columns, all -inf rows and
-``donate``; a small CNN and MLP through the kernels; the templates of
+``donate``; the register-resident row kernel at widths 1 to 16384 in
+f32/bf16/f16, rows at an unaligned offset, 5 and 4099 rows, against the
+plain version and the classic kernel; a small CNN and MLP through the kernels; the templates of
 csrc/foreach.cuh filled with generated bodies: for_each over bodies of each
 vocabulary group in f32/bf16/f16 and integer types, sizes 1 to 151557, with
 unaligned operands (the scalar path), donate and for_each_multi; the
@@ -49,7 +51,10 @@ shape and the ones that do not fit raising; int8 quantization (per row, global,
 stochastic, f32/bf16/f16, 1 x 1 to 4096 x 3) and gemm_quantized; the
 library surface bit for bit: the AdamW and SGD-momentum updates in
 f32/bf16/f16 from 1 to 1000003 elements, unaligned (the scalar path), lr on
-the card, whole trees against the CPU route; the stencil sweeps in
+the card, whole trees against the CPU route; SGD's multi-tensor kernel over
+trees of three dtypes with unaligned, empty and one-element leaves, past
+one launch's table, and captured in a CUDA graph, against the plain
+version and the per-leaf kernel; the stencil sweeps in
 f32/bf16/f16 on grids from 2 x 5 to 257 x 130; the packed GEMM in
 f32/bf16/f16 (within the bounds below) and int8 (bit for bit) on planned,
 odd (48 x 80 x 40: the gather route) and wide plans, with beta * C, other
@@ -987,13 +992,101 @@ def test_conv2d_direct_classic_strided_runs_the_phases(dev, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 1), (3, 33), (16, 1000), (5, 4096), (2, 16384)])
 def test_softmax_rows(dev, dtype, shape):
-    from laser_tpu_torch.ops.vector_math import SOFTMAX, softmax, softmax_reference
+    from laser_tpu_torch.ops.vector_math import SOFTMAX_VEC, softmax, softmax_reference
 
     g = _gen(dev, 33)
     x = _rnd(g, shape, dtype, dev, std=4.0)
-    before = SOFTMAX.launches
+    before = SOFTMAX_VEC.launches
     _check_rows(softmax(x), softmax_reference(x), dtype)
-    assert SOFTMAX.launches == before + 1
+    assert SOFTMAX_VEC.launches == before + 1
+
+
+def _softmax_rows_input(g, dev, dtype, rows, cols, offset):
+    """(rows, cols) rows, contiguous at an element ``offset`` into a buffer:
+    offset 0 puts every row of whole vectors on a 16-byte boundary, offset 1
+    none; a ragged width puts its rows at every offset."""
+    buf = _rnd(g, (rows * cols + offset,), dtype, dev, std=4.0)
+    return buf[offset:].view(rows, cols)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cols", [1, 31, 32, 33, 1000, 1024, 1025, 4096, 16384])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_softmax_vec_against_plain_and_classic(dev, dtype, cols, offset):
+    """The vec kernel (the route softmax picks) at every width class on 5
+    rows (a warp a row to 64 vectors, four warps to 1024 columns, two rows
+    a block, a block past it, 1024 threads for the widest f32 rows), ragged
+    widths and unaligned rows (the head and tail elements);
+    against the plain version and the classic kernel asked for, each row
+    against its own max."""
+    from laser_tpu_torch.ops.vector_math import (SOFTMAX, SOFTMAX_VEC, softmax,
+                                                 softmax_reference)
+
+    x = _softmax_rows_input(_gen(dev, 38), dev, dtype, 5, cols, offset)
+    before, classic = SOFTMAX_VEC.launches, SOFTMAX.launches
+    got = softmax(x)
+    assert SOFTMAX_VEC.launches == before + 1
+    _check_rows(got, softmax_reference(x), dtype)
+    _check_rows(got, softmax(x, route="classic"), dtype)
+    assert SOFTMAX.launches == classic + 1
+    assert torch.equal(softmax(x, route="vec"), got)  # the same bits on each call
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cols", [100, 1000, 1024])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_softmax_vec_many_rows(dev, dtype, cols, offset):
+    """4099 rows (past the count below which a narrow row takes four warps):
+    a warp a row, eight rows a block, the last block part empty."""
+    from laser_tpu_torch.ops.vector_math import SOFTMAX_VEC, softmax, softmax_reference
+
+    x = _softmax_rows_input(_gen(dev, 40), dev, dtype, 4099, cols, offset)
+    before = SOFTMAX_VEC.launches
+    _check_rows(softmax(x), softmax_reference(x), dtype)
+    assert SOFTMAX_VEC.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cols", [7, 1000, 4099])
+def test_softmax_vec_neg_inf_and_donate(dev, dtype, cols):
+    """An all -inf row is NaN (0 / 0), -inf entries give exactly 0, as the
+    classic kernel; donated unaligned rows are written in place; y at
+    another offset from a 16-byte boundary than x (scalar stores)."""
+    from laser_tpu_torch.ops.vector_math import softmax, softmax_reference
+
+    x = _softmax_rows_input(_gen(dev, 39), dev, dtype, 4, cols, 1)
+    x[1] = -torch.inf
+    x[2, ::3] = -torch.inf
+    want = softmax_reference(x)
+    got = softmax(x)  # y fresh and aligned, x one element off
+    classic = softmax(x, route="classic")
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1]).all() and torch.isnan(classic[1]).all()
+    assert (got[2, ::3] == 0).all()
+    keep = [0, 2, 3]
+    _check_rows(got[keep], want[keep], dtype)
+    # donated rows at x's offset: the same split of each row into head,
+    # vectors and tail, so the same sums and bits as the call above
+    y = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(x.shape).copy_(x)
+    out = softmax(y, donate=True)
+    assert out.data_ptr() == y.data_ptr()
+    _check_rows(out[keep], want[keep], dtype)
+    assert torch.equal(out[keep], got[keep])
+
+
+def test_softmax_rows_past_a_launch_raise(dev):
+    """The launchers take the row count as a C int: 2^31 rows raise before
+    any launch, on the short path and on the reshaped one."""
+    from laser_tpu_torch.ops.vector_math import SOFTMAX_MAX_ROWS, SOFTMAX_VEC, softmax
+
+    x = torch.empty(SOFTMAX_MAX_ROWS + 1, 1, dtype=torch.bfloat16, device=dev)
+    before = SOFTMAX_VEC.launches
+    for call in (lambda: softmax(x, donate=True), lambda: softmax(x.view(2, -1, 1), donate=True)):
+        with pytest.raises(ValueError, match="rows"):
+            call()
+    assert SOFTMAX_VEC.launches == before
+    del x
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1050,7 +1143,7 @@ def test_cnn_and_mlp_through_the_kernels(dev):
         c = registry.counts()
         _check(cnn_forward(params, x), want, torch.float32)
         assert (c["conv_planewise"]["launches"], c["conv_direct_ffma"]["launches"],
-                _route_launches(c, "gemm"), c["softmax"]["launches"]) == (1, 2, 2, 1)
+                _route_launches(c, "gemm"), c["softmax_vec"]["launches"]) == (1, 2, 2, 1)
         assert all(v["plain_calls"] == 0 for v in c.values())
         assert (probs.sum(-1) - 1).abs().max().item() <= 1e-5
         mp = init_mlp(4, [50, 64, 9], device=dev)
@@ -2070,17 +2163,118 @@ def test_adamw_update_bit_identical(dev, dtype, shape, wd, offset):
 @pytest.mark.parametrize("shape", [(1,), (37,), (3, 5, 7), (1000003,)])
 @pytest.mark.parametrize("nesterov", [False, True])
 def test_sgdm_update_bit_identical(dev, dtype, shape, nesterov):
-    from laser_tpu_torch.ops.optim import SGDM, sgdm_update, sgdm_update_plain
+    """One leaf: the multi-tensor kernel on a one-leaf table and the
+    per-leaf kernel asked for, both bit for bit against the plain version."""
+    from laser_tpu_torch.ops.optim import SGDM, SGDM_MULTI, sgdm_update, sgdm_update_plain
 
     g = _gen(dev, 81)
     p, gr, m = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3))
     want = [t.clone() for t in (p, gr, m)]
-    before = SGDM.launches
+    classic = [t.clone() for t in (p, gr, m)]
+    before, before_classic = SGDM_MULTI.launches, SGDM.launches
     sgdm_update(p, gr, m, lr=0.05, mu=0.9, nesterov=nesterov)
-    assert SGDM.launches == before + 1
+    assert SGDM_MULTI.launches == before + 1
+    sgdm_update(*classic, lr=0.05, mu=0.9, nesterov=nesterov, route="classic")
+    assert SGDM.launches == before_classic + 1
     sgdm_update_plain(*want, lr=0.05, mu=0.9, nesterov=nesterov)
-    _equal(p, want[0])
-    _equal(m, want[2])
+    for got in ((p, m), (classic[0], classic[2])):
+        _equal(got[0], want[0])
+        _equal(got[1], want[2])
+
+
+def _sgd_tree(dev, seed, n_leaves=None):
+    """p, g, m trees of f32, bf16 and f16 leaves: odd sizes, one-element
+    and empty leaves, leaves at an element offset into their buffer (not
+    16-byte aligned: the scalar path), a 2-D leaf; or ``n_leaves`` small
+    f32 leaves."""
+    g = _gen(dev, seed)
+
+    def leaf(shape, dtype, offset=0):
+        n = math.prod(shape)
+        return (torch.randn(n + offset, generator=g, device=dev).to(dtype)[offset:]
+                .view(shape))
+
+    if n_leaves is not None:
+        specs = [((1 + i % 37,), torch.float32, i % 2) for i in range(n_leaves)]
+    else:
+        specs = [((37,), torch.float32, 0), ((1,), torch.bfloat16, 0), ((0,), torch.float16, 0),
+                 ((3, 5, 7), torch.bfloat16, 1), ((1000003,), torch.float16, 0),
+                 ((4096,), torch.float32, 1), ((513, 8), torch.bfloat16, 0),
+                 ((0, 4), torch.float32, 0), ((129,), torch.float16, 3)]
+    return [{f"l{i:04d}": leaf(*spec) for i, spec in enumerate(specs)} for _ in range(3)]
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_sgdm_multi_tree_bit_identical(dev, nesterov):
+    """A tree of three dtypes (one launch each), unaligned views, one-element
+    and empty leaves, lr as a CUDA 0-d tensor: every leaf bit for bit against
+    the plain version and the per-leaf kernel."""
+    from laser_tpu_torch.ops import optim
+
+    p, gr, m = _sgd_tree(dev, 83)
+    plain = [optim.tree_map(torch.clone, t) for t in (p, gr, m)]
+    classic = [optim.tree_map(torch.clone, t) for t in (p, gr, m)]
+    lr = torch.tensor(0.05, device=dev)
+    before = optim.SGDM_MULTI.launches
+    optim.sgd_momentum_step(p, gr, m, lr=lr, nesterov=nesterov, backend="pallas")
+    assert optim.SGDM_MULTI.launches == before + 3
+    optim.sgd_momentum_step(*classic, lr=lr, nesterov=nesterov, backend="pallas",
+                            route="classic")
+    for pp, gg, mm in zip(*(optim.tree_leaves(t) for t in plain), strict=True):
+        optim.sgdm_update_plain(pp, gg, mm, lr=lr, mu=0.9, nesterov=nesterov)
+    for want in (plain, classic):
+        for a, b in zip(optim.tree_leaves((p, m)), optim.tree_leaves((want[0], want[2])),
+                        strict=True):
+            _equal(a, b)
+
+
+def test_sgdm_multi_more_leaves_than_one_table(dev):
+    """Past SGDM_TABLE_LEAVES leaves of one dtype the step takes a launch a
+    table, every leaf bit for bit."""
+    from laser_tpu_torch.ops import optim
+
+    n = 2 * optim.SGDM_TABLE_LEAVES + 5
+    p, gr, m = _sgd_tree(dev, 84, n_leaves=n)
+    plain = [optim.tree_map(torch.clone, t) for t in (p, gr, m)]
+    before = optim.SGDM_MULTI.launches
+    optim.sgd_momentum_step(p, gr, m, lr=0.01, backend="pallas")
+    assert optim.SGDM_MULTI.launches == before + 3
+    for pp, gg, mm in zip(*(optim.tree_leaves(t) for t in plain), strict=True):
+        optim.sgdm_update_plain(pp, gg, mm, lr=0.01, mu=0.9, nesterov=False)
+    for a, b in zip(optim.tree_leaves((p, m)), optim.tree_leaves((plain[0], plain[2])),
+                    strict=True):
+        _equal(a, b)
+
+
+def test_sgdm_multi_in_a_cuda_graph(dev):
+    """A step captured in a CUDA graph, lr read through its pointer: two
+    replays with the lr changed between them give two plain steps' bits."""
+    from laser_tpu_torch.ops import optim
+
+    p, gr, m = _sgd_tree(dev, 85)
+    plain = [optim.tree_map(torch.clone, t) for t in (p, gr, m)]
+    lr = torch.tensor(0.05, device=dev)
+    step = lambda: optim.sgd_momentum_step(p, gr, m, lr=lr, nesterov=True,  # noqa: E731
+                                           backend="pallas")
+    warm = [optim.tree_map(torch.clone, t) for t in (p, m)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, then undone
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    for dst, src in zip(optim.tree_leaves((p, m)), optim.tree_leaves(warm), strict=True):
+        dst.copy_(src)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for value in (0.05, 0.02):
+        lr.fill_(value)
+        graph.replay()
+        for pp, gg, mm in zip(*(optim.tree_leaves(t) for t in plain), strict=True):
+            optim.sgdm_update_plain(pp, gg, mm, lr=value, mu=0.9, nesterov=True)
+    for a, b in zip(optim.tree_leaves((p, m)), optim.tree_leaves((plain[0], plain[2])),
+                    strict=True):
+        _equal(a, b)
 
 
 def test_optimizer_steps_on_the_card_match_the_cpu_route(dev):

@@ -114,7 +114,8 @@ def test_every_slice_kernel_registered():
         "conv_direct_ffma", "conv_direct_mma", "gemm_packed_wgmma",  # the conv's, packed
         "paged_attention_split", "paged_window_attention_split", "norm_vec",  # split KV, norm
         "gemm_simt", "gemm_packed_simt",  # the f32 FFMA skeleton
-        "gemm_i8_wgmma", "gemm_limbs_wgmma", "gemm_int32_wgmma"}  # the int8 wgmma skeleton
+        "gemm_i8_wgmma", "gemm_limbs_wgmma", "gemm_int32_wgmma",  # the int8 wgmma skeleton
+        "softmax_vec", "sgdm_multi"}  # the row softmax in registers, the multi-tensor SGD
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
@@ -123,7 +124,7 @@ def test_every_slice_kernel_registered():
         "ltt_conv_planewise", "ltt_conv_direct", "ltt_softmax_rows", "ltt_softmax_online",
         "ltt_transpose", "ltt_transpose_inplace",
         "ltt_gemm_batched", "ltt_gemm_limbs", "ltt_gemm_int32", "ltt_quantize_int8",
-        "ltt_gemm_packed", "ltt_stencil_sweep", "ltt_adamw", "ltt_sgdm",
+        "ltt_gemm_packed", "ltt_stencil_sweep", "ltt_adamw", "ltt_sgdm", "ltt_sgdm_multi",
         "ltt_gemm_workspace", "ltt_w4_gemm_workspace", "ltt_paged_workspace"}
     # alpha and beta are doubles: an int8 GEMM's int32 alpha passes exactly
     assert registry.SIGNATURES["ltt_gemm"][11:13] == (ctypes.c_double, ctypes.c_double)
@@ -147,6 +148,8 @@ def test_every_slice_kernel_registered():
     assert replaced["conv_direct_ffma"] == replaced["conv_direct_mma"] == \
         replaced["conv_direct"] == "laser_tpu/ops/conv.py:152 _build_direct_conv"
     assert replaced["gemm_packed_wgmma"] == replaced["gemm_packed_simt"] == replaced["gemm_packed"]
+    assert replaced["softmax_vec"] == replaced["softmax"] == "laser_tpu/ops/vector_math.py:276 softmax"
+    assert replaced["sgdm_multi"] == replaced["sgdm_update"]
     assert replaced["w4_gemm_stream"] == replaced["w4_gemm_mma"] == replaced["w4_gemm"] == \
         "laser_tpu/ops/gemm/int4_kernel.py:87 build_w4_gemm"
     assert replaced["gemm_batched_wgmma"] == replaced["gemm_batched"]

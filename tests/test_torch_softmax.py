@@ -124,3 +124,20 @@ def test_bf16_against_both_laser_tpu_kernels(scale):
     np.testing.assert_array_equal(vm.softmax_online(xt).float().numpy(), online)
     assert np.abs(got.astype(np.float64).sum(-1) - 1).max() <= 2.2e-3
     assert np.abs(row.astype(np.float64).sum(-1) - 1).max() <= 4.8e-3
+
+
+@pytest.mark.parametrize("route", [None, "vec", "classic"])
+def test_row_routes_run_the_plain_version_on_the_cpu(ref, route):
+    """Each row route's name is taken on a CPU tensor, which runs the one
+    plain version (counted under ``softmax``) and matches laser_tpu."""
+    registry.reset_counts()
+    got = vm.softmax(torch.from_numpy(_x(SHAPES[0], 0)), route=route).numpy()
+    c = registry.counts()
+    assert c["softmax"]["plain_calls"] == 1
+    assert c["softmax_vec"] == {"launches": 0, "plain_calls": 0}
+    np.testing.assert_allclose(got, ref[SHAPES[0]][0], rtol=0, atol=ATOL)
+
+
+def test_unknown_route_raises():
+    with pytest.raises(ValueError, match="route"):
+        vm.softmax(torch.zeros(2, 3), route="shared")
