@@ -160,7 +160,8 @@ printed:
    8192 x 8192. The bodies' generated sources are built first, one nvcc
    each, all at once (printed: count and seconds). Then the path runs once
    with the counts at 0: for_each, for_each_multi, row_reduce and map_reduce
-   must have launched and no plain version run; a profile of one more run.
+   must have launched and no plain version run; a profile of three more
+   runs (a late profiler session may drop its first ~18 launches).
    Each case is then held against its plain version on the same tensors
    (bounds in PRIM_*: the accurate-tier exp bit for bit, other f32 values
    1e-6, the fast tier 2e-5 and bf16 2^-7, each element against
@@ -181,12 +182,18 @@ printed:
    negative-stride and transposed views, argmax with its maximum twice.
    The 5 generated bodies are built first, in parallel. The path runs once
    with the counts at 0 (launches by path "layout"; all four kernels must
-   launch, no plain version run), then under the profiler. Each case is
+   launch, the staged reductions on the one launch,
+   ``map_reduce_staged_one``, and the two-launch template
+   ``map_reduce_staged`` not at all; no plain version run), then three
+   times under the profiler. Outside that count mean_var, argmax and argmin run again on
+   the two-launch template asked for (``route="classic"``). Each case is
    held against its plain version on the same card tensors: transposes and
    the strided body bit for bit, mean_var within 1e-5 of float64 and of
    plain, arg-reductions equal to numpy's, reductions bit-identical on two
    runs; then timed as in phase 13 (kernel, 20 in a row, plain, library,
-   bound).
+   bound), and mean_var, argmax and argmin on both routes and their torch
+   calls also as 20 calls in a CUDA graph (where the default route runs the
+   two-launch template) and as the host's microseconds a call.
 
 15. The GEMM dtype table at bench.py's shapes and data (bench.py:128-273)
    and BASELINE.json's batched GEMM: ``gemm`` int8 4096^3 (randint(-8, 8))
@@ -231,14 +238,15 @@ printed:
    and f32 at 4096^3 (randn * 0.05, alpha 0.05, bench.py:54-63) with B
    packed once and 4 different A (bf16 on the wgmma route, f32 on the
    simt route), and the packed int8 product at 4096^3 (randint(-8, 8),
-   alpha 1, B packed once; row 32's int8 route, the classic kernels). SGD
-   runs on the multi-tensor kernel (``sgdm_multi``: one launch for the
-   tree's one dtype), AdamW one launch a leaf. The path runs once with the
-   counts at 0 (all six kernels must launch, no plain version run).
+   alpha 1, B packed once; the int8 wgmma route, ``gemm_packed_i8_wgmma``,
+   on B's K-major twin). SGD runs on the multi-tensor kernel
+   (``sgdm_multi``: one launch for the tree's one dtype), AdamW one launch
+   a leaf. The path runs once with the counts at 0 (all six kernels must
+   launch, the classic ``gemm_packed`` not at all; no plain version run).
    Outside that count f32 runs once more on the classic kernels asked for
-   (the simt route's bits) and bf16 too, and SGD on the per-leaf kernel
-   asked for (``sgdm_update``, 99 launches a step), each checked and timed
-   beside its route. The updates and the stencil are held to their plain
+   (the simt route's bits), bf16 and int8 too, and SGD on the per-leaf
+   kernel asked for (``sgdm_update``, 99 launches a step), each checked
+   and timed beside its route. The updates and the stencil are held to their plain
    versions bit for bit, the int8 product to its plain version and to
    ``torch._int_mm`` bit for bit, the float packed products to the plain
    version and to torch.matmul on the unpacked operands (bf16 2^-7, f32
@@ -247,7 +255,8 @@ printed:
    Then timed as in phase 13, with the default backends, torch.optim's
    fused AdamW / SGD (plain and Nesterov), ``torch._int_mm`` (B
    column-major) and torch.matmul as library calls, the stencil's sweeps/s,
-   effective GB/s and streaming bound, and the packing times; one call of
+   effective GB/s and streaming bound, and the packing times (int8: B's
+   K-major twin alone, ms and bytes); one call of
    each update under the profiler (device ms; SGD's one launch a step
    over 50 steps) and the SGD steps' host microseconds.
 
@@ -2319,6 +2328,9 @@ def prim_sources():
 
 
 PRIM_KERNELS = ("for_each", "for_each_multi", "row_reduce", "map_reduce")
+# paths traced together in phases 13 and 14: more launches than a late
+# profiler session drops at its start (~18)
+PATH_PROFILE_REPS = 3
 
 
 def phase_primitives(spec):
@@ -2349,8 +2361,10 @@ def phase_primitives(spec):
         fail(f"primitives: a plain version ran: {counts}")
     print(f"  generated builds after the path: {json.dumps(registry.GEN_BUILDS)}", flush=True)
     registry.reset_counts()
-    prof = profile_step(lambda: [case.run() for case in cases], "one primitives path")
-    # a late profiler session may keep only some kernels (phase 12): say how many
+    # a late profiler session may drop its first ~18 launches (phase 12), a
+    # whole path's: trace PATH_PROFILE_REPS paths and say how many were kept
+    prof = profile_step(lambda: [case.run() for _ in range(PATH_PROFILE_REPS) for case in cases],
+                        f"{PATH_PROFILE_REPS} primitives paths")
     launched = sum(c["launches"] for c in registry.counts().values())
     kept = sum(r["calls"] for r in prof["top"]
                if "ltt::" in r["kernel"] or "gemm_simt_kernel" in r["kernel"])
@@ -2372,7 +2386,9 @@ def phase_primitives(spec):
 
 # mean and variance against the float64 oracle and the plain version
 MEAN_VAR_REL = 1e-5
-LAYOUT_KERNELS = ("transpose", "transpose_inplace", "for_each_strided", "map_reduce_staged")
+LAYOUT_KERNELS = ("transpose", "transpose_inplace", "for_each_strided", "map_reduce_staged_one")
+# the two-launch staged template the one launch replaces: no launch on the path
+LAYOUT_REPLACED = ("map_reduce_staged",)
 
 
 @dataclasses.dataclass
@@ -2390,6 +2406,8 @@ class Layout:
     library_call: Optional[str] = None
     repeat: bool = False   # a reduction: two runs bit-identical
     dtype: torch.dtype = torch.float32  # the input type: the bound's peak rate
+    counted: bool = True   # part of the path's counted run (else a yardstick beside it)
+    host: bool = False     # also 20 calls in a CUDA graph and the host's us a call
 
 
 def _bits_equal(tag):
@@ -2482,7 +2500,8 @@ def layout_sources():
 
     f32 = torch.empty((8,), device=DEVICE)
     srcs = [S.strided_for_each_source(lambda p: p * 2.0, [torch.float32], torch.float32),
-            fe.map_reduce_staged_source(R._mean_var_block, f32, combine=R._mean_var_combine),
+            fe.map_reduce_staged_source(R._mean_var_block, f32, combine=R._mean_var_combine,
+                                        finish=R._mean_var_finish),
             fe.map_reduce_staged_source(_custom_block, f32, combine=_custom_combine)]
     for take_max in (True, False):
         block, comb = R.arg_reduce_fns(torch.float32, take_max)
@@ -2578,41 +2597,48 @@ def layout_cases():
             library=(lambda xi=xi: xi.t().contiguous()) if main else None,
             library_call="x.t().contiguous() (torch has no in-place transpose)" if main
             else None))
-    # mean_var / argmax / argmin of 8192^2 f32, one read each
+    # mean_var / argmax / argmin of 8192^2 f32, one read each: on the one
+    # launch (map_reduce_staged_one), then on the two-launch template asked
+    # for (map_reduce_staged, route="classic"), outside the path's count
     xr = rnd(N, N) * 3.0 + 1.0
     n_r = N * N
+
     def mean_var_plain():
-        acc = fe.map_reduce_staged_reference(R._mean_var_block, xr, combine=R._mean_var_combine)
-        return acc["mean"], acc["m2"] / acc["n"].clamp_min(1.0)
+        acc = fe.map_reduce_staged_reference(R._mean_var_block, xr, combine=R._mean_var_combine,
+                                             finish=R._mean_var_finish)
+        return acc["mean"], acc["var"]
 
     def arg_plain(x, fn):
         block, comb = R.arg_reduce_fns(x.dtype, fn == "argmax")
         acc = fe.map_reduce_staged_reference(block, x, combine=comb)
         return acc["idx"], acc["val"]
 
-    cases.append(Layout(
-        "map_reduce_staged", "", f"{N}x{N} f32 mean_var", run=lambda: R.mean_var(xr),
-        plain=mean_var_plain, check=_mean_var_check(xr), nbytes=n_r * 4, flops=8 * n_r,
-        repeat=True, library=lambda: torch.var_mean(xr, correction=0),
-        library_call="torch.var_mean(x, correction=0)"))
-    for fn in ("argmax", "argmin"):
+    for name, route in (("map_reduce_staged_one", None), ("map_reduce_staged", "classic")):
+        asked = ", the two-launch template asked for" if route else ""
         cases.append(Layout(
-            "map_reduce_staged", fn, f"{N}x{N} f32 {fn}", run=lambda fn=fn: getattr(R, fn)(xr),
-            plain=lambda fn=fn: arg_plain(xr, fn), check=_arg_check(xr, fn), nbytes=n_r * 4,
-            flops=4 * n_r, repeat=True,
-            library=(lambda: torch.max(xr.flatten(), 0)) if fn == "argmax"
-            else (lambda: torch.min(xr.flatten(), 0)),
-            library_call=f"torch.{fn[3:]}(x.flatten(), 0)"))
+            name, "", f"{N}x{N} f32 mean_var{asked}", run=lambda r=route: R.mean_var(xr, route=r),
+            plain=mean_var_plain, check=_mean_var_check(xr), nbytes=n_r * 4, flops=8 * n_r,
+            repeat=True, library=lambda: torch.var_mean(xr, correction=0),
+            library_call="torch.var_mean(x, correction=0)", counted=not route, host=True))
+        for fn in ("argmax", "argmin"):
+            cases.append(Layout(
+                name, fn, f"{N}x{N} f32 {fn}{asked}",
+                run=lambda fn=fn, r=route: getattr(R, fn)(xr, route=r),
+                plain=lambda fn=fn: arg_plain(xr, fn), check=_arg_check(xr, fn), nbytes=n_r * 4,
+                flops=4 * n_r, repeat=True,
+                library=(lambda: torch.max(xr.flatten(), 0)) if fn == "argmax"
+                else (lambda: torch.min(xr.flatten(), 0)),
+                library_call=f"torch.{fn[3:]}(x.flatten(), 0)", counted=not route, host=True))
     xc = xr - 1.0
     cases.append(Layout(
-        "map_reduce_staged", "custom", f"{N}x{N} f32 count of positives, sum of negatives",
+        "map_reduce_staged_one", "custom", f"{N}x{N} f32 count of positives, sum of negatives",
         run=lambda: fe.map_reduce_staged(_custom_block, xc, combine=_custom_combine),
         plain=lambda: fe.map_reduce_staged_reference(_custom_block, xc, combine=_custom_combine),
         check=_custom_check(xc), nbytes=n_r * 4, flops=6 * n_r, repeat=True))
     tie = torch.zeros(300001, device=DEVICE)
     tie[123457] = tie[200000] = 5.0
     cases.append(Layout(
-        "map_reduce_staged", "argmax_tie", "300001 f32, the maximum twice",
+        "map_reduce_staged_one", "argmax_tie", "300001 f32, the maximum twice",
         run=lambda: R.argmax(tie), plain=lambda: arg_plain(tie, "argmax"),
         check=_arg_check(tie, "argmax"), nbytes=tie.numel() * 4, repeat=True))
     return cases
@@ -2632,29 +2658,48 @@ def phase_layout(spec):
           f"{registry.GEN_BUILDS['built'] - built['built']} built in parallel, "
           f"{time.perf_counter() - t0:.1f} s in all", flush=True)
     cases = layout_cases()
+    path = [case for case in cases if case.counted]
     torch.cuda.synchronize()
     registry.reset_counts()
-    outs = [case.run() for case in cases]
+    outs = {id(case): case.run() for case in path}
     torch.cuda.synchronize()
     counts = registry.counts()
+    outs.update({id(case): case.run() for case in cases if not case.counted})
+    outs = [outs[id(case)] for case in cases]
     print(f"  counts {json.dumps({k: v for k, v in counts.items() if any(v.values())})}",
           flush=True)
     for k in LAYOUT_KERNELS:
         if counts[k]["launches"] == 0:
             fail(f"layout: {k} never launched")
+    for k in LAYOUT_REPLACED:
+        if counts[k]["launches"]:
+            fail(f"layout: the replaced kernel {k} launched on the path")
     if any(c["plain_calls"] for c in counts.values()):
         fail(f"layout: a plain version ran: {counts}")
     registry.reset_counts()
-    prof = profile_step(lambda: [case.run() for case in cases], "one layout path")
+    prof = profile_step(lambda: [case.run() for _ in range(PATH_PROFILE_REPS) for case in path],
+                        f"{PATH_PROFILE_REPS} layout paths")
     launched = sum(c["launches"] for c in registry.counts().values())
-    # a staged reduction is one counted launch of two kernels: count stage 1
-    kept = sum(r["calls"] for r in prof["top"] if "stage2" not in r["kernel"]
-               and ("ltt::" in r["kernel"] or "transpose" in r["kernel"]))
+    # every counted launch is one kernel, a staged reduction's too
+    kept = sum(r["calls"] for r in prof["top"]
+               if "ltt::" in r["kernel"] or "transpose" in r["kernel"])
     print(f"  {kept} of the {launched} kernel launches of the port kept in the trace "
           f"(the idle share holds for what was kept)", flush=True)
     prof["kernels_recorded"] = [kept, launched]
 
     entries = check_and_time(spec, cases, outs, lambda case, got: case.check(got, case.plain()))
+    # the staged reductions beside their torch calls: 20 in a CUDA graph (the
+    # device's time without the host) and the host's us a call
+    for case in cases:
+        if not case.host:
+            continue
+        e = entries[case.name][case.slot] if case.slot else entries[case.name]
+        e["graph_ms"], e["library_graph_ms"] = (cuda_graph_ms(case.run),
+                                                cuda_graph_ms(case.library))
+        e["host_us"], e["library_host_us"] = host_us(case.run), host_us(case.library)
+        print(f"  {case.name} {case.slot or 'mean_var'}: graph {e['graph_ms']:.4f} ms, host "
+              f"{e['host_us']:.1f} us a call; {case.library_call}: graph "
+              f"{e['library_graph_ms']:.4f} ms, host {e['library_host_us']:.1f} us", flush=True)
     return {"layout": counts}, entries, {"profile": prof}
 
 # ---------------------------------------------------------------------------
@@ -3026,9 +3071,10 @@ def library_small_checks():
     """Each library kernel once at a small odd shape against its plain
     version (phase 2): the packed GEMM at 100 x 120 x 90 on an odd plan
     (48 x 80 x 40, the gather route) with beta * C, int8 -> int32 and f16,
-    bf16 on a planned plan (the wgmma route) and f32 on one (the simt route,
-    also bit for bit against the classic kernels); the stencil at 12 x 16, 2 x 5 (no
-    interior: no launch) and bf16 33 x 65; the optimizers on a 37-element
+    bf16 on a planned plan (the wgmma route), f32 on one (the simt route,
+    also bit for bit against the classic kernels) and int8 on one (the int8
+    wgmma route, bit for bit against the classic kernel and plain); the
+    stencil at 12 x 16, 2 x 5 (no interior: no launch) and bf16 33 x 65; the optimizers on a 37-element
     bias and a (3, 5, 7) leaf in f32 and bf16 (SGD on the multi-tensor
     kernel and on the per-leaf kernel asked for). Bit for bit, the floats of the
     packed GEMM within PACKED_REL (f16 as bf16)."""
@@ -3078,6 +3124,14 @@ def library_small_checks():
             same_bits("gemm_packed f32 simt route against the classic kernels",
                       lambda: PK.gemm_packed(alpha, pa, pb, beta, c, route="simt"),
                       lambda: PK.gemm_packed(alpha, pa, pb, beta, c, route="classic"))
+        if dt == torch.int8:  # and on a planned plan: the int8 wgmma route
+            pa, pb = PK.gemm_prepack_a(a), PK.gemm_prepack_b(b)
+            same_bits(f"gemm_packed {M}x{N}x{K} int8 tiles {pa.block[0]}x{pb.block[1]}x"
+                      f"{pa.block[1]} (wgmma route), beta * C, against the classic kernel and "
+                      "the plain version",
+                      lambda: PK.gemm_packed(alpha, pa, pb, beta, c),
+                      lambda: PK.gemm_packed(alpha, pa, pb, beta, c, route="classic"),
+                      lambda: PK.gemm_packed_plain(alpha, pa, pb, beta, c, dt, acc, torch.int32))
     for shape, dt in (((12, 16), torch.float32), ((2, 5), torch.float32),
                       ((33, 65), torch.bfloat16)):
         u = torch.randn(shape, generator=g, device=DEVICE).to(dt)
@@ -3167,7 +3221,9 @@ def phase_gemm_table(spec):
 # ---------------------------------------------------------------------------
 
 LIBRARY_KERNELS = ("adamw_update", "sgdm_multi", "stencil_sweep", "gemm_packed_simt",
-                   "gemm_packed_wgmma", "gemm_packed")
+                   "gemm_packed_wgmma", "gemm_packed_i8_wgmma")
+# the classic packed kernels the wgmma and simt routes replace: no launch on the path
+LIBRARY_REPLACED = ("gemm_packed",)
 # packed GEMM, kernel vs plain and vs torch.matmul on the unpacked operands
 # (TF32 off), max |d| / max |want|: bf16 one output rounding, f32 summation
 # order over K = 4096
@@ -3176,8 +3232,8 @@ STENCIL_N, STENCIL_ITERS = 1024, 100
 # SGD steps under the profiler (one launch a step)
 SGD_PROFILE_STEPS = 50
 PACKED_N, PACKED_A_COUNT, PACKED_ALPHA = 4096, 4, 0.05
-# the packed int8 product (row 32's int8 route, the classic kernels):
-# randint(-8, 8) operands, alpha 1, exact in int32
+# the packed int8 product (the int8 wgmma route; the classic kernel beside
+# it): randint(-8, 8) operands, alpha 1, exact in int32
 # f32 operations a stencil cell update takes: 4 adds or subtracts, 1 multiply
 STENCIL_FLOPS = 6
 # AdamW and SGD operations an element: counted in csrc/optim.cu's adam_elem
@@ -3259,16 +3315,22 @@ def _torch_optimizer(params, grads, kind):
                       f"{', nesterov=True' if kind == 'sgd_nesterov' else ''}).step")
 
 
-def _int_packed_check(plain, library):
-    """Bits equal to the plain version and to the library call."""
-    bits = _bits_equal("gemm_packed int8")
+def _int_packed_check(plain, library, tag="gemm_packed int8", route_out=None):
+    """Bits equal to the plain version and to the library call (and to
+    the library's route, ``route_out``)."""
+    bits = _bits_equal(tag)
 
     def check(got):
         err = bits(got, plain())
         same = torch.equal(got, library())
-        print(f"  gemm_packed int8: bit-identical to torch._int_mm: {same}", flush=True)
+        print(f"  {tag}: bit-identical to torch._int_mm: {same}", flush=True)
         if not same:
-            fail("gemm_packed int8: kernel and torch._int_mm differ")
+            fail(f"{tag}: kernel and torch._int_mm differ")
+        if route_out is not None:
+            same = torch.equal(got, route_out)
+            print(f"  {tag}: bit-identical to the int8 wgmma route: {same}", flush=True)
+            if not same:
+                fail(f"{tag}: the classic kernel and the int8 wgmma route differ")
         return err
     return check
 
@@ -3438,8 +3500,9 @@ def library_cases(spec):
               check=check_sgd(t1, True, "sgdm_update"), nbytes=tree_bytes["sgd"],
               flops=SGD_FLOPS * n_params, peak=spec.f32_tflops, library=s_opt_n,
               library_call=s_call_n, dtype=torch.bfloat16, counted=False),
-        Table("gemm_packed", "int8", f"{PACKED_N}^3 int8 -> int32, randint(-8, 8), alpha 1, "
-              f"B packed once (tiles {pa8.block[0]} x {pb8.block[1]} x {pb8.block[0]})",
+        Table("gemm_packed_i8_wgmma", "", f"{PACKED_N}^3 int8 -> int32, randint(-8, 8), "
+              f"alpha 1, B packed once (tiles {pa8.block[0]} x {pb8.block[1]} x "
+              f"{pb8.block[0]}), B's K-major twin",
               run=(lambda: PK.gemm_packed(1, pa8, pb8)), plain=plain8,
               check=_int_packed_check(plain8, lambda: torch._int_mm(a8, b8_cols)),
               nbytes=2 * PACKED_N * PACKED_N + 4 * PACKED_N * PACKED_N,
@@ -3477,6 +3540,7 @@ def library_cases(spec):
     classic_out = {dt: PK.gemm_packed(PACKED_ALPHA, packed_out[dt][0][0], packed_out[dt][1],
                                       route="classic")
                    for dt in (torch.float32, torch.bfloat16)}
+    classic8 = PK.gemm_packed(1, pa8, pb8, route="classic")
     for name, dt, slot, route in (("gemm_packed_wgmma", torch.bfloat16, "", None),
                                   ("gemm_packed_simt", torch.float32, "", None),
                                   ("gemm_packed", torch.float32, "", "classic"),
@@ -3495,11 +3559,23 @@ def library_cases(spec):
             flops=2 * n3, peak=spec.bf16_tflops if dt == torch.bfloat16 else spec.f32_tflops,
             library=(lambda a=packed_in[dt][0][0], b=packed_in[dt][1]: torch.matmul(a, b)),
             library_call="torch.matmul on the unpacked operands (cuBLAS, TF32 off)", dtype=dt))
+    # the int8 product on the classic kernel asked for (packed_i8_kernel, WMMA s8)
+    cases.append(Table(
+        "gemm_packed", "int8", f"{PACKED_N}^3 int8 -> int32, randint(-8, 8), alpha 1, B packed "
+        f"once (tiles {pa8.block[0]} x {pb8.block[1]} x {pb8.block[0]}), the classic kernel "
+        "asked for", run=(lambda: PK.gemm_packed(1, pa8, pb8, route="classic")), plain=plain8,
+        check=_int_packed_check(plain8, lambda: torch._int_mm(a8, b8_cols),
+                                "gemm_packed int8 classic", out8),
+        nbytes=2 * PACKED_N * PACKED_N + 4 * PACKED_N * PACKED_N,
+        flops=2 * PACKED_N ** 3, peak=spec.int8_tops,
+        library=(lambda: torch._int_mm(a8, b8_cols)),
+        library_call="torch._int_mm (cuBLASLt int8) on the unpacked operands, B column-major",
+        dtype=torch.int8, counted=False))
     outs = [s3, s1, t1, t2, c1, c2, out8, red, jac, packed_out[torch.bfloat16][2][0],
             packed_out[torch.float32][2][0], classic_out[torch.float32],
-            classic_out[torch.bfloat16]]
+            classic_out[torch.bfloat16], classic8]
     extra = dict(adamw_default=adamw_default, sgd_default=sgd_default, packed_in=packed_in,
-                 leaves=leaves,
+                 leaves=leaves, int8=(a8, b8, pa8, pb8),
                  packed_tiles={dt: (po[0][0].block, po[1].block)
                                for dt, po in packed_out.items()})
     return counts, cases, outs, extra
@@ -3520,6 +3596,9 @@ def phase_library(spec):
     for k in LIBRARY_KERNELS:
         if counts[k]["launches"] == 0:
             fail(f"library: {k} never launched")
+    for k in LIBRARY_REPLACED:
+        if counts[k]["launches"]:
+            fail(f"library: the replaced kernel {k} launched on the path")
     if any(c["plain_calls"] for c in counts.values()):
         fail(f"library: a plain version ran: {counts}")
     # every check first: the timings below run the updates in place again
@@ -3599,6 +3678,19 @@ def phase_library(spec):
         print(f"  gemm_packed {DTYPE_TAGS[dt]}: pack A {e['pack_a_ms']:.4f} ms, pack B "
               f"{e['pack_b_ms']:.4f} ms, multiply {e['ms']:.4f} ms ({tflops:.1f} TFLOP/s), "
               f"blocks route {e['blocks_route']}", flush=True)
+    # the int8 pack: B's K-major twin is paid once per packed B
+    a8, b8, pa8, pb8 = extra["int8"]
+    e = entries["gemm_packed_i8_wgmma"]
+    tiles = PK.GemmTiles(pa8.block[0], pb8.block[1], pb8.block[0], 0)
+    e["pack_a_ms"] = cuda_ms(lambda: PK.gemm_prepack_a(a8, tiles=tiles), reps=10)
+    e["pack_b_ms"] = cuda_ms(lambda: PK.gemm_prepack_b(b8, tiles=tiles), reps=10)
+    e["kmajor_twin_ms"] = cuda_ms(lambda: pb8.data.transpose(-1, -2).contiguous(), reps=10)
+    e["kmajor_twin_bytes"] = pb8.kmajor.numel() * pb8.kmajor.element_size()
+    tops = 2 * PACKED_N ** 3 / e["batched_ms"] / 1e9
+    print(f"  gemm_packed int8: pack A {e['pack_a_ms']:.4f} ms, pack B {e['pack_b_ms']:.4f} ms "
+          f"(of which B's K-major twin {e['kmajor_twin_ms']:.4f} ms, "
+          f"{e['kmajor_twin_bytes']} bytes held beside the packed B), multiply "
+          f"{e['batched_ms']:.4f} ms 20 in a row ({tops:.1f} TOP/s)", flush=True)
     return {"library": counts}, entries
 
 

@@ -61,12 +61,13 @@ def params_to_numpy(tree):
 def packed_from_numpy(data, rows: int, cols: int, block, operand: str, device="cuda"):
     """The port's ``PackedMatrix`` of laser_tpu's packed operand: ``data`` is
     its 4-D blocked array (``np.asarray(packed.data)``), the other fields
-    its own; the bytes stay as they are."""
-    from .ops.gemm.prepacked import PackedMatrix
+    its own; the bytes stay as they are (an int8 B on CUDA also gets its
+    K-major twin, ``PackedMatrix.kmajor``, where its plan wants one)."""
+    from .ops.gemm.prepacked import packed_matrix
 
     if operand not in ("A", "B"):
         raise ValueError(f"operand must be 'A' or 'B', got {operand!r}")
     t = params_from_numpy(data, device)
     if t.ndim != 4 or tuple(t.shape[2:]) != tuple(block):
         raise ValueError(f"packed data of shape {tuple(t.shape)} does not hold blocks {block}")
-    return PackedMatrix(t, int(rows), int(cols), tuple(int(b) for b in block), operand)
+    return packed_matrix(t, int(rows), int(cols), tuple(int(b) for b in block), operand)

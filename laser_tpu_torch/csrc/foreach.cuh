@@ -16,8 +16,9 @@
 //   kernel (:393);
 // - for_each_strided_kernel: for_each over strided views, replacing
 //   laser_tpu/ops/strided.py:222 build_strided_foreach (pallas_call at :305);
-// - staged_stage1/2: `map_reduce_staged` (foreach.py:442, at :494), an
-//   accumulator pytree of scalar leaves per block and a traced combine.
+// - staged_one (staged_stage1/2 on the classic route): `map_reduce_staged`
+//   (foreach.py:442, at :494), an accumulator pytree of scalar leaves per
+//   block and a traced combine.
 //
 // What bounds them on the H100: bytes. Each reads every operand once and
 // writes every output once (4096^2 f32 x + y - sin z: 268 MB, 80 us at
@@ -59,6 +60,7 @@
 #pragma once
 
 #include <algorithm>
+#include <cstring>
 
 #include "common.cuh"
 #include "vector_math.cuh"
@@ -396,27 +398,80 @@ int launch_for_each_strided(const void* const* in, void* const* out, const int64
 
 // Stage 1: block b owns the fixed block [b*G, (b+1)*G) of G = kStagedGrain
 // elements; thread t holds elements b*G + e*kStagedThreads + t, e <
-// kStagedPer, in registers (coalesced loads, all issued before any
-// arithmetic). Positions past n are never loaded: their value is 0 and
-// `valid` false there. The generated body then runs one sweep over the
-// registers per reduction level, each reduction a per-thread fold in
-// register order and a block_allreduce (fixed warp and block trees), and
-// thread 0 writes the block's leaves to the typed (n_blocks,) partials of
-// each leaf. Stage 2: one block folds the partials with the generated
-// combine: thread t folds partials t, t + T, t + 2T, ... in that order,
-// then a halving tree with an odd tail (laser_tpu's order,
-// foreach.py:507-522) runs over the T accumulators in shared memory. Every
-// order is fixed, so a result is the same bits run after run; no atomics.
+// kStagedPer, in registers (coalesced loads: a warp's load is one 128-byte
+// line of f32, all issued before any arithmetic). Positions past n are
+// never loaded: their value is 0 and `valid` false there. The generated
+// body then runs one sweep over the registers per reduction level, each
+// reduction a per-thread fold in register order and a block_allreduce
+// (fixed warp and block trees), and returns the block's accumulator: its
+// leaves as the typed partials hold them (B::store_partial writes them).
+// The fold: T accumulators (staged_fold_width), accumulator v the chain of
+// partials v, v + T, v + 2T, ... combined in that order with the generated
+// combine, then a halving tree with an odd tail over the T accumulators in
+// shared memory (laser_tpu's order, foreach.py:507-522), then the generated
+// finish (the identity, or mean_var's M2 / n) stores the results. Every
+// order is fixed, so a result is the same bits run after run; no atomics
+// on the values.
+//
+// Routes. classic (route="classic"): staged_stage1 (one thread block a
+// block, writing the partials), then staged_stage2 (one thread block of T
+// threads: thread v folds chain v, then the tree; also under graph capture).
+// staged_one (the default), one launch of min(nb, T) thread blocks: thread block v runs stage 1 on the
+// blocks of chain v in order and folds them as it goes, in registers, in the
+// classic route's order; no partial is written. Then it writes its chain to
+// the workspace and takes a ticket (__threadfence, then atomicAdd on the
+// workspace's counter); the thread block that draws the last ticket resets
+// the counter to 0, loads every chain and runs the tree: the classic route's
+// bits. One ticket a thread block of many blocks: a ticket a block of 4096
+// elements would hold each thread block resident over a fence and an
+// atomic's round trip. The workspace (ops/foreach.py STAGED_WORK_BYTES: the
+// counter, then the T accumulators) is one a stream, zeroed once (a call on
+// the same stream starts after the last one ends), so other streams never
+// share a live counter; under CUDA graph capture the wrapper takes the
+// two-launch route, as replays would share one. T = 256 (accumulators over
+// 32 bytes) leaves the one launch 256 thread blocks, under a wave.
 constexpr int kStagedThreads = 256;
 constexpr int kStagedPer = 16;
 constexpr int64_t kStagedGrain = int64_t{kStagedThreads} * kStagedPer;  // ops/foreach.py STAGED_GRAIN
 constexpr int kMaxLeaves = 16;
+constexpr int kStagedAccOffset = 16;  // the workspace's accumulators, after the counter
 
 struct StagedArgs {
   const void* in[kMaxIn];
   void* part[kMaxLeaves];  // per leaf: (n_blocks,) partials in the leaf's dtype
-  void* out[kMaxLeaves];   // per leaf: the 0-d result
+  void* out[kMaxLeaves];   // per result leaf: the 0-d result
 };
+
+// The fold's accumulators: T (1024, or 256 for accumulators over 32 bytes,
+// so that they stay within 32 KB of shared memory)
+template <class B>
+__host__ __device__ constexpr int staged_fold_width() {
+  return sizeof(typename B::Acc) <= 32 ? 1024 : 256;
+}
+
+// An accumulator another thread block wrote in this launch, read from L2
+// (ld.global.cg: never a line this SM's L1 kept), word by word.
+template <typename A>
+__device__ __forceinline__ void load_acc_cg(const A* p, A& out) {
+  if constexpr (sizeof(A) % 4 == 0) {
+    unsigned w[sizeof(A) / 4];
+    const unsigned* q = reinterpret_cast<const unsigned*>(p);
+#pragma unroll
+    for (int k = 0; k < static_cast<int>(sizeof(A) / 4); ++k)
+      asm volatile("ld.global.cg.u32 %0, [%1];" : "=r"(w[k]) : "l"(q + k));
+    memcpy(&out, w, sizeof(A));
+  } else {
+    unsigned char c[sizeof(A)];
+    const unsigned char* q = reinterpret_cast<const unsigned char*>(p);
+#pragma unroll
+    for (int k = 0; k < static_cast<int>(sizeof(A)); ++k) {
+      unsigned short u;
+      asm volatile("ld.global.cg.u8 %0, [%1];" : "=h"(u) : "l"(q + k));
+      c[k] = static_cast<unsigned char>(u);
+    }
+    memcpy(&out, c, sizeof(A));
+  }
+}
 
 // the block's fold of v in a fixed order, returned to every thread. `red`
 // holds 33 A; successive calls may reuse it with another A (each call's
@@ -428,10 +483,27 @@ template <int Op, typename A> __device__ __forceinline__ A block_allreduce(A v, 
   return red[32];
 }
 
+// The halving tree over s[0 .. m) (filled, and synced), by the block's NT
+// threads; thread 0 stores the result.
+template <class B, int NT>
+__device__ __forceinline__ void staged_tree(const StagedArgs& a, int m, typename B::Acc* s) {
+  const int t = threadIdx.x;
+  while (m > 1) {
+    const int h = m / 2;
+    for (int v = t; v < h; v += NT) B::combine(s[v], s[v + h], s[v]);
+    __syncthreads();
+    if ((m & 1) && t == 0) s[h] = s[2 * h];
+    __syncthreads();
+    m = h + (m & 1);
+  }
+  if (t == 0) B::store_result(a, s[0]);
+}
+
 template <class B>
 __global__ void __launch_bounds__(kStagedThreads) staged_stage1(StagedArgs a, int64_t n) {
   __shared__ __align__(16) unsigned char red[33 * 8];
-  B::block(a, n, static_cast<int64_t>(blockIdx.x) * kStagedGrain, red);
+  const typename B::Acc r = B::block(a, n, blockIdx.x, red);
+  if (threadIdx.x == 0) B::store_partial(a, blockIdx.x, r);
 }
 
 template <class B, int T>
@@ -451,35 +523,81 @@ __global__ void __launch_bounds__(T) staged_stage2(StagedArgs a, int nb) {
     s[t] = acc;
   }
   __syncthreads();
-  for (int m = m0; m > 1;) {
-    const int h = m / 2;
-    if (t < h) B::combine(s[t], s[t + h], s[t]);
-    __syncthreads();
-    if ((m & 1) && t == 0) s[h] = s[2 * h];
-    __syncthreads();
-    m = h + (m & 1);
+  staged_tree<B, T>(a, m0, s);
+}
+
+// See Routes above: min(nb, T) thread blocks, block b folding chain b of
+// blocks b, b + T, b + 2T, ...; work the workspace.
+template <class B>
+__global__ void __launch_bounds__(kStagedThreads) staged_one(StagedArgs a, int64_t n, int nb,
+                                                            unsigned char* work) {
+  using Acc = typename B::Acc;
+  constexpr int T = staged_fold_width<B>();
+  __shared__ __align__(16) unsigned char red[33 * 8];
+  __shared__ Acc s[T];
+  __shared__ bool last;
+  unsigned* ticket = reinterpret_cast<unsigned*>(work);
+  Acc* chains = reinterpret_cast<Acc*>(work + kStagedAccOffset);
+  // every thread holds the chain (block() returns its leaves to all of them)
+  Acc chain = B::block(a, n, blockIdx.x, red);
+  for (int tile = blockIdx.x + T; tile < nb; tile += T) {
+    const Acc r = B::block(a, n, tile, red);
+    B::combine(chain, r, chain);
   }
-  if (t == 0) B::store_result(a, s[0]);
+  if (threadIdx.x == 0) {
+    chains[blockIdx.x] = chain;
+    __threadfence();  // the chain before the ticket
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every other thread block's chain is visible from here on
+  if (threadIdx.x == 0) *ticket = 0;  // every ticket is drawn: ready for the next launch
+  const int m0 = static_cast<int>(gridDim.x);
+  for (int v = threadIdx.x; v < m0; v += kStagedThreads) load_acc_cg(chains + v, s[v]);
+  __syncthreads();
+  staged_tree<B, kStagedThreads>(a, m0, s);
+}
+
+template <class B>
+StagedArgs staged_args(const void* const* in, void* const* out) {
+  static_assert(B::kIn >= 1 && B::kIn <= kMaxIn && B::kLeaves >= 1 &&
+                    B::kLeaves <= kMaxLeaves && B::kOut >= 1 && B::kOut <= kMaxLeaves,
+                "operand and leaf counts");
+  StagedArgs a{};
+  for (int k = 0; k < B::kIn; ++k) a.in[k] = in[k];
+  for (int k = 0; k < B::kOut; ++k) a.out[k] = out[k];
+  return a;
 }
 
 template <class B>
 int launch_staged(const void* const* in, void* const* part, void* const* out, int64_t n,
                   void* stream) {
-  static_assert(B::kIn >= 1 && B::kIn <= kMaxIn && B::kLeaves >= 1 && B::kLeaves <= kMaxLeaves,
-                "operand and leaf counts");
-  StagedArgs a{};
-  for (int k = 0; k < B::kIn; ++k) a.in[k] = in[k];
-  for (int k = 0; k < B::kLeaves; ++k) {
-    a.part[k] = part[k];
-    a.out[k] = out[k];
-  }
+  StagedArgs a = staged_args<B>(in, out);
+  for (int k = 0; k < B::kLeaves; ++k) a.part[k] = part[k];
   const int64_t nb = cdiv64(n, kStagedGrain);
   if (n <= 0 || nb > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   staged_stage1<B><<<static_cast<unsigned>(nb), kStagedThreads, 0, s>>>(a, n);
-  // the stage 2 accumulators stay within 32 KB of shared memory
-  constexpr int T2 = sizeof(typename B::Acc) <= 32 ? 1024 : 256;
+  constexpr int T2 = staged_fold_width<B>();
   staged_stage2<B, T2><<<1, T2, 0, s>>>(a, static_cast<int>(nb));
+  return launch_status();
+}
+
+// work: the stream's workspace (its counter 0 between launches).
+template <class B>
+int launch_staged_one(const void* const* in, void* const* out, void* work, int64_t n,
+                      void* stream) {
+  static_assert(kStagedAccOffset + staged_fold_width<B>() * sizeof(typename B::Acc) <=
+                    kStagedAccOffset + 1024 * 8 * kMaxLeaves,
+                "the accumulators fit the workspace");
+  const StagedArgs a = staged_args<B>(in, out);
+  const int64_t nb = cdiv64(n, kStagedGrain);
+  if (n <= 0 || nb > INT32_MAX || work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = static_cast<int>(nb < staged_fold_width<B>() ? nb : staged_fold_width<B>());
+  staged_one<B><<<grid, kStagedThreads, 0, s>>>(a, n, static_cast<int>(nb),
+                                                static_cast<unsigned char*>(work));
   return launch_status();
 }
 
@@ -514,4 +632,8 @@ int launch_staged(const void* const* in, void* const* part, void* const* out, in
   LTT_API int ltt_gen_map_reduce_staged(const void* const* in, void* const* part,           \
                                         void* const* out, int64_t n, void* stream) {        \
     return ltt::launch_staged<B>(in, part, out, n, stream);                                 \
+  }                                                                                         \
+  LTT_API int ltt_gen_map_reduce_staged_one(const void* const* in, void* const* out,        \
+                                            void* work, int64_t n, void* stream) {          \
+    return ltt::launch_staged_one<B>(in, out, work, n, stream);                             \
   }

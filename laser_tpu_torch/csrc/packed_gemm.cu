@@ -37,6 +37,19 @@
 //   one block and its zero padding, so nothing is masked but the epilogue,
 //   laser_tpu's per-op rounding below. It sums each output in k order from
 //   0 with fmaf, as packed_f32_kernel does: the same bits on both routes.
+// - wgmma int8 (int8 inputs, an int32 output, bm and bn multiples of 128,
+//   bk of 128, 16-byte bases, and B's K-major twin): packed_i8_wgmma_kernel,
+//   the same skeleton with wgmma m64n128k32 s8 (int32 accumulators that
+//   wrap) and a 128 x 128 x 128 stage. The int8 wgmma reads both operands
+//   K-major from shared memory, and packed B's blocks are (bk, bn) with N
+//   contiguous, so this route reads B's K-major twin: the same blocks
+//   transposed, (gk, gn, bn, bk), made once when B is packed
+//   (ops/gemm/prepacked.py, PackedMatrix.kmajor), never per call. Packed A
+//   is the 3-D map (inner bk, outer bm, batch gm * gk), the twin (inner bk,
+//   outer bn, batch gk * gn); with the sizes above every box lies inside
+//   one block, so the k loop walks gk * bk / 128 steps with no masks. Its
+//   epilogue is the classic int8 kernel's, alpha * acc + beta * C mod 2^32:
+//   the same bits.
 // - classic, every other plan or type: the kernels below.
 // Design of the classic kernels. Packing exists so that the multiply reads
 // each block as one contiguous run and needs no edge masks; the "blocks"
@@ -518,6 +531,90 @@ int launch_wgmma(const PackedArgs& p, int in_dtype, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
+// int8 on Hopper: the int8 wgmma skeleton over packed A and B's K-major twin
+// ---------------------------------------------------------------------------
+
+// The int8 epilogue of packed_i8_kernel on 4 neighbouring outputs (row < M,
+// col < N, col a multiple of 4): alpha * acc + beta * C mod 2^32, one
+// 16-byte store where the row holds all four.
+__device__ __forceinline__ void store4_i8(const PackedArgs& p, int row, int col, int4 v) {
+  const size_t i = (size_t)row * p.N + col;
+  const int r[4] = {v.x, v.y, v.z, v.w};
+  const int n = min(4, p.N - col);
+  const int* cm = static_cast<const int*>(p.c);
+  int o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t u = (uint32_t)r[e] * (uint32_t)p.alpha_i;
+    if (cm && e < n) u += (uint32_t)p.beta_i * (uint32_t)cm[i + e];
+    o[e] = (int)u;
+  }
+  int* out = static_cast<int*>(p.out);
+  if (n == 4 && (p.N & 3) == 0) {
+    *reinterpret_cast<int4*>(out + i) = make_int4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) out[i + e] = o[e];
+  }
+}
+
+// The skeleton's tile policy: a (tile, k step) reads A block (m0 / bm, k0 /
+// bk) at (k0 % bk, m0 % bm) and twin block (k0 / bk, n0 / bn) at (k0 % bk,
+// n0 % bn), each a 128 x 128-byte box.
+struct PackedI8Tiles : hp::OneSegment {
+  PackedArgs p;
+  int M, N;
+
+  __device__ __forceinline__ void load(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                       uint8_t* a_tile, uint8_t* b_tile, uint64_t* bar,
+                                       const hp::TileCoord& c, int kt) const {
+    const int k0 = kt * hp::WG_BK_I8;
+    const int kb = k0 / p.bk, kin = k0 - kb * p.bk;
+    const int i = c.m0 / p.bm, j = c.n0 / p.bn;
+    hp::tma_load_3d(a_tile, map_a, bar, kin, c.m0 - i * p.bm, i * p.gk + kb);
+    hp::tma_load_3d(b_tile, map_b, bar, kin, c.n0 - j * p.bn, kb * p.gn + j);
+  }
+
+  __device__ __forceinline__ void store4(const hp::TileCoord&, int, int row, int col,
+                                         int4 v) const {
+    store4_i8(p, row, col, v);
+  }
+};
+
+__global__ void __launch_bounds__(hp::WG_THREADS, hp::WG_BLOCKS_PER_SM)
+    packed_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                           const __grid_constant__ CUtensorMap map_b, const PackedI8Tiles tiles,
+                           int ntiles) {
+  hp::wgmma_gemm<int8_t, false, true>(&map_a, &map_b, tiles, ntiles);
+}
+
+bool wgmma_i8_fits(const PackedArgs& p, int in_dtype, const void* bt) {
+  return in_dtype == ltt::kI8 && p.out_dtype == ltt::kI32 && bt != nullptr && p.M > 0 &&
+         p.N > 0 && p.gk > 0 && p.bm % hp::WG_BM == 0 && p.bn % hp::WG_BN == 0 &&
+         p.bk % hp::WG_BK_I8 == 0 && hp::aligned16(p.a) && hp::aligned16(bt);
+}
+
+// bt: B's K-major twin, (gk, gn, bn, bk)
+int launch_i8_wgmma(const PackedArgs& p, const void* bt, cudaStream_t s) {
+  CUtensorMap ma, mb;
+  if (!hp::encode_map_i8(&ma, p.a, p.bk, p.bm, (uint64_t)p.gm * p.gk, hp::WG_BM) ||
+      !hp::encode_map_i8(&mb, bt, p.bk, p.bn, (uint64_t)p.gk * p.gn, hp::WG_BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = ltt::allow_smem(packed_i8_wgmma_kernel, hp::WG_SMEM_BYTES);
+  if (err) return err;
+  const long long tiles =
+      (long long)((p.M + hp::WG_BM - 1) / hp::WG_BM) * ((p.N + hp::WG_BN - 1) / hp::WG_BN);
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int ntiles = static_cast<int>(tiles);
+  const int slots = hp::sm_count() * hp::WG_BLOCKS_PER_SM;
+  const PackedI8Tiles pol{{p.gk * (p.bk / hp::WG_BK_I8)}, p, p.M, p.N};
+  packed_i8_wgmma_kernel<<<ntiles > slots ? slots : ntiles, hp::WG_THREADS, hp::WG_SMEM_BYTES,
+                           s>>>(ma, mb, pol, ntiles);
+  return ltt::launch_status();
+}
+
+// ---------------------------------------------------------------------------
 // f32 on the simt skeleton (csrc/simt_gemm.cuh) over the packed blocks
 // ---------------------------------------------------------------------------
 
@@ -602,36 +699,42 @@ bool blocks_route_ok(const PackedArgs& p, int cm, int cn, int kalign) {
 }  // namespace
 
 // a: (gm, gk, bm, bk) and b: (gk, gn, bk, bn), contiguous, of in_dtype (f32,
-// bf16, f16 or int8); c: (M, N) fp32 (int32 for int8) or null; out: (M, N)
-// in out_dtype (f32/bf16/f16 for float inputs, int32 for int8). alpha and
-// beta: the int32 values for int8 inputs. route: 0 picks (wgmma where
-// wgmma_fits, simt where simt_fits, else classic), 1 the classic kernels,
-// 2 wgmma, 3 simt; *taken gets the route that launched. fast, for the
-// classic kernels: the blocks route (bm and bn multiples of the CTA tile, bk
-// of the k alignment, both pointers 16-byte aligned, two stages of bk-deep
-// slabs within 227 KB), else the gather route.
-LTT_API int ltt_gemm_packed(const void* a, const void* b, const void* c, void* out, int M, int N,
-                            int gm, int gn, int gk, int bm, int bn, int bk, double alpha,
-                            double beta, int in_dtype, int out_dtype, int fast, int route,
-                            int* taken, void* stream) {
+// bf16, f16 or int8); bt: B's K-major twin (gk, gn, bn, bk), int8 only, or
+// null; c: (M, N) fp32 (int32 for int8) or null; out: (M, N) in out_dtype
+// (f32/bf16/f16 for float inputs, int32 for int8). alpha and beta: the
+// int32 values for int8 inputs. route: 0 picks (wgmma where wgmma_fits or
+// wgmma_i8_fits, simt where simt_fits, else classic), 1 the classic
+// kernels, 2 wgmma (int8: packed_i8_wgmma_kernel), 3 simt; *taken gets the
+// route that launched. fast, for the classic kernels: the blocks route (bm
+// and bn multiples of the CTA tile, bk of the k alignment, both pointers
+// 16-byte aligned, two stages of bk-deep slabs within 227 KB), else the
+// gather route.
+LTT_API int ltt_gemm_packed(const void* a, const void* b, const void* bt, const void* c,
+                            void* out, int M, int N, int gm, int gn, int gk, int bm, int bn,
+                            int bk, double alpha, double beta, int in_dtype, int out_dtype,
+                            int fast, int route, int* taken, void* stream) {
   PackedArgs p = {a, b, c, out, M, N, gm, gn, gk, bm, bn, bk,
                   static_cast<float>(alpha), static_cast<float>(beta), 0, 0, out_dtype};
+  if (in_dtype == ltt::kI8) {
+    p.alpha_i = static_cast<int>(alpha);  // int32 values, exact in a double
+    p.beta_i = static_cast<int>(beta);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wg = wgmma_fits(p, in_dtype), sm = simt_fits(p, in_dtype);
+  const bool wg8 = wgmma_i8_fits(p, in_dtype, bt);
+  const bool wg = wg8 || wgmma_fits(p, in_dtype), sm = simt_fits(p, in_dtype);
   *taken = route == kRouteAuto ? (wg ? kRouteWgmma : sm ? kRouteSimt : kRouteClassic)
            : route == kRouteClassic ? kRouteClassic
            : route == kRouteWgmma && wg ? kRouteWgmma
            : route == kRouteSimt && sm  ? kRouteSimt
                                         : -1;
   if (*taken < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (*taken == kRouteWgmma && wg8) return launch_i8_wgmma(p, bt, s);
   if (*taken == kRouteWgmma)
     return in_dtype == ltt::kBF16 ? launch_wgmma<__nv_bfloat16>(p, in_dtype, s)
                                   : launch_wgmma<__half>(p, in_dtype, s);
   if (*taken == kRouteSimt) return launch_simt(p, s);
   if (in_dtype == ltt::kI8) {
     if (out_dtype != ltt::kI32) return static_cast<int>(cudaErrorInvalidValue);
-    p.alpha_i = static_cast<int>(alpha);  // int32 values, exact in a double
-    p.beta_i = static_cast<int>(beta);
     if (fast && !blocks_route_ok(p, ltt::i8::kTile, ltt::i8::kTile, ltt::i8::kTile))
       return static_cast<int>(cudaErrorInvalidValue);
     dim3 grid((N + ltt::i8::kTile - 1) / ltt::i8::kTile, (M + ltt::i8::kTile - 1) / ltt::i8::kTile);

@@ -6,7 +6,7 @@ values (``Sym``) and records every operation into a typed graph; ``emit``
 writes that graph out as a ``struct Body`` for one of the five templates
 in ``csrc/foreach.cuh``, which ``registry.load_generated`` builds with nvcc
 (``emit_for_each`` with ``strided``: the strided template's loads;
-``emit_staged``: a map_reduce_staged block and its combine).
+``emit_staged``: a map_reduce_staged block, its combine and its finish).
 
 Why a ``__torch_function__`` recorder and not ``torch.fx.symbolic_trace``:
 a body may call the port's own vector-math cores (``vector_math.exp`` with
@@ -66,7 +66,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -518,6 +518,16 @@ def trace_combine(combine: Callable, spec, leaf_dtypes: Sequence[torch.dtype]) -
     return Traced(g, tuple(leaf_dtypes) * 2, _leaf_syms(leaves, "map_reduce_staged combine"))
 
 
+def trace_finish(finish: Callable, spec, leaf_dtypes: Sequence[torch.dtype]):
+    """Run ``finish(acc)`` over one accumulator of symbolic scalars with the
+    pytree ``spec`` (inputs 0..L-1 its leaves). Returns (the trace, whose
+    outputs are the result's leaves, and the result's pytree spec)."""
+    g = Graph()
+    syms = [g.add(Node("input", (k,), dt, dt, True)) for k, dt in enumerate(leaf_dtypes)]
+    leaves, out_spec = pytree.tree_flatten(finish(pytree.tree_unflatten(syms, spec)))
+    return Traced(g, tuple(leaf_dtypes), _leaf_syms(leaves, "map_reduce_staged finish")), out_spec
+
+
 # ---------------------------------------------------------------------------
 # Emission
 # ---------------------------------------------------------------------------
@@ -737,10 +747,10 @@ def _header(kind: str) -> List[str]:
             '#include "foreach.cuh"', "", "namespace {", "", "struct Body {"]
 
 
-def _elem(em: _Emitter, in_dtypes, out_vtypes, outputs) -> List[str]:
+def _elem(em: _Emitter, in_dtypes, out_vtypes, outputs, name: str = "elem") -> List[str]:
     params = ", ".join([f"const {_vtype(d)} v{i}" for i, d in enumerate(in_dtypes)] +
                        [f"{vt}& o{k}" for k, vt in enumerate(out_vtypes)])
-    return ([f"  __device__ __forceinline__ static void elem({params}) {{"] +
+    return ([f"  __device__ __forceinline__ static void {name}({params}) {{"] +
             [f"    {s}" for s in em.body(outputs)] + ["  }"])
 
 
@@ -906,24 +916,30 @@ def _reach(nodes, roots, through) -> set:
     return seen
 
 
-def emit_staged(block: Traced, combine: Traced, leaf_dtypes: Sequence[torch.dtype]) -> str:
+def emit_staged(block: Traced, combine: Traced, leaf_dtypes: Sequence[torch.dtype],
+                finish: Optional[Traced] = None) -> str:
     """The source of a map_reduce_staged body for the staged template of
     csrc/foreach.cuh: ``block`` turns one block of kStagedGrain elements
     (held in registers, kStagedPer per thread) into the accumulator's
     leaves, one sweep over the registers per reduction level; ``combine``
-    merges two accumulators."""
+    merges two accumulators; ``finish`` (None: the identity) turns the
+    final accumulator into the stored results."""
     nodes = block.graph.nodes
     ins = block.in_dtypes
     level = _levels(nodes)
     need = _reach(nodes, block.outputs, lambda a: True)
     em = _Emitter(block)
+    out_dtypes = leaf_dtypes if finish is None else finish.out_dtypes
     L = _header("map_reduce_staged")
-    L += [f"  static constexpr int kIn = {len(ins)}, kLeaves = {len(leaf_dtypes)};",
+    L += [f"  static constexpr int kIn = {len(ins)}, kLeaves = {len(leaf_dtypes)}, "
+          f"kOut = {len(out_dtypes)};",
           "  struct Acc {"] + \
          [f"    {_vtype(d)} l{j};" for j, d in enumerate(leaf_dtypes)] + ["  };"]
-    # the block: loads into registers, then the sweeps
-    L += ["  __device__ __forceinline__ static void block(const ltt::StagedArgs& a, int64_t n,",
-          "                                             int64_t base, unsigned char* red) {"]
+    # the block: loads into registers, then the sweeps; it returns the leaves
+    # as the partials hold them (rounded to each leaf's storage type)
+    L += ["  __device__ __forceinline__ static Acc block(const ltt::StagedArgs& a, int64_t n,",
+          "                                            int64_t tile, unsigned char* red) {",
+          "    const int64_t base = tile * ltt::kStagedGrain;"]
     L += [f"    {_vtype(d)} x{k}[ltt::kStagedPer];" for k, d in enumerate(ins)]
     L += ["#pragma unroll", "    for (int e = 0; e < ltt::kStagedPer; ++e) {",
           "      const int64_t p = base + static_cast<int64_t>(e) * ltt::kStagedThreads + "
@@ -981,20 +997,32 @@ def emit_staged(block: Traced, combine: Traced, leaf_dtypes: Sequence[torch.dtyp
                 v = f"__fdiv_rn({v}, static_cast<float>(ltt::kStagedGrain))"
             L += [f"    const {_vtype(nd.dtype)} v{r} = {_conv(v, acc, nd.dtype)};"]
         L += scalars(s)
-    L += ["    if (threadIdx.x == 0) {"]
-    L += [f"      static_cast<{_CTYPES[d][0]}*>(a.part[{j}])[blockIdx.x] = "
-          f"{_store_expr(_conv(f'v{i}', nodes[i].dtype, d), d)};"
+    L += ["    Acc r;"]
+    L += [f"    r.l{j} = {_load_expr(_store_expr(_conv(f'v{i}', nodes[i].dtype, d), d), d)};"
           for j, (i, d) in enumerate(zip(block.outputs, leaf_dtypes))]
-    L += ["    }", "  }"]
+    L += ["    return r;", "  }"]
     # the partials and the result, and the combine
+    L += ["  __device__ __forceinline__ static void store_partial(const ltt::StagedArgs& a, "
+          "int64_t i, const Acc& r) {"]
+    L += [f"    static_cast<{_CTYPES[d][0]}*>(a.part[{j}])[i] = {_store_expr(f'r.l{j}', d)};"
+          for j, d in enumerate(leaf_dtypes)] + ["  }"]
     L += ["  __device__ __forceinline__ static void load_partial(const ltt::StagedArgs& a, "
           "int64_t i, Acc& r) {"]
     L += [f"    r.l{j} = {_load_expr(f'static_cast<const {_CTYPES[d][0]}*>(a.part[{j}])[i]', d)};"
           for j, d in enumerate(leaf_dtypes)] + ["  }"]
     L += ["  __device__ __forceinline__ static void store_result(const ltt::StagedArgs& a, "
           "const Acc& r) {"]
-    L += [f"    *static_cast<{_CTYPES[d][0]}*>(a.out[{j}]) = {_store_expr(f'r.l{j}', d)};"
-          for j, d in enumerate(leaf_dtypes)] + ["  }"]
+    if finish is None:
+        L += [f"    *static_cast<{_CTYPES[d][0]}*>(a.out[{j}]) = {_store_expr(f'r.l{j}', d)};"
+              for j, d in enumerate(leaf_dtypes)]
+    else:
+        L += [f"    {_vtype(d)} o{j};" for j, d in enumerate(out_dtypes)]
+        args = [f"r.l{j}" for j in range(len(leaf_dtypes))] + \
+               [f"o{j}" for j in range(len(out_dtypes))]
+        L += [f"    finish({', '.join(args)});"]
+        L += [f"    *static_cast<{_CTYPES[d][0]}*>(a.out[{j}]) = {_store_expr(f'o{j}', d)};"
+              for j, d in enumerate(out_dtypes)]
+    L += ["  }"]
     cem = _Emitter(combine)
     L += _elem(cem, combine.in_dtypes, [_vtype(d) for d in leaf_dtypes],
                list(zip(combine.outputs, leaf_dtypes)))
@@ -1003,5 +1031,8 @@ def emit_staged(block: Traced, combine: Traced, leaf_dtypes: Sequence[torch.dtyp
            [f"r.l{j}" for j in range(len(leaf_dtypes))]
     L += ["  __device__ __forceinline__ static void combine(const Acc& x, const Acc& y, Acc& r) {",
           f"    elem({', '.join(args)});", "  }"]
+    if finish is not None:
+        L += _elem(_Emitter(finish), finish.in_dtypes, [_vtype(d) for d in out_dtypes],
+                   list(zip(finish.outputs, out_dtypes)), name="finish")
     L += ["};", "", "}  // namespace", "", "LTT_STAGED_ENTRY(Body)", ""]
     return "\n".join(L)

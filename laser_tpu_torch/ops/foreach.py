@@ -25,10 +25,12 @@ The kernels, with the TPU kernels they replace:
   per-block-partials site, :379) the first launch alone, and
   ``combine_fn`` applies to the partials in torch, as laser_tpu applies it
   outside its kernel;
-- ``map_reduce_staged`` (:442): two launches; each block of STAGED_GRAIN
+- ``map_reduce_staged`` (:442): one launch; each block of STAGED_GRAIN
   elements held in registers runs the body's block vocabulary (one sweep
-  per reduction level) into an accumulator pytree of scalars, then one
-  block merges the blocks' accumulators with the traced ``combine``.
+  per reduction level) into an accumulator pytree of scalars, each thread
+  block merges a fixed chain of blocks' accumulators with the traced
+  ``combine`` as it goes, and the one that finishes last merges the chains
+  (``route="classic"``: the same order in two launches).
 
 ``for_each`` over a TensorView or a non-contiguous tensor runs
 ``ops/strided.py``'s strided template (laser_tpu/ops/strided.py:222); the
@@ -80,6 +82,8 @@ ROW_REDUCE = registry.kernel("row_reduce", SOURCE, "laser_tpu/ops/foreach.py:219
 MAP_REDUCE = registry.kernel("map_reduce", SOURCE, "laser_tpu/ops/foreach.py:277 map_reduce")
 MAP_REDUCE_STAGED = registry.kernel("map_reduce_staged", SOURCE,
                                     "laser_tpu/ops/foreach.py:442 map_reduce_staged")
+MAP_REDUCE_STAGED_ONE = registry.kernel("map_reduce_staged_one", SOURCE,
+                                        "laser_tpu/ops/foreach.py:442 map_reduce_staged")
 
 # csrc/foreach.cuh kMaxReduceBlocks and kReduceGrain: the first launch's
 # block plan, which the per-block partials of a custom combine_fn follow
@@ -88,6 +92,9 @@ REDUCE_GRAIN = 65536
 # csrc/foreach.cuh kStagedGrain: the elements of one map_reduce_staged block
 # (256 threads holding 16 each in registers)
 STAGED_GRAIN = 4096
+# the one-launch route's workspace: a 16-byte counter slot (kStagedAccOffset),
+# then the fold's accumulators, at most 1024 of 16 leaves of 8 bytes
+STAGED_WORK_BYTES = 16 + 1024 * 8 * 16
 _REDUCE_FNS = {torch.sum: "sum", torch.amin: "min", torch.min: "min",
                torch.amax: "max", torch.max: "max"}
 
@@ -469,21 +476,29 @@ class StageCtx:
 @dataclasses.dataclass
 class _StagedPlan:
     source: str
-    leaf_dtypes: tuple
+    leaf_dtypes: tuple  # the accumulator's leaves
+    out_dtypes: tuple   # the results' leaves (the finish's outputs; else the leaves)
+    lib: Optional[ctypes.CDLL] = None  # the built library, kept from its first launch
 
 
 @functools.lru_cache(maxsize=256)
-def _plan_staged_cached(block: codegen.Traced, comb: codegen.Traced) -> _StagedPlan:
+def _plan_staged_cached(block: codegen.Traced, comb: codegen.Traced,
+                        fin: Optional[codegen.Traced]) -> _StagedPlan:
     leaves = block.out_dtypes
-    return _StagedPlan(codegen.emit_staged(block, comb, leaves), leaves)
+    return _StagedPlan(codegen.emit_staged(block, comb, leaves, fin), leaves,
+                       leaves if fin is None else fin.out_dtypes)
 
 
-def _plan_staged(block_fn, dtypes, combine):
-    """(plan, pytree spec): the block body and the combine traced on every
-    call, the emitted source memoised on the two traces."""
+def _plan_staged(block_fn, dtypes, combine, finish=None):
+    """(plan, the results' pytree spec): the block body, the combine and
+    the finish traced on every call, the emitted source memoised on the
+    traces."""
     block, spec = codegen.trace_staged(block_fn, dtypes, (STAGED_GRAIN,), StageCtx)
     comb = codegen.trace_combine(combine, spec, block.out_dtypes)
-    return _plan_staged_cached(block, comb), spec
+    if finish is None:
+        return _plan_staged_cached(block, comb, None), spec
+    fin, out_spec = codegen.trace_finish(finish, spec, block.out_dtypes)
+    return _plan_staged_cached(block, comb, fin), out_spec
 
 
 # the plans of bodies that read nothing that changes between calls (the
@@ -491,10 +506,10 @@ def _plan_staged(block_fn, dtypes, combine):
 _plan_staged_constant = functools.lru_cache(maxsize=64)(_plan_staged)
 
 
-def map_reduce_staged_source(block_fn, *operands, combine) -> str:
+def map_reduce_staged_source(block_fn, *operands, combine, finish=None) -> str:
     """The generated source ``map_reduce_staged`` builds for these operands."""
     ops = _operands(operands, "map_reduce_staged")
-    return _plan_staged(block_fn, tuple(o.dtype for o in ops), combine)[0].source
+    return _plan_staged(block_fn, tuple(o.dtype for o in ops), combine, finish)[0].source
 
 
 def staged_blocks(n: int) -> int:
@@ -502,13 +517,14 @@ def staged_blocks(n: int) -> int:
     return -(-n // STAGED_GRAIN)
 
 
-def map_reduce_staged_reference(block_fn: Callable, *operands, combine: Callable):
+def map_reduce_staged_reference(block_fn: Callable, *operands, combine: Callable,
+                                finish: Optional[Callable] = None):
     """The plain version: the operands cut into the kernel's blocks of
     STAGED_GRAIN elements (the last padded with 0, ``valid`` false there),
     ``block_fn`` on each block (``torch.func.vmap`` over the blocks, each a
     real (STAGED_GRAIN,) tensor to the body), then laser_tpu's pairwise
     halving tree of ``combine`` over the blocks' accumulators, each leaf
-    kept in its block dtype."""
+    kept in its block dtype, then ``finish`` on the result."""
     MAP_REDUCE_STAGED.plain_calls += 1
     flat = [o.reshape(-1) for o in operands]
     n = flat[0].numel()
@@ -543,10 +559,17 @@ def map_reduce_staged_reference(block_fn: Callable, *operands, combine: Callable
             merged = [torch.cat([x.to(dt), t[2 * h:]]) for x, t, dt in zip(merged, tail, dtypes)]
         accs = pytree.tree_unflatten([x.to(dt) for x, dt in zip(merged, dtypes)], spec[0])
         m = h + m % 2
-    return pytree.tree_map(lambda a: a[0], accs)
+    acc = pytree.tree_map(lambda a: a[0], accs)
+    return acc if finish is None else finish(acc)
 
 
-def map_reduce_staged(block_fn: Callable, *operands, combine: Callable):
+# map_reduce_staged's routes: None, the one-launch kernel (the two-launch
+# template under CUDA graph capture), and "classic", the two-launch template
+STAGED_ROUTES = (None, "classic")
+
+
+def map_reduce_staged(block_fn: Callable, *operands, combine: Callable,
+                      finish: Optional[Callable] = None, route: Optional[str] = None):
     """Fused block fold and deterministic combine over an accumulator
     pytree of scalar leaves (laser_tpu/ops/foreach.py:442).
 
@@ -554,41 +577,65 @@ def map_reduce_staged(block_fn: Callable, *operands, combine: Callable):
     block scalars made with the block vocabulary (ops/codegen.py: the
     elementwise ops, whole-block torch.sum / amax / max / amin / min / mean,
     ``ctx``); ``combine(a, b)`` merges two accumulators with the elementwise
-    ops. Operands of any shape are flattened (a view is materialised first);
-    the result has the accumulator's structure, each leaf a 0-d tensor of
+    ops; ``finish(acc)`` (an extension of the port; None: the accumulator
+    itself) maps the final accumulator to the result with the elementwise
+    ops, inside the kernel's last store. Operands of any shape are
+    flattened (a view is materialised first); the result has the
+    accumulator's (or the finish's) structure, each leaf a 0-d tensor of
     its dtype. On a CUDA tensor it runs the staged template of
-    csrc/foreach.cuh (two launches, no atomics, the same bits run after
-    run); on a CPU tensor ``map_reduce_staged_reference``. Leaves that are
-    not scalars raise ValueError, ops outside the vocabulary
-    NotImplementedError, on every device."""
-    return _staged(block_fn, operands, combine, _plan_staged)
+    csrc/foreach.cuh: by default one launch (``map_reduce_staged_one``:
+    each thread block folds one chain of blocks as it goes, the last to
+    finish runs the tree), with ``route="classic"``, and under CUDA graph
+    capture (where host work costs nothing and the two kernels take less
+    device time), two (``map_reduce_staged``: stage 1, then one block over
+    the partials); both fold in one fixed order, so they give the same
+    bits, run after run, with no atomics on the values. On a CPU tensor
+    ``map_reduce_staged_reference``, whatever the route. Leaves that are not
+    scalars raise ValueError, ops outside the vocabulary
+    NotImplementedError, an unknown route ValueError, on every device."""
+    return _staged(block_fn, operands, combine, finish, route, _plan_staged)
 
 
-def map_reduce_staged_constant(block_fn: Callable, *operands, combine: Callable):
-    """``map_reduce_staged`` for a body and a combine that read no value
-    that changes from call to call (no mutable closure cell or global), as
-    the library's own mean_var / argmax / argmin: their plan is memoised on
-    the two functions and the dtypes, so a call skips the trace (0.2-0.6 ms
-    of host work for those bodies). Any other body goes through
+def map_reduce_staged_constant(block_fn: Callable, *operands, combine: Callable,
+                               finish: Optional[Callable] = None,
+                               route: Optional[str] = None):
+    """``map_reduce_staged`` for a body, a combine and a finish that read no
+    value that changes from call to call (no mutable closure cell or
+    global), as the library's own mean_var / argmax / argmin: their plan is
+    memoised on the functions and the dtypes, so a call skips the trace
+    (0.2-0.6 ms of host work for those bodies). Any other body goes through
     ``map_reduce_staged``, which traces it on every call."""
-    return _staged(block_fn, operands, combine, _plan_staged_constant)
+    return _staged(block_fn, operands, combine, finish, route, _plan_staged_constant)
 
 
-def _staged(block_fn, operands, combine, planner):
+def _staged(block_fn, operands, combine, finish, route, planner):
+    if route not in STAGED_ROUTES:
+        raise ValueError(f"unknown route {route!r}; have {[r for r in STAGED_ROUTES if r]}")
     ops = _operands(operands, "map_reduce_staged")
-    if ops[0].numel() == 0:
+    x = ops[0]
+    n = x.numel()
+    if n == 0:
         raise ValueError("map_reduce_staged of empty operands")
-    plan, spec = planner(block_fn, tuple(o.dtype for o in ops), combine)
-    if not registry.on_cuda(ops[0]):
-        return map_reduce_staged_reference(block_fn, *ops, combine=combine)
-    dev = ops[0].device
-    n = ops[0].numel()
-    nb = staged_blocks(n)
-    parts = [torch.empty((nb,), dtype=dt, device=dev) for dt in plan.leaf_dtypes]
-    outs = [torch.empty((), dtype=dt, device=dev) for dt in plan.leaf_dtypes]
-    lib = registry.load_generated(plan.source)
-    status = lib.ltt_gen_map_reduce_staged(_ptrs(ops), _ptrs(parts), _ptrs(outs), n,
-                                           registry.stream_handle(ops[0]))
-    registry.check_launch(status, MAP_REDUCE_STAGED.name)
-    MAP_REDUCE_STAGED.launches += 1
+    plan, spec = planner(block_fn, tuple(o.dtype for o in ops), combine, finish)
+    if not registry.on_cuda(x):
+        return map_reduce_staged_reference(block_fn, *ops, combine=combine, finish=finish)
+    dev = x.device
+    outs = [torch.empty((), dtype=dt, device=dev) for dt in plan.out_dtypes]
+    if plan.lib is None:
+        plan.lib = registry.load_generated(plan.source)
+    stream = registry.stream_handle(x)
+    # the stream's workspace; None under graph capture, which takes the two launches
+    work = None if route == "classic" else registry.stream_workspace(x, STAGED_WORK_BYTES)
+    if work is None:
+        parts = [torch.empty((staged_blocks(n),), dtype=dt, device=dev)
+                 for dt in plan.leaf_dtypes]
+        status = plan.lib.ltt_gen_map_reduce_staged(_ptrs(ops), _ptrs(parts), _ptrs(outs), n,
+                                                    stream)
+        registry.check_launch(status, MAP_REDUCE_STAGED.name)
+        MAP_REDUCE_STAGED.launches += 1
+    else:
+        status = plan.lib.ltt_gen_map_reduce_staged_one(_ptrs(ops), _ptrs(outs), work.data_ptr(),
+                                                        n, stream)
+        registry.check_launch(status, MAP_REDUCE_STAGED_ONE.name)
+        MAP_REDUCE_STAGED_ONE.launches += 1
     return pytree.tree_unflatten(outs, spec)

@@ -3,11 +3,11 @@
 laser_tpu sizes (bm, bn, bk) so that double-buffered input blocks and the
 accumulator fit a TPU core's VMEM, from a table of a v5e's measured tiles.
 Neither carries over. Here a plan is sized for the packed kernels of
-csrc/packed_gemm.cu: bm and bn are multiples of the CTA tile (128 x 128
-for f32, bf16 and f16; 64 x 64 for int8), bk a multiple of the k step (64
-for bf16 and f16, the wgmma route's box depth, so that every planned
-16-bit plan takes that route), and two stages of a CTA's (CM x bk) A slab
-and (bk x CN) B slab must fit half the shared memory a block may use
+csrc/packed_gemm.cu: bm and bn are multiples of the CTA tile (128 x 128),
+bk a multiple of the k step (64 for bf16 and f16, 128 for int8: the wgmma
+routes' box depths, so that every planned 16-bit and int8 plan takes its
+wgmma route; 16 for f32, the simt route's), and two stages of a CTA's (CM
+x bk) A slab and (bk x CN) B slab must fit half the shared memory a block may use
 (``device_info``), so that two CTAs of the classic kernels' "blocks" route,
 which stages each k-block whole (int8: 64 deep at a time), share an SM.
 Among the depths that fit, the plan takes the one that pads K least, the
@@ -43,10 +43,10 @@ class GemmTiles:
 
 # the packed kernels' (CTA rows, CTA columns, k step) by input type
 # (csrc/packed_gemm.cu CM, CN; the k step f32's gather slab depth, the
-# 16-bit wgmma route's box depth; int8: the 64 x 64 tile of
-# csrc/int8_tile.cuh), and the stages of the classic kernels' ring
+# 16-bit wgmma route's box depth; int8: the int8 wgmma route's 128 x 128
+# tile and 128-deep step), and the stages of the classic kernels' ring
 CTA = {torch.float32: (128, 128, 16), torch.bfloat16: (128, 128, 64),
-       torch.float16: (128, 128, 64), torch.int8: (64, 64, 64)}
+       torch.float16: (128, 128, 64), torch.int8: (128, 128, 128)}
 STAGES = 2
 
 

@@ -9,9 +9,11 @@ type's extremes, as laser_tpu's (reductions.py:36-49).
 
 ``mean_var``, ``argmax`` and ``argmin`` are laser_tpu's bodies written in
 torch over ``ops.foreach.map_reduce_staged``: on a CUDA tensor its staged
-template (two launches, no atomics), on a CPU tensor its plain version.
-Their bodies read nothing that changes between calls, so their plans are
-memoised on the functions (``map_reduce_staged_constant``).
+template (one launch, no atomics on the values; ``route="classic"`` the
+two-launch template), on a CPU tensor its plain version. Their bodies read
+nothing that changes between calls, so their plans are memoised on the
+functions (``map_reduce_staged_constant``). ``mean_var``'s division of M2
+by the count runs in the kernel's last store (its ``finish``).
 """
 
 from __future__ import annotations
@@ -70,12 +72,20 @@ def _mean_var_combine(a, b):
     return {"n": n, "mean": mean, "m2": m2}
 
 
-def mean_var(x):
+def _mean_var_finish(a):
+    """laser_tpu's ``m2 / max(n, 1)`` (reductions.py:96), on the card in the
+    kernel's last store."""
+    return {"mean": a["mean"], "var": a["m2"] / a["n"].clamp_min(1.0)}
+
+
+def mean_var(x, *, route=None):
     """Single-pass mean and population variance, as f32 0-d tensors: per
     block the count, mean and M2 of its valid elements (in f32), across
-    blocks Chan's parallel Welford combine (laser_tpu: reductions.py:64)."""
-    acc = map_reduce_staged_constant(_mean_var_block, x, combine=_mean_var_combine)
-    return acc["mean"], acc["m2"] / acc["n"].clamp_min(1.0)
+    blocks Chan's parallel Welford combine (laser_tpu: reductions.py:64).
+    ``route``: ``map_reduce_staged``'s."""
+    acc = map_reduce_staged_constant(_mean_var_block, x, combine=_mean_var_combine,
+                                     finish=_mean_var_finish, route=route)
+    return acc["mean"], acc["var"]
 
 
 _I64_MAX = torch.iinfo(torch.int64).max
@@ -110,19 +120,19 @@ def arg_reduce_fns(dt: torch.dtype, take_max: bool):
     return block_fn, combine
 
 
-def _arg_reduce(x, take_max: bool):
+def _arg_reduce(x, take_max: bool, route):
     block_fn, combine = arg_reduce_fns(x.dtype, take_max)
-    acc = map_reduce_staged_constant(block_fn, x, combine=combine)
+    acc = map_reduce_staged_constant(block_fn, x, combine=combine, route=route)
     return acc["idx"], acc["val"]
 
 
-def argmax(x):
+def argmax(x, *, route=None):
     """(flat index, value) of the maximum, the first on ties (laser_tpu:
     reductions.py:132). The index is int64, as torch.argmax's (laser_tpu's
-    is int32); the value has x's dtype."""
-    return _arg_reduce(x, take_max=True)
+    is int32); the value has x's dtype. ``route``: ``map_reduce_staged``'s."""
+    return _arg_reduce(x, True, route)
 
 
-def argmin(x):
+def argmin(x, *, route=None):
     """(flat index, value) of the minimum, the first on ties."""
-    return _arg_reduce(x, take_max=False)
+    return _arg_reduce(x, False, route)

@@ -155,11 +155,12 @@ SIGNATURES = {
     "ltt_sgdm_multi": (_P, _I, _P, _F, _F, _I, _I, _P),
     # src, f, dst, rows, cols, colour (0 red, 1 black, 2 Jacobi), dtype, stream
     "ltt_stencil_sweep": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # a, b, c (or null), out, M, N, gm, gn, gk, bm, bn, bk, alpha, beta,
-    # in_dtype, out_dtype, fast (the classic kernels' blocks route), route (0
-    # picks, 1 classic, 2 wgmma, 3 simt), route taken (out), stream
-    "ltt_gemm_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I,
-                        _IP, _P),
+    # a, b, b's K-major twin (int8, or null), c (or null), out, M, N, gm, gn,
+    # gk, bm, bn, bk, alpha, beta, in_dtype, out_dtype, fast (the classic
+    # kernels' blocks route), route (0 picks, 1 classic, 2 wgmma, 3 simt),
+    # route taken (out), stream
+    "ltt_gemm_packed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I,
+                        _I, _IP, _P),
 }
 
 
@@ -286,6 +287,27 @@ def scratch(nbytes: int, device) -> Optional[torch.Tensor]:
         held = _SCRATCH[device.index] = (
             stream, torch.empty(nbytes // 4, dtype=torch.float32, device=device))
     return held[1]
+
+
+# one zeroed byte workspace a (device, stream, size) for kernels that keep a
+# counter in it which their last block resets to 0 (the staged reduction's
+# one launch): made once a stream, outside graph capture, and kept, so a call
+# needs no allocation or memset; two streams never share one
+_STREAM_WORK: Dict[tuple, torch.Tensor] = {}
+
+
+def stream_workspace(t: torch.Tensor, nbytes: int) -> Optional[torch.Tensor]:
+    """The current stream's zeroed workspace of ``nbytes`` on ``t``'s device,
+    or None under CUDA graph capture, where the caller takes a route that
+    keeps no counter: replays of a graph would share a live one."""
+    if torch.cuda.is_current_stream_capturing():
+        return None
+    dev = t.get_device()
+    key = (dev, torch._C._cuda_getCurrentRawStream(dev), nbytes)
+    w = _STREAM_WORK.get(key)
+    if w is None:
+        w = _STREAM_WORK[key] = torch.zeros(nbytes, dtype=torch.uint8, device=t.device)
+    return w
 
 
 def check_launch(status: int, name: str) -> None:
@@ -428,8 +450,10 @@ GEN_SIGNATURES = {
     # in[] (buffer starts), out[], geometry (int64: shape, then each
     # operand's offset and strides), items, vector width (1: scalar), stream
     "ltt_gen_for_each_strided": (_P, _P, _P, _I64, _I, _P),
-    # in[], partials[] (one per leaf), results[] (one per leaf), n, stream
+    # in[], partials[] (one per leaf), results[] (one per result leaf), n, stream
     "ltt_gen_map_reduce_staged": (_P, _P, _P, _I64, _P),
+    # in[], results[], workspace (a counter, then the fold's accumulators), n, stream
+    "ltt_gen_map_reduce_staged_one": (_P, _P, _P, _I64, _P),
 }
 
 

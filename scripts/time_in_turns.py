@@ -67,7 +67,10 @@ BENCH is one of:
   kernel on pre-split limbs (``gemm_int32_limbs``; ``int32_kernel``
   K-major where the tree has ``gemm_int32_limbs_kmajor``); ``int8``,
   ``gemm`` int8 4096^3 -> int32 (B row-major); ``f64``, ``gemm_f64``
-  2048^3 at 8 slices end to end; timed as ``conv``.
+  2048^3 at 8 slices end to end; ``packed_int8``, ``gemm_packed`` int8
+  4096^3 on the planned plan (B packed once), and ``torch_int_mm_tn``,
+  ``torch._int_mm`` on the same operands with B column-major; timed as
+  ``conv``.
 - ``softmax``: ``softmax(x)`` over the last axis on the route each tree
   picks, f32 randn * 4 rows at C1's head (16 x 1000: ``c1_*``) and at
   bench.py:421's 8192 x 4096 (``bench_*``), and ``torch.softmax`` on the
@@ -83,6 +86,18 @@ BENCH is one of:
   (median of 20, ``<case>_ms``), 20 calls between two events
   (``<case>_batched_ms``, median of 5) and the host's microseconds a step
   (``<case>_host_us``, 20 steps enqueued).
+- ``staged``: ``mean_var``, ``argmax`` and ``argmin`` of chip_smoke.py phase
+  14's 8192 x 8192 f32 (randn * 3 + 1) on the route each tree picks and,
+  where the tree's reductions take ``route=``, on the two-launch template
+  asked for (``classic_*``), and ``torch.var_mean`` / ``torch.max`` /
+  ``torch.min`` of the flattened tensor in the same process (``torch_*``);
+  each timed as ``paged``. Then where a ``mean_var`` call's host time goes:
+  the CPU self time of each torch operator it runs, a call
+  (``split_<case>_<op>_us``, torch.profiler's CPU events over 200 calls;
+  the profiler adds its own cost to each operator), for ``mean_var`` on the
+  route the tree picks and on the two-launch template where asked for;
+  what the operators leave of ``<case>_host_us`` is the wrapper's Python
+  and its C launch.
 - ``primitives``: every case of chip_smoke.py phase 13 (for_each,
   for_each_multi, row_reduce, map_reduce, vector math, reductions, Lux at
   bench.py's shapes), its generated bodies built first: the kernel's ms as
@@ -455,10 +470,54 @@ def int_gemm(smoke) -> dict:
         dbt, lbt = db.transpose(1, 2).contiguous(), lb.transpose(1, 2).contiguous()
         limbs_kernel = lambda: limb_kernel.gemm_limbs_kmajor(da, dbt, 8)  # noqa: E731
         int32_kernel_alone = lambda: int32_kernel.gemm_int32_limbs_kmajor(la, lbt)  # noqa: E731
+    from laser_tpu_torch.ops.gemm import gemm_packed, gemm_prepack_a, gemm_prepack_b
+
+    pa8, pb8 = gemm_prepack_a(a8, n_hint=n), gemm_prepack_b(b8, m_hint=n)
+    b8_cols = b8.t().contiguous().t()
     return _timed(smoke, {
         "limbs": limbs, "limbs_kernel": limbs_kernel, "int32": int32,
         "int32_kernel": int32_kernel_alone, "int8": lambda: gemm(a8, b8),
-        "f64": lambda: f64_kernel.gemm_f64(af, bf, slices=8)})
+        "f64": lambda: f64_kernel.gemm_f64(af, bf, slices=8),
+        "packed_int8": lambda: gemm_packed(1, pa8, pb8),
+        "torch_int_mm_tn": lambda: torch._int_mm(a8, b8_cols)})
+
+
+def _host_ops_us(name, fn, n: int = 200) -> dict:
+    """CPU self time a call of ``fn`` spends in each torch operator
+    (torch.profiler's CPU events over ``n`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {f"split_{name}_{e.key.removeprefix('aten::')}_us": e.self_cpu_time_total / n
+            for e in prof.key_averages() if e.key.startswith("aten::")}
+
+
+def staged(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops import reductions as R
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn(8192, 8192, generator=g, device="cuda") * 3 + 1
+    flat = x.flatten()
+    fns = {"mean_var": lambda: R.mean_var(x), "argmax": lambda: R.argmax(x),
+           "argmin": lambda: R.argmin(x),
+           "torch_var_mean": lambda: torch.var_mean(x, correction=0),
+           "torch_max": lambda: torch.max(flat, 0), "torch_min": lambda: torch.min(flat, 0)}
+    if _routes(R.mean_var):
+        fns.update({f"classic_{f}": (lambda f=f: getattr(R, f)(x, route="classic"))
+                    for f in ("mean_var", "argmax", "argmin")})
+    res = _timed_graph(smoke, fns)
+    res.update(_host_ops_us("mean_var", fns["mean_var"]))
+    if "classic_mean_var" in fns:
+        res.update(_host_ops_us("classic_mean_var", fns["classic_mean_var"]))
+    return res
 
 
 def primitives(smoke) -> dict:
@@ -473,7 +532,7 @@ def primitives(smoke) -> dict:
 BENCHES = {"flash_forward": flash_forward, "flash_backward": flash_backward,
            "serving": serving, "cnn": cnn, "conv": conv, "wgmma_gemm": wgmma_gemm,
            "paged": paged, "norm": norm, "primitives": primitives, "f32_gemm": f32_gemm,
-           "int_gemm": int_gemm, "softmax": softmax, "sgd": sgd}
+           "int_gemm": int_gemm, "softmax": softmax, "sgd": sgd, "staged": staged}
 
 
 def _time_tree(bench: str, tree: str) -> dict:

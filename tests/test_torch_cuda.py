@@ -1517,14 +1517,14 @@ def test_map_reduce_staged_depths_and_tail(dev, n):
     (mean_var, argmax) on a ragged tail: against the plain version, and the
     same bits on a second run."""
     from laser_tpu_torch.ops import reductions as R
-    from laser_tpu_torch.ops.foreach import (MAP_REDUCE_STAGED, map_reduce_staged,
+    from laser_tpu_torch.ops.foreach import (MAP_REDUCE_STAGED_ONE, map_reduce_staged,
                                              map_reduce_staged_reference)
 
     x = _rnd(_gen(dev, 67), (n,), torch.float32, dev) * 3 + 1
-    before = MAP_REDUCE_STAGED.launches
+    before = MAP_REDUCE_STAGED_ONE.launches
     got = map_reduce_staged(_custom_block, x, combine=_custom_combine)
     want = map_reduce_staged_reference(_custom_block, x, combine=_custom_combine)
-    assert MAP_REDUCE_STAGED.launches == before + 1
+    assert MAP_REDUCE_STAGED_ONE.launches == before + 1
     assert got["npos"].item() == want["npos"].item() == (x > 0).sum().item()
     assert abs(got["sneg"].item() - want["sneg"].item()) <= 1e-6 * x.abs().sum().item()
     m, v = R.mean_var(x)
@@ -1571,6 +1571,127 @@ def test_map_reduce_staged_strided_operand_and_bf16_leaf(dev):
     assert got[0].dtype == torch.bfloat16 and got[0].item() == x.max().item()
     assert got[2].item() == x.min().item()
     assert abs(got[1].item() - want[1].item()) <= 1e-5 * max(abs(want[1].item()), 1.0)
+
+
+def _staged_runs(x, route):
+    """mean_var, argmax, argmin and the custom body on ``x`` on one route,
+    every leaf as a tensor."""
+    from laser_tpu_torch.ops import reductions as R
+    from laser_tpu_torch.ops.foreach import map_reduce_staged
+
+    return [*R.mean_var(x, route=route), *R.argmax(x, route=route), *R.argmin(x, route=route),
+            *map_reduce_staged(_custom_block, x, combine=_custom_combine,
+                               route=route).values()]
+
+
+def _same_leaves(got, want):
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.view(-1).view(torch.uint8).cpu(),
+                                                  w.view(-1).view(torch.uint8).cpu())
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4096, 4097, 300001, 4096 * 1500 + 3, 4096 * 2600 + 77])
+def test_map_reduce_staged_one_launch_bits(dev, n):
+    """The one-launch route against the two-launch template asked for:
+    the same bits for mean_var, argmax (its maximum twice), argmin and the
+    custom body, below one block, on ragged tails and past 1024 and 2048
+    blocks (the fold's chains), run after run; one counted launch a call."""
+    from laser_tpu_torch import registry
+
+    x = _rnd(_gen(dev, 70), (n,), torch.float32, dev) * 3 + 1
+    x[n // 2] = x[n // 3] = 1e6
+    classic = _staged_runs(x, "classic")
+    registry.reset_counts()
+    one = _staged_runs(x, None)
+    counts = registry.counts()
+    assert counts["map_reduce_staged_one"]["launches"] == 4
+    assert sum(c["launches"] for c in counts.values()) == 4
+    _same_leaves(one, classic)
+    _same_leaves(_staged_runs(x, None), one)
+    assert one[2].item() == (n // 3 if n > 2 else 0)
+
+
+def test_map_reduce_staged_one_launch_bf16_leaf_and_two_operands(dev):
+    """A bf16 leaf stored and combined as bf16, block max / mean / min, and
+    two operands of different dtypes: the same bits on both routes."""
+    from laser_tpu_torch.ops.foreach import map_reduce_staged
+
+    g = _gen(dev, 71)
+    x = _rnd(g, (300, 7001), torch.bfloat16, dev)
+    y = _rnd(g, (300, 7001), torch.float32, dev)
+
+    def block(ctx, a, b):
+        return (torch.amax(torch.where(ctx.valid, a, -1e4)), torch.mean(a.float() * b),
+                torch.min(torch.where(ctx.valid, b, 1e4)))
+
+    def comb(a, b):
+        return (torch.maximum(a[0], b[0]), a[1] + b[1], torch.minimum(a[2], b[2]))
+
+    got = map_reduce_staged(block, x, y, combine=comb)
+    want = map_reduce_staged(block, x, y, combine=comb, route="classic")
+    assert got[0].dtype == torch.bfloat16 and got[0].item() == x.max().item()
+    _same_leaves(list(got), list(want))
+
+
+def test_map_reduce_staged_one_launch_two_streams(dev):
+    """Reductions on two streams at once, interleaved: each stream's
+    counter is its own, so every result equals the classic route's."""
+    from laser_tpu_torch.ops import reductions as R
+
+    g = _gen(dev, 72)
+    xs = [_rnd(g, (4096 * 700 + 9,), torch.float32, dev) * (i + 1) + i for i in range(2)]
+    want = [_staged_runs(x, "classic") for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(6):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(_staged_runs(xs[i], None))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            _same_leaves(got, want[i])
+    # and on the default stream after both
+    _same_leaves(_staged_runs(xs[0], None), want[0])
+    assert R.mean_var(xs[1])[0].item() == want[1][0].item()
+
+
+def test_map_reduce_staged_one_launch_graph_replay(dev):
+    """Captured in a CUDA graph, the default route runs the two-launch
+    template (no counter for replays to share): replayed several times, on
+    new data each time, the classic route's results on that data; eager
+    calls after it take the one launch again and are still right."""
+    from laser_tpu_torch import registry
+
+    g = _gen(dev, 73)
+    x = _rnd(g, (4096 * 1100 + 5,), torch.float32, dev)
+    _staged_runs(x, None)  # build and warm up before the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _staged_runs(x, None)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    registry.reset_counts()
+    with torch.cuda.graph(graph):
+        captured = [_staged_runs(x, None) for _ in range(3)]
+    counts = registry.counts()
+    assert counts["map_reduce_staged"]["launches"] == 12
+    assert counts["map_reduce_staged_one"]["launches"] == 0
+    for rep in range(4):
+        x.copy_(_rnd(g, x.shape, torch.float32, dev) * (rep + 1) - rep)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _staged_runs(x, "classic")
+        for got in captured:
+            _same_leaves(got, want)
+    registry.reset_counts()
+    _same_leaves(_staged_runs(x, None), want)
+    assert registry.counts()["map_reduce_staged_one"]["launches"] == 4
 
 
 # ---------------------------------------------------------------------------
@@ -2338,9 +2459,9 @@ def test_stencil_bit_identical(dev, dtype, shape, method, iters):
 @pytest.mark.parametrize("shape", [(1, 1, 1), (100, 120, 90), (130, 257, 200)])
 def test_gemm_packed(dev, dtype, plan, shape):
     from laser_tpu_torch.ops.gemm import GemmTiles, gemm_packed, gemm_prepack_a, gemm_prepack_b
-    from laser_tpu_torch.ops.gemm.prepacked import (GEMM_PACKED, GEMM_PACKED_SIMT,
-                                                    GEMM_PACKED_WGMMA, gemm_packed_plain,
-                                                    simt_route, wgmma_route)
+    from laser_tpu_torch.ops.gemm.prepacked import (GEMM_PACKED, GEMM_PACKED_I8_WGMMA,
+                                                    GEMM_PACKED_SIMT, GEMM_PACKED_WGMMA,
+                                                    gemm_packed_plain, simt_route, wgmma_route)
 
     M, N, K = shape
     g = _gen(dev, 84)
@@ -2356,10 +2477,11 @@ def test_gemm_packed(dev, dtype, plan, shape):
     pa, pb = gemm_prepack_a(a, tiles=tiles), gemm_prepack_b(b, tiles=tiles)
     cpu_pa = gemm_prepack_a(a.cpu(), tiles=tiles)
     _equal(pa.data, cpu_pa.data)  # the packed bytes do not depend on the device
-    # the 16-bit products on planned and wide plans take the wgmma route, the
-    # f32 ones the simt route
+    # the 16-bit and int8 products on planned and wide plans take their wgmma
+    # routes, the f32 ones the simt route
     plan = (dtype, pa.block[0], pb.block[1], pa.block[1])
-    kern = GEMM_PACKED_WGMMA if wgmma_route(*plan) else GEMM_PACKED_SIMT if simt_route(*plan) \
+    wgmma = GEMM_PACKED_I8_WGMMA if dtype == torch.int8 else GEMM_PACKED_WGMMA
+    kern = wgmma if wgmma_route(*plan) else GEMM_PACKED_SIMT if simt_route(*plan) \
         else GEMM_PACKED
     for cc in (None, c):
         before = kern.launches
@@ -2448,6 +2570,87 @@ def test_gemm_packed_out_dtypes_and_int8_alpha(dev):
     _equal(gemm_packed(1, pa, pb, out_dtype=torch.float32),
            (ai.double() @ bi.double()).float())
     assert not bool(gemm_packed(0.5, pa, pb).any())
+
+
+@pytest.mark.parametrize("plan", ["planned", (256, 128, 128), (128, 384, 256)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (100, 120, 90), (130, 257, 200), (384, 256, 640)])
+def test_gemm_packed_i8_wgmma(dev, plan, shape):
+    """The int8 wgmma route over packed A and B's K-major twin at M, N, K
+    off the plan (padded blocks, the epilogue masked), with alpha 1, 3 and
+    -1 and beta * C over the whole int32 range: bit for bit against
+    packed_i8_kernel asked for and against the plain version; only its
+    counter moves."""
+    from laser_tpu_torch import registry
+    from laser_tpu_torch.ops.gemm import GemmTiles, gemm_packed, gemm_prepack_a, gemm_prepack_b
+    from laser_tpu_torch.ops.gemm.prepacked import gemm_packed_plain
+
+    M, N, K = shape
+    g = _gen(dev, 88)
+    a = torch.randint(-128, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-128, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    c = torch.randint(-2**31, 2**31 - 1, (M, N), generator=g, device=dev, dtype=torch.int32)
+    tiles = None if plan == "planned" else GemmTiles(*plan, vmem_limit_bytes=0)
+    pa, pb = gemm_prepack_a(a, tiles=tiles), gemm_prepack_b(b, tiles=tiles)
+    assert torch.equal(pb.kmajor, pb.data.transpose(-1, -2))
+    for alpha, beta, cc in ((1, 0, None), (3, -2, c), (-1, 7, c)):
+        registry.reset_counts()
+        got = gemm_packed(alpha, pa, pb, beta, cc)
+        counts = registry.counts()
+        assert counts["gemm_packed_i8_wgmma"]["launches"] == 1
+        assert sum(v["launches"] for v in counts.values()) == 1
+        _equal(got, gemm_packed(alpha, pa, pb, beta, cc, route="classic"))
+        assert registry.counts()["gemm_packed"]["launches"] == 1
+        _equal(got, gemm_packed(alpha, pa, pb, beta, cc, route="wgmma"))
+        _equal(got, gemm_packed_plain(alpha, pa, pb, beta, cc, torch.int8, torch.int32,
+                                      torch.int32))
+
+
+def test_gemm_packed_i8_wgmma_accumulator_wraps(dev):
+    """K = 131200 of -128 x -128: every dot product is 16384 K = 2149580800,
+    past INT32_MAX, and wraps mod 2^32 as the classic kernel's and the plain
+    version's; ragged M and N."""
+    from laser_tpu_torch.ops.gemm import gemm_packed, gemm_prepack_a, gemm_prepack_b
+    from laser_tpu_torch.ops.gemm.prepacked import GEMM_PACKED_I8_WGMMA, gemm_packed_plain
+
+    M, N, K = 130, 136, 131200
+    a = torch.full((M, K), -128, device=dev, dtype=torch.int8)
+    b = torch.full((K, N), -128, device=dev, dtype=torch.int8)
+    b[:, 5] = 127
+    pa, pb = gemm_prepack_a(a), gemm_prepack_b(b)
+    before = GEMM_PACKED_I8_WGMMA.launches
+    got = gemm_packed(1, pa, pb)
+    assert GEMM_PACKED_I8_WGMMA.launches == before + 1
+    wrap = lambda v: (v + 2**31) % 2**32 - 2**31  # noqa: E731
+    torch.cuda.synchronize()
+    assert got[0, 0].item() == wrap(16384 * K) and got[-1, 5].item() == wrap(-128 * 127 * K)
+    _equal(got, gemm_packed(1, pa, pb, route="classic"))
+    _equal(got, gemm_packed_plain(1, pa, pb, 0, None, torch.int8, torch.int32, torch.int32))
+
+
+def test_gemm_packed_i8_wgmma_refuses_what_it_does_not_take(dev):
+    """route="wgmma" raises on an int8 plan off its tile (the ODD plan, bk
+    64), on a B without its K-major twin and on misaligned data; the library
+    runs those on the classic kernels."""
+    import dataclasses
+
+    from laser_tpu_torch.ops.gemm import GemmTiles, gemm_packed, gemm_prepack_a, gemm_prepack_b
+    from laser_tpu_torch.ops.gemm.prepacked import GEMM_PACKED, gemm_packed_plain
+
+    g = _gen(dev, 89)
+    a = torch.randint(-128, 128, (100, 90), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-128, 128, (90, 120), generator=g, device=dev, dtype=torch.int8)
+    for tiles in (GemmTiles(48, 80, 40, 0), GemmTiles(128, 128, 64, 0), None):
+        pa, pb = gemm_prepack_a(a, tiles=tiles), gemm_prepack_b(b, tiles=tiles)
+        if tiles is None:
+            pb = dataclasses.replace(pb, kmajor=None)
+        else:  # off the route's tile: packing made no twin
+            assert (pb.kmajor is None) == (tiles.bk % 128 != 0 or tiles.bn % 128 != 0)
+        want = gemm_packed_plain(1, pa, pb, 0, None, torch.int8, torch.int32, torch.int32)
+        before = GEMM_PACKED.launches
+        _equal(gemm_packed(1, pa, pb), want)
+        assert GEMM_PACKED.launches == before + 1
+        with pytest.raises(ValueError, match="wgmma"):
+            gemm_packed(1, pa, pb, route="wgmma")
 
 
 # ---------------------------------------------------------------------------

@@ -71,7 +71,8 @@ def test_generated_sources_key_and_build_error(monkeypatch, tmp_path):
         registry.load_generated(src)
     assert set(registry.GEN_SIGNATURES) == {"ltt_gen_for_each", "ltt_gen_row_reduce",
                                             "ltt_gen_map_reduce", "ltt_gen_for_each_strided",
-                                            "ltt_gen_map_reduce_staged"}
+                                            "ltt_gen_map_reduce_staged",
+                                            "ltt_gen_map_reduce_staged_one"}
 
 
 def test_cpu_tensors_never_build(monkeypatch):
@@ -115,7 +116,8 @@ def test_every_slice_kernel_registered():
         "paged_attention_split", "paged_window_attention_split", "norm_vec",  # split KV, norm
         "gemm_simt", "gemm_packed_simt",  # the f32 FFMA skeleton
         "gemm_i8_wgmma", "gemm_limbs_wgmma", "gemm_int32_wgmma",  # the int8 wgmma skeleton
-        "softmax_vec", "sgdm_multi"}  # the row softmax in registers, the multi-tensor SGD
+        "softmax_vec", "sgdm_multi",  # the row softmax in registers, the multi-tensor SGD
+        "gemm_packed_i8_wgmma", "map_reduce_staged_one"}  # packed int8 wgmma, staged one launch
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
@@ -147,7 +149,8 @@ def test_every_slice_kernel_registered():
     assert replaced["gemm_int32_wgmma"] == replaced["gemm_int32"]
     assert replaced["conv_direct_ffma"] == replaced["conv_direct_mma"] == \
         replaced["conv_direct"] == "laser_tpu/ops/conv.py:152 _build_direct_conv"
-    assert replaced["gemm_packed_wgmma"] == replaced["gemm_packed_simt"] == replaced["gemm_packed"]
+    assert replaced["gemm_packed_wgmma"] == replaced["gemm_packed_simt"] == \
+        replaced["gemm_packed_i8_wgmma"] == replaced["gemm_packed"]
     assert replaced["softmax_vec"] == replaced["softmax"] == "laser_tpu/ops/vector_math.py:276 softmax"
     assert replaced["sgdm_multi"] == replaced["sgdm_update"]
     assert replaced["w4_gemm_stream"] == replaced["w4_gemm_mma"] == replaced["w4_gemm"] == \
@@ -164,7 +167,8 @@ def test_every_slice_kernel_registered():
     assert replaced["transpose_inplace"].startswith(
         "laser_tpu/ops/transpose.py:151 _build_inplace_transpose_pipelined")
     assert replaced["for_each_strided"] == "laser_tpu/ops/strided.py:222 build_strided_foreach"
-    assert replaced["map_reduce_staged"] == "laser_tpu/ops/foreach.py:442 map_reduce_staged"
+    assert replaced["map_reduce_staged"] == replaced["map_reduce_staged_one"] == \
+        "laser_tpu/ops/foreach.py:442 map_reduce_staged"
     for k in registry.KERNELS.values():
         assert (registry.PACKAGE_DIR.parent / k.source).is_file()
         assert k.replaces.startswith("laser_tpu/")

@@ -192,15 +192,14 @@ def test_plan_tiles_fits_the_kernel(dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_planned_16bit_plan_takes_the_wgmma_route(dtype):
     """csrc/packed_gemm.cu's wgmma predicate: the planned plan at bench.py's
-    4096^3 and at laser_tpu's odd test shape takes it; the ODD plan, f32 and
-    int8 do not."""
+    4096^3 and at laser_tpu's odd test shape takes it; the ODD plan and f32
+    do not (int8 takes its own wgmma route: the tests below)."""
     for m, n, k in ((4096, 4096, 4096), (M, N, K)):
         t = G.plan_tiles(m, n, k, dtype)
         assert prepacked.wgmma_route(dtype, t.bm, t.bn, t.bk)
     assert not prepacked.wgmma_route(dtype, *ODD)
-    for other in (torch.float32, torch.int8):
-        t = G.plan_tiles(4096, 4096, 4096, other)
-        assert not prepacked.wgmma_route(other, t.bm, t.bn, t.bk)
+    t = G.plan_tiles(4096, 4096, 4096, torch.float32)
+    assert not prepacked.wgmma_route(torch.float32, t.bm, t.bn, t.bk)
 
 
 def test_plan_tiles_overrides_and_config():
@@ -249,3 +248,81 @@ def test_f32_routes_on_the_cpu_vs_laser_tpu(f32_case, route):
     assert (GEMM_PACKED.plain_calls, GEMM_PACKED_SIMT.launches) == (before[0] + 1, before[1])
     assert torch.equal(got, G.gemm_packed(0.5, pa, pb, -1.5, _t(c)))
     assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("plan,want", [
+    ((128, 128, 128), True), ((256, 384, 256), True), ((128, 128, 64), False),
+    ((64, 64, 64), False), ((128, 256, 32), False), ((384, 64, 128), False), (ODD, False)])
+def test_int8_wgmma_route_predicate(plan, want):
+    """csrc/packed_gemm.cu's int8 wgmma predicate (``wgmma_i8_fits``): bm, bn
+    and bk multiples of 128 (``prepacked.WGMMA_I8_TILE``); the classic int8
+    kernel's blocks route takes multiples of its 64 x 64 tile."""
+    assert prepacked.wgmma_route(torch.int8, *plan) is want
+    assert prepacked.blocks_route(torch.int8, *plan) is all(x % 64 == 0 for x in plan)
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096, 4096), (M, N, K), (1, 1, 1), (300, 70, 4000)])
+def test_planned_int8_plan_takes_the_wgmma_route(shape):
+    """Every int8 plan ``plan_tiles`` makes (``tiling.CTA[int8]`` is the
+    route's (128, 128, 128)) takes the int8 wgmma route, and the classic
+    kernel's blocks route where it is asked for; none takes simt."""
+    t = G.plan_tiles(*shape, torch.int8)
+    assert prepacked.wgmma_route(torch.int8, t.bm, t.bn, t.bk)
+    assert prepacked.blocks_route(torch.int8, t.bm, t.bn, t.bk)
+    assert not prepacked.simt_route(torch.int8, t.bm, t.bn, t.bk)
+    assert tiling.CTA[torch.int8] == prepacked.WGMMA_I8_TILE
+
+
+@pytest.fixture(scope="module")
+def int8_planned():
+    """laser_tpu's int8 -> int32 product on the port's planned int8 plan
+    (alpha 3, beta -2, C over the whole int32 range), once."""
+    a, b = _operands(np.int8, 10)
+    c = np.random.RandomState(11).randint(-2**31, 2**31 - 1, (M, N)).astype(np.int32)
+    t = G.plan_tiles(M, N, K, torch.int8)
+    plan = (t.bm, t.bn, t.bk)
+    (ja, jb), (pa, pb) = _both(a, b, plan)
+    want = np.asarray(lt.gemm_packed(3, ja, jb, -2, jnp.asarray(c)))
+    return c, plan, (ja, jb), (pa, pb), want
+
+
+def test_int8_kmajor_twin_bytes(int8_planned):
+    """An int8 B keeps laser_tpu's packed bytes in ``data``; its K-major
+    twin is the same blocks transposed, contiguous. Packing makes the twin
+    only on CUDA, for int8 blocks the int8 wgmma route reads (bk and bn
+    multiples of 128): on the CPU, where the plain version runs, and for A
+    or other dtypes and plans, none; ``packed_from_numpy`` does the same."""
+    from laser_tpu_torch.ops.gemm.prepacked import kmajor_twin, kmajor_wanted
+
+    _, plan, (ja, jb), (pa, pb), _ = int8_planned
+    np.testing.assert_array_equal(_bits(pb.data), _bits(jb.data))
+    np.testing.assert_array_equal(_bits(pa.data), _bits(ja.data))
+    gk, gn, bk, bn = pb.data.shape
+    twin = kmajor_twin(pb.data)
+    assert tuple(twin.shape) == (gk, gn, bn, bk) and twin.is_contiguous()
+    assert twin.dtype == torch.int8
+    assert torch.equal(twin, pb.data.transpose(-1, -2))
+    np.testing.assert_array_equal(_bits(twin.transpose(-1, -2)), _bits(jb.data))
+    assert kmajor_wanted(torch.int8, bk, bn)
+    for dtype, bk_, bn_ in ((torch.int8, 64, 128), (torch.int8, 128, 64),
+                            (torch.int8, 40, 80), (torch.bfloat16, 128, 128)):
+        assert not kmajor_wanted(dtype, bk_, bn_)
+    assert pb.kmajor is None and pa.kmajor is None
+    assert G.gemm_prepack_b(torch.ones(K, N), tiles=G.GemmTiles(*plan, 0)).kmajor is None
+    cb = packed_from_numpy(np.asarray(jb.data), jb.rows, jb.cols, jb.block, jb.operand,
+                           device="cpu")
+    assert cb.kmajor is None and torch.equal(cb.data, pb.data)
+
+
+@pytest.mark.parametrize("route", [None, "wgmma", "classic"])
+def test_int8_routes_on_the_cpu_vs_laser_tpu(int8_planned, route):
+    """Every route on int8 CPU operands runs the plain version: laser_tpu's
+    int32 result bit for bit, alpha and beta * C wrapping mod 2^32."""
+    from laser_tpu_torch.ops.gemm.prepacked import GEMM_PACKED, GEMM_PACKED_I8_WGMMA
+
+    c, _, _, (pa, pb), want = int8_planned
+    before = (GEMM_PACKED.plain_calls, GEMM_PACKED_I8_WGMMA.launches)
+    got = G.gemm_packed(3, pa, pb, -2, _t(c), route=route)
+    assert (GEMM_PACKED.plain_calls, GEMM_PACKED_I8_WGMMA.launches) == (before[0] + 1, before[1])
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -198,3 +198,58 @@ def test_library_bodies_trace_once_user_bodies_every_call(monkeypatch):
     scale[0] = 4.0
     second = fe.map_reduce_staged(block, x, combine=comb)["s"].item()
     assert len(calls) == before + 2 and second == 2 * first
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 3 * 4096 + 5])
+def test_classic_and_default_routes_agree_on_the_cpu(n):
+    """route="classic" and the default route run the plain version on CPU
+    tensors: the same bits for mean_var, argmax, argmin and the custom
+    body, on ragged tails; only the plain counter moves."""
+    x = torch.from_numpy(_np((n,), 80 + n % 7))
+    before = registry.counts()
+    for route in ("classic", None):
+        got = [R.mean_var(x, route=route), R.argmax(x, route=route), R.argmin(x, route=route),
+               tuple(fe.map_reduce_staged(_torch_block, x, combine=_combine,
+                                          route=route).values())]
+        if route == "classic":
+            want = got
+        else:
+            assert all(torch.equal(g, w) for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+    after = registry.counts()
+    assert after["map_reduce_staged"]["plain_calls"] == \
+        before["map_reduce_staged"]["plain_calls"] + 8
+    for k in ("map_reduce_staged", "map_reduce_staged_one"):
+        assert after[k]["launches"] == before[k]["launches"]
+
+
+def test_unknown_route_raises_on_the_cpu():
+    with pytest.raises(ValueError, match="unknown route"):
+        R.mean_var(torch.ones(10), route="two")
+    with pytest.raises(ValueError, match="unknown route"):
+        fe.map_reduce_staged(_torch_block, torch.ones(10), combine=_combine, route="fused")
+
+
+def test_mean_var_finish_in_the_kernel_source():
+    """mean_var's M2 / max(n, 1) is the body's finish, emitted into the
+    kernel's last store (two results from three accumulator leaves); the
+    block returns its leaves and store_partial writes them (the one launch
+    writes none); the library exports both routes' entries."""
+    f32 = torch.ones(8)
+    src = fe.map_reduce_staged_source(R._mean_var_block, f32, combine=R._mean_var_combine,
+                                      finish=R._mean_var_finish)
+    assert "kLeaves = 3, kOut = 2" in src and "static void finish(" in src
+    assert "__fdiv_rn" in src.split("static void finish(")[1]
+    assert "static Acc block(" in src and "static void store_partial(" in src
+    assert "LTT_STAGED_ENTRY(Body)" in src
+    plain = fe.map_reduce_staged_source(_torch_block, f32, combine=_combine)
+    assert "kLeaves = 2, kOut = 2" in plain and "finish(" not in plain
+    x = torch.from_numpy(_np((9001,), 74))
+    acc = fe.map_reduce_staged_reference(R._mean_var_block, x, combine=R._mean_var_combine)
+    m, v = R.mean_var(x)
+    assert torch.equal(m, acc["mean"]) and torch.equal(v, acc["m2"] / acc["n"].clamp_min(1.0))
+
+
+def test_one_launch_workspace_fits_every_plan():
+    """csrc/foreach.cuh's workspace: the counter slot (kStagedAccOffset), then
+    the fold's T accumulators, at most 1024 of 16 leaves of 8 bytes."""
+    assert fe.STAGED_WORK_BYTES == 16 + 1024 * 8 * codegen.MAX_LEAVES
