@@ -81,7 +81,12 @@ printed:
    classic kernel asked for (``softmax``), the 16 x 1000 cases also in a
    CUDA graph and as host microseconds a call (``host_us``: 100 calls
    enqueued, no sync before the clock stops), and the online softmax at 64
-   x 128256; the library is cuDNN (TF32 off) or ``torch.softmax``.
+   x 128256 (Llama-3's vocabulary) in f32 and bf16 on the cluster kernel
+   (``softmax_online_cluster``) and on the classic online kernel asked for
+   (``softmax_online``), also in a CUDA graph, in a graph over copies of
+   the rows past L2 (cold) and as host microseconds a call, each element
+   within its stated bar of the plain version; the library is cuDNN (TF32
+   off) or ``torch.softmax``.
 3. The serving slice: ServingEngine over the 8-layer d2048 bf16 transformer
    with random weights from a seed, 12 greedy requests through 8 slots.
    Checks token counts and range, that every serving kernel launched and no
@@ -173,7 +178,8 @@ printed:
 
 14. The layout and strided primitives at bench.py's shapes (bench.py:339-413),
    f32 unless stated, nothing cut: for_each(p * 2) over every second row of
-   16384 x 4096 as a TensorView (offset 4096) and as x[1::2]; transpose2d
+   16384 x 4096 as a TensorView (offset 4096) and as x[1::2] (the tiled
+   strided kernel, ``for_each_strided_tiled``); transpose2d
    of 8192^2 out of place (f32 and bf16) and in place (donate=True);
    nchw2nhwc / nhwc2nchw at C1's conv-3 activation 16 x 64 x 56 x 56;
    mean_var, argmax and argmin of 8192^2 and a custom map_reduce_staged
@@ -184,16 +190,21 @@ printed:
    with the counts at 0 (launches by path "layout"; all four kernels must
    launch, the staged reductions on the one launch,
    ``map_reduce_staged_one``, and the two-launch template
-   ``map_reduce_staged`` not at all; no plain version run), then three
-   times under the profiler. Outside that count mean_var, argmax and argmin run again on
-   the two-launch template asked for (``route="classic"``). Each case is
+   ``map_reduce_staged`` not at all, the strided views on the tiled kernel
+   and the classic ``for_each_strided`` not at all; no plain version run),
+   then three times under the profiler. Outside that count mean_var, argmax
+   and argmin run again on the two-launch template asked for
+   (``route="classic"``), and the five strided views on the classic strided
+   kernel (``strided_for_each(..., route="classic")``). Each case is
    held against its plain version on the same card tensors: transposes and
    the strided body bit for bit, mean_var within 1e-5 of float64 and of
    plain, arg-reductions equal to numpy's, reductions bit-identical on two
    runs; then timed as in phase 13 (kernel, 20 in a row, plain, library,
-   bound), and mean_var, argmax and argmin on both routes and their torch
-   calls also as 20 calls in a CUDA graph (where the default route runs the
-   two-launch template) and as the host's microseconds a call.
+   bound), and mean_var, argmax and argmin on both routes, the five
+   strided cases on both routes, and their torch calls also as 20 calls in
+   a CUDA graph (where the default staged route runs the two-launch
+   template; a 16384 x 4096 strided call moves 268 MB, past L2) and as the
+   host's microseconds a call.
 
 15. The GEMM dtype table at bench.py's shapes and data (bench.py:128-273)
    and BASELINE.json's batched GEMM: ``gemm`` int8 4096^3 (randint(-8, 8))
@@ -519,10 +530,19 @@ def rel_error(got, want, per_row: bool = False):
     return d.max().item(), rel
 
 
-def compare(name, got, want, per_row: bool = False, rel_bound: Optional[float] = None):
+# the online softmax kernels against their plain version, element by element
+# (the sums are taken in another order): f32 rtol 1e-5, atol 1e-9; bf16 and
+# f16 one unit in the last place, 2^-7 relative, and f16's subnormal unit
+ONLINE_TOL = {torch.float32: (1e-5, 1e-9), torch.bfloat16: (2.0 ** -7, 0.0),
+              torch.float16: (2.0 ** -7, 2.0 ** -24)}
+
+
+def compare(name, got, want, per_row: bool = False, rel_bound: Optional[float] = None,
+            tol: Optional[tuple] = None):
     """Max abs error of each output against the plain version, its relative
-    error (``rel_error``) held to ``rel_bound`` or the bound of its dtype;
-    returns the largest abs error."""
+    error (``rel_error``) held to ``rel_bound`` or the bound of its dtype,
+    and with ``tol`` = (rtol, atol) every element within rtol |plain| +
+    atol; returns the largest abs error."""
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -536,6 +556,13 @@ def compare(name, got, want, per_row: bool = False, rel_bound: Optional[float] =
               f"{rel:.3e} (bound {bound:.0e})", flush=True)
         if not rel <= bound:
             fail(f"{name}[{i}]: relative error {rel:.3e} > {bound:.0e}")
+        if tol is not None:
+            gd, wd = g.double(), w.double()
+            bad = int(((gd - wd).abs() > tol[0] * wd.abs() + tol[1]).sum().item())
+            print(f"  {name}[{i}]: {bad} elements past rtol {tol[0]:.3g}, atol {tol[1]:.3g}",
+                  flush=True)
+            if bad:
+                fail(f"{name}[{i}]: {bad} elements past rtol {tol[0]}, atol {tol[1]}")
         worst = max(worst, err)
     return worst
 
@@ -560,6 +587,7 @@ class Case:
     # timed as a CUDA graph, the cold cache a serving step finds
     cold: Optional[tuple] = None
     host: bool = False        # also the host's microseconds a call (host_us), kernel and library
+    tol: Optional[tuple] = None  # (rtol, atol): also every element within rtol |plain| + atol
 
 
 def bound(case: Case, spec):
@@ -1146,8 +1174,8 @@ def cnn_cases():
     from laser_tpu_torch.ops.conv import (conv2d_direct, conv2d_direct_reference,
                                           conv2d_planewise_reference, conv2d_required_ops,
                                           conv_planewise)
-    from laser_tpu_torch.ops.vector_math import (softmax, softmax_online_reference,
-                                                 softmax_reference)
+    from laser_tpu_torch.ops.vector_math import (SOFTMAX_ROW_MAX_COLS, softmax,
+                                                 softmax_online_reference, softmax_reference)
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(5)
@@ -1176,14 +1204,27 @@ def cnn_cases():
         x = inputs[key]
         lib = inputs.setdefault(key + ("library",), lambda: torch.softmax(x, -1))
         small = rows * cols <= 16 * 1000
+        nbytes = 2 * rows * cols * x.element_size()
+        online = cols > SOFTMAX_ROW_MAX_COLS
+        cold = None
+        if online:  # the graph over copies of the rows past L2, kernel and library
+            if key + ("copies",) not in inputs:
+                copies = cold_copies(lambda: (torch.randn((rows, cols), generator=g,
+                                                          device=DEVICE) * 4).to(dtype), nbytes)
+                inputs[key + ("copies",)] = [(c,) for c in copies]
+                inputs[key + ("cold library",)] = rotating(lambda c: torch.softmax(c, -1),
+                                                           inputs[key + ("copies",)])
+            cold = (rotating(lambda c, route=route: softmax(c, route=route),
+                             inputs[key + ("copies",)]), inputs[key + ("cold library",)])
         return Case(name, f"{rows}x{cols} {DTYPE_TAGS[dtype]}"
                     + (", the classic kernel asked for" if route else ""),
                     lambda: softmax(x, route=route), lambda: plain(x),
-                    flops=5 * rows * cols, nbytes=2 * rows * cols * x.element_size(),
+                    flops=5 * rows * cols, nbytes=nbytes,
                     library=lib, library_call="torch.softmax", slot=slot, per_row=True,
                     dtype=torch.float32, rel=REL_BOUND[torch.float32 if dtype == torch.float32
                                                       else torch.bfloat16],
-                    graph=small, host=small)
+                    graph=small or online, host=small or online, cold=cold,
+                    tol=ONLINE_TOL[dtype] if online else None)
 
     p1, s2 = (1, 1), (2, 2)
 
@@ -1229,7 +1270,14 @@ def cnn_cases():
                      route="classic"),
         softmax_case("softmax", 8192, 4096, softmax_reference, slot="bench_bf16", dtype=bf16,
                      route="classic"),
-        softmax_case("softmax_online", 64, 128256, softmax_online_reference),
+        # 64 rows of Llama-3's 128256-word vocabulary in f32 and bf16 (online):
+        # the cluster kernel, then the classic online kernel asked for
+        softmax_case("softmax_online_cluster", 64, 128256, softmax_online_reference),
+        softmax_case("softmax_online_cluster", 64, 128256, softmax_online_reference,
+                     slot="bf16", dtype=bf16),
+        softmax_case("softmax_online", 64, 128256, softmax_online_reference, route="classic"),
+        softmax_case("softmax_online", 64, 128256, softmax_online_reference, slot="bf16",
+                     dtype=bf16, route="classic"),
     ]
 
 
@@ -1358,7 +1406,7 @@ def phase_kernels(spec):
     library_times = {}  # one timing of each library call, shared by the cases that race it
     for case in timed:
         err = compare(f"{case.name} {case.shape} [{DTYPE_TAGS[case.dtype]}]", check_route(case),
-                      case.plain(), case.per_row, case.rel)
+                      case.plain(), case.per_row, case.rel, case.tol)
         ms, pms = cuda_ms(case.kern), cuda_ms(case.plain, reps=5)
         batched = cuda_batched_ms(case.kern)
         if case.library and id(case.library) not in library_times:
@@ -2386,9 +2434,11 @@ def phase_primitives(spec):
 
 # mean and variance against the float64 oracle and the plain version
 MEAN_VAR_REL = 1e-5
-LAYOUT_KERNELS = ("transpose", "transpose_inplace", "for_each_strided", "map_reduce_staged_one")
-# the two-launch staged template the one launch replaces: no launch on the path
-LAYOUT_REPLACED = ("map_reduce_staged",)
+LAYOUT_KERNELS = ("transpose", "transpose_inplace", "for_each_strided_tiled",
+                  "map_reduce_staged_one")
+# the kernels the new routes replace (the two-launch staged template, the
+# classic strided kernel): no launch on the path
+LAYOUT_REPLACED = ("map_reduce_staged", "for_each_strided")
 
 
 @dataclasses.dataclass
@@ -2523,31 +2573,34 @@ def layout_cases():
         return torch.randn(shape, generator=g, device=DEVICE).to(dtype)
 
     cases = []
-    # bench.py:339-385: every second row of 16384 x 4096 f32, o = 2x
+    # bench.py:339-385: every second row of 16384 x 4096 f32, o = 2x; then
+    # the strided views of 1024 x 1000. On the tiled kernel (the path, through
+    # for_each), then on the classic kernel asked for (outside the count)
     Mb, Cb = 16384, 4096
     xs = rnd(Mb, Cb)
     view = TensorView(xs.reshape(-1), (Mb // 2, Cb), (2 * Cb, 1), Cb)
     two = lambda p: p * 2.0  # noqa: E731
     n_half = Mb // 2 * Cb
-    for slot, v in (("", view), ("torch_every2row", xs[1::2])):
-        cases.append(Layout(
-            "for_each_strided", slot, f"{Mb}x{Cb} every 2nd row, o = 2x"
-            + (" (TensorView, offset 4096)" if not slot else " (x[1::2])"),
-            run=lambda v=v: fe.for_each(two, v), plain=lambda v=v: S.strided_for_each_reference(
-                two, [v]), check=_bits_equal(f"for_each_strided {slot or 'main'}"),
-            nbytes=2 * n_half * 4, flops=n_half,
-            library=lambda: xs[1::2] * 2.0, library_call="x[1::2] * 2.0"))
     small = rnd(1024, 1000)
     flat = small.reshape(-1)
-    for slot, v in (("strided_1d", flat[5::7]),
-                    ("negative_stride", TensorView(flat, (1024, 1000), (-1000, 1), 1023 * 1000)),
-                    ("transposed", small.t())):
-        n = v.size if isinstance(v, TensorView) else v.numel()
-        cases.append(Layout(
-            "for_each_strided", slot, f"{slot} view of 1024x1000",
-            run=lambda v=v: fe.for_each(two, v), plain=lambda v=v: S.strided_for_each_reference(
-                two, [v]), check=_bits_equal(f"for_each_strided {slot}"),
-            nbytes=2 * n * 4, flops=n))
+    views = [("", view), ("torch_every2row", xs[1::2]), ("strided_1d", flat[5::7]),
+             ("negative_stride", TensorView(flat, (1024, 1000), (-1000, 1), 1023 * 1000)),
+             ("transposed", small.t())]
+    for name, route in (("for_each_strided_tiled", None), ("for_each_strided", "classic")):
+        asked = ", the classic kernel asked for" if route else ""
+        for slot, v in views:
+            big = slot in ("", "torch_every2row")
+            n = n_half if big else (v.size if isinstance(v, TensorView) else v.numel())
+            run = (lambda v=v: fe.for_each(two, v)) if route is None else \
+                (lambda v=v: S.strided_for_each(two, [v], route="classic"))
+            cases.append(Layout(
+                name, slot, (f"{Mb}x{Cb} every 2nd row, o = 2x"
+                             + (" (TensorView, offset 4096)" if not slot else " (x[1::2])")
+                             if big else f"{slot} view of 1024x1000") + asked,
+                run=run, plain=lambda v=v: S.strided_for_each_reference(two, [v]),
+                check=_bits_equal(f"{name} {slot or 'main'}"), nbytes=2 * n * 4, flops=n,
+                library=(lambda: xs[1::2] * 2.0) if big else None,
+                library_call="x[1::2] * 2.0" if big else None, counted=not route, host=True))
     # bench.py:398-413: 8192^2 f32 out of place and in place
     N = 8192
     xt = rnd(N, N)
@@ -2688,18 +2741,21 @@ def phase_layout(spec):
     prof["kernels_recorded"] = [kept, launched]
 
     entries = check_and_time(spec, cases, outs, lambda case, got: case.check(got, case.plain()))
-    # the staged reductions beside their torch calls: 20 in a CUDA graph (the
-    # device's time without the host) and the host's us a call
+    # the staged reductions and the strided views on both routes beside their
+    # torch calls: 20 in a CUDA graph (the device's time without the host; a
+    # 16384 x 4096 strided call moves 268 MB, past L2) and the host's us a call
     for case in cases:
         if not case.host:
             continue
         e = entries[case.name][case.slot] if case.slot else entries[case.name]
+        lib = case.library
         e["graph_ms"], e["library_graph_ms"] = (cuda_graph_ms(case.run),
-                                                cuda_graph_ms(case.library))
-        e["host_us"], e["library_host_us"] = host_us(case.run), host_us(case.library)
-        print(f"  {case.name} {case.slot or 'mean_var'}: graph {e['graph_ms']:.4f} ms, host "
-              f"{e['host_us']:.1f} us a call; {case.library_call}: graph "
-              f"{e['library_graph_ms']:.4f} ms, host {e['library_host_us']:.1f} us", flush=True)
+                                                cuda_graph_ms(lib) if lib else None)
+        e["host_us"], e["library_host_us"] = host_us(case.run), host_us(lib) if lib else None
+        print(f"  {case.name} {case.shape}: graph {e['graph_ms']:.4f} ms, host "
+              f"{e['host_us']:.1f} us a call" + (
+                  f"; {case.library_call}: graph {e['library_graph_ms']:.4f} ms, host "
+                  f"{e['library_host_us']:.1f} us" if lib else ""), flush=True)
     return {"layout": counts}, entries, {"profile": prof}
 
 # ---------------------------------------------------------------------------

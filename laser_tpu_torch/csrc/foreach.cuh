@@ -14,7 +14,8 @@
 //   and the per-block partials with a custom combine_fn (:379) are stage 1
 //   alone, combined by the caller in torch as laser_tpu does outside its
 //   kernel (:393);
-// - for_each_strided_kernel: for_each over strided views, replacing
+// - for_each_rows_kernel (the default) and for_each_strided_kernel (route
+//   "classic"): for_each over strided views, replacing
 //   laser_tpu/ops/strided.py:222 build_strided_foreach (pallas_call at :305);
 // - staged_one (staged_stage1/2 on the classic route): `map_reduce_staged`
 //   (foreach.py:442, at :494), an accumulator pytree of scalar leaves per
@@ -45,11 +46,21 @@
 //   way. The number of blocks depends on n and the dtypes only, so two runs
 //   give the same bits. Nothing is padded, so nothing but real elements is
 //   mapped (laser_tpu maps its identity padding; ROADMAP queue 3).
-// - for_each_strided walks the views' merged iteration space (see
-//   StridedGeom below): one divmod per thread, then an odometer; 16-byte
+// - for_each over strided views walks the views' merged iteration space.
+//   Its bound is the contiguous template's (every 2nd row of 16384 x 4096
+//   f32: 268 MB, 80 us). The classic kernel (StridedGeom below) pays for
+//   its generality on every vector: one int64 divmod per thread over six
+//   padded dims, then per 16-byte vector six int64 multiply-adds an operand
+//   and a six-digit carry odometer, one load in flight a thread. The tiled
+//   kernel (RowsGeom) takes the merged space as rows of its innermost dim:
+//   a block a (row group, column chunk) tile, each thread's row turned into
+//   base offsets once (specialised on the merged rank: 0, 1 or up to 4
+//   divmods), 32-bit offsets wherever every operand's span fits, U 16-byte
+//   items of a row loaded before the body runs on any. Both move 16-byte
 //   vectors along rows where every operand's rows are whole aligned
-//   vectors. It reads each element of the views once and writes the dense
-//   output once, as the contiguous template.
+//   vectors, elements otherwise (ragged, unaligned, negative or zero
+//   strides, transposed views), in the same launch. Each reads each element
+//   of the views once and writes the dense output once.
 // - map_reduce_staged holds a block's elements in registers, so a body of
 //   reduction depth D (mean_var's m, then sum (b - m)^2: D = 2) sweeps its
 //   registers D times and reads device memory once; see its section below.
@@ -102,6 +113,16 @@ template <typename T, int V> struct Vec {
 #pragma unroll
     for (int k = 0; k < kWords; ++k) d[k] = w[k];
   }
+};
+
+// V elements of T in registers for the strided template's tiled route: V
+// == 1 is one element of any alignment, V > 1 whole 16-byte words (Vec)
+template <typename T, int V> struct Lane : Vec<T, V> {};
+template <typename T> struct Lane<T, 1> {
+  T v;
+  __device__ __forceinline__ T& operator[](int) { return v; }
+  __device__ __forceinline__ void load(const void* p, int64_t i) { v = static_cast<const T*>(p)[i]; }
+  __device__ __forceinline__ void store(void* p, int64_t i) const { static_cast<T*>(p)[i] = v; }
 };
 
 // --- scalar helpers the generated bodies call -------------------------------
@@ -366,31 +387,184 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// geom: shape[kMaxDims], then per operand offset and strides[kMaxDims], as
-// ops/strided.py packs them; vec: B::kVec (the caller checked that every
-// row is whole aligned vectors) or 1
+// --- the tiled route: rank-specialised (row, column-chunk) tiles -------------
+
+// The merged iteration space as rows of its innermost dim: the outer dims
+// (front-padded with extent 1 to D) give the row, the inner dim the
+// column, in items of V elements (V > 1 only where every operand's inner
+// stride is 1). Pointers are each operand's logical element 0, so an
+// operand is its strides alone (negative or zero allowed). A thread takes
+// TX = 2^tx_shift columns apart (kThreads / TX rows a tile) and U items of
+// one row.
+template <int D>
+struct RowsGeom {
+  int64_t outer[D];
+  int64_t ostride[kMaxIn][D];
+  int64_t istride[kMaxIn];
+  int64_t rows, cols, col_tiles, tiles;
+  int tx_shift;
+};
+
+// Items of one thread in flight: 16-byte words of all operands up to 8 (a
+// single f32 operand: 4 vectors, 64 bytes, all loaded before the body runs)
+template <class B, int V>
+__host__ __device__ constexpr int rows_items() {
+  int words = 0;
+  for (int o = 0; o < B::kIn; ++o) words += V > 1 ? V * B::kSize[o] / 16 : 1;
+  const int u = V > 1 ? 8 / words : 4;
+  return u < 1 ? 1 : (u > 4 ? 4 : u);
+}
+
+// A tile (row group, column chunk) a block (a grid-stride over tiles past
+// the grid): each thread turns its row into the operands' base offsets
+// once (D - 1 divmods in I), loads its U items of every operand, then runs
+// the body on them and stores the dense output. I is int32_t wherever every
+// operand's span and the element count fit, else int64_t.
+template <class B, int V, int D, typename I>
+__global__ void __launch_bounds__(kThreads) for_each_rows_kernel(PtrArgs a, RowsGeom<D> g) {
+  constexpr int U = rows_items<B, V>();
+  const int txs = g.tx_shift;
+  const I TX = I{1} << txs;
+  const I tx = static_cast<I>(threadIdx.x) & (TX - 1);
+  const I ty = static_cast<I>(threadIdx.x) >> txs;
+  const I rows_tile = I{kThreads} >> txs;
+  const I rows = static_cast<I>(g.rows), cols = static_cast<I>(g.cols);
+  const I col_tiles = static_cast<I>(g.col_tiles), tiles = static_cast<I>(g.tiles);
+  for (I tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const I rt = tile / col_tiles;
+    const I r = rt * rows_tile + ty;
+    if (r >= rows) continue;
+    I base[B::kIn];
+#pragma unroll
+    for (int o = 0; o < B::kIn; ++o) base[o] = 0;
+    I q = r;
+#pragma unroll
+    for (int k = D - 1; k >= 0; --k) {
+      I d = q;
+      if (k > 0) {
+        const I n = static_cast<I>(g.outer[k]);
+        d = q % n;
+        q /= n;
+      }
+#pragma unroll
+      for (int o = 0; o < B::kIn; ++o) base[o] += d * static_cast<I>(g.ostride[o][k]);
+    }
+    const I c0 = (tile - rt * col_tiles) * (TX * U) + tx;
+    typename B::template Regs<V> x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const I c = c0 + u * TX;
+      if (c < cols) {
+        I off[B::kIn];
+#pragma unroll
+        for (int o = 0; o < B::kIn; ++o)
+          off[o] = base[o] + (V > 1 ? c * V : c * static_cast<I>(g.istride[o]));
+        B::template load<V>(x[u], a, off);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const I c = c0 + u * TX;
+      if (c < cols) B::template store<V>(x[u], a, (r * cols + c) * V);
+    }
+  }
+}
+
+template <class B, int V, int D>
+int launch_rows(const PtrArgs& a, int R, const int64_t* shape, const int64_t* const* st,
+                bool i32, cudaStream_t s) {
+  constexpr int U = rows_items<B, V>();
+  RowsGeom<D> g{};
+  const int outer = R - 1;  // at most D
+  g.rows = 1;
+  for (int k = 0; k < D; ++k) {
+    const int src = k - (D - outer);  // the merged dim at padded position k
+    g.outer[k] = src >= 0 ? shape[src] : 1;
+    g.rows *= g.outer[k];
+    for (int o = 0; o < B::kIn; ++o) g.ostride[o][k] = src >= 0 ? st[o][src] : 0;
+  }
+  for (int o = 0; o < B::kIn; ++o) g.istride[o] = st[o][R - 1];
+  g.cols = shape[R - 1] / V;
+  int txs = 0;  // the fewest threads a row that cover it in U items each, at most kThreads
+  while ((int64_t{1} << txs) * U < g.cols && (1 << txs) < kThreads) ++txs;
+  g.tx_shift = txs;
+  g.col_tiles = cdiv64(g.cols, (int64_t{1} << txs) * U);
+  g.tiles = g.col_tiles * cdiv64(g.rows, kThreads >> txs);
+  const unsigned grid = static_cast<unsigned>(std::min<int64_t>(g.tiles, int64_t{1} << 30));
+  if (i32) for_each_rows_kernel<B, V, D, int32_t><<<grid, kThreads, 0, s>>>(a, g);
+  else for_each_rows_kernel<B, V, D, int64_t><<<grid, kThreads, 0, s>>>(a, g);
+  return launch_status();
+}
+
+template <class B, int V>
+int launch_rows_rank(const PtrArgs& a, int R, const int64_t* shape, const int64_t* const* st,
+                     bool i32, cudaStream_t s) {
+  if (R <= 2) return launch_rows<B, V, 1>(a, R, shape, st, i32, s);
+  if (R == 3) return launch_rows<B, V, 2>(a, R, shape, st, i32, s);
+  return launch_rows<B, V, kMaxDims - 1>(a, R, shape, st, i32, s);
+}
+
+// Routes of the strided template (ops/strided.py ROUTES): 0 the tiled
+// kernel, 1 the classic grid-stride kernel. *taken reports the kernel:
+// kStridedClassic, or kStridedTiled (not a route one asks for).
+enum StridedRoute { kStridedAuto = 0, kStridedClassic = 1, kStridedTiled = 2 };
+
+// geom: the merged rank R (1..kMaxDims), shape[R], then each operand's
+// strides[R] in elements; in[] are the operands' logical element 0. The
+// launcher finds the vector path (every operand's inner stride 1, rows of
+// whole 16-byte vectors at 16-byte boundaries) and the index width itself,
+// and reports the route it took in *taken.
 template <class B>
 int launch_for_each_strided(const void* const* in, void* const* out, const int64_t* geom,
-                            int64_t items, int vec, void* stream) {
+                            int route, int* taken, void* stream) {
+  const int R = static_cast<int>(geom[0]);
+  if (R < 1 || R > kMaxDims || (route != kStridedAuto && route != kStridedClassic))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t* shape = geom + 1;
+  const int64_t* st[kMaxIn];
+  for (int o = 0; o < B::kIn; ++o) st[o] = geom + 1 + R + o * R;
+  int64_t n = 1;
+  for (int k = 0; k < R; ++k) n *= shape[k];
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const PtrArgs a = make_args<B>(in, out, B::kOut);
-  StridedGeom g{};
-  for (int k = 0; k < kMaxDims; ++k) g.shape[k] = geom[k];
+  constexpr int V = B::kVec;
+  bool vec = shape[R - 1] % V == 0 && aligned16(a.out[0]);
+  bool i32 = n < (int64_t{1} << 30);
   for (int o = 0; o < B::kIn; ++o) {
-    const int64_t* p = geom + kMaxDims + o * (kMaxDims + 1);
-    g.offset[o] = p[0];
-    for (int k = 0; k < kMaxDims; ++k) g.stride[o][k] = p[1 + k];
+    vec = vec && st[o][R - 1] == 1 && aligned16(a.in[o]);
+    int64_t span = 0;
+    for (int k = 0; k < R; ++k) {
+      vec = vec && (k == R - 1 || st[o][k] * B::kSize[o] % 16 == 0);
+      span += (shape[k] - 1) * (st[o][k] < 0 ? -st[o][k] : st[o][k]);
+    }
+    i32 = i32 && span < (int64_t{1} << 30);
   }
-  const int64_t n = items * vec;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route != kStridedClassic) {
+    *taken = kStridedTiled;
+    return vec ? launch_rows_rank<B, V>(a, R, shape, st, i32, s)
+               : launch_rows_rank<B, 1>(a, R, shape, st, i32, s);
+  }
+  // the classic kernel: the merged space padded in front to kMaxDims, each
+  // operand at offset 0 from its logical element 0
+  *taken = kStridedClassic;
+  StridedGeom g{};
+  const int pad = kMaxDims - R;
+  for (int k = 0; k < kMaxDims; ++k) g.shape[k] = k < pad ? 1 : shape[k - pad];
+  for (int o = 0; o < B::kIn; ++o)
+    for (int k = 0; k < kMaxDims; ++k) g.stride[o][k] = k < pad ? 0 : st[o][k - pad];
+  if (vec) {
+    g.shape[kMaxDims - 1] /= V;
+    for (int o = 0; o < B::kIn; ++o) g.stride[o][kMaxDims - 1] = V;
+  }
+  const int64_t items = vec ? n / V : n;
   const int64_t blocks =
       std::max<int64_t>(1, std::min<int64_t>({cdiv64(n, kElementwiseGrain), cdiv64(items, kThreads),
                                               int64_t{1} << 30}));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == B::kVec && vec > 1)
-    for_each_strided_kernel<B, B::kVec><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(a, g, items);
-  else if (vec == 1)
-    for_each_strided_kernel<B, 1><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(a, g, items);
+  if (vec && V > 1)
+    for_each_strided_kernel<B, V><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(a, g, items);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
+    for_each_strided_kernel<B, 1><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(a, g, items);
   return launch_status();
 }
 
@@ -623,9 +797,9 @@ int launch_staged_one(const void* const* in, void* const* out, void* work, int64
 
 #define LTT_FOR_EACH_STRIDED_ENTRY(B)                                                      \
   LTT_API int ltt_gen_for_each_strided(const void* const* in, void* const* out,             \
-                                       const int64_t* geom, int64_t items, int vec,         \
+                                       const int64_t* geom, int route, int* taken,          \
                                        void* stream) {                                      \
-    return ltt::launch_for_each_strided<B>(in, out, geom, items, vec, stream);              \
+    return ltt::launch_for_each_strided<B>(in, out, geom, route, taken, stream);            \
   }
 
 #define LTT_STAGED_ENTRY(B)                                                                \

@@ -64,8 +64,10 @@ int16, int32, int64.
 from __future__ import annotations
 
 import dataclasses
+import dis
 import functools
 import math
+import types
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -461,6 +463,158 @@ def trace(fn: Callable, in_dtypes: Sequence[torch.dtype], multi: bool = False) -
     return Traced(g, tuple(in_dtypes), tuple(o.idx for o in outs))
 
 
+# -- what a body can read: a key for memoising its trace -----------------------
+
+class _Unkeyable(Exception):
+    """A body reads a value ``body_key`` cannot key (one whose state may
+    change between calls unseen)."""
+
+
+# opcodes that look a name up as a global (or builtin), and as an attribute
+_GLOBAL_OPS = frozenset({"LOAD_GLOBAL", "LOAD_NAME", "LOAD_FROM_DICT_OR_GLOBALS"})
+_ATTR_OPS = frozenset({"LOAD_ATTR", "LOAD_METHOD", "LOAD_SUPER_ATTR"})
+# opcodes after which a key cannot say what the body reads: an import (a
+# module the key has not seen), a store to a global, an attribute, a name or
+# a cell (a memoised call would skip the store)
+_UNKEYED_OPS = frozenset({"IMPORT_NAME", "IMPORT_FROM", "STORE_GLOBAL", "DELETE_GLOBAL",
+                          "STORE_ATTR", "DELETE_ATTR", "STORE_NAME", "DELETE_NAME",
+                          "STORE_DEREF", "DELETE_DEREF"})
+# packages whose functions and classes are kept by identity, as this
+# recorder's own functions and the body ops marked by ``body_op`` are
+# (their behaviour is the vocabulary); any other Python function or class
+# makes the body unkeyable, since what it reads is not searched
+_FIXED_PACKAGES = ("builtins", "torch", "numpy")
+# compiled callables kept by identity where not bound to an object
+_COMPILED = (types.BuiltinFunctionType, types.MethodDescriptorType,
+             types.WrapperDescriptorType, types.MethodWrapperType)
+# builtins that look a value up by a name the code does not hold
+_DYNAMIC = frozenset(map(id, (getattr, hasattr, setattr, delattr, vars, globals, locals,
+                              eval, exec, compile, __import__, dir)))
+_SCALARS = (bool, int, str, bytes, type(None), torch.dtype, torch.device)
+_MISSING = object()
+
+
+@functools.lru_cache(maxsize=1024)
+def _code_reads(code: types.CodeType) -> Optional[Tuple[Tuple[str, ...], Tuple[str, ...]]]:
+    """(the global names, the attribute names) a code object and the code
+    nested in it (lambdas, comprehensions) look up; None where it imports
+    or stores a global, an attribute, a name or a cell."""
+    glob, attr = set(), set()
+    for ins in dis.get_instructions(code):
+        if ins.opname in _GLOBAL_OPS:
+            glob.add(ins.argval)
+        elif ins.opname in _ATTR_OPS:
+            attr.add(ins.argval)
+        elif ins.opname in _UNKEYED_OPS:
+            return None
+    for c in code.co_consts:
+        if isinstance(c, types.CodeType):
+            inner = _code_reads(c)
+            if inner is None:
+                return None
+            glob.update(inner[0])
+            attr.update(inner[1])
+    return tuple(sorted(glob)), tuple(sorted(attr))
+
+
+def body_op(f: Callable) -> Callable:
+    """Mark ``f`` a body op: what it records depends on its operands only,
+    so ``body_key`` keeps it by identity."""
+    f._ltt_body_op = True
+    return f
+
+
+def _fixed(v) -> bool:
+    """A function or class of this recorder, torch, numpy or the builtins,
+    or a body op."""
+    mod = getattr(v, "__module__", None) or ""
+    return (mod == __name__ or mod.split(".")[0] in _FIXED_PACKAGES
+            or getattr(v, "_ltt_body_op", False) is True)
+
+
+def _value_key(v, spaces: list):
+    """The key of a value the body reads; a module is kept by identity and
+    put on ``spaces``, for its attributes to be keyed."""
+    t = type(v)
+    if t is float:  # 0.0 and -0.0 differ, and 1.0 and 1
+        return ("f", v.hex())
+    if t is complex:
+        return ("c", v.real.hex(), v.imag.hex())
+    if t in _SCALARS:
+        return (t, v)
+    if t is tuple:
+        return ("t",) + tuple(_value_key(x, spaces) for x in v)
+    if t is types.ModuleType:
+        spaces.append(v)
+        return ("o", v)
+    if isinstance(v, _COMPILED):
+        if id(v) in _DYNAMIC or not isinstance(getattr(v, "__self__", None),
+                                              (types.ModuleType, type(None))):
+            raise _Unkeyable
+        return ("o", v)
+    if isinstance(v, (types.FunctionType, type)) and _fixed(v):
+        return ("o", v)
+    raise _Unkeyable
+
+
+def _fn_key(fn: types.FunctionType, reads) -> tuple:
+    glob, attr = reads
+    spaces: list = []
+    try:
+        cells = tuple(_value_key(c.cell_contents, spaces) for c in fn.__closure__ or ())
+    except ValueError:  # an empty cell
+        raise _Unkeyable from None
+    dflt = _value_key(fn.__defaults__ or (), spaces)
+    kw = tuple(sorted((k, _value_key(v, spaces)) for k, v in (fn.__kwdefaults__ or {}).items()))
+    found = []
+    for name in glob:
+        v = fn.__globals__.get(name, _MISSING)
+        if v is _MISSING:
+            v = fn.__builtins__.get(name, _MISSING)
+        if v is _MISSING:
+            raise _Unkeyable  # defined later, or the trace raises NameError
+        found.append((name, _value_key(v, spaces)))
+    # the attributes the code may read of the modules it reaches (a
+    # module's constant), and of the modules among those, in turn
+    seen = set()
+    while spaces:
+        ns = spaces.pop()
+        if id(ns) in seen:
+            continue
+        seen.add(id(ns))
+        for name in attr:
+            v = getattr(ns, name, _MISSING)
+            if v is not _MISSING:
+                found.append((ns, name, _value_key(v, spaces)))
+    return (fn.__code__, cells, dflt, kw, tuple(found))
+
+
+def body_key(fn: Callable) -> Optional[tuple]:
+    """A hashable key of everything the trace of ``fn`` can depend on
+    besides its operands' dtypes: its code, the values in its closure cells
+    and defaults, the values of the globals and builtins its code names, and
+    of the attributes it names of the modules it reaches. None (the body is
+    then traced on every call) where it reads anything else: an object, a
+    list, a dict, a bound method, a class or Python function of its own
+    (what those read is not searched), or where it imports or stores a
+    global, an attribute or a cell. Two calls with equal keys trace the same, so a
+    plan memoised on the key is this call's plan, a changed global or
+    closure constant included."""
+    if not isinstance(fn, types.FunctionType):
+        return None
+    code = fn.__code__
+    reads = _code_reads(code)
+    if reads is None:
+        return None
+    if (fn.__closure__ is None and fn.__defaults__ is None and fn.__kwdefaults__ is None
+            and reads == ((), ())):
+        return code  # reads nothing but its operands and constants
+    try:
+        return _fn_key(fn, reads)
+    except _Unkeyable:
+        return None
+
+
 REDUCTIONS = ("rsum", "rmean", "rmax", "rmin")
 MAX_LEAVES = 16  # csrc/foreach.cuh kMaxLeaves
 
@@ -801,9 +955,39 @@ def emit_for_each(traced: Traced, out_dtypes: Sequence[torch.dtype],
     L += [f"    elem({', '.join(a1 + call_o)});"]
     L += [f"    static_cast<{_CTYPES[d][0]}*>(a.out[{k}])[i] = {_store_expr(f'o{k}', d)};"
           for k, d in enumerate(out_dtypes)]
+    L += ["  }"]
+    if strided:
+        L += _tiled(ins, out_dtypes)
     entry = "LTT_FOR_EACH_STRIDED_ENTRY" if strided else "LTT_FOR_EACH_ENTRY"
-    L += ["  }", "};", "", "}  // namespace", "", f"{entry}(Body)", ""]
+    L += ["};", "", "}  // namespace", "", f"{entry}(Body)", ""]
     return "\n".join(L)
+
+
+def _tiled(ins, out_dtypes) -> List[str]:
+    """The strided template's tiled route: each operand's element size,
+    the registers of one item (V elements of every operand; V = 1 one
+    element), a load of them at the operands' offsets and the body over
+    them with the store of the dense output at ``i``. The kernel loads
+    several items before it runs the body on any."""
+    sizes = ", ".join(str(torch.empty((), dtype=d).element_size()) for d in ins)
+    L = [f"  static constexpr int kSize[kIn] = {{{sizes}}};",
+         "  template <int V> struct Regs {"]
+    L += [f"    ltt::Lane<{_CTYPES[d][0]}, V> x{i};" for i, d in enumerate(ins)]
+    L += ["  };", "  template <int V, typename I>",
+          "  __device__ __forceinline__ static void load(Regs<V>& r, const ltt::PtrArgs& a, "
+          "const I (&off)[kIn]) {"]
+    L += [f"    r.x{i}.load(a.in[{i}], off[{i}]);" for i in range(len(ins))]
+    L += ["  }", "  template <int V, typename I>",
+          "  __device__ __forceinline__ static void store(Regs<V>& r, const ltt::PtrArgs& a, "
+          "I i) {"]
+    L += [f"    ltt::Lane<{_CTYPES[d][0]}, V> y{k};" for k, d in enumerate(out_dtypes)]
+    L += ["#pragma unroll", "    for (int k = 0; k < V; ++k) {"]
+    L += [f"      {_vtype(d)} o{k};" for k, d in enumerate(out_dtypes)]
+    args = [_load_expr(f"r.x{i}[k]", d) for i, d in enumerate(ins)]
+    L += [f"      elem({', '.join(args + [f'o{k}' for k in range(len(out_dtypes))])});"]
+    L += [f"      y{k}[k] = {_store_expr(f'o{k}', d)};" for k, d in enumerate(out_dtypes)]
+    L += ["    }"] + [f"    y{k}.store(a.out[{k}], i);" for k in range(len(out_dtypes))]
+    return L + ["  }"]
 
 
 REDUCE_OPS = {"sum": 0, "min": 1, "max": 2}

@@ -71,7 +71,6 @@ import torch
 import torch.utils._pytree as pytree
 
 from .. import registry
-from ..tensor import as_view
 from . import codegen, strided
 
 SOURCE = "laser_tpu_torch/csrc/foreach.cuh"
@@ -270,10 +269,8 @@ def for_each(fn: Callable, *operands, out_dtype=None, pad_value=0,
     every view is a contiguous window. The result is then a new dense
     tensor whatever ``donate`` says, as in laser_tpu."""
     del pad_value
-    if strided.needs_strided(operands):
-        views = [as_view(o) for o in operands]
-        if not all(v.is_c_contiguous() for v in views):
-            return strided.strided_for_each(fn, views, out_dtype)
+    if strided.is_strided(operands):
+        return strided.strided_for_each(fn, operands, out_dtype)
     ops = _operands(operands, "for_each")
     plan = _plan_for_each(fn, ops, None if out_dtype is None else (out_dtype,), False)
     out_dtype = plan.out_dtypes[0]

@@ -12,12 +12,21 @@ one cast to x's dtype:
   ragged width or an unaligned view by elements in the same launch;
   ``softmax`` (route "classic", asked for) gives each row one block that
   holds the row in shared memory. ``route=`` asks for one;
-- the online kernel (``softmax_online``, which takes any width) replaces
-  laser_tpu/ops/vector_math.py:200 _softmax_online: one block per row
-  loops over it twice, a running (m, l) in the first sweep, exp(x - m) / l
-  written in the second. laser_tpu
-  carries (m, l) in scratch from one grid step to the next; Hopper blocks
-  carry nothing, so the loop lives inside the block.
+- two online kernels (``softmax_online``, which takes any width) replace
+  laser_tpu/ops/vector_math.py:200 _softmax_online, each with its own
+  launch counter. laser_tpu carries (m, l) in scratch from one grid step
+  to the next; Hopper blocks carry nothing. ``softmax_online_cluster``
+  (the default) splits each row over the blocks of a thread-block cluster
+  (up to 16 blocks of 512 threads, 32 values a thread in registers:
+  ``SOFTMAX_CLUSTER_MAX_COLS`` = 262144 columns): each block holds its
+  slice on chip after one read, each thread its values' max m and e =
+  exp(x - m), the blocks exchange their (max, sum) pairs through
+  distributed shared memory after one barrier, and each thread writes
+  e exp(m - M) / L (x - m and x - M round apart: within 3e-6 relative of
+  exp(x - M) / L on randn * 4 rows in f32): one read and one write. ``softmax_online`` (route "classic", and rows
+  wider than a cluster holds) gives each row one block that loops over it
+  twice, a running (m, l) in the first sweep, exp(x - m) / l written in
+  the second.
 
 Routing is the port's own rule, by shape: a row of more than
 ``SOFTMAX_ROW_MAX_COLS`` (16384) columns, whose fp32 copy would take more
@@ -28,9 +37,10 @@ online on a v5e and past ~46k on its CPU stand-in; the two packages compute
 the same function either way.
 
 A (rows, cols) contiguous CUDA tensor over the last axis (C1's and the
-MLP's head) takes a short host path: ``registry.on_cuda``'s device check,
-the library's entry point taken once and kept (``registry.entry``), no
-reshape or copy, the output allocated and the kernel launched.
+MLP's head, a vocabulary's rows) takes a short host path, the row and the
+online kernels alike: ``registry.on_cuda``'s device check, the library's
+entry point taken once and kept (``registry.entry``), no reshape or copy,
+the output allocated and the kernel launched.
 
 A row of nothing but -inf comes out as laser_tpu's kernels give it: NaN from
 the row kernels (0 / 0) and 0 from the online kernel, which takes an empty
@@ -66,6 +76,7 @@ writes the result into x (see ``for_each``).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
@@ -81,8 +92,19 @@ SOFTMAX_VEC = registry.kernel("softmax_vec", "laser_tpu_torch/csrc/softmax.cu",
                               "laser_tpu/ops/vector_math.py:276 softmax")
 SOFTMAX_ONLINE = registry.kernel("softmax_online", "laser_tpu_torch/csrc/softmax.cu",
                                  "laser_tpu/ops/vector_math.py:200 _softmax_online")
+SOFTMAX_ONLINE_CLUSTER = registry.kernel("softmax_online_cluster",
+                                         "laser_tpu_torch/csrc/softmax.cu",
+                                         "laser_tpu/ops/vector_math.py:200 _softmax_online")
 # the row kernels' route codes, shared with csrc/softmax.cu (enum Route)
 ROUTES = {None: 0, "classic": 1, "vec": 2}
+# the online kernels' (enum OnlineRoute): None the cluster kernel where a
+# row fits a cluster, else the classic one; the launcher reports the kernel
+ONLINE_ROUTES = {None: 0, "classic": 1}
+ONLINE_KERNELS = {1: SOFTMAX_ONLINE, 2: SOFTMAX_ONLINE_CLUSTER}
+# widest row the cluster kernel holds on chip: 16 blocks of 512 threads, 32
+# values a thread in registers (csrc/softmax.cu kClusterMaxBlocks,
+# kClusterThreads, kClusterValues); wider rows take the classic online kernel
+SOFTMAX_CLUSTER_MAX_COLS = 16 * 512 * 32
 
 # widest row the row kernels take (the classic one holds it in shared
 # memory as fp32: 64 KB)
@@ -143,44 +165,56 @@ def _rows_cuda(x2: torch.Tensor, out: Optional[torch.Tensor],
     return out
 
 
-def _online_cuda(x2: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    if x2.dtype not in registry.DTYPE_CODES:
+def _online_cuda(x2: torch.Tensor, out: torch.Tensor, route: Optional[str]) -> torch.Tensor:
+    """The online kernels on (rows, cols) contiguous CUDA rows, into
+    ``out`` (which may be x2): the cluster kernel (route None) or the
+    classic one ("classic")."""
+    code = registry.DTYPE_CODES.get(x2.dtype)
+    if code is None:
         raise TypeError(f"softmax kernel: unsupported dtype {x2.dtype}")
     rows, cols = x2.shape
     if rows > SOFTMAX_MAX_ROWS:
         raise ValueError(f"softmax kernel: {rows} rows > {SOFTMAX_MAX_ROWS}")
     if rows == 0 or cols == 0:
         return out
+    taken = ctypes.c_int(0)
     status = registry.entry("ltt_softmax_online")(
-        x2.data_ptr(), out.data_ptr(), rows, cols, registry.DTYPE_CODES[x2.dtype],
-        registry.stream_handle(x2))
+        x2.data_ptr(), out.data_ptr(), rows, cols, code, ONLINE_ROUTES[route],
+        ctypes.byref(taken), registry.stream_handle(x2))
     registry.check_launch(status, "softmax_online")
-    SOFTMAX_ONLINE.launches += 1
+    ONLINE_KERNELS[taken.value].launches += 1
     return out
 
 
 def _run(x2: torch.Tensor, out: Optional[torch.Tensor], online: bool, plain: bool,
          route: Optional[str] = None):
-    """One route on (rows, cols) contiguous rows, into ``out`` when given."""
+    """One route on (rows, cols) contiguous rows, into ``out`` when given;
+    ``route`` is the row kernels' name (online: "classic" the classic
+    online kernel, else the cluster kernel)."""
     if plain or not registry.on_cuda(x2):
         y = (softmax_online_reference if online else softmax_reference)(x2)
         return y if out is None else out.copy_(y)
     if online:
-        return _online_cuda(x2, torch.empty_like(x2) if out is None else out)
+        return _online_cuda(x2, torch.empty_like(x2) if out is None else out,
+                            "classic" if route == "classic" else None)
     return _rows_cuda(x2, out, route)
 
 
 def softmax(x: torch.Tensor, *, axis: int = -1, donate: bool = False,
             plain: bool = False, route: Optional[str] = None) -> torch.Tensor:
     """Row softmax over ``axis``: the row kernels for rows of at most
-    ``SOFTMAX_ROW_MAX_COLS`` columns, the online kernel for wider ones.
+    ``SOFTMAX_ROW_MAX_COLS`` columns, the online kernels for wider ones.
     ``plain=True`` takes the same route through the plain versions.
-    ``route`` (the row kernels', a CUDA tensor's): None or "vec" the vec
-    kernel, "classic" the classic one; wider rows take the online kernel
-    whatever it says."""
+    ``route`` (a CUDA tensor's): None or "vec" the vec kernel, and past
+    ``SOFTMAX_ROW_MAX_COLS`` columns the cluster kernel; "classic" the
+    classic row kernel, and past it the classic online kernel."""
     if (x.is_cuda and not plain and x.dim() == 2 and (axis == -1 or axis == 1)
-            and x.is_contiguous() and x.shape[1] <= SOFTMAX_ROW_MAX_COLS and registry.on_cuda(x)):
-        return _rows_cuda(x, x if donate else None, route)
+            and x.is_contiguous() and registry.on_cuda(x)):
+        if x.shape[1] <= SOFTMAX_ROW_MAX_COLS:
+            return _rows_cuda(x, x if donate else None, route)
+        if route in ROUTES:
+            return _online_cuda(x, x if donate else torch.empty_like(x),
+                                "classic" if route == "classic" else None)
     if route not in ROUTES:
         registry.route_code(ROUTES, route)  # raises, naming the routes
     last = axis in (-1, x.ndim - 1)
@@ -196,12 +230,20 @@ def softmax(x: torch.Tensor, *, axis: int = -1, donate: bool = False,
     return y if last else y.movedim(-1, axis)
 
 
-def softmax_online(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-    """The online kernel over the last axis at any width (laser_tpu's
-    ``_softmax_online``, which ``softmax`` reaches only for wide rows)."""
+def softmax_online(x: torch.Tensor, *, plain: bool = False,
+                   route: Optional[str] = None) -> torch.Tensor:
+    """The online function over the last axis at any width (laser_tpu's
+    ``_softmax_online``, which ``softmax`` reaches only for wide rows).
+    ``route`` (a CUDA tensor's): None the cluster kernel, or the classic
+    online kernel past ``SOFTMAX_CLUSTER_MAX_COLS`` columns; "classic" the
+    classic online kernel."""
+    if route not in ONLINE_ROUTES:
+        registry.route_code(ONLINE_ROUTES, route)  # raises, naming the routes
+    if x.is_cuda and not plain and x.dim() == 2 and x.is_contiguous() and registry.on_cuda(x):
+        return _online_cuda(x, torch.empty_like(x), route)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1] if x.ndim else 1).contiguous()
-    return _run(x2, None, True, plain).reshape(shape)
+    return _run(x2, None, True, plain, route).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +324,7 @@ def _core(name: str, eager):
             raise TypeError(f"{name}: takes a float tensor, got {x.dtype}")
         return eager(x)
     f.__name__ = name
-    return f
+    return codegen.body_op(f)
 
 
 exp_acc = _core("exp_acc", _exp_poly)

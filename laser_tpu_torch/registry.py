@@ -132,8 +132,9 @@ SIGNATURES = {
     # x, y (may be x), rows, cols, dtype, route (0 picks, 1 classic, 2
     # vec), stream
     "ltt_softmax_rows": (_P, _P, _I, _I, _I, _I, _P),
-    # x, y (may be x), rows, cols, dtype, stream
-    "ltt_softmax_online": (_P, _P, _I, _I, _I, _P),
+    # x, y (may be x), rows, cols, dtype, route (0 picks, 1 classic, 2
+    # cluster), route taken, stream
+    "ltt_softmax_online": (_P, _P, _I, _I, _I, _I, _IP, _P),
     # x, w, out, N, C, H, W, c_out, kh, kw, ph, pw, dtype, stream
     "ltt_conv_planewise": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w, out, N, C, H, W, c_out, kh, kw, ph, pw, sh, sw, ldw (weight row
@@ -447,9 +448,10 @@ GEN_SIGNATURES = {
     "ltt_gen_row_reduce": (_P, _P, _I64, _I64, _P),
     # in[], partials, result (or null: partials only), n, combine op, stream
     "ltt_gen_map_reduce": (_P, _P, _P, _I64, _I, _P),
-    # in[] (buffer starts), out[], geometry (int64: shape, then each
-    # operand's offset and strides), items, vector width (1: scalar), stream
-    "ltt_gen_for_each_strided": (_P, _P, _P, _I64, _I, _P),
+    # in[] (each operand's logical element 0), out[], geometry (int64: the
+    # merged rank, shape, then each operand's strides), route, route taken
+    # (out), stream
+    "ltt_gen_for_each_strided": (_P, _P, _P, _I, _IP, _P),
     # in[], partials[] (one per leaf), results[] (one per result leaf), n, stream
     "ltt_gen_map_reduce_staged": (_P, _P, _P, _I64, _P),
     # in[], results[], workspace (a counter, then the fold's accumulators), n, stream

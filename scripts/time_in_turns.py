@@ -98,6 +98,28 @@ BENCH is one of:
   route the tree picks and on the two-launch template where asked for;
   what the operators leave of ``<case>_host_us`` is the wrapper's Python
   and its C launch.
+- ``strided``: ``for_each(lambda p: p * 2.0, v)`` over every second row of
+  chip_smoke.py phase 14's 16384 x 4096 f32, as a TensorView at offset 4096
+  (``view``) and as ``x[1::2]`` (``every2row``), on the route the tree
+  picks and, where the tree's ``strided_for_each`` takes ``route=``, on the
+  classic kernel asked for (``classic_*``), and ``x[1::2] * 2.0``
+  (``torch_every2row``); each timed as ``paged``, and as 20 calls in a CUDA
+  graph over two copies of the buffer (``<case>_cold_graph_ms``; a call
+  moves 268 MB, past L2 either way). Then the host's work a call, split as
+  ``staged`` splits it (``split_<case>_<op>_us``), and what the torch
+  operators leave of ``<case>_host_us``: the wrapper's Python and its C
+  launch (``<case>_python_us``; the profiler's own cost falls on the
+  operators, so this is a floor). Three more bodies over ``x[1::2]`` on
+  the route the tree picks, timed the same way but for the cold graph:
+  one that reads a module global (``body_global``), one that calls the
+  accurate exp core and reads a global (``body_exp_acc``), and one that
+  calls a Python function of the script's (``body_helper``).
+- ``online_softmax``: ``softmax_online(x)`` over 64 rows of Llama-3's
+  128256-word vocabulary (randn * 4) in f32 and bf16 on the route the tree
+  picks and, where it takes ``route=``, on the classic online kernel asked
+  for (``classic_*``), and ``torch.softmax`` on the same rows (``torch_*``);
+  each timed as ``strided`` (the cold graph over copies of the rows past
+  L2).
 - ``primitives``: every case of chip_smoke.py phase 13 (for_each,
   for_each_multi, row_reduce, map_reduce, vector math, reductions, Lux at
   bench.py's shapes), its generated bodies built first: the kernel's ms as
@@ -520,6 +542,104 @@ def staged(smoke) -> dict:
     return res
 
 
+def _cold_graphs(smoke, fns) -> dict:
+    """20 calls in a CUDA graph, each ({name: (fn, items)}) on the next of
+    its inputs (copies whose bytes together exceed L2)."""
+    return {f"{name}_cold_graph_ms": smoke.cuda_graph_ms(smoke.rotating(fn, items))
+            for name, (fn, items) in fns.items()}
+
+
+def _python_us(res: dict, name: str) -> None:
+    """What the torch operators (``split_<name>_*``) leave of a call's host
+    time."""
+    ops = sum(v for k, v in res.items() if k.startswith(f"split_{name}_"))
+    res[f"{name}_python_us"] = res[f"{name}_host_us"] - ops
+
+
+_SCALE = 2.0
+
+
+def _scaled(p):
+    return p * _SCALE
+
+
+def strided(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops import foreach as fe
+    from laser_tpu_torch.ops import strided as S
+    from laser_tpu_torch.ops import vector_math as vm
+    from laser_tpu_torch.tensor import TensorView
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    M, C = 16384, 4096
+    bufs = [torch.randn(M, C, generator=g, device="cuda") for _ in range(2)]
+    two = lambda p: p * 2.0  # noqa: E731
+
+    def view(x):
+        return TensorView(x.reshape(-1), (M // 2, C), (2 * C, 1), C)
+
+    def every2(x):
+        return x[1::2]
+
+    cases = {"view": view, "every2row": every2}
+    fns, cold = {}, {}
+    routes = [None] + (["classic"] if _routes(S.strided_for_each) else [])
+    for route in routes:
+        for name, make in cases.items():
+            key = f"classic_{name}" if route else name
+            if route:
+                def run(v, route=route):
+                    return S.strided_for_each(two, [v], route=route)
+            else:
+                def run(v):
+                    return fe.for_each(two, v)
+            fns[key] = (lambda run=run, v=make(bufs[0]): run(v))
+            cold[key] = (run, [(make(b),) for b in bufs])
+    fns["torch_every2row"] = lambda: bufs[0][1::2] * 2.0
+    cold["torch_every2row"] = (lambda x: x[1::2] * 2.0, [(b,) for b in bufs])
+    # bodies that read more than their operand, on the route the tree picks
+    # over x[1::2]: a module global, the package's accurate exp and a global,
+    # and a Python function of the caller's (which reads a global)
+    bodies = {"global": lambda p: p * _SCALE, "exp_acc": lambda p: vm.exp_acc(p) * _SCALE,
+              "helper": lambda p: _scaled(p) - 1.0}
+    for name, body in bodies.items():
+        fns[f"body_{name}"] = lambda body=body, v=bufs[0][1::2]: fe.for_each(body, v)
+    res = _timed_graph(smoke, fns)
+    res.update(_cold_graphs(smoke, cold))
+    for name in fns:
+        res.update(_host_ops_us(name, fns[name]))
+        _python_us(res, name)
+    return res
+
+
+def online_softmax(smoke) -> dict:
+    import torch
+
+    from laser_tpu_torch.ops.vector_math import softmax_online
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows, cols = 64, 128256
+    fns, cold = {}, {}
+    routes = [None] + (["classic"] if _routes(softmax_online) else [])
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        copies = smoke.cold_copies(
+            lambda: (torch.randn(rows, cols, generator=g, device="cuda") * 4).to(dt),
+            2 * rows * cols * torch.empty((), dtype=dt).element_size())
+        x = copies[0]
+        for route in routes:
+            key = f"classic_{tag}" if route else tag
+            run = (lambda c, route=route: softmax_online(c, route=route)) if route else \
+                softmax_online
+            fns[key] = lambda run=run, x=x: run(x)
+            cold[key] = (run, [(c,) for c in copies])
+        fns[f"torch_{tag}"] = lambda x=x: torch.softmax(x, -1)
+        cold[f"torch_{tag}"] = (lambda c: torch.softmax(c, -1), [(c,) for c in copies])
+    res = _timed_graph(smoke, fns)
+    res.update(_cold_graphs(smoke, cold))
+    return res
+
+
 def primitives(smoke) -> dict:
     from laser_tpu_torch import registry
 
@@ -532,7 +652,8 @@ def primitives(smoke) -> dict:
 BENCHES = {"flash_forward": flash_forward, "flash_backward": flash_backward,
            "serving": serving, "cnn": cnn, "conv": conv, "wgmma_gemm": wgmma_gemm,
            "paged": paged, "norm": norm, "primitives": primitives, "f32_gemm": f32_gemm,
-           "int_gemm": int_gemm, "softmax": softmax, "sgd": sgd, "staged": staged}
+           "int_gemm": int_gemm, "softmax": softmax, "sgd": sgd, "staged": staged,
+           "strided": strided, "online_softmax": online_softmax}
 
 
 def _time_tree(bench: str, tree: str) -> dict:

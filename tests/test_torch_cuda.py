@@ -1092,14 +1092,129 @@ def test_softmax_rows_past_a_launch_raise(dev):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(3, 1), (4, 1000), (2, 16385), (3, 40001)])
 def test_softmax_online(dev, dtype, shape):
-    from laser_tpu_torch.ops.vector_math import (SOFTMAX_ONLINE, softmax_online,
-                                                 softmax_online_reference)
+    """The online function at any width: the cluster kernel by default, the
+    classic online kernel asked for, one launch each."""
+    from laser_tpu_torch.ops.vector_math import (SOFTMAX_ONLINE, SOFTMAX_ONLINE_CLUSTER,
+                                                 softmax_online, softmax_online_reference)
 
     g = _gen(dev, 34)
     x = _rnd(g, shape, dtype, dev, std=4.0)
-    before = SOFTMAX_ONLINE.launches
+    before, classic = SOFTMAX_ONLINE_CLUSTER.launches, SOFTMAX_ONLINE.launches
     _check_rows(softmax_online(x), softmax_online_reference(x), dtype)
-    assert SOFTMAX_ONLINE.launches == before + 1
+    assert SOFTMAX_ONLINE_CLUSTER.launches == before + 1
+    _check_rows(softmax_online(x, route="classic"), softmax_online_reference(x), dtype)
+    assert SOFTMAX_ONLINE.launches == classic + 1 and SOFTMAX_ONLINE_CLUSTER.launches == before + 1
+
+
+# the cluster kernel's bar against the plain version and the classic online
+# kernel (the sums are taken in another order): f32 rtol 1e-5, atol 1e-9;
+# bf16 and f16 one unit in the last place, 2^-7 relative (bf16's unit; f16's
+# is 2^-10), and for f16's subnormals one unit, 2^-24
+ONLINE_TOL = {torch.float32: (1e-5, 1e-9), torch.bfloat16: (2.0 ** -7, 0.0),
+              torch.float16: (2.0 ** -7, 2.0 ** -24)}
+
+
+def _check_online(got, want, dtype):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    rtol, atol = ONLINE_TOL[dtype]
+    g, w = got.double(), want.double()
+    bad = ((g - w).abs() > rtol * w.abs() + atol).sum().item()
+    assert bad == 0, (bad, (g - w).abs().max().item())
+
+
+def _online_rows(g, dev, dtype, rows, cols, offset):
+    """(rows, cols) randn * 4 rows at an element ``offset`` into a buffer,
+    row 1 (where there is one) with every third entry -inf."""
+    x = _softmax_rows_input(g, dev, dtype, rows, cols, offset)
+    if rows > 1:
+        x[1, ::3] = -torch.inf
+    return x
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,cols", [(5, 1), (5, 17), (5, 16385), (5, 128256), (64, 128256),
+                                       (301, 20000), (3, 262144), (3, 262145)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_softmax_online_cluster_against_plain_and_classic(dev, dtype, rows, cols, offset):
+    """The cluster kernel at widths 1 to 262144 (one block a row to 16 of a
+    cluster; 128256: Llama-3's vocabulary), at 64 and 301 rows (more blocks
+    than one resident wave), unaligned rows (head and tail elements), -inf
+    entries exactly 0; 262145 is one past what a cluster holds on chip,
+    which takes the classic online kernel. Against the plain version and the classic
+    kernel; softmax() past 16384 columns takes the same kernels by the same
+    routes."""
+    from laser_tpu_torch.ops.vector_math import (SOFTMAX_CLUSTER_MAX_COLS, SOFTMAX_ONLINE,
+                                                 SOFTMAX_ONLINE_CLUSTER, softmax,
+                                                 softmax_online, softmax_online_reference)
+
+    x = _online_rows(_gen(dev, 41), dev, dtype, rows, cols, offset)
+    fits = cols <= SOFTMAX_CLUSTER_MAX_COLS
+    before, classic = SOFTMAX_ONLINE_CLUSTER.launches, SOFTMAX_ONLINE.launches
+    got = softmax_online(x)
+    assert SOFTMAX_ONLINE_CLUSTER.launches == before + fits
+    assert SOFTMAX_ONLINE.launches == classic + (not fits)
+    want = softmax_online_reference(x)
+    _check_online(got, want, dtype)
+    assert (got[1, ::3] == 0).all()
+    old = softmax_online(x, route="classic")
+    assert SOFTMAX_ONLINE.launches == classic + 1 + (not fits)
+    _check_online(got, old, dtype)
+    if cols > 16384:
+        assert torch.equal(softmax(x), got)
+        assert torch.equal(softmax(x, route="classic"), old)
+        assert SOFTMAX_ONLINE_CLUSTER.launches == before + 2 * fits
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cols", [17, 20000, 128256, 262144])
+def test_softmax_online_cluster_all_neg_inf_and_donate(dev, dtype, cols):
+    """An all -inf row gives 0 (its sum taken as 1), as the classic online
+    kernel; donated rows are written in place, aligned and one element off,
+    with the same bits as a fresh output."""
+    from laser_tpu_torch.ops.vector_math import (SOFTMAX_ONLINE_CLUSTER, softmax,
+                                                 softmax_online, softmax_online_reference)
+
+    for offset in (0, 1):
+        x = _online_rows(_gen(dev, 42), dev, dtype, 4, cols, offset)
+        x[2] = -torch.inf
+        want = softmax_online_reference(x)
+        got = softmax_online(x)
+        torch.cuda.synchronize()
+        assert (got[2] == 0).all() and (softmax_online(x, route="classic")[2] == 0).all()
+        _check_online(got, want, dtype)
+        # rows at x's offset: the same split of each row, so the same bits
+        y = _softmax_rows_input(_gen(dev, 44), dev, dtype, 4, cols, offset).copy_(x)
+        before = SOFTMAX_ONLINE_CLUSTER.launches
+        out = softmax(y, donate=True) if cols > 16384 else softmax_online(y)
+        if cols > 16384:
+            assert out.data_ptr() == y.data_ptr()
+        assert SOFTMAX_ONLINE_CLUSTER.launches == before + 1
+        assert torch.equal(out, got)
+
+
+def test_softmax_online_cluster_graph_replay(dev):
+    """Captured in a CUDA graph and replayed on new rows: this replay's
+    result, one launch a call."""
+    from laser_tpu_torch.ops.vector_math import (SOFTMAX_ONLINE_CLUSTER, softmax_online,
+                                                 softmax_online_reference)
+
+    g = _gen(dev, 43)
+    x = _rnd(g, (64, 128256), torch.bfloat16, dev, std=4.0)
+    softmax_online(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        softmax_online(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = SOFTMAX_ONLINE_CLUSTER.launches
+    with torch.cuda.graph(graph):
+        y = softmax_online(x)
+    assert SOFTMAX_ONLINE_CLUSTER.launches == before + 1
+    x.copy_(_rnd(g, (64, 128256), torch.bfloat16, dev, std=4.0))
+    graph.replay()
+    _check_online(y, softmax_online_reference(x), torch.bfloat16)
 
 
 @pytest.mark.parametrize("cols", [100, 20000])
@@ -1470,14 +1585,17 @@ def test_for_each_over_strided_views(dev, dtype):
     strided, transposed and broadcast views, alone and beside a contiguous
     operand: the same bits as the plain version."""
     from laser_tpu_torch.ops.foreach import for_each
-    from laser_tpu_torch.ops.strided import FOR_EACH_STRIDED, strided_for_each_reference
+    from laser_tpu_torch.ops.strided import (FOR_EACH_STRIDED, FOR_EACH_STRIDED_TILED,
+                                             strided_for_each, strided_for_each_reference)
 
     for name, view, plain in _strided_cases(dev, dtype):
         dense = plain.contiguous()
-        before = FOR_EACH_STRIDED.launches
+        before, classic = FOR_EACH_STRIDED_TILED.launches, FOR_EACH_STRIDED.launches
         got = for_each(lambda p: p * 2, view)
-        assert FOR_EACH_STRIDED.launches == before + 1, name
+        assert FOR_EACH_STRIDED_TILED.launches == before + 1, name
         assert torch.equal(got, dense * 2), name
+        assert torch.equal(strided_for_each(lambda p: p * 2, [view], route="classic"), got)
+        assert FOR_EACH_STRIDED.launches == classic + 1, name
         other = torch.ones_like(dense)
         got2 = for_each(lambda p, q: p + q - p * q, view, other)
         assert torch.equal(got2, strided_for_each_reference(lambda p, q: p + q - p * q,
@@ -1491,12 +1609,90 @@ def test_strided_rows_vector_and_scalar_paths(dev, dtype, rows, cols, step):
     """Every step-th row: rows of whole aligned vectors take the vector
     path, others (12 f32 columns are 48 bytes, 12 bf16 24) the scalar one."""
     from laser_tpu_torch.ops.foreach import for_each
+    from laser_tpu_torch.ops.strided import strided_for_each
 
     x = _rnd(_gen(dev, 66), (rows, cols), dtype, dev)
+    body = lambda p: torch.sin(p) * 2.0 + 1.0  # noqa: E731
     for off in (0, 1):
         v = x[off::step]
-        assert torch.equal(for_each(lambda p: torch.sin(p) * 2.0 + 1.0, v),
-                           (torch.sin(v) * 2.0 + 1.0))
+        got = for_each(body, v)
+        assert torch.equal(got, body(v))
+        assert torch.equal(strided_for_each(body, [v], route="classic"), got)
+
+
+def _strided_more_cases(dev):
+    """(name, operands) beyond ``_strided_cases``: 1 to MAX_IN operands of
+    every second row, bf16 operands beside f32 ones, a base one element off
+    a 16-byte boundary, 3-D and 5-D views, rows of one vector and of 48
+    bytes, and x[1::2] of 16384 x 4096 f32 (phase 14's case) cut to 512
+    rows."""
+    from laser_tpu_torch.ops.codegen import MAX_IN
+    from laser_tpu_torch.tensor import TensorView
+
+    g = _gen(dev, 70)
+    a = _rnd(g, (64, 4096), torch.float32, dev)
+    cases = [(f"{k}_operands", [_rnd(g, (64, 256), torch.float32, dev)[1::2]
+                                for _ in range(k)]) for k in (1, 2, 3, 5, MAX_IN)]
+    b16 = _rnd(g, (64, 256), torch.bfloat16, dev)
+    cases += [
+        ("bf16_and_f32", [b16[1::2], _rnd(g, (32, 256), torch.float32, dev)]),
+        ("bf16_two", [b16[::2], b16[1::2]]),
+        ("unaligned_base", [TensorView(a.reshape(-1), (32, 4000), (8192, 1), 4097)]),
+        ("3d_view", [_rnd(g, (6, 40, 36), torch.float32, dev)[1::2, 3:35, 4:]]),
+        ("5d_view", [_rnd(g, (3, 4, 5, 6, 8), torch.float32, dev)[:, ::2, 1:, ::3, :]]),
+        ("one_vector_rows", [_rnd(g, (300, 4), torch.float32, dev)[::3]]),
+        ("rows_48_bytes", [_rnd(g, (300, 12), torch.float32, dev)[1::2]]),
+        ("phase14_rows", [_rnd(g, (1024, 4096), torch.float32, dev)[1::2]]),
+    ]
+    return cases
+
+
+def _sum_body(*xs):
+    """x0 * 2 - x1 + x2 * x3 - ...: every operand read, no FMA to contract"""
+    acc = xs[0] * 2.0
+    for i, x in enumerate(xs[1:]):
+        acc = acc - x if i % 2 == 0 else acc + x * 0.5
+    return acc
+
+
+def test_strided_tiled_against_classic_and_plain(dev):
+    """The tiled kernel (the default) against the classic kernel asked for
+    and the plain version, bit for bit, with 1 to MAX_IN operands, bf16
+    operands, an unaligned base, 3-D and 5-D views and short rows; each
+    call one launch of its route's kernel."""
+    from laser_tpu_torch.ops.strided import (FOR_EACH_STRIDED, FOR_EACH_STRIDED_TILED,
+                                             strided_for_each, strided_for_each_reference)
+
+    for name, ops in _strided_more_cases(dev):
+        before, classic = FOR_EACH_STRIDED_TILED.launches, FOR_EACH_STRIDED.launches
+        got = strided_for_each(_sum_body, ops)
+        assert FOR_EACH_STRIDED_TILED.launches == before + 1, name
+        old = strided_for_each(_sum_body, ops, route="classic")
+        assert FOR_EACH_STRIDED.launches == classic + 1, name
+        assert strided_for_each(_sum_body, ops).data_ptr() != got.data_ptr()
+        want = strided_for_each_reference(_sum_body, ops)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+        assert torch.equal(old, want), name
+        assert FOR_EACH_STRIDED_TILED.launches == before + 2, name
+
+
+def test_strided_body_reads_its_globals_on_every_call(dev):
+    """The strided plan is memoised on what the body reads: a closure and a
+    global constant changed between calls give this call's value on the
+    card."""
+    from laser_tpu_torch.ops.foreach import for_each
+
+    global _STRIDED_SCALE
+    x = _rnd(_gen(dev, 71), (64, 512), torch.float32, dev)[1::2]
+    shift = 1.0
+    body = lambda p: p * _STRIDED_SCALE + shift  # noqa: E731
+    for scale, sh in ((2.0, 1.0), (3.0, 1.0), (3.0, -4.0)):
+        _STRIDED_SCALE, shift = scale, sh
+        assert torch.equal(for_each(body, x), x * scale + sh)
+
+
+_STRIDED_SCALE = 2.0
 
 
 def _custom_block(ctx, b):

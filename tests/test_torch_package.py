@@ -117,7 +117,8 @@ def test_every_slice_kernel_registered():
         "gemm_simt", "gemm_packed_simt",  # the f32 FFMA skeleton
         "gemm_i8_wgmma", "gemm_limbs_wgmma", "gemm_int32_wgmma",  # the int8 wgmma skeleton
         "softmax_vec", "sgdm_multi",  # the row softmax in registers, the multi-tensor SGD
-        "gemm_packed_i8_wgmma", "map_reduce_staged_one"}  # packed int8 wgmma, staged one launch
+        "gemm_packed_i8_wgmma", "map_reduce_staged_one",  # packed int8 wgmma, staged one launch
+        "for_each_strided_tiled", "softmax_online_cluster"}  # strided tiles, the online cluster
     assert set(registry.SIGNATURES) == {
         "ltt_gemm", "ltt_norm", "ltt_flash_fwd", "ltt_paged_attention", "ltt_w4_gemm",
         "ltt_paged_window_attention",
@@ -166,7 +167,13 @@ def test_every_slice_kernel_registered():
     assert registry.SIGNATURES["ltt_ce_bwd"][9] is ctypes.c_double  # eps, q formed in double
     assert replaced["transpose_inplace"].startswith(
         "laser_tpu/ops/transpose.py:151 _build_inplace_transpose_pipelined")
-    assert replaced["for_each_strided"] == "laser_tpu/ops/strided.py:222 build_strided_foreach"
+    assert replaced["for_each_strided"] == replaced["for_each_strided_tiled"] == \
+        "laser_tpu/ops/strided.py:222 build_strided_foreach"
+    assert replaced["softmax_online_cluster"] == replaced["softmax_online"] == \
+        "laser_tpu/ops/vector_math.py:200 _softmax_online"
+    # the strided and online launchers take a route and report the one taken
+    assert registry.GEN_SIGNATURES["ltt_gen_for_each_strided"][3:5] == \
+        registry.SIGNATURES["ltt_softmax_online"][5:7] == (ctypes.c_int, ctypes.POINTER(ctypes.c_int))
     assert replaced["map_reduce_staged"] == replaced["map_reduce_staged_one"] == \
         "laser_tpu/ops/foreach.py:442 map_reduce_staged"
     for k in registry.KERNELS.values():

@@ -141,3 +141,26 @@ def test_row_routes_run_the_plain_version_on_the_cpu(ref, route):
 def test_unknown_route_raises():
     with pytest.raises(ValueError, match="route"):
         vm.softmax(torch.zeros(2, 3), route="shared")
+
+
+@pytest.mark.parametrize("route", [None, "classic"])
+def test_online_routes_run_the_plain_version_on_the_cpu(ref, route):
+    """Each online route's name is taken by ``softmax_online`` and, past
+    ``SOFTMAX_ROW_MAX_COLS`` columns, by ``softmax``; on a CPU tensor each
+    runs the one plain version (counted under ``softmax_online``), and the
+    cluster kernel's counter exists."""
+    registry.reset_counts()
+    got = vm.softmax_online(torch.from_numpy(_x(SHAPES[0], 0)), route=route).numpy()
+    wide = torch.from_numpy(_x((2, vm.SOFTMAX_ROW_MAX_COLS + 1), 10))
+    vm.softmax(wide, route=route)
+    c = registry.counts()
+    assert c["softmax_online"]["plain_calls"] == 2
+    assert c["softmax_online_cluster"] == {"launches": 0, "plain_calls": 0}
+    np.testing.assert_allclose(got, ref[SHAPES[0]][1], rtol=0, atol=ATOL)
+    assert vm.SOFTMAX_CLUSTER_MAX_COLS == 16 * 512 * 32
+
+
+def test_online_unknown_route_raises():
+    for bad in ("cluster", "vec"):
+        with pytest.raises(ValueError, match="route"):
+            vm.softmax_online(torch.zeros(2, 3), route=bad)

@@ -195,3 +195,171 @@ def test_strided_source_and_vocabulary():
     assert "LTT_FOR_EACH_STRIDED_ENTRY(Body)" in src and "off[1]" in src
     with pytest.raises(NotImplementedError, match="cumsum"):
         fe.for_each(lambda p: torch.cumsum(p, 0), torch.zeros(4, 6)[:, ::2])
+
+
+@pytest.mark.parametrize("route", [None, "classic"])
+def test_strided_routes_run_the_plain_version_on_the_cpu(route):
+    """Each route's name is taken; on a CPU tensor each runs the one plain
+    version (counted under ``for_each_strided``), and both kernels' counters
+    exist."""
+    base = torch.from_numpy(_np(BASE_2D, 46))
+    registry.reset_counts()
+    got = S.strided_for_each(lambda p: p * 2.0 - 1.0, [base[1::2]], route=route)
+    c = registry.counts()
+    assert c["for_each_strided"] == {"launches": 0, "plain_calls": 1}
+    assert c["for_each_strided_tiled"] == {"launches": 0, "plain_calls": 0}
+    assert torch.equal(got, base[1::2] * 2.0 - 1.0)
+
+
+def test_strided_unknown_route_raises():
+    with pytest.raises(ValueError, match="route"):
+        S.strided_for_each(lambda p: p, [torch.zeros(4, 6)[::2]], route="rows")
+
+
+_SCALE = 2.0
+
+
+def test_strided_plan_reads_closure_and_globals_on_every_call(monkeypatch):
+    """The strided plan is memoised on what the body reads
+    (``codegen.body_key``): a changed global, closure cell, default or a
+    global read by a function the body calls gives a new plan; an unchanged
+    body is not traced again; a body that reads a mutable object is traced
+    on every call."""
+    from laser_tpu_torch.ops import codegen
+
+    global _SCALE
+    traces = []
+    real = codegen.trace
+    monkeypatch.setattr(codegen, "trace", lambda *a, **k: traces.append(1) or real(*a, **k))
+    f32 = [torch.float32]
+    shift = 1.0
+
+    def helper(p):
+        return p * _SCALE
+
+    body = lambda p: p * _SCALE + shift  # noqa: E731
+    called = lambda p: helper(p) - 1.0  # noqa: E731
+    srcs = []
+    for scale, sh in ((2.0, 1.0), (3.0, 1.0), (3.0, -2.0), (3.0, -2.0)):
+        _SCALE, shift = scale, sh
+        srcs.append(S.strided_for_each_source(body, f32, torch.float32))
+        assert float.hex(scale) in srcs[-1] and float.hex(sh) in srcs[-1]
+        srcs.append(S.strided_for_each_source(called, f32, torch.float32))
+        assert float.hex(scale) in srcs[-1]
+    assert len(set(srcs)) == 5 and srcs[-4:] == srcs[-2:] * 2
+    n = len(traces)
+    S.strided_for_each_source(body, f32, torch.float32)
+    assert len(traces) == n  # memoised
+    dflt = lambda p, s=0.5: p * s  # noqa: E731
+    assert float.hex(0.5) in S.strided_for_each_source(dflt, f32, torch.float32)
+    dflt.__defaults__ = (0.25,)
+    assert float.hex(0.25) in S.strided_for_each_source(dflt, f32, torch.float32)
+    cfg = {"s": 5.0}
+    mutable = lambda p: p * cfg["s"]  # noqa: E731
+    assert codegen.body_key(mutable) is None
+    S.strided_for_each_source(mutable, f32, torch.float32)
+    cfg["s"] = 7.0
+    n = len(traces)
+    assert float.hex(7.0) in S.strided_for_each_source(mutable, f32, torch.float32)
+    assert len(traces) == n + 1
+    _SCALE = 2.0
+    x = torch.from_numpy(_np(BASE_2D, 47))[::2]
+    assert torch.equal(fe.for_each(body, x), x * 2.0 + shift)
+
+
+class _Base:
+    SCALE = 2.0
+
+
+class _Sub(_Base):
+    pass
+
+
+_CFG_NAME = "ltt_strided_body_cfg"
+
+
+def _module_body(case, cfg):
+    """A body that reads ``cfg.SCALE`` (or ``cfg.sub.SCALE``) the way
+    ``case`` names, and whether ``body_key`` keys it."""
+    if case == "module_in_closure":
+        def make():
+            import ltt_strided_body_cfg
+            return lambda p: p * ltt_strided_body_cfg.SCALE
+        return make(), True
+    if case == "module_in_default":
+        return (lambda p, m=cfg: p * m.SCALE), True
+    if case == "module_of_a_module":
+        return (lambda p, m=cfg: p * m.sub.SCALE), True
+    if case == "local_import":
+        def body(p):
+            import ltt_strided_body_cfg
+            return p * ltt_strided_body_cfg.SCALE
+        return body, False
+    if case == "attribute_by_name":
+        return (lambda p, m=cfg: p * getattr(m, "SCALE")), False
+    if case == "bound_method":
+        return (lambda p, get=cfg.table.get: p * get("SCALE")), False
+    if case == "inherited_class_attribute":
+        return (lambda p: p * _Sub.SCALE), False
+    if case == "stores_its_closure":
+        def make():
+            k = 0.0
+
+            def body(p):
+                nonlocal k
+                k = cfg.SCALE
+                return p * k
+            return body
+        return make(), False
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["module_in_closure", "module_in_default",
+                                  "module_of_a_module", "local_import", "attribute_by_name",
+                                  "bound_method", "inherited_class_attribute",
+                                  "stores_its_closure"])
+def test_strided_plan_reads_modules_and_classes_on_every_call(monkeypatch, case):
+    """A module the body reaches through a closure cell, a default or
+    another module is searched for the attributes the body names, so a
+    changed module constant gives a new plan from the memo; a body that
+    imports, looks an attribute up by a string, calls a bound method,
+    reads a class of its own or stores to its closure is not keyed and is
+    traced on every call."""
+    import types
+
+    from laser_tpu_torch.ops import codegen
+
+    cfg = types.ModuleType(_CFG_NAME)
+    cfg.sub = types.ModuleType(_CFG_NAME + ".sub")
+    cfg.table = {}
+    monkeypatch.setitem(__import__("sys").modules, _CFG_NAME, cfg)
+    monkeypatch.setattr(_Base, "SCALE", 2.0)
+    body, keyed = _module_body(case, cfg)
+    f32 = [torch.float32]
+    for scale in (2.0, 3.0, 3.0, -0.5):
+        cfg.SCALE = cfg.sub.SCALE = cfg.table["SCALE"] = scale
+        _Base.SCALE = scale
+        assert (codegen.body_key(body) is not None) == keyed
+        assert float.hex(scale) in S.strided_for_each_source(body, f32, torch.float32)
+
+
+def test_strided_plan_keys_body_ops():
+    """A body op (the package's vector-math cores) is kept by identity, so a
+    body that calls one and reads a global is memoised and still sees the
+    global's current value; a Python function of the caller's is not."""
+    from laser_tpu_torch.ops import codegen
+    from laser_tpu_torch.ops import vector_math as vm
+
+    global _SCALE
+    f32 = [torch.float32]
+    body = lambda p: vm.exp_acc(p) * _SCALE  # noqa: E731
+    helper = lambda p: body(p) + 1.0  # noqa: E731
+    assert codegen.body_key(body) is not None and codegen.body_key(helper) is None
+    try:
+        for scale in (2.0, 3.0):
+            _SCALE = scale
+            for fn in (body, helper):
+                src = S.strided_for_each_source(fn, f32, torch.float32)
+                assert "exp_acc" in src and float.hex(scale) in src
+    finally:
+        _SCALE = 2.0
